@@ -48,6 +48,10 @@ from repro.models.config import BlockKind, ModelConfig
 def pytest_configure(config):
     config.addinivalue_line(
         "markers",
+        "cuda: needs an NVIDIA GPU (the port's CUDA kernels have no CPU "
+        "mode); skipped at run time when torch finds no CUDA device.")
+    config.addinivalue_line(
+        "markers",
         "slow: extended repeated-trial statistical sweeps (hundreds of "
         "seeded trials at full stream sizes).  Skipped by default — the "
         "default profile runs the seeded cheap variants of the same "
