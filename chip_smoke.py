@@ -8,28 +8,40 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. The card's name and power limit (nvidia-smi); build the CUDA kernels
    of src/repro_torch/kernels/csrc with nvcc, one process per source.
-2. Each kernel against its plain PyTorch version on the card, at the
-   main path's shapes: the two spatial-stats kernels bit for bit
-   (``torch.equal``; the row kernel on an unsorted row list with
-   duplicates), the CAM head at 1e-4.  Each is timed with CUDA events
-   (median of 25) beside its plain version, a library yardstick where
-   one PyTorch call computes the same function, and its bound.
-3. The main path at full width: the detrac-like scene at the paper's
-   g = 56, the 4-layer d_model 128 filter trunk with the IC head (random
-   weights from a seeded generator), 256 frames in batches of 32 through
-   MultiQueryStreamExecutor -> MultiQueryExecutor ->
-   MultiQueryCascade(adaptive=True), queries registered and retired
+2. Training: ``train_filter`` on the detrac-like scene at the paper's
+   g = 56, the 4-layer d_model 128 filter trunk (naive attention, as the
+   JAX package trains it) with the IC head, 96 Adam steps at batch 8;
+   first and last loss (both finite), ms per step, the paper's
+   count accuracy on held-out frames, and the phase's peak memory.
+3. Each kernel against its plain PyTorch version on the card, at the
+   main path's shapes (the trained weights' inputs): the two
+   spatial-stats kernels bit for bit (``torch.equal``; the row kernel on
+   an unsorted row list with duplicates), the CAM head at 1e-4, flash
+   attention at max abs err 1e-4 (float32), plus a sweep of shapes,
+   types, masks, GQA and ragged lengths (1e-4 float32, 2e-2 bfloat16).
+   Each is timed with CUDA events (median of 25) beside its plain
+   version, a library yardstick where one PyTorch call computes the
+   same function, and its bound.
+4. The main path at full width: the trained filter served through the
+   kernels (``attn_impl="pallas"`` trunk, CAM head kernel), 256 frames in
+   batches of 32 through MultiQueryStreamExecutor -> MultiQueryExecutor
+   -> MultiQueryCascade(adaptive=True), queries registered and retired
    mid-stream; then the same batches with ground-truth filter outputs,
    where the count tier decides most rows and the compacted spatial
    stage runs the row kernel.  Launch counts are reset just before and
-   read just after; every kernel must have run, the staged masks must
-   equal the exhaustive plan's bit for bit, the answers must equal the
-   exact oracle semantics, and the kernel head must match the plain head.
-4. A ``kernels`` JSON line, then the device line as the last line.
+   read just after; every kernel must have run (flash attention once
+   per trunk layer and batch), the staged masks must equal the
+   exhaustive plan's bit for bit, the answers must equal the exact
+   oracle semantics, the kernel head must match the plain head, and the
+   serving peak memory must stay under 2 GiB (no S x S scores).
+5. One batch through the naive and the pallas trunk on the same trained
+   weights: both timed, their outputs equal within rtol 1e-4 / atol 1e-3.
+6. A ``kernels`` JSON line, then the device line as the last line.
 """
 import argparse
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -43,6 +55,22 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 N_FRAMES, BATCH, WINDOW = 256, 32, 128
 SEED = 0
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_FRAMES, EVAL_FRAMES = 96, 8, 256, 64
+SERVING_PEAK_LIMIT = 2 * 2**30   # bytes; one S x S score tensor is 4.7 GiB
+# (B, Sq, Sk, H, KV, hd, causal, sliding_window, dtype): the Pallas kernel
+# test's shapes in both types and both maskings, sliding windows with
+# GQA 4/2, and ragged lengths that no 64-row tile divides
+FLASH_SWEEP = (
+    [(B, Sq, Sk, H, KV, hd, causal, None, dt)
+     for (B, Sq, Sk, H, KV, hd) in [(1, 128, 128, 4, 4, 32),
+                                    (2, 256, 256, 8, 2, 64),
+                                    (1, 512, 512, 4, 1, 128)]
+     for dt in ("float32", "bfloat16") for causal in (True, False)]
+    + [(1, 256, 256, 4, 2, 32, True, sw, "float32") for sw in (32, 128)]
+    + [(2, 300, 300, 4, 2, 32, True, None, "float32"),
+       (2, 300, 300, 4, 2, 32, False, None, "bfloat16"),
+       (1, 300, 300, 4, 4, 64, True, 100, "float32"),
+       (1, 77, 300, 4, 4, 128, False, None, "float32")])
 
 
 class SmokeError(RuntimeError):
@@ -88,6 +116,27 @@ def bound_ms(n_bytes, n_ops):
                                  else "operations")
 
 
+def sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def reset_peak(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def peak_bytes(torch, dev):
+    """Peak device memory since the last ``reset_peak`` (None on the CPU)."""
+    return torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+
+
+def gib(n_bytes):
+    return "not measured (CPU)" if n_bytes is None \
+        else f"{n_bytes / 2**30:.3f} GiB"
+
+
 # ---------------------------------------------------------------------------
 # configuration
 # ---------------------------------------------------------------------------
@@ -96,7 +145,7 @@ def configure(rehearse):
     from repro_torch.data.synthetic import DETRAC_LIKE
     from repro_torch.models.config import BranchSpec
     from repro_torch.train.filter_train import default_trunk
-    g = 16 if rehearse else 56
+    g = 17 if rehearse else 56          # 289 tokens reach the flash path
     scene = dataclasses.replace(DETRAC_LIKE, grid=g)
     if rehearse:
         trunk = default_trunk(d_model=32, n_layers=2, grid=g)
@@ -132,6 +181,50 @@ def queries(g):
 
 
 # ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def training_phase(torch, dev, scene, trunk, spec, rehearse):
+    """``train_filter`` on the naive trunk, then the paper's count
+    accuracy on held-out frames.  Returns the trained filter and the
+    report lines."""
+    from repro_torch.data.synthetic import VideoStream, collect
+    from repro_torch.train.filter_train import evaluate_filter, train_filter
+    steps = 12 if rehearse else TRAIN_STEPS
+    n_frames = 64 if rehearse else TRAIN_FRAMES
+    t0 = time.perf_counter()
+    collect(VideoStream(scene), n_frames)        # what train_filter collects
+    collect_s = time.perf_counter() - t0
+    reset_peak(torch, dev)
+    t0 = time.perf_counter()
+    tf = train_filter(scene, spec, trunk_cfg=trunk, steps=steps,
+                      batch=TRAIN_BATCH, n_frames=n_frames, seed=SEED,
+                      device=dev)
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    peak = peak_bytes(torch, dev)
+    losses = tf.losses
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          f"training losses are not {steps} finite numbers: {losses}")
+    ev = evaluate_filter(tf, scene, n_frames=16 if rehearse else EVAL_FRAMES,
+                         device=dev)
+    check(all(math.isfinite(ev[f"cf_acc_{t}"]) for t in (0, 1)),
+          "evaluate_filter gave no count accuracy")
+    warm = max(steps // 6, 1)        # train_filter's count-only steps
+    return tf, [
+        f"training: {steps} Adam steps at batch {TRAIN_BATCH} on "
+        f"{n_frames} frames (g = {scene.grid}, naive trunk), loss "
+        f"{losses[0]:.6f} (first) -> {losses[warm]:.6f} (step {warm}, the "
+        f"grid term joins) -> {losses[-1]:.6f} (last), "
+        f"{(wall - collect_s) / steps * 1e3:.2f} ms/step (train_filter "
+        f"{wall:.3f} s less {collect_s:.3f} s collecting frames), peak "
+        f"device memory {gib(peak)}",
+        f"held-out ({EVAL_FRAMES if not rehearse else 16} frames, dynamics "
+        f"seed 99): cf_acc_0 {ev['cf_acc_0']:.4f}, cf_acc_1 "
+        f"{ev['cf_acc_1']:.4f}, cf_acc_2 {ev['cf_acc_2']:.4f}"]
+
+
+# ---------------------------------------------------------------------------
 # the main path
 # ---------------------------------------------------------------------------
 
@@ -156,12 +249,10 @@ def run_stream(torch, dev, data, scene, filter_fn_for, record):
         staged_masks = mqc.masks
 
         def masks(out, presumed_decided=None):
-            if dev.type == "cuda":
-                torch.cuda.synchronize()
+            sync(torch, dev)
             t0 = time.perf_counter()
             m = staged_masks(out, presumed_decided)
-            if dev.type == "cuda":
-                torch.cuda.synchronize()
+            sync(torch, dev)
             plan_s[0] += time.perf_counter() - t0
             record.append((queries, out, m))
             return m
@@ -185,8 +276,7 @@ def run_stream(torch, dev, data, scene, filter_fn_for, record):
 
     t0 = time.perf_counter()
     results = executor.run(N_FRAMES, on_window)
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
+    sync(torch, dev)
     wall = time.perf_counter() - t0
     return results, names, engines, wall, plan_s[0], executor.rebuilds
 
@@ -206,20 +296,20 @@ def exact_hits(data, scene, results, names):
     return out
 
 
-def main_path(torch, dev, scene, trunk, spec, params, data):
-    """Both passes of the stream; returns what the checks and the report
-    need.  Launch counts cover exactly these two passes."""
+def main_path(torch, dev, scene, serve, data):
+    """Both passes of the stream, the learned one through ``serve`` (the
+    trained filter on the pallas trunk, CAM head kernel); returns what
+    the checks and the report need.  Launch counts and the peak memory
+    cover exactly these two passes."""
     from repro_torch.core.filters import FilterOutputs
     from repro_torch.kernels import ops
-    from repro_torch.train.filter_train import filter_forward
     embeds = torch.as_tensor(data["embeds"], device=dev)
     gt_counts = torch.as_tensor(data["counts"].astype("float32"), device=dev)
     gt_grid = torch.as_tensor(data["occupancy"], device=dev).float()
 
     def learned(idx):
-        return filter_forward(params, trunk, spec,
-                              embeds[torch.as_tensor(idx, device=dev)],
-                              use_kernel=True, device=dev)
+        return serve.apply(embeds[torch.as_tensor(idx, device=dev)],
+                           use_kernel=True, device=dev)
 
     def ground_truth(idx):
         i = torch.as_tensor(idx, device=dev)
@@ -227,11 +317,12 @@ def main_path(torch, dev, scene, trunk, spec, params, data):
 
     record = {"learned": [], "ground_truth": []}
     runs = {}
+    reset_peak(torch, dev)
     ops.reset_launch_counts()
     for name, fn in (("learned", learned), ("ground_truth", ground_truth)):
         runs[name] = run_stream(torch, dev, data, scene, fn, record[name])
     launches = ops.launch_counts()
-    return runs, record, launches
+    return runs, record, launches, peak_bytes(torch, dev)
 
 
 def check_main_path(torch, data, scene, runs, record):
@@ -276,15 +367,21 @@ def check_main_path(torch, data, scene, runs, record):
 # ---------------------------------------------------------------------------
 
 def kernel_inputs(torch, dev, trunk, spec, params, data):
-    """The main path's kernel inputs for the first batch: the CAM head's
-    features, and the ground-truth grid sliced to the two classes the
-    first window's spatial stage reads (contiguous, as the planner
-    passes it)."""
+    """The main path's kernel inputs for the first batch: the first trunk
+    layer's q, k, v (B, H, S, hd), the CAM head's features, and the
+    ground-truth grid sliced to the two classes the first window's
+    spatial stage reads (contiguous, as the planner passes it)."""
     from repro_torch.core import cam as CAM
+    from repro_torch.models import layers as L
     from repro_torch.models import model as M
     e = torch.as_tensor(data["embeds"][:BATCH], device=dev)
     x = torch.einsum("bpd,de->bpe", e, params["proj"])
     x = x + params["pos"][: x.shape[1]][None]
+    layer0 = {name: {k: t[0] for k, t in sub.items()}
+              for name, sub in params["trunk"]["layers"].items()}
+    h = L.apply_norm(layer0["ln1"], x, trunk.norm_eps)
+    qkv = [torch.einsum("bsd,dhk->bhsk", h, layer0["attn"][w]).contiguous()
+           for w in ("wq", "wk", "wv")]
     tap = M.forward(params["trunk"], trunk, embeds=x, tap_layer=spec.layer,
                     stop_at_tap=True, causal=False).tap
     feat = CAM.spatialize(tap.float(), spec.grid)
@@ -297,7 +394,7 @@ def kernel_inputs(torch, dev, trunk, spec, params, data):
     gen = torch.Generator().manual_seed(SEED)
     rows = torch.randint(0, BATCH, (16,), generator=gen)
     rows[-4:] = rows[-5]                         # bucket-style padding
-    return feat, grid, rows.to(dev)
+    return qkv, feat, grid, rows.to(dev)
 
 
 def kernel_phase(torch, dev, feat, params, grid, rows):
@@ -362,6 +459,92 @@ def kernel_phase(torch, dev, feat, params, grid, rows):
     return entries
 
 
+def flash_phase(torch, qkv):
+    """Flash attention at the main path's shape against its plain
+    version, timed; then the sweep of ``FLASH_SWEEP``."""
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v = qkv
+    out = FA.flash_attention_bhsd(q, k, v, causal=False)
+    want = FA.flash_attention_plain(q, k, v, causal=False)
+    err = float((out - want).abs().max())
+    check(err <= 1e-4, f"flash_attention_bhsd differs from plain at the "
+          f"main path's shape (max abs err {err}, tol 1e-4)")
+    del out, want
+    B, H, S, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    bnd, by = bound_ms((2 * B * H * S + 2 * B * KV * Sk) * hd * 4,
+                       4 * B * H * S * Sk * hd)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    entry = {
+        "name": "flash_attention_bhsd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:87",
+        "max_abs_err": err,
+        "ms": time_ms(torch, lambda: FA.flash_attention_bhsd(q, k, v,
+                                                             causal=False)),
+        "plain_ms": time_ms(torch, lambda: FA.flash_attention_plain(
+            q, k, v, causal=False)),
+        "bound_ms": bnd, "bound_by": by,
+        "library_ms": time_ms(torch, lambda: sdpa(q, k, v)),
+        "shape": [B, S, H, hd]}
+
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for i, (B, Sq, Sk, H, KV, hd, causal, sw, dt) in enumerate(FLASH_SWEEP):
+        gen = torch.Generator(device=q.device).manual_seed(i)
+        dtype = getattr(torch, dt)
+        a, b, c = (torch.randn(shape, generator=gen, device=q.device
+                               ).to(dtype)
+                   for shape in ((B, H, Sq, hd), (B, KV, Sk, hd),
+                                 (B, KV, Sk, hd)))
+        o = FA.flash_attention_bhsd(a, b, c, causal=causal,
+                                    sliding_window=sw)
+        w = FA.flash_attention_plain(a, b, c, causal=causal,
+                                     sliding_window=sw)
+        e = float((o.float() - w.float()).abs().max())
+        tol = 1e-4 if dt == "float32" else 2e-2
+        check(o.dtype == dtype and e <= tol,
+              f"flash sweep {(B, Sq, Sk, H, KV, hd, causal, sw, dt)}: max "
+              f"abs err {e} (tol {tol}), dtype {o.dtype}")
+        worst[dt] = max(worst[dt], e)
+    return entry, (f"flash sweep: {len(FLASH_SWEEP)} cases (hd 32/64/128, "
+                   f"causal and not, windows 32/128/100, GQA, ragged S 300 "
+                   f"and Sq 77 x Sk 300) within tolerance: max abs err "
+                   f"{worst['float32']:.3g} float32 (tol 1e-4), "
+                   f"{worst['bfloat16']:.3g} bfloat16 (tol 2e-2)")
+
+
+def trunk_compare(torch, dev, tf, serve, data):
+    """One batch through the naive trunk and the pallas trunk on the same
+    trained weights: host-clock time around synchronised work (median of
+    3 after a warm-up), peak memory, and agreement."""
+    e = torch.as_tensor(data["embeds"][:BATCH], device=dev)
+    outs, lines = {}, []
+    for name, f in (("naive", tf), ("pallas", serve)):
+        reset_peak(torch, dev)
+        outs[name] = f.apply(e, use_kernel=True, device=dev)
+        sync(torch, dev)
+        peak = peak_bytes(torch, dev)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            f.apply(e, use_kernel=True, device=dev)
+            sync(torch, dev)
+            times.append(time.perf_counter() - t0)
+        lines.append(f"filter forward of one batch ({BATCH} frames) "
+                     f"through the {name} trunk: "
+                     f"{sorted(times)[1] * 1e3:.3f} ms, peak device memory "
+                     f"{gib(peak)}")
+    a, b = outs["naive"], outs["pallas"]
+    err = max(float((a.counts - b.counts).abs().max()),
+              float((a.grid - b.grid).abs().max()))
+    check(torch.allclose(b.counts, a.counts, rtol=1e-4, atol=1e-3)
+          and torch.allclose(b.grid, a.grid, rtol=1e-4, atol=1e-3),
+          f"pallas trunk differs from naive trunk (max abs err {err})")
+    lines.append(f"pallas trunk vs naive trunk FilterOutputs: max abs err "
+                 f"{err:.3g} (tol rtol 1e-4, atol 1e-3)")
+    return lines
+
+
 def plain_head_check(torch, dev, trunk, spec, params, data):
     """The kernel filter path against the plain-head filter path."""
     from repro_torch.train.filter_train import filter_forward
@@ -394,7 +577,6 @@ def main(argv=None):
     import torch
     from repro_torch.data.synthetic import VideoStream, collect
     from repro_torch.kernels import build
-    from repro_torch.train.filter_train import init_filter_model
 
     if args.rehearse:
         dev = torch.device("cpu")
@@ -410,39 +592,56 @@ def main(argv=None):
               flush=True)
 
     scene, trunk, spec = configure(args.rehearse)
+    tf, lines = training_phase(torch, dev, scene, trunk, spec,
+                               args.rehearse)
+    for line in lines:
+        print(line, flush=True)
+    params = tf.params
+    serve = dataclasses.replace(
+        tf, trunk_cfg=dataclasses.replace(trunk, attn_impl="pallas"))
     data = collect(VideoStream(scene, dynamics_seed=SEED), N_FRAMES)
-    gen = torch.Generator().manual_seed(SEED)
-    params = init_filter_model(gen, trunk, spec, scene.d_embed, device=dev)
 
-    feat, grid, rows = kernel_inputs(torch, dev, trunk, spec, params, data)
+    qkv, feat, grid, rows = kernel_inputs(torch, dev, trunk, spec, params,
+                                          data)
     if args.rehearse:
         entries = []
     else:
         entries = kernel_phase(torch, dev, feat, params, grid, rows)
+        flash, sweep_line = flash_phase(torch, qkv)
+        entries.append(flash)
         for e in entries:
             print(f"kernel {e['name']} {e['shape']}: {e['ms']:.4f} ms "
                   f"(plain {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f}"
                   f" ms by {e['bound_by']}, library {e['library_ms']}), "
                   f"max abs err {e['max_abs_err']:.3g}", flush=True)
+        print(sweep_line, flush=True)
+    del qkv, feat, grid, rows
     print(plain_head_check(torch, dev, trunk, spec, params, data),
           flush=True)
 
-    runs, record, launches = main_path(torch, dev, scene, trunk, spec,
-                                       params, data)
+    runs, record, launches, peak = main_path(torch, dev, scene, serve, data)
     print(f"main path launches: {launches}", flush=True)
+    print(f"serving peak device memory (both passes, pallas trunk): "
+          f"{gib(peak)}", flush=True)
     for line in check_main_path(torch, data, scene, runs, record):
+        print(line, flush=True)
+    for line in trunk_compare(torch, dev, tf, serve, data):
         print(line, flush=True)
     if args.rehearse:
         print("rehearsal done (CPU: plain versions, no kernels)")
         return 0
+    check(peak < SERVING_PEAK_LIMIT, f"serving peak {gib(peak)} is not "
+          f"under {gib(SERVING_PEAK_LIMIT)}")
+    want = spec.layer * (N_FRAMES // BATCH)
+    check(launches["flash_attention_bhsd"] == want,
+          f"flash_attention_bhsd launched {launches['flash_attention_bhsd']}"
+          f" times on the main path, want {want} (one per trunk layer and "
+          f"batch)")
     for e in entries:
         check(launches[e["name"]] > 0,
               f"{e['name']} was not launched on the main path")
         e["launches"] = launches[e["name"]]
         e["kernel_ms"] = e["ms"]
-    if dev.type == "cuda":
-        print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-              f" GiB", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,7 @@ layers (``BranchSpec.layer``):
 
 Parameters keep the JAX package's layouts: dense weights (in, out), conv
 weights HWIO (permuted to OIHW inside ``_conv2d``), grids (B, g, g, C).
-The Eq. 2/3 losses arrive with the training slice.
+The Eq. 2/3 training losses close the module.
 """
 from __future__ import annotations
 
@@ -184,3 +184,45 @@ def branch_apply(p: Params, tap: torch.Tensor, spec: BranchSpec,
                  **kw) -> FilterOutputs:
     return HEADS[spec.kind][1](p, tap, spec, **kw) if spec.kind == "ic" \
         else HEADS[spec.kind][1](p, tap, spec)
+
+
+# --------------------------------------------------------------------------
+# Losses
+# --------------------------------------------------------------------------
+
+def smooth_l1(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    d = torch.abs(x - y)
+    return torch.where(d < 1.0, 0.5 * d * d, d - 0.5)
+
+
+def ic_loss(out: FilterOutputs, count_true: torch.Tensor,
+            grid_true: torch.Tensor, class_weight: torch.Tensor,
+            alpha: float = 1.0, beta=10.0) -> torch.Tensor:
+    """Paper Eq. 2: per-class weighted SmoothL1(count) + beta * MSE(map).
+
+    grid_true: (B, g, g, C) in [0,1] (down-scaled box occupancy).  The MSE
+    regresses the raw CAM toward {0,1} (the paper thresholds CAM values
+    at 0.2 — no sigmoid)."""
+    lc = smooth_l1(out.counts, count_true).mean(0)               # (C,)
+    lg = torch.square(out.grid - grid_true).mean((0, 1, 2))      # (C,)
+    return torch.sum(class_weight * (alpha * lc + beta * lg))
+
+
+def od_loss(out: FilterOutputs, count_true: torch.Tensor,
+            grid_true: torch.Tensor, lambda_count: float = 1.0,
+            lambda_grid: float = 5.0, lambda_obj: float = 5.0,
+            lambda_noobj: float = 0.5) -> torch.Tensor:
+    """Paper Eq. 3: count SmoothL1 + grid MSE with obj/noobj balancing.
+    Raw-value regression toward {0,1} (thresholded at 0.2 downstream)."""
+    lc = smooth_l1(out.counts, count_true).mean()
+    x = out.grid
+    obj = grid_true > 0.5
+    se = torch.square(x - grid_true)
+    g2 = out.grid.shape[1] * out.grid.shape[2]
+    lg = (torch.where(obj, lambda_obj * se, lambda_noobj * se).sum((1, 2, 3))
+          / g2).mean()
+    return lambda_count * lc + lambda_grid * lg
+
+
+def cof_loss(out: FilterOutputs, count_true: torch.Tensor) -> torch.Tensor:
+    return smooth_l1(out.counts, count_true).mean()

@@ -25,13 +25,14 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.normpath(os.path.join(_HERE, "..", "..", "..", "build",
                                           "kernels"))
-SOURCES = ("spatial_stats", "cam_head")
+SOURCES = ("spatial_stats", "cam_head", "flash_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES: Dict[str, int] = {"spatial_stats_bgc": 0,
                             "spatial_stats_rows_bgc": 0,
-                            "cam_head_bgd": 0}
+                            "cam_head_bgd": 0,
+                            "flash_attention_bhsd": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -42,6 +43,9 @@ _SIGNATURES = {
     "cam_head": {
         "cam_head_launch": ([_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
                             _I)},
+    "flash_attention": {
+        "flash_attention_launch": ([_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
+                                    _I, _I, _I, _I, _F, _VP], _I)},
 }
 
 

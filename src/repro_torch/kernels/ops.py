@@ -6,12 +6,13 @@ live here so callers keep the JAX package's (B, g, g, ·) layouts.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.cam_head import cam_head_bgd
+from repro_torch.kernels.flash_attention import flash_attention_bhsd
 from repro_torch.kernels.spatial_predicate import (spatial_stats_bgc,
                                                    spatial_stats_rows_bgc)
 
@@ -23,6 +24,20 @@ def launch_counts() -> Dict[str, int]:
 
 def reset_launch_counts() -> None:
     build.reset_launches()
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    sliding_window: Optional[int] = None) -> torch.Tensor:
+    """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) -> (B, Sq, H, hd).
+
+    Every Sq and Sk goes to the kernel on the card: it masks the ragged
+    edge itself, where the JAX wrapper falls back to the reference for
+    lengths that its tiles do not divide (the same function)."""
+    q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    out = flash_attention_bhsd(q, k, v, causal=causal,
+                               sliding_window=sliding_window)
+    return out.transpose(1, 2)
 
 
 def cam_head(feat: torch.Tensor, w: torch.Tensor, b: torch.Tensor

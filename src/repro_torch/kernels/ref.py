@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the ported kernels.
 
-``spatial_stats_ref`` and ``cam_head_ref`` mirror the JAX package's
-``kernels/ref.py`` oracles; ``spatial_stats_proj`` mirrors its
+``flash_attention_ref``, ``spatial_stats_ref`` and ``cam_head_ref``
+mirror the JAX package's ``kernels/ref.py`` oracles; ``spatial_stats_proj`` mirrors its
 ``ops._spatial_stats_proj``, the projection reduction that is the plain
 version of both spatial-stats kernels here.  The CPU path of every
 kernel wrapper runs these, and on the card they are what the kernels
@@ -9,9 +9,42 @@ are compared with.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Optional, Tuple
 
 import torch
+
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        sliding_window: Optional[int] = None
+                        ) -> torch.Tensor:
+    """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd). Full-softmax reference.
+
+    Query head h reads kv head ``h // (H // KV)`` (GQA).  Scores and the
+    softmax are float32; the probabilities are cast to ``v``'s dtype
+    before the product with ``v``, as the kernel does."""
+    B, Sq, H, hd = q.shape
+    _, Sk, KV, _ = k.shape
+    G = H // KV
+    qg = q.reshape(B, Sq, KV, G, hd)
+    s = torch.einsum("bqngd,bsnd->bnqgs", qg.float(),
+                     k.float()) / math.sqrt(hd)
+    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    k_pos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos >= k_pos
+    if sliding_window is not None:
+        mask &= q_pos - k_pos < sliding_window
+    s = torch.where(mask[None, None, :, None, :], s,
+                    torch.full((), NEG_INF, device=q.device))
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    del s
+    out = torch.einsum("bnqgs,bsnd->bnqgd", p, v)
+    return out.permute(0, 2, 1, 3, 4).reshape(B, Sq, H, hd).to(q.dtype)
 
 
 def cam_head_ref(feat: torch.Tensor, w: torch.Tensor,

@@ -2,8 +2,8 @@
 
 Only what ``train.filter_train.default_trunk`` reaches is ported here:
 RMSNorm, multi-head attention without a KV cache or rope (naive full
-softmax — the trunk is ``attn_impl="xla_naive"``), and the gated SiLU
-MLP.  Parameters are plain dicts of tensors in the JAX package's layouts
+softmax, or the flash-attention kernel when the trunk is served with
+``attn_impl="pallas"``; see ``_attend``), and the gated SiLU MLP.  Parameters are plain dicts of tensors in the JAX package's layouts
 (``wq`` (d, H, hd), ``wo`` (H, hd, d), ...), so weights carry across
 with a tree map.  Initializers draw from an explicit ``torch.Generator``.
 """
@@ -103,14 +103,32 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
     }
 
 
+def _attend(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+            v: torch.Tensor, *, causal: bool) -> torch.Tensor:
+    """The JAX package's dispatch, for the calls the trunk makes (no
+    cache, no offset, no softcap):
+
+    - ``xla_naive``, or at most 256 x 256 scores: naive attention;
+    - ``pallas``: ``ops.flash_attention`` (the kernel on the card, its
+      plain version on the CPU);
+    - anything else (``xla_flash``): naive attention.  The JAX package
+      runs its chunked ``flash_attention_xla`` there, the same function
+      blocked for memory; the port has not got it yet.
+    """
+    if cfg.attn_impl == "pallas" and q.shape[1] * k.shape[1] > 256 * 256:
+        from repro_torch.kernels import ops as kops
+        return kops.flash_attention(q, k, v, causal=causal)
+    return naive_attention(q, k, v, causal=causal)
+
+
 def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                     causal: bool = True) -> torch.Tensor:
-    """QKV projection + naive attention + output projection (no KV cache,
-    no rope: the filter trunk's configuration)."""
+    """QKV projection + attention (``_attend``) + output projection (no
+    KV cache, no rope: the filter trunk's configuration)."""
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     kk = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     vv = torch.einsum("bsd,dhk->bshk", x, p["wv"])
-    out = naive_attention(q, kk, vv, causal=causal)
+    out = _attend(cfg, q, kk, vv, causal=causal)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]).to(x.dtype)
 
 

@@ -18,14 +18,9 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.optim.optimizers import tree_map
 
 Params = Dict[str, Any]
-
-
-def _tree_map(fn, *trees):
-    if isinstance(trees[0], dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
-    return fn(*trees)
 
 
 def _layer_init(gen: torch.Generator, cfg: ModelConfig,
@@ -45,7 +40,7 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
         "embed": L._normal(gen, (cfg.vocab_size, cfg.d_model), 0.02, dt,
                            device),
         "final_norm": L.norm_init(cfg, device),
-        "layers": _tree_map(lambda *xs: torch.stack(xs), *layers),
+        "layers": tree_map(lambda *xs: torch.stack(xs), *layers),
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = L.dense_init(gen, cfg.d_model,
@@ -67,7 +62,7 @@ def run_layers(stack: Params, x: torch.Tensor, cfg: ModelConfig, *,
     """Run layers [lo, hi) of a stacked tree."""
     hi = stack["ln1"]["w"].shape[0] if hi is None else hi
     for i in range(lo, hi):
-        x = _apply_layer(_tree_map(lambda a: a[i], stack), x, cfg,
+        x = _apply_layer(tree_map(lambda a: a[i], stack), x, cfg,
                          causal=causal)
     return x
 

@@ -1,27 +1,44 @@
-"""The paper's filter model: input projection + trunk prefix + branch head.
+"""Training + evaluation of the paper's filter branches (§II, §IV).
 
 The filter = input projection (stub-frontend width -> d_model) + learned
 positions + the first k trunk layers (``models.model.forward`` with
 ``tap_layer=k, stop_at_tap=True``) + an IC / OD / OD-COF branch head.
-This module holds the serving half: building the model and running it.
-Training (``train_filter``, the optimizers, the paper metrics) arrives
-with the training slice.
+It is trained on synthetic video streams with the paper's losses (Eq. 2
+for IC, Eq. 3 for OD) and Adam with global-norm clipping, as the JAX
+package trains it, then evaluated with the paper's metrics:
+
+- count accuracy at tolerance 0/1/2 (Fig. 7 / Fig. 11)
+- per-class localisation f1 at Manhattan radius 0/1/2 (Fig. 15)
+
+Training runs the trunk as configured (``default_trunk`` is
+``attn_impl="xla_naive"``) and the plain CAM head: neither kernel has a
+backward, as neither Pallas kernel has a VJP.  A trained filter is
+served through the kernels by ``dataclasses.replace(trunk,
+attn_impl="pallas")`` on the same weights and ``use_kernel=True``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Union
+from typing import Any, Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
 
+from repro_torch.core import cam as CAM
 from repro_torch.core import filters as F
+from repro_torch.data.synthetic import (SceneConfig, VideoStream,
+                                        class_weights, collect)
 from repro_torch.device import DeviceLike, require_on, resolve_device
 from repro_torch.models import model as M
 from repro_torch.models.config import BranchSpec, ModelConfig
 from repro_torch.models.layers import dense_init
+from repro_torch.optim import (Optimizer, adamw, clip_by_global_norm,
+                               exponential_decay)
+from repro_torch.optim.optimizers import apply_updates, tree_map
 
 Params = Dict[str, Any]
+
+EVAL_BATCH = 32     # frames per forward in evaluate_filter
 
 
 def default_trunk(d_model: int = 128, n_layers: int = 4,
@@ -96,3 +113,182 @@ class TrainedFilter:
                                             self.spec, embeds,
                                             use_kernel=use_kernel,
                                             device=device))
+
+
+def make_train_step(trunk_cfg: ModelConfig, spec: BranchSpec,
+                    opt: Optimizer, clip: Callable, class_weight,
+                    lam_grid: float, device: DeviceLike = None) -> Callable:
+    """One optimizer step of ``train_filter``:
+
+        step(params, opt_state, i, embeds, counts, occupancy, beta)
+            -> (params, opt_state, loss)
+
+    The loss is the branch's (Eq. 2 with the β schedule's ``beta`` for IC,
+    Eq. 3 for OD, SmoothL1 counts for OD-COF); its gradient is clipped,
+    then ``opt`` updates.  New parameter and state trees are returned;
+    the inputs are not modified."""
+    dev = resolve_device(device)
+    w_c = torch.as_tensor(class_weight, dtype=torch.float32, device=dev)
+
+    def loss_fn(p, e, c, o, beta):
+        out = filter_forward(p, trunk_cfg, spec, e, device=dev)
+        if spec.kind == "ic":
+            # Eq. 2 schedule: count-only first, then add localisation
+            return F.ic_loss(out, c, o, w_c, alpha=1.0,
+                             beta=beta * lam_grid / 20.0)
+        if spec.kind == "od":
+            return F.od_loss(out, c, o, lambda_grid=lam_grid)
+        return F.cof_loss(out, c)
+
+    def step(params, opt_state, i, e, c, o, beta):
+        p = tree_map(lambda x: x.detach().requires_grad_(), params)
+        leaves = []
+        tree_map(leaves.append, p)
+        loss = loss_fn(p, e, c, o, torch.as_tensor(beta, dtype=torch.float32))
+        # leaves the loss does not reach (the trunk's embed, final_norm
+        # and lm_head) get zero gradients, as under jax.grad
+        grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
+        g, _ = clip(tree_map(lambda x: _zero_if_none(next(grads), x), p))
+        upd, opt_state = opt.update(g, opt_state, params, i)
+        return apply_updates(params, upd), opt_state, loss.detach()
+
+    return step
+
+
+def _zero_if_none(g: Optional[torch.Tensor], x: torch.Tensor
+                  ) -> torch.Tensor:
+    return torch.zeros_like(x) if g is None else g
+
+
+def train_filter(scene: SceneConfig, spec: BranchSpec, *,
+                 trunk_cfg: Optional[ModelConfig] = None,
+                 steps: int = 300, batch: int = 32,
+                 n_frames: int = 2048, seed: int = 0,
+                 log_every: int = 0,
+                 device: DeviceLike = None) -> TrainedFilter:
+    """End-to-end branch training on a synthetic stream (paper §IV setup),
+    on ``device`` (default CUDA).  The weights come from a CPU generator
+    seeded with ``seed``, the batch indices from a second one."""
+    dev = resolve_device(device)
+    trunk_cfg = trunk_cfg or default_trunk(grid=scene.grid)
+    spec = dataclasses.replace(spec, grid=scene.grid,
+                               n_classes=scene.n_classes)
+    params = init_filter_model(torch.Generator().manual_seed(seed),
+                               trunk_cfg, spec, scene.d_embed, device=dev)
+
+    data = collect(VideoStream(scene), n_frames)
+    w_c = class_weights(data["counts"])
+    embeds = torch.as_tensor(data["embeds"], device=dev)
+    # normalise count targets to ~unit scale per class (high-count scenes
+    # like coral/detrac otherwise sit far outside the head's init range)
+    count_scale = np.maximum(data["counts"].mean(0), 1.0).astype(np.float32)
+    counts = torch.as_tensor(data["counts"] / count_scale,
+                             dtype=torch.float32, device=dev)
+    occ = torch.as_tensor(data["occupancy"], dtype=torch.float32,
+                          device=dev)
+
+    # Paper §IV trains IC with Adam and OD with SGD+momentum; the JAX
+    # package trains both with Adam + global-norm clipping at its
+    # compressed step budgets, keeping the exponential decay (5e-4).
+    if spec.kind == "ic":
+        opt = adamw(exponential_decay(1e-3, 5e-4))
+    else:
+        opt = adamw(exponential_decay(2e-3, 5e-4))
+    opt_state = opt.init(params)
+    clip = clip_by_global_norm(1.0)
+
+    # Loss balance "set manually based on the training set" (paper §IV):
+    # the grid term scales by inverse occupied-cell density.
+    pos_density = float(np.mean(data["occupancy"], dtype=np.float32))
+    lam_grid = 20.0 * min(1.0, 0.02 / max(pos_density, 1e-3))
+    train_step = make_train_step(trunk_cfg, spec, opt, clip, w_c, lam_grid,
+                                 device=dev)
+
+    n = embeds.shape[0]
+    losses = []
+    gen = torch.Generator().manual_seed(seed + 1)
+    warm = max(steps // 6, 1)        # paper: beta=0 for first epochs
+    for i in range(steps):
+        idx = torch.randint(0, n, (batch,), generator=gen).to(dev)
+        beta = np.float32(0.0 if i < warm else
+                          10.0 * max(0.2, 1.0 - (i - warm) / steps))
+        params, opt_state, loss = train_step(
+            params, opt_state, i, embeds[idx], counts[idx], occ[idx], beta)
+        losses.append(float(loss))
+        if log_every and i % log_every == 0:
+            print(f"  step {i:4d} loss {losses[-1]:.4f}", flush=True)
+    return TrainedFilter(params=params, trunk_cfg=trunk_cfg, spec=spec,
+                         losses=losses, count_scale=count_scale)
+
+
+# --------------------------------------------------------------------------
+# Paper metrics
+# --------------------------------------------------------------------------
+
+def _np(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
+def count_accuracy(pred_counts, true_counts, tolerance: int = 0,
+                   per_class: bool = False):
+    """Fig. 7 / Fig. 11 metric: fraction of frames with |c_hat - c| <= tol.
+
+    Total-count version compares summed counts; per-class compares each."""
+    p = np.round(_np(pred_counts))
+    t = _np(true_counts)
+    if per_class:
+        return (np.abs(p - t) <= tolerance).mean(0)       # (C,)
+    return float((np.abs(p.sum(-1) - t.sum(-1)) <= tolerance).mean())
+
+
+def clf_f1(grid_logits, occupancy, tau: float = 0.2,
+           radius: int = 0) -> np.ndarray:
+    """Fig. 15 metric: per-class f1 of cell occupancy prediction, counting
+    a prediction correct if a true object lies within Manhattan ``radius``."""
+    pred = _np(grid_logits) > tau               # raw-value threshold
+    true = _np(occupancy) > 0.5
+    if radius:
+        true_d = CAM.dilate_manhattan(torch.as_tensor(true), radius).numpy()
+        pred_d = CAM.dilate_manhattan(torch.as_tensor(pred), radius).numpy()
+    else:
+        true_d, pred_d = true, pred
+    C = pred.shape[-1]
+    out = np.zeros(C)
+    for c in range(C):
+        tp = (pred[..., c] & true_d[..., c]).sum()
+        fp = (pred[..., c] & ~true_d[..., c]).sum()
+        fn = (true[..., c] & ~pred_d[..., c]).sum()
+        prec = tp / max(tp + fp, 1)
+        rec = tp / max(tp + fn, 1)
+        out[c] = 2 * prec * rec / max(prec + rec, 1e-9)
+    return out
+
+
+def evaluate_filter(tf: TrainedFilter, scene: SceneConfig,
+                    n_frames: int = 512, seed: int = 99,
+                    device: DeviceLike = None) -> Dict[str, Any]:
+    """The paper's metrics on held-out frames of the same camera/world
+    (protos, background) with other dynamics.  The forward runs in
+    chunks of ``EVAL_BATCH`` frames (the JAX package runs all frames at
+    once; at g = 56 the naive trunk's scores would then take 4.7 GiB per
+    32 frames); per-frame outputs do not depend on the chunking."""
+    data = collect(VideoStream(scene, dynamics_seed=seed), n_frames)
+    parts = [tf.apply(data["embeds"][i:i + EVAL_BATCH], device=device)
+             for i in range(0, n_frames, EVAL_BATCH)]
+    out = F.FilterOutputs(
+        counts=torch.cat([o.counts for o in parts]),
+        grid=None if parts[0].grid is None
+        else torch.cat([o.grid for o in parts]))
+    res: Dict[str, Any] = {"counts_pred": _np(out.counts)}
+    for tol in (0, 1, 2):
+        res[f"cf_acc_{tol}"] = count_accuracy(out.counts, data["counts"], tol)
+        res[f"ccf_acc_{tol}"] = count_accuracy(out.counts, data["counts"],
+                                               tol, per_class=True)
+    if out.grid is not None:
+        for r in (0, 1, 2):
+            res[f"clf_f1_{r}"] = clf_f1(out.grid, data["occupancy"],
+                                        radius=r)
+    res["data"] = data
+    res["outputs"] = out
+    return res
