@@ -36,7 +36,35 @@ Phases (any failure exits non-zero and prints no result line):
    serving peak memory must stay under 2 GiB (no S x S scores).
 5. One batch through the naive and the pallas trunk on the same trained
    weights: both timed, their outputs equal within rtol 1e-4 / atol 1e-3.
-6. A ``kernels`` JSON line, then the device line as the last line.
+6. The RWKV-6 serving path at full width: rwkv6-3b (32 layers, d_model
+   2560, vocab 65536, bf16) with random weights from a seeded CUDA
+   generator, ``attn_impl="pallas"``; four requests of 1024 prompt tokens
+   through ``prefill``, then 32 greedy ``decode_step``s, after one
+   untimed warm-up pass.  Counts are reset just before and read just
+   after: ``rwkv6_scan_bhtk`` must have launched once per layer and call
+   (32 x 33); the tokens must lie in the vocabulary and every logit be
+   finite.  Prefill tokens/s, ms per decode step and peak memory.
+7. The WKV-scan kernel against its plain version at that path's prefill
+   and decode shapes (layer 0's inputs, kept from the warm-up), timed, and a
+   sweep (T 1/32/50/1024, K 16/64, fp32 and bf16, non-zero u and s0, two
+   halves carried through sT); 5e-3, plus one bf16 step of the output.
+8. Decode attention through its entry point ``ops.decode_attention`` at
+   qwen2-0.5b's decode_32k shape (B 128, S 32768, 14 heads over 2 kv
+   heads, hd 64, bf16, kv_len 30000), counts reset just before and read
+   just after; the kernel against its plain version, timed beside it
+   and ``scaled_dot_product_attention``, there in bf16 and in float32
+   (the same values); a sweep (the Pallas test's cases, ragged S, G
+   7/16, hd 128, a 20000-key cache in both types).  Tolerances: 1e-4 in
+   float32; in bf16 the Pallas test's 2e-2 or four bf16 steps of the
+   largest output, whichever is smaller (a long cache's outputs are
+   ~0.04, and a fixed 2e-2 would pass a kernel that ignored kv_len).
+9. Float32 at full width (12.3 GB of weights, the bf16 ones freed): two
+   256-token prompts and 8 decode steps through the kernel path and the
+   chunked plain path (``xla_flash``) on the same weights and tokens,
+   logits within 2e-2; and the kernel path's decode against a full
+   forward over prompt + generated tokens, within 2e-2.
+10. A ``kernels`` JSON line (all six kernels), then the device line as
+    the last line.
 """
 import argparse
 import dataclasses
@@ -48,6 +76,8 @@ import sys
 import time
 import traceback
 
+import numpy as np
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
 
@@ -57,6 +87,9 @@ N_FRAMES, BATCH, WINDOW = 256, 32, 128
 SEED = 0
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_FRAMES, EVAL_FRAMES = 96, 8, 256, 64
 SERVING_PEAK_LIMIT = 2 * 2**30   # bytes; one S x S score tensor is 4.7 GiB
+RWKV_REQUESTS, RWKV_PROMPT, RWKV_DECODE = 4, 1024, 32
+RWKV_FP32_PROMPT, RWKV_FP32_DECODE = 256, 8
+DECODE_KV_LEN = 30000            # valid rows of the 32768-row decode cache
 # (B, Sq, Sk, H, KV, hd, causal, sliding_window, dtype): the Pallas kernel
 # test's shapes in both types and both maskings, sliding windows with
 # GQA 4/2, and ragged lengths that no 64-row tile divides
@@ -562,6 +595,454 @@ def plain_head_check(torch, dev, trunk, spec, params, data):
     return f"kernel head vs plain head: max abs err {err:.3g} (tol 1e-4)"
 
 
+
+# ---------------------------------------------------------------------------
+# the RWKV-6 serving path (prefill + decode) and its WKV-scan kernel
+# ---------------------------------------------------------------------------
+
+def rwkv_config(rehearse, **overrides):
+    """rwkv6-3b at its published widths (32 layers, d_model 2560, 40 heads
+    of 64, d_ff 8960, vocab 65536, bf16); the smoke config on the CPU."""
+    from repro_torch.configs import get_config, get_smoke_config
+    cfg = get_smoke_config("rwkv6_3b") if rehearse else \
+        get_config("rwkv6_3b")
+    return dataclasses.replace(cfg, **overrides)
+
+
+class ScanRecorder:
+    """Wraps ``ops.rwkv6_scan`` to keep, on the host, the arguments of its
+    first call of each length class (prefill, decode); calls through
+    unchanged."""
+
+    def __init__(self, ops):
+        self.ops, self.inner, self.calls = ops, ops.rwkv6_scan, {}
+
+    def __enter__(self):
+        def rec(*args, **kw):
+            key = "decode" if args[0].shape[2] == 1 else "prefill"
+            if key not in self.calls:
+                self.calls[key] = tuple(a.cpu() for a in args)
+            return self.inner(*args, **kw)
+        self.ops.rwkv6_scan = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.rwkv6_scan = self.inner
+
+
+def rwkv_serving_phase(torch, dev, rehearse):
+    """Four requests through ``prefill`` and ``decode_step`` at full width
+    in bf16 through the kernel path (``attn_impl="pallas"``).  Layer 0's
+    scan inputs of the first prefill and decode calls are kept from the
+    untimed warm-up pass (the same prompts and weights) for the kernel
+    phase; counts are reset just before the timed run and read just
+    after."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models import serve as SV
+    cfg = rwkv_config(rehearse, attn_impl="pallas", dtype="bfloat16")
+    n_req, prompt_len, n_dec = (4, 64, 4) if rehearse else \
+        (RWKV_REQUESTS, RWKV_PROMPT, RWKV_DECODE)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = M.init_params(gen, cfg, device=dev)
+    sync(torch, dev)
+    init_s = time.perf_counter() - t0
+    prompts = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (n_req, prompt_len)), device=dev)
+
+    def serve(record=None):
+        cache = SV.init_cache(cfg, n_req, prompt_len + n_dec, device=dev)
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        logits, cache, _ = SV.prefill(params, cfg, prompts, cache=cache)
+        sync(torch, dev)
+        t_pre = time.perf_counter() - t0
+        toks, finite, steps = [logits.argmax(-1)], \
+            bool(torch.isfinite(logits).all()), []
+        for _ in range(n_dec):
+            t0 = time.perf_counter()
+            logits, cache = SV.decode_step(params, cfg, toks[-1][:, None],
+                                           cache=cache)
+            toks.append(logits.argmax(-1))
+            sync(torch, dev)
+            steps.append(time.perf_counter() - t0)
+            finite &= bool(torch.isfinite(logits).all())
+        return t_pre, steps, torch.stack(toks, 1), finite
+
+    with ScanRecorder(ops) as rec:            # warm-up: cuBLAS, the kernel
+        serve()
+    lines = []
+    if dev.type == "cuda":
+        cache = SV.init_cache(cfg, n_req, prompt_len + 1, device=dev)
+        _, cache, _ = SV.prefill(params, cfg, prompts, cache=cache)
+        lines.append(profile_line(
+            torch, "one decode step", lambda: SV.decode_step(
+                params, cfg, prompts[:, -1:], cache=cache)))
+        del cache
+        lines.append(profile_line(
+            torch, "one prefill", lambda: SV.prefill(
+                params, cfg, prompts, cache=SV.init_cache(
+                    cfg, n_req, prompt_len, device=dev))))
+    reset_peak(torch, dev)
+    ops.reset_launch_counts()
+    t_pre, steps, toks, finite = serve()
+    launches = ops.launch_counts()
+    peak = peak_bytes(torch, dev)
+    check(finite, "rwkv serving: a logit is not finite")
+    check(toks.shape == (n_req, n_dec + 1) and int(toks.min()) >= 0
+          and int(toks.max()) < cfg.vocab_size,
+          f"rwkv serving: generated tokens {toks.shape} outside the vocab")
+    want = cfg.n_layers * (1 + n_dec)
+    if not rehearse:
+        check(launches["rwkv6_scan_bhtk"] == want,
+              f"rwkv6_scan_bhtk launched {launches['rwkv6_scan_bhtk']} "
+              f"times, want {want} (one per layer and call)")
+    steps_ms = sorted(x * 1e3 for x in steps)
+    del params
+    return launches, rec.calls, lines + [
+        f"rwkv serving ({cfg.name}, {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab_size}, {cfg.dtype}, "
+        f"{cfg.param_count() / 1e9:.3f} B parameters, random weights "
+        f"drawn in {init_s:.3f} s): {n_req} requests x {prompt_len} "
+        f"prompt tokens, prefill {t_pre * 1e3:.3f} ms = "
+        f"{n_req * prompt_len / t_pre:.1f} tokens/s; {n_dec} decode steps "
+        f"of {n_req} tokens, median {steps_ms[len(steps_ms) // 2]:.3f} ms "
+        f"per step (min {steps_ms[0]:.3f}, max {steps_ms[-1]:.3f}); peak "
+        f"device memory {gib(peak)}; rwkv6_scan_bhtk launches "
+        f"{launches['rwkv6_scan_bhtk']} (want {want}); tokens in the "
+        f"vocab, logits finite; first request's tokens "
+        f"{toks[0].tolist()}"]
+
+
+def profile_line(torch, what, fn):
+    """Device time by kernel over one call of ``fn`` (torch.profiler) and
+    the host clock around it; the idle share is 1 - busy / wall (the
+    profiler's own host cost counts in the wall)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    if busy <= 0:
+        return f"profile of {what}: no device time recorded (not measured)"
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
+    return (f"profile of {what} (torch.profiler): wall {wall:.3f} ms, "
+            f"device busy {busy:.3f} ms, idle share {1 - busy / wall:.3f}; "
+            f"{sum(e.count for e in kern)} kernel launches; top: " +
+            "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} "
+                      f"ms x{e.count}" for e in top))
+
+
+def scan_bound(args):
+    """Least time of one WKV scan: bytes (each input read once, each
+    output written once) or the recurrence's fp32 operations (per token
+    and head: r S and the rank-1 update with its decay, 5 K V, the bonus
+    3 K + 2 V)."""
+    r, k, v, lw, u, s0 = args
+    B, H, T, K = r.shape
+    V = v.shape[3]
+    elt = r.element_size()
+    n_bytes = ((2 * K + V) * elt + K * 4) * B * H * T + u.numel() * 4 \
+        + 2 * B * H * K * V * 4 + B * H * T * V * elt
+    return bound_ms(n_bytes, B * H * T * (5 * K * V + 3 * K + 2 * V))
+
+
+def scan_inputs(torch, dev, B, H, T, K, dt, seed):
+    """The JAX kernel test's distributions, with a non-zero u and s0."""
+    gen = torch.Generator(dev).manual_seed(seed)
+
+    def n(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    dtype = getattr(torch, dt)
+    lw = torch.clamp(-torch.exp(n(B, H, T, K) * 0.3), -2.0, -1e-6)
+    return (n(B, H, T, K).to(dtype), n(B, H, T, K).to(dtype),
+            n(B, H, T, K).to(dtype), lw, n(H, K) * 0.1, n(B, H, K, K) * 0.1)
+
+
+SCAN_TOL = ("out and sT atol 5e-3 (the JAX kernel test's); a bf16 out "
+            "also rtol 1e-2: both sides round to bf16, one step apart at "
+            "most")
+
+
+def scan_err(torch, got, want):
+    """Max abs error of (out, sT), and whether it is within SCAN_TOL."""
+    (o, s), (wo, ws) = got, want
+    err = max(float((o.float() - wo.float()).abs().max()),
+              float((s - ws).abs().max()))
+    rtol = 0.0 if o.dtype == torch.float32 else 1e-2
+    ok = torch.allclose(o.float(), wo.float(), rtol=rtol, atol=5e-3) and \
+        torch.allclose(s, ws, rtol=0, atol=5e-3)
+    return err, ok
+
+
+def rwkv_kernel_phase(torch, dev, calls, timer):
+    """The WKV kernel against its plain version at the serving path's
+    prefill and decode shapes (layer 0's inputs), timed; then a sweep."""
+    from repro_torch.kernels import rwkv6_scan as RK
+    args, dec = (tuple(t.to(dev).contiguous() for t in calls[key])
+                 for key in ("prefill", "decode"))
+    err, ok = scan_err(torch, RK.rwkv6_scan_bhtk(*args),
+                       RK.rwkv6_scan_plain(*args))
+    check(ok, f"rwkv6_scan_bhtk differs from plain at the prefill shape "
+          f"(max abs err {err})")
+    o, sT = RK.rwkv6_scan_bhtk(*args)
+    wo, ws = RK.rwkv6_scan_plain(*args)
+    state_err = float((sT - ws).abs().max())
+    rel = float(((o.float() - wo.float()).abs()
+                 / wo.float().abs().clamp_min(1.0)).max())
+    del o, sT, wo, ws
+    bnd, by = scan_bound(args)
+    B, H, T, K = args[0].shape
+    entry = {
+        "name": "rwkv6_scan_bhtk", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+        "replaces": "src/repro/kernels/rwkv6_scan.py:66",
+        "max_abs_err": err, "max_abs_err_state": state_err,
+        "max_rel_err_out": rel, "tolerance": SCAN_TOL,
+        "ms": timer(lambda: RK.rwkv6_scan_bhtk(*args)),
+        "plain_ms": timer(lambda: RK.rwkv6_scan_plain(*args)),
+        "bound_ms": bnd, "bound_by": by, "library_ms": None,
+        "library_note": "no single PyTorch call computes the recurrence",
+        "shape": [B, H, T, K], "dtype": str(args[0].dtype)}
+    d_err, ok = scan_err(torch, RK.rwkv6_scan_bhtk(*dec),
+                         RK.rwkv6_scan_plain(*dec))
+    check(ok, f"rwkv6_scan_bhtk differs from plain at the decode shape "
+          f"(max abs err {d_err})")
+    d_bnd, d_by = scan_bound(dec)
+    lines = [f"rwkv6_scan_bhtk at the decode shape {list(dec[0].shape)}: "
+             f"{timer(lambda: RK.rwkv6_scan_bhtk(*dec))} ms (plain "
+             f"{timer(lambda: RK.rwkv6_scan_plain(*dec))} ms, bound "
+             f"{d_bnd:.6f} ms by {d_by}), max abs err {d_err:.3g}"]
+
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for i, (T, K, dt) in enumerate((T, K, dt) for T in (1, 32, 50, 1024)
+                                   for K in (16, 64)
+                                   for dt in ("float32", "bfloat16")):
+        a = scan_inputs(torch, dev, 2, 3, T, K, dt, i)
+        e, ok = scan_err(torch, RK.rwkv6_scan_bhtk(*a),
+                         RK.rwkv6_scan_plain(*a))
+        check(ok, f"rwkv scan sweep (T {T}, K {K}, {dt}): max abs err {e}")
+        worst[dt] = max(worst[dt], e)
+        if T == 50:                   # two halves carried through sT
+            o1, s1 = RK.rwkv6_scan_bhtk(*(t[:, :, :21].contiguous()
+                                          for t in a[:4]), a[4], a[5])
+            o2, s2 = RK.rwkv6_scan_bhtk(*(t[:, :, 21:].contiguous()
+                                          for t in a[:4]), a[4], s1)
+            o, s = RK.rwkv6_scan_bhtk(*a)
+            check(torch.equal(torch.cat([o1, o2], 2), o)
+                  and torch.allclose(s2, s, rtol=0, atol=1e-5),
+                  f"rwkv scan: halves carried through sT differ from the "
+                  f"whole sequence (T {T}, K {K}, {dt})")
+    lines.append(f"rwkv scan sweep: 16 cases (T 1/32/50/1024, K 16/64, "
+                 f"float32/bfloat16, non-zero u and s0; T = 50 also as "
+                 f"halves 21 + 29 carried through sT, equal to the whole) "
+                 f"within tolerance: max abs err {worst['float32']:.3g} "
+                 f"float32, {worst['bfloat16']:.3g} bfloat16 (tol 5e-3, "
+                 f"bf16 out also rtol 1e-2)")
+    return entry, lines
+
+
+# ---------------------------------------------------------------------------
+# decode attention, through its own entry point
+# ---------------------------------------------------------------------------
+
+def decode_phase(torch, dev, timer, rehearse):
+    """``ops.decode_attention`` (the JAX wrapper's layout) once at
+    qwen2-0.5b's decode_32k shape, counts reset just before and read just
+    after; then the kernel against its plain version and the library call
+    at that shape, and the sweep."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import ops
+    from repro_torch.models.config import shape_cell
+    cfg = get_config("qwen2_0p5b")
+    cell = shape_cell("decode_32k")
+    B, S, H, KV, hd = (cell.global_batch, cell.seq_len, cfg.n_heads,
+                       cfg.n_kv_heads, cfg.head_dim)
+    G, kv_len = H // KV, DECODE_KV_LEN
+    if rehearse:
+        B, S, kv_len = 2, 640, 600
+    gen = torch.Generator(dev).manual_seed(SEED)
+    q = torch.randn((B, H, hd), generator=gen, device=dev).bfloat16()
+    k = torch.randn((B, S, KV, hd), generator=gen, device=dev).bfloat16()
+    v = torch.randn((B, S, KV, hd), generator=gen, device=dev).bfloat16()
+    length = torch.tensor([kv_len], dtype=torch.int32, device=dev)
+    ops.reset_launch_counts()
+    out = ops.decode_attention(q, k, v, length)
+    sync(torch, dev)
+    launches = ops.launch_counts()
+    check(rehearse or launches["decode_attention_bkgd"] == 1,
+          f"ops.decode_attention launched {launches} kernels")
+    qg = q.reshape(B, KV, G, hd)
+    kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+    del k, v
+    want = DA.decode_attention_plain(qg, kt, vt, kv_len)
+    err = float((out.reshape(B, KV, G, hd).float() - want.float()).abs()
+                .max())
+    tol = decode_tol(torch, want)
+    check(err <= tol, f"decode_attention_bkgd differs from plain at "
+          f"decode_32k (max abs err {err}, tol {tol})")
+    # the checks must tell a wrong kv_len from the right one: all S rows
+    # in bf16, kv_len rounded up to a 64-key tile in float32
+    no_len = float((DA.decode_attention_plain(qg, kt, vt, S).float()
+                    - want.float()).abs().max())
+    del out, want
+    q32, k32, v32 = qg.float(), kt.float(), vt.float()
+    want32 = DA.decode_attention_plain(q32, k32, v32, kv_len)
+    err32 = float((DA.decode_attention_bkgd(q32, k32, v32, length)
+                   - want32).abs().max())
+    tiled = float((DA.decode_attention_plain(q32, k32, v32,
+                                             -(-kv_len // 64) * 64)
+                   - want32).abs().max())
+    del q32, k32, v32, want32
+    check(err32 <= 1e-4, f"decode_attention_bkgd differs from plain at "
+          f"decode_32k in float32 (max abs err {err32}, tol 1e-4)")
+    check(no_len > tol and tiled > 1e-4,
+          f"decode_32k checks too loose: ignoring kv_len moves the output "
+          f"by {no_len} (bf16 tol {tol}), a tile-rounded kv_len by "
+          f"{tiled} (float32 tol 1e-4)")
+    mask = (torch.arange(S, device=dev) < kv_len)[None]      # (1, S)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    n_bytes = 2 * B * KV * kv_len * hd * 2 + 2 * B * H * hd * 2
+    bnd, by = bound_ms(n_bytes, 4 * B * H * kv_len * hd)
+    entry = {
+        "name": "decode_attention_bkgd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:62",
+        "max_abs_err": err, "max_abs_err_float32": err32,
+        "launches": launches["decode_attention_bkgd"],
+        "tolerance": f"{tol:.3g} in bf16 (four bf16 steps of the largest "
+                     f"output), 1e-4 in float32 on the same values",
+        "ms": timer(lambda: DA.decode_attention_bkgd(qg, kt, vt, length)),
+        "plain_ms": timer(lambda: DA.decode_attention_plain(qg, kt, vt,
+                                                            kv_len)),
+        "bound_ms": bnd, "bound_by": by,
+        "library_ms": timer(lambda: sdpa(qg, kt, vt, attn_mask=mask)),
+        "shape": [B, KV, G, S, hd], "kv_len": kv_len,
+        "dtype": "torch.bfloat16"}
+    del qg, kt, vt
+
+    worst, worst_share = {"float32": 0.0, "bfloat16": 0.0}, 0.0
+    sweep = ([(2, 2, 4, S, klen, 64, dt)
+              for S, klen in [(256, 256), (256, 100), (512, 1), (300, 300),
+                              (300, 77)]
+              for dt in ("float32", "bfloat16")]
+             + [(3, 2, 7, 1000, 999, 64, "bfloat16"),
+                (1, 1, 16, 640, 333, 128, "float32")]
+             + [(1, 1, 7, 20000, 12345, 64, dt)
+                for dt in ("float32", "bfloat16")])
+    for i, (B, KV, G, S, klen, hd, dt) in enumerate(sweep):
+        g = torch.Generator(dev).manual_seed(i)
+        dtype = getattr(torch, dt)
+        a, b, c = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                   for shape in ((B, KV, G, hd), (B, KV, S, hd),
+                                 (B, KV, S, hd)))
+        o = DA.decode_attention_bkgd(a, b, c, klen)
+        w = DA.decode_attention_plain(a, b, c, klen)
+        e = float((o.float() - w.float()).abs().max())
+        case_tol = decode_tol(torch, w)
+        check(o.dtype == dtype and e <= case_tol,
+              f"decode sweep {(B, KV, G, S, klen, hd, dt)}: max abs err {e}"
+              f" (tol {case_tol})")
+        worst[dt] = max(worst[dt], e)
+        if dt == "bfloat16":
+            worst_share = max(worst_share, e / case_tol)
+    return entry, [
+        f"decode_attention_bkgd at decode_32k in float32 (the same "
+        f"values): max abs err {err32:.3g} (tol 1e-4); the plain version "
+        f"with kv_len ignored is {no_len:.3g} off in bf16 (tol {tol:.3g}), "
+        f"with kv_len rounded up to 64 keys {tiled:.3g} in float32",
+        f"decode sweep: {len(sweep)} cases ((S, kv_len) of the Pallas "
+        f"test, ragged S 300, G 7/16, hd 128, a 20000-key cache in many "
+        f"splits, in both types) within tolerance: max abs err "
+        f"{worst['float32']:.3g} float32 (tol 1e-4), "
+        f"{worst['bfloat16']:.3g} bfloat16 (tol: four "
+        f"bf16 steps of the case's largest output, at most 2e-2; the worst "
+        f"case used {worst_share:.3f} of its tol)"]
+
+
+def decode_tol(torch, want):
+    """1e-4 in float32.  In bf16 the Pallas test's 2e-2, or four bf16
+    steps (2^(e - 7) for the largest |want| in [2^e, 2^(e+1))) where that
+    is smaller: an output averages ~kv_len / e values of v, so a long
+    cache's outputs are far below 1 and 2e-2 would pass a kernel that
+    ignored kv_len (``decode_phase`` measures by how much)."""
+    if want.dtype == torch.float32:
+        return 1e-4
+    m = float(want.float().abs().max())
+    return min(2e-2, 4 * 2.0 ** (math.floor(math.log2(m)) - 7))
+
+
+def kernel_line(e):
+    extra = "".join(f", {k} {e[k]:.3g}" for k in ("max_abs_err_state",
+                                                   "max_rel_err_out")
+                    if k in e)
+    return (f"kernel {e['name']} {e['shape']} {e['dtype']}: {e['ms']} ms "
+            f"(plain {e['plain_ms']} ms, bound {e['bound_ms']:.6f} ms by "
+            f"{e['bound_by']}, library {e['library_ms']}), max abs err "
+            f"{e['max_abs_err']:.3g}{extra} (tolerance: {e['tolerance']}), "
+            f"launches {e['launches']}")
+
+
+# ---------------------------------------------------------------------------
+# correctness of the RWKV path at full width, in float32
+# ---------------------------------------------------------------------------
+
+def rwkv_fp32_phase(torch, dev, rehearse):
+    """The kernel path (pallas) against the chunked plain path (xla_flash)
+    on the same float32 weights, both fed the same tokens: two prompts,
+    prefill then decode steps; and the kernel path's decode against a full
+    forward over prompt + generated tokens.  atol 2e-2 (the JAX model
+    test's decode-vs-full tolerance)."""
+    from repro_torch.models import model as M
+    from repro_torch.models import serve as SV
+    cfg = rwkv_config(rehearse, attn_impl="pallas", dtype="float32")
+    plain = dataclasses.replace(cfg, attn_impl="xla_flash")
+    n_prompt, n_dec = (32, 3) if rehearse else (RWKV_FP32_PROMPT,
+                                                RWKV_FP32_DECODE)
+    params = M.init_params(torch.Generator(dev).manual_seed(SEED + 1), cfg,
+                           device=dev)
+    prompts = torch.as_tensor(np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab_size, (2, n_prompt)), device=dev)
+    caches = {c.attn_impl: SV.init_cache(c, 2, n_prompt + n_dec, device=dev)
+              for c in (cfg, plain)}
+    last = {}
+    for c in (cfg, plain):
+        last[c.attn_impl], caches[c.attn_impl], _ = SV.prefill(
+            params, c, prompts, cache=caches[c.attn_impl])
+    toks = [last["pallas"].argmax(-1)]
+    worst = float((last["pallas"] - last["xla_flash"]).abs().max())
+    for _ in range(n_dec):
+        for c in (cfg, plain):
+            last[c.attn_impl], caches[c.attn_impl] = SV.decode_step(
+                params, c, toks[-1][:, None], cache=caches[c.attn_impl])
+        worst = max(worst, float((last["pallas"] - last["xla_flash"]).abs()
+                                 .max()))
+        toks.append(last["pallas"].argmax(-1))
+    check(worst <= 2e-2, f"rwkv fp32: kernel path differs from the plain "
+          f"path (max abs err {worst}, tol 2e-2)")
+    seq = torch.cat([prompts, torch.stack(toks[:-1], 1)], 1)
+    full = M.forward(params, cfg, seq).logits[:, -1]
+    d_err = float((full - last["pallas"]).abs().max())
+    check(d_err <= 2e-2, f"rwkv fp32: decode differs from the full "
+          f"forward (max abs err {d_err}, tol 2e-2)")
+    check(bool(torch.isfinite(full).all()), "rwkv fp32: logits not finite")
+    return [f"rwkv float32 ({cfg.n_layers} layers, d_model {cfg.d_model}): "
+            f"2 prompts x {n_prompt} tokens + {n_dec} decode steps, kernel "
+            f"path vs chunked plain path max abs err {worst:.3g} over every "
+            f"step's logits; decode vs full forward over {seq.shape[1]} "
+            f"tokens max abs err {d_err:.3g} (tol 2e-2)"]
+
+
 # ---------------------------------------------------------------------------
 
 def main(argv=None):
@@ -627,20 +1108,46 @@ def main(argv=None):
         print(line, flush=True)
     for line in trunk_compare(torch, dev, tf, serve, data):
         print(line, flush=True)
+    if not args.rehearse:
+        check(peak < SERVING_PEAK_LIMIT, f"serving peak {gib(peak)} is not "
+              f"under {gib(SERVING_PEAK_LIMIT)}")
+        want = spec.layer * (N_FRAMES // BATCH)
+        check(launches["flash_attention_bhsd"] == want,
+              f"flash_attention_bhsd launched "
+              f"{launches['flash_attention_bhsd']} times on the main path, "
+              f"want {want} (one per trunk layer and batch)")
+        for e in entries:
+            check(launches[e["name"]] > 0,
+                  f"{e['name']} was not launched on the main path")
+            e["launches"] = launches[e["name"]]
+    del tf, serve, params, data
+
+    # on the CPU each timed call runs once, untimed
+    timer = (lambda fn: (fn(), None)[1]) if args.rehearse else \
+        (lambda fn: time_ms(torch, fn))
+    rwkv_launches, calls, lines = rwkv_serving_phase(torch, dev,
+                                                     args.rehearse)
+    for line in lines:
+        print(line, flush=True)
+    scan, lines = rwkv_kernel_phase(torch, dev, calls, timer)
+    scan["launches"] = rwkv_launches["rwkv6_scan_bhtk"]
+    del calls
+    print(kernel_line(scan), flush=True)
+    for line in lines:
+        print(line, flush=True)
+    decode, lines = decode_phase(torch, dev, timer, args.rehearse)
+    print(kernel_line(decode), flush=True)
+    for line in lines:
+        print(line, flush=True)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    for line in rwkv_fp32_phase(torch, dev, args.rehearse):
+        print(line, flush=True)
     if args.rehearse:
         print("rehearsal done (CPU: plain versions, no kernels)")
         return 0
-    check(peak < SERVING_PEAK_LIMIT, f"serving peak {gib(peak)} is not "
-          f"under {gib(SERVING_PEAK_LIMIT)}")
-    want = spec.layer * (N_FRAMES // BATCH)
-    check(launches["flash_attention_bhsd"] == want,
-          f"flash_attention_bhsd launched {launches['flash_attention_bhsd']}"
-          f" times on the main path, want {want} (one per trunk layer and "
-          f"batch)")
+    entries += [scan, decode]
     for e in entries:
-        check(launches[e["name"]] > 0,
-              f"{e['name']} was not launched on the main path")
-        e["launches"] = launches[e["name"]]
         e["kernel_ms"] = e["ms"]
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -25,14 +25,17 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.normpath(os.path.join(_HERE, "..", "..", "..", "build",
                                           "kernels"))
-SOURCES = ("spatial_stats", "cam_head", "flash_attention")
+SOURCES = ("spatial_stats", "cam_head", "flash_attention", "rwkv6_scan",
+           "decode_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES: Dict[str, int] = {"spatial_stats_bgc": 0,
                             "spatial_stats_rows_bgc": 0,
                             "cam_head_bgd": 0,
-                            "flash_attention_bhsd": 0}
+                            "flash_attention_bhsd": 0,
+                            "rwkv6_scan_bhtk": 0,
+                            "decode_attention_bkgd": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -46,6 +49,10 @@ _SIGNATURES = {
     "flash_attention": {
         "flash_attention_launch": ([_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
                                     _I, _I, _I, _I, _F, _VP], _I)},
+    "rwkv6_scan": {
+        "rwkv6_scan_launch": ([_VP] * 8 + [_I] * 6 + [_VP], _I)},
+    "decode_attention": {
+        "decode_attention_launch": ([_VP] * 6 + [_I] * 8 + [_F, _VP], _I)},
 }
 
 

@@ -3,6 +3,11 @@
 A CPU tensor goes to the plain version and a CUDA tensor to the kernel
 (the wrappers decide, from the tensor's device alone).  Layout adapters
 live here so callers keep the JAX package's (B, g, g, ·) layouts.
+
+``decode_attention(block_k=)`` and ``rwkv6_scan(chunk=)`` are the TPU
+kernels' tile sizes.  They are accepted only to keep the JAX wrappers'
+signatures, and ignored: the CUDA kernels choose their own tiles and
+take every length.
 """
 from __future__ import annotations
 
@@ -12,7 +17,9 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.cam_head import cam_head_bgd
+from repro_torch.kernels.decode_attention import decode_attention_bkgd
 from repro_torch.kernels.flash_attention import flash_attention_bhsd
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan_bhtk
 from repro_torch.kernels.spatial_predicate import (spatial_stats_bgc,
                                                    spatial_stats_rows_bgc)
 
@@ -40,6 +47,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.transpose(1, 2)
 
 
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     kv_len, *, block_k: int = 256) -> torch.Tensor:
+    """q: (B, H, hd); k, v: (B, S, KV, hd); kv_len: int or a one-element
+    tensor -> (B, H, hd).
+
+    Every S goes to the kernel on the card, which masks the ragged edge
+    itself."""
+    del block_k
+    B, H, hd = q.shape
+    KV = k.shape[2]
+    out = decode_attention_bkgd(q.reshape(B, KV, H // KV, hd),
+                                k.transpose(1, 2).contiguous(),
+                                v.transpose(1, 2).contiguous(), kv_len)
+    return out.reshape(B, H, hd)
+
+
 def cam_head(feat: torch.Tensor, w: torch.Tensor, b: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """feat: (B, g, g, D); w: (D, C); b: (C,) -> (counts, cam (B,g,g,C))."""
@@ -61,3 +84,13 @@ def spatial_stats_rows_inline(grid_logits: torch.Tensor, rows: torch.Tensor,
     """Stats over a row subset: (B, g, g, C) x (R,) -> (R, C, 5)."""
     return spatial_stats_rows_bgc(grid_logits.contiguous(), rows, tau=tau)
 
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               lw: torch.Tensor, u: torch.Tensor, s0: torch.Tensor, *,
+               chunk: int = 32) -> Tuple[torch.Tensor, torch.Tensor]:
+    """r, k, v, lw: (B, H, T, K); u: (H, K); s0: (B, H, K, V) ->
+    (out (B, H, T, V) in r's dtype, sT (B, H, K, V) float32).
+
+    Every T goes to the kernel on the card (it runs token by token)."""
+    del chunk
+    return rwkv6_scan_bhtk(*(t.contiguous() for t in (r, k, v, lw, u, s0)))

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the ported kernels.
 
-``flash_attention_ref``, ``spatial_stats_ref`` and ``cam_head_ref``
-mirror the JAX package's ``kernels/ref.py`` oracles; ``spatial_stats_proj`` mirrors its
+``flash_attention_ref``, ``decode_attention_ref``, ``spatial_stats_ref``,
+``cam_head_ref`` and ``rwkv6_scan_ref`` mirror the JAX package's
+``kernels/ref.py`` oracles; ``spatial_stats_proj`` mirrors its
 ``ops._spatial_stats_proj``, the projection reduction that is the plain
 version of both spatial-stats kernels here.  The CPU path of every
 kernel wrapper runs these, and on the card they are what the kernels
@@ -45,6 +46,27 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     del s
     out = torch.einsum("bnqgs,bsnd->bnqgd", p, v)
     return out.permute(0, 2, 1, 3, 4).reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         kv_len) -> torch.Tensor:
+    """q: (B, H, hd) single step; k, v: (B, S, KV, hd); kv_len: int or a
+    one-element tensor.  Keys at positions >= kv_len score NEG_INF; the
+    softmax is float32 and the probabilities are cast to ``v``'s dtype
+    before the product with ``v``."""
+    B, H, hd = q.shape
+    _, Sk, KV, _ = k.shape
+    G = H // KV
+    qg = q.reshape(B, KV, G, hd)
+    s = torch.einsum("bngd,bsnd->bngs", qg.float(),
+                     k.float()) / math.sqrt(hd)
+    kv_len = torch.as_tensor(kv_len, device=q.device).reshape(())
+    valid = torch.arange(Sk, device=q.device)[None, None, None, :] < kv_len
+    s = torch.where(valid, s, torch.full((), NEG_INF, device=q.device))
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    del s
+    out = torch.einsum("bngs,bsnd->bngd", p, v)
+    return out.reshape(B, H, hd).to(q.dtype)
 
 
 def cam_head_ref(feat: torch.Tensor, w: torch.Tensor,
@@ -105,3 +127,28 @@ def spatial_stats_proj(grid_logits: torch.Tensor,
     max_col = torch.where(pcol, idx, neg).amax(1)
     n = occ.sum(dim=(1, 2)).float()
     return torch.stack([min_row, max_row, min_col, max_col, n], dim=-1)
+
+
+def rwkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   lw: torch.Tensor, u: torch.Tensor, s0: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential (per-token) RWKV-6 recurrence.
+
+    r, k, v, lw: (B, H, T, K); u: (H, K); s0: (B, H, K, V).
+    S_t = diag(exp(lw_t)) S_{t-1} + k_t v_t^T
+    o_t = r_t S_{t-1} + (r_t . u . k_t) v_t
+    Returns (out (B, H, T, V), S_T (B, H, K, V)), both float32: the
+    caller casts ``out`` as the kernel does.
+    """
+    rf, kf, vf, wf = (a.float() for a in (r, k, v, lw))
+    uf = u.float()
+    S = s0.float()
+    outs = []
+    for t in range(r.shape[2]):
+        rt, kt, vt = rf[:, :, t], kf[:, :, t], vf[:, :, t]
+        o = torch.einsum("bhk,bhkv->bhv", rt, S)
+        o = o + torch.einsum("bhk,hk,bhk->bh", rt, uf, kt)[..., None] * vt
+        S = (S * torch.exp(wf[:, :, t])[..., None]
+             + kt[..., None] * vt[..., None, :])
+        outs.append(o)
+    return torch.stack(outs, dim=2), S

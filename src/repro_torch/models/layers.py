@@ -1,11 +1,13 @@
-"""The neural layers the filter trunk uses, in plain PyTorch.
+"""The neural layers of the ported models, in plain PyTorch.
 
-Only what ``train.filter_train.default_trunk`` reaches is ported here:
-RMSNorm, multi-head attention without a KV cache or rope (naive full
-softmax, or the flash-attention kernel when the trunk is served with
-``attn_impl="pallas"``; see ``_attend``), and the gated SiLU MLP.  Parameters are plain dicts of tensors in the JAX package's layouts
-(``wq`` (d, H, hd), ``wo`` (H, hd, d), ...), so weights carry across
-with a tree map.  Initializers draw from an explicit ``torch.Generator``.
+What ``train.filter_train.default_trunk`` reaches is ported here (the
+RWKV-6 blocks live in ``ssm.py``): RMSNorm, multi-head attention without
+a KV cache or rope (naive full softmax, or the flash-attention kernel
+when the trunk is served with ``attn_impl="pallas"``; see ``_attend``),
+and the gated SiLU MLP.  Parameters are plain dicts of tensors in the
+JAX package's layouts (``wq`` (d, H, hd), ``wo`` (H, hd, d), ...), so
+weights carry across with a tree map.  Initializers draw from an
+explicit ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -23,19 +25,23 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise for trunk features this slice of the port does not carry."""
+    """Raise for features this slice of the port does not carry.  Two
+    block kinds are ported: attention + gated SiLU MLP without rope (the
+    filter's ``default_trunk``) and RWKV-6; both with RMSNorm."""
     unsupported = {
-        "block": cfg.block != BlockKind.ATTN, "enc_dec": cfg.enc_dec,
+        "block": cfg.block not in (BlockKind.ATTN, BlockKind.RWKV6),
+        "enc_dec": cfg.enc_dec, "vlm_prefix": cfg.vlm_prefix > 0,
         "use_rope": cfg.use_rope, "layernorm": cfg.layernorm,
         "qkv_bias": cfg.qkv_bias, "glu": not cfg.glu,
         "activation": cfg.activation != Activation.SILU,
         "sliding_window": cfg.sliding_window is not None,
-        "learned_pos": cfg.learned_pos,
+        "learned_pos": cfg.learned_pos, "scale_embed": cfg.scale_embed,
         "logits_softcap": cfg.logits_softcap != 0.0}
     bad = sorted(k for k, v in unsupported.items() if v)
     if bad:
-        raise NotImplementedError(f"trunk features not ported: {bad} (the "
-                                  f"port carries the filter's default_trunk)")
+        raise NotImplementedError(f"model features not ported: {bad} (the "
+                                  f"port carries the filter's default_trunk "
+                                  f"and RWKV-6)")
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:

@@ -9,9 +9,12 @@ conftest:
 
 Spatial stats are held bit for bit; the CAM head at 1e-4 (the same fp32
 products summed in another order), with TF32 off for matmuls and cuDNN.
-Flash attention is held at max abs err 1e-4 in float32 and 2e-2 in
-bfloat16 (one bf16 rounding of outputs of magnitude ~1), as
-tests/test_kernels.py holds the Pallas kernel.
+Flash and decode attention are held at max abs err 1e-4 in float32 and
+2e-2 in bfloat16 (one bf16 rounding of outputs of magnitude ~1), as
+tests/test_kernels.py holds the Pallas kernels; decode attention in
+bfloat16 also at four bf16 steps of its largest output where that is
+smaller, since a long cache's outputs are far below 1.  The WKV scan at
+the JAX kernel test's 5e-3 (and one bf16 step of its output, rtol 1e-2).
 """
 import dataclasses
 
@@ -24,8 +27,10 @@ from repro_torch.core.filters import FilterOutputs
 from repro_torch.core.plan import QueryPlan
 from repro_torch.kernels import build
 from repro_torch.kernels import cam_head as CH
+from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops
+from repro_torch.kernels import rwkv6_scan as RK
 from repro_torch.kernels import spatial_predicate as SP
 from repro_torch.models.config import BranchSpec
 from repro_torch.train import filter_train as TT
@@ -208,3 +213,158 @@ def test_filter_forward_pallas_trunk_matches_naive_trunk(cuda_device):
     assert build.LAUNCHES["flash_attention_bhsd"] == before + 2
     torch.testing.assert_close(b.counts, a.counts, rtol=1e-4, atol=1e-3)
     torch.testing.assert_close(b.grid, a.grid, rtol=1e-4, atol=1e-3)
+
+
+# (B, H, T, K, V, dtype): decode's T = 1, one chunk, a ragged T, a long
+# prompt, every K the kernel takes, a V that is not a multiple of 32
+RWKV_SWEEP = (
+    [(2, 3, T, K, K, dt) for T in (1, 32, 50, 1024) for K in (16, 64)
+     for dt in ("float32", "bfloat16")]
+    + [(1, 2, 77, 32, 32, "float32"), (1, 2, 40, 128, 128, "bfloat16"),
+       (2, 2, 33, 64, 40, "float32")])
+
+
+def _scan_inputs(case, dev, seed=0):
+    """The JAX kernel test's distributions, with a non-zero u and s0."""
+    B, H, T, K, V, dt = case
+    rng = np.random.default_rng(seed)
+    dtype = getattr(torch, dt)
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(a.astype(np.float32), device=dev).to(dtype)
+
+    r, k = (t(rng.normal(0, 1, (B, H, T, K)), dtype) for _ in range(2))
+    v = t(rng.normal(0, 1, (B, H, T, V)), dtype)
+    lw = t(np.clip(-np.exp(rng.normal(0, 1, (B, H, T, K)) * 0.3), -2.0,
+                   -1e-6))
+    u = t(rng.normal(0, 1, (H, K)) * 0.1)
+    s0 = t(rng.normal(0, 1, (B, H, K, V)) * 0.1)
+    return r, k, v, lw, u, s0
+
+
+def _scan_close(out, sT, want_out, want_sT):
+    """out against the plain version's (both rounded to r's dtype: one
+    bf16 step, rtol 1e-2, may separate them), sT in fp32 at the JAX kernel
+    test's 5e-3."""
+    rtol = 0 if out.dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(out.float(), want_out.float(), rtol=rtol,
+                               atol=5e-3)
+    torch.testing.assert_close(sT, want_sT, rtol=0, atol=5e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RWKV_SWEEP, ids=str)
+def test_rwkv6_scan_kernel_matches_plain(cuda_device, case):
+    args = _scan_inputs(case, cuda_device)
+    before = build.LAUNCHES["rwkv6_scan_bhtk"]
+    out, sT = RK.rwkv6_scan_bhtk(*args)
+    want_out, want_sT = RK.rwkv6_scan_plain(*args)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["rwkv6_scan_bhtk"] == before + 1
+    assert out.dtype == args[0].dtype and sT.dtype == torch.float32
+    _scan_close(out, sT, want_out, want_sT)
+    again = RK.rwkv6_scan_bhtk(*args)
+    assert torch.equal(again[0], out) and torch.equal(again[1], sT)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_rwkv6_scan_kernel_state_continuation(cuda_device, dt):
+    r, k, v, lw, u, s0 = _scan_inputs((2, 4, 100, 64, 64, dt), cuda_device,
+                                      seed=1)
+    whole, whole_s = RK.rwkv6_scan_bhtk(r, k, v, lw, u, s0)
+    h = 37
+    o1, s1 = ops.rwkv6_scan(r[:, :, :h], k[:, :, :h], v[:, :, :h],
+                            lw[:, :, :h], u, s0)
+    o2, s2 = ops.rwkv6_scan(r[:, :, h:], k[:, :, h:], v[:, :, h:],
+                            lw[:, :, h:], u, s1)
+    torch.testing.assert_close(torch.cat([o1, o2], 2), whole, rtol=0,
+                               atol=1e-5 if dt == "float32" else 0)
+    torch.testing.assert_close(s2, whole_s, rtol=0, atol=1e-5)
+
+
+# (B, KV, G, S, kv_len, hd, dtype): the JAX decode test's cases, a ragged
+# S, qwen2-0.5b's group of 7, the widest group and head, one kv_len of 1,
+# and a long cache that the wrapper cuts into many splits
+DECODE_SWEEP = (
+    [(2, 2, 4, S, klen, 64, dt)
+     for S, klen in [(256, 256), (256, 100), (512, 1), (300, 300),
+                     (300, 77)]
+     for dt in ("float32", "bfloat16")]
+    + [(3, 2, 7, 1000, 999, 64, "bfloat16"), (1, 1, 16, 640, 333, 128,
+                                              "float32"),
+       (2, 2, 1, 129, 65, 128, "bfloat16")]
+    + [(1, 1, 7, 20000, 12345, 64, dt) for dt in ("float32", "bfloat16")])
+
+
+def _decode_tol(want):
+    """1e-4 in float32; in bf16 2e-2 or four bf16 steps of the largest
+    |want| (2^(e - 7) in [2^e, 2^(e+1))), whichever is smaller: a long
+    cache's outputs are far below 1, and 2e-2 would pass a kernel that
+    ignored kv_len."""
+    if want.dtype == torch.float32:
+        return 1e-4
+    m = float(want.float().abs().max())
+    return min(2e-2, 4 * 2.0 ** (np.floor(np.log2(m)) - 7))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DECODE_SWEEP, ids=str)
+def test_decode_attention_kernel_matches_plain(cuda_device, case):
+    B, KV, G, S, klen, hd, dt = case
+    rng = np.random.default_rng(S + klen)
+    dtype = getattr(torch, dt)
+    q, k, v = (torch.as_tensor(rng.normal(0, 1, shape).astype(np.float32),
+                               device=cuda_device).to(dtype)
+               for shape in ((B, KV, G, hd), (B, KV, S, hd), (B, KV, S, hd)))
+    length = torch.tensor([klen], dtype=torch.int32, device=cuda_device)
+    before = build.LAUNCHES["decode_attention_bkgd"]
+    out = DA.decode_attention_bkgd(q, k, v, length)
+    want = DA.decode_attention_plain(q, k, v, klen)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["decode_attention_bkgd"] == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    atol = _decode_tol(want)
+    err = float((out.float() - want.float()).abs().max())
+    assert err <= atol, (err, atol)
+    assert torch.equal(DA.decode_attention_bkgd(q, k, v, klen), out)
+    # the JAX layout's wrapper reaches the same kernel
+    got = ops.decode_attention(q.reshape(B, KV * G, hd), k.transpose(1, 2),
+                               v.transpose(1, 2), length)
+    assert torch.equal(got, out.reshape(B, KV * G, hd))
+
+
+@pytest.mark.cuda
+def test_cpu_tensors_never_launch_on_a_machine_with_a_card(cuda_device):
+    before = dict(build.LAUNCHES)
+    args = _scan_inputs((1, 2, 9, 16, 16, "float32"), "cpu")
+    ops.rwkv6_scan(*args)
+    ops.decode_attention(torch.zeros(1, 4, 64), torch.zeros(1, 8, 2, 64),
+                         torch.zeros(1, 8, 2, 64), 3)
+    assert build.LAUNCHES == before
+    with pytest.raises(ValueError):
+        RK.rwkv6_scan_bhtk(*(a.to(cuda_device) for a in args[:3]), *args[3:])
+
+
+@pytest.mark.cuda
+def test_rwkv_model_pallas_path_matches_plain_path(cuda_device):
+    """The rwkv6-3b smoke model on the card: the kernel path (pallas)
+    against the chunked plain path on the same weights, and the kernel
+    launched once per layer per call."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as TM
+    from repro_torch.models import serve as TSV
+    plain = get_smoke_config("rwkv6_3b")
+    pallas = dataclasses.replace(plain, attn_impl="pallas")
+    p = TM.init_params(torch.Generator(cuda_device).manual_seed(0), plain)
+    prompt = torch.as_tensor(np.random.default_rng(2).integers(
+        0, plain.vocab_size, (2, 40)), device=cuda_device)
+    before = build.LAUNCHES["rwkv6_scan_bhtk"]
+    a = TSV.greedy_generate(p, plain, prompt, 5, 64)
+    assert build.LAUNCHES["rwkv6_scan_bhtk"] == before
+    b = TSV.greedy_generate(p, pallas, prompt, 5, 64)
+    assert build.LAUNCHES["rwkv6_scan_bhtk"] == before + 5 * plain.n_layers
+    assert torch.equal(a, b)
+    la = TM.forward(p, plain, prompt).logits
+    lb = TM.forward(p, pallas, prompt).logits
+    torch.testing.assert_close(lb, la, rtol=0, atol=2e-2)

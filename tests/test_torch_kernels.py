@@ -20,6 +20,7 @@ from repro.kernels.spatial_predicate import (
     stage_class_slice as ref_class_slice)
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import cam_head as CH
+from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import spatial_predicate as SP
 
 
@@ -127,12 +128,70 @@ def test_eval_spatial_leaves_and_class_slice_identical():
         np.testing.assert_array_equal(x, y)
 
 
+# the JAX decode test's six cases (S, kv_len) x dtype, and a ragged S = 300
+# that the JAX wrapper's 256-key blocks do not divide (it falls back to its
+# reference there)
+DECODE_CASES = [(S, klen, dt) for S, klen in [(256, 256), (256, 100),
+                                              (512, 1), (300, 300),
+                                              (300, 77)]
+                for dt in ("float32", "bfloat16")]
+
+
+@pytest.mark.parametrize("S,klen,dt", DECODE_CASES)
+def test_decode_attention_plain_vs_pallas_interpreter(S, klen, dt):
+    """The port's ``ops.decode_attention`` (its plain version on a CPU
+    tensor) against JAX's wrapper, which interprets the Pallas kernel:
+    1e-4 in float32, 2e-2 in bfloat16, as tests/test_kernels.py holds it."""
+    B, H, KV, hd = 2, 8, 2, 64
+    rng = np.random.default_rng(S + klen)
+    q, k, v = (rng.normal(0, 1, shape).astype(np.float32)
+               for shape in ((B, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    jdt = getattr(jnp, dt)
+    want = rops.decode_attention(*(jnp.asarray(a, jdt) for a in (q, k, v)),
+                                 jnp.int32(klen))
+    tq, tk, tv = (torch.as_tensor(a).to(getattr(torch, dt))
+                  for a in (q, k, v))
+    for kv_len in (klen, torch.tensor([klen], dtype=torch.int32)):
+        got = ops.decode_attention(tq, tk, tv, kv_len)
+        assert got.dtype == tq.dtype and got.shape == (B, H, hd)
+        np.testing.assert_allclose(
+            got.float().numpy(), np.asarray(want, np.float32),
+            atol=1e-4 if dt == "float32" else 2e-2)
+    # the kernel layout's plain version equals the JAX reference's
+    got = DA.decode_attention_bkgd(
+        tq.reshape(B, KV, H // KV, hd), tk.transpose(1, 2).contiguous(),
+        tv.transpose(1, 2).contiguous(), klen)
+    np.testing.assert_allclose(
+        got.reshape(B, H, hd).float().numpy(),
+        np.asarray(rref.decode_attention_ref(
+            *(jnp.asarray(a, jdt) for a in (q, k, v)), jnp.int32(klen)),
+            np.float32), atol=1e-4 if dt == "float32" else 2e-2)
+
+
+def test_decode_attention_splits_cover_the_cache():
+    for B, KV, S in [(128, 2, 32768), (2, 2, 512), (1, 1, 1), (4, 8, 300),
+                     (1, 2, 100000)]:
+        span, nsplit = DA.splits(B, KV, S, 132)
+        assert span % DA.TILE == 0 and nsplit >= 1
+        assert (nsplit - 1) * span < S <= nsplit * span
+    with pytest.raises(ValueError, match="kv_len"):
+        DA.decode_attention_bkgd(torch.zeros(1, 1, 1, 64),
+                                 torch.zeros(1, 1, 8, 64),
+                                 torch.zeros(1, 1, 8, 64), 9)
+
+
 def test_cpu_dispatch_never_launches_and_other_devices_raise():
     build.reset_launches()
     gl = torch.as_tensor(_occupancy_grid(0))
     ops.spatial_stats_inline(gl)
     ops.spatial_stats_rows_inline(gl, torch.tensor([1, 0]))
     ops.cam_head(torch.zeros(2, 4, 4, 8), torch.zeros(8, 3), torch.zeros(3))
+    ops.flash_attention(torch.zeros(1, 8, 2, 32), torch.zeros(1, 8, 2, 32),
+                        torch.zeros(1, 8, 2, 32))
+    ops.decode_attention(torch.zeros(1, 4, 64), torch.zeros(1, 8, 2, 64),
+                         torch.zeros(1, 8, 2, 64), 3)
+    ops.rwkv6_scan(*(torch.zeros(1, 2, 3, 16) for _ in range(4)),
+                   torch.zeros(2, 16), torch.zeros(1, 2, 16, 16))
     assert ops.launch_counts() == {k: 0 for k in build.LAUNCHES}
     meta = torch.empty((2, 4, 4, 3), device="meta")
     with pytest.raises(ValueError):
