@@ -18,10 +18,19 @@ Phases (any failure exits non-zero and prints no result line):
    spatial-stats kernels bit for bit (``torch.equal``; the row kernel on
    an unsorted row list with duplicates), the CAM head at 1e-4, flash
    attention at max abs err 1e-4 (float32), plus a sweep of shapes,
-   types, masks, GQA and ragged lengths (1e-4 float32, 2e-2 bfloat16).
-   Each is timed with CUDA events (median of 25) beside its plain
-   version, a library yardstick where one PyTorch call computes the
-   same function, and its bound.
+   types, masks, GQA and ragged lengths (1e-4 float32, 2e-2 bfloat16),
+   and a stress sweep of the float32 kernel's 3xTF32 split (q and k
+   scaled by 3 and 8, values over four decades; 1e-4 against float64,
+   and against the plain version except at x8); an in-run check that
+   the plain version with one TF32 pass (``allow_tf32``) at the main
+   shape, q and k scaled by 3, misses 1e-4.  Each kernel and library
+   call is timed three ways: its device time per call from
+   torch.profiler (25 calls after a warm-up; the ``ms`` of the kernel
+   line), the median CUDA-event interval around one call ("call ms",
+   the Python wrapper included), and CUDA events around 50
+   back-to-back calls; the plain version by its call interval.  Beside
+   them its bound and a library yardstick where one PyTorch call
+   computes the same function.
 4. The main path at full width: the trained filter served through the
    kernels (``attn_impl="pallas"`` trunk, CAM head kernel), 256 frames in
    batches of 32 through MultiQueryStreamExecutor -> MultiQueryExecutor
@@ -71,6 +80,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -83,6 +93,7 @@ SRC = os.path.join(HERE, "src")
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
+TF32_FLOPS = 495e12            # H100 SXM dense TF32 tensor cores
 N_FRAMES, BATCH, WINDOW = 256, 32, 128
 SEED = 0
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_FRAMES, EVAL_FRAMES = 96, 8, 256, 64
@@ -142,9 +153,97 @@ def time_ms(torch, fn, reps=25, warmup=3):
     return times[len(times) // 2]
 
 
-def bound_ms(n_bytes, n_ops):
+def device_ms(torch, fn, expect=None, calls=25, tries=5):
+    """Device time per call of ``fn`` from torch.profiler, over ``calls``
+    calls after a warm-up.  The profiler may miss launches of a window
+    (a few, or on the card at times all of them), so each kernel is read
+    by its mean over its recorded launches, times its launches per call:
+    its count over that of the call's own kernel (``expect``, a piece of
+    its name; for a library call, its least launched kernel); a window
+    with no launch of ``expect`` is profiled again, up to ``tries``
+    windows in all.  Fails if none records one.  Returns the time and the
+    number of windows it took."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    for window in range(1, tries + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.count > 0
+                and e.self_device_time_total > 0]
+        n = [e.count for e in kern if expect is None or expect in e.key]
+        if n:
+            return sum(e.self_device_time_total / e.count
+                       * round(e.count / min(n)) for e in kern) / 1e3, window
+    raise SmokeError(f"torch.profiler recorded no device time for "
+                     f"{expect or 'a library call'} in {tries} windows")
+
+
+def b2b_ms(torch, fn, calls=50):
+    """CUDA events around ``calls`` back-to-back calls, over ``calls``."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def kernel_times(torch, fn, expect=None):
+    """The three readings of one kernel or library call (see phase 3),
+    and the profiler windows the first took."""
+    ms, windows = device_ms(torch, fn, expect)
+    return {"ms": ms, "call_ms": time_ms(torch, fn),
+            "b2b_ms": b2b_ms(torch, fn), "profiler_windows": windows}
+
+
+def library_entry(t):
+    """``kernel_times`` of a library call, under the kernel line's keys."""
+    return {"library_ms": t["ms"], "library_call_ms": t["call_ms"],
+            "library_b2b_ms": t["b2b_ms"],
+            "library_profiler_windows": t.get("profiler_windows")}
+
+
+def ptxas_lines(libs):
+    """Registers and spills of every kernel, from the ``-Xptxas -v`` report
+    ``build.build_all`` keeps beside each library (``<lib>.log``)."""
+    prop = re.compile(r"Function properties for (\S+)\s+\d+ bytes stack "
+                      r"frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads\s+ptxas info\s*: Used (\d+) registers")
+    lines = []
+    for name, path in sorted(libs.items()):
+        with open(path + ".log") as f:
+            log = f.read()
+        parts = []
+        for mangled, st, ld, regs in prop.findall(log):
+            m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
+            fn, rest = mangled, ""
+            if m:
+                fn = mangled[m.end():m.end() + int(m.group(1))]
+                rest = mangled[m.end() + int(m.group(1)):]
+            args = [{"f": "float", "13__nv_bfloat16": "bf16"}[a]
+                    for a in re.findall(r"^I(f|13__nv_bfloat16)", rest)]
+            args += re.findall(r"Li(\d+)E", rest.split("Ev")[0])
+            args += [{"0": "false", "1": "true"}[b]
+                     for b in re.findall(r"Lb([01])E", rest.split("Ev")[0])]
+            tag = f"{fn}<{', '.join(args)}>" if args else fn
+            parts.append(f"{tag} {regs} regs, spill {st}/{ld} B")
+        lines.append(f"nvcc -Xptxas -v, {name}.cu: " + "; ".join(parts))
+    return lines
+
+
+def bound_ms(n_bytes, n_ops, flops=FP32_FLOPS):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_FLOPS * 1e3
+    t_ops = n_ops / flops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -447,7 +546,8 @@ def kernel_phase(torch, dev, feat, params, grid, rows):
         "source": "src/repro_torch/kernels/csrc/spatial_stats.cu",
         "replaces": "src/repro/kernels/spatial_predicate.py:44",
         "max_abs_err": float((s_k - s_p).abs().max()),
-        "ms": time_ms(torch, lambda: SP.spatial_stats_bgc(grid)),
+        **kernel_times(torch, lambda: SP.spatial_stats_bgc(grid),
+                       "spatial_stats_kernel"),
         "plain_ms": time_ms(torch, lambda: SP.spatial_stats_plain(grid)),
         "bound_ms": bnd, "bound_by": by, "library_ms": None,
         "shape": [B, g, g, C]})
@@ -463,7 +563,8 @@ def kernel_phase(torch, dev, feat, params, grid, rows):
         "source": "src/repro_torch/kernels/csrc/spatial_stats.cu",
         "replaces": "src/repro/kernels/spatial_predicate.py:66",
         "max_abs_err": float((r_k - r_p).abs().max()),
-        "ms": time_ms(torch, lambda: SP.spatial_stats_rows_bgc(grid, rows)),
+        **kernel_times(torch, lambda: SP.spatial_stats_rows_bgc(grid, rows),
+                       "spatial_stats_kernel"),
         "plain_ms": time_ms(torch,
                             lambda: SP.spatial_stats_rows_plain(grid, rows)),
         "bound_ms": bnd, "bound_by": by, "library_ms": None,
@@ -475,6 +576,9 @@ def kernel_phase(torch, dev, feat, params, grid, rows):
     check(torch.allclose(m_k, m_p, rtol=1e-4, atol=1e-4)
           and torch.allclose(c_k, c_p, rtol=1e-4, atol=1e-4),
           f"cam_head_bgd differs from plain (max abs err {err})")
+    c_2, m_2 = CH.cam_head_bgd(feat, w, b)
+    check(torch.equal(c_2, c_k) and torch.equal(m_2, m_k),
+          "cam_head_bgd gave other bits on a repeated call")
     Bf, P, D = feat.shape
     Cw = w.shape[1]
     bnd, by = bound_ms(Bf * P * D * 4 + D * Cw * 4 + Cw * 4 + Bf * Cw * 4
@@ -483,18 +587,34 @@ def kernel_phase(torch, dev, feat, params, grid, rows):
         "name": "cam_head_bgd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/cam_head.cu",
         "replaces": "src/repro/kernels/cam_head.py:49",
-        "max_abs_err": err,
-        "ms": time_ms(torch, lambda: CH.cam_head_bgd(feat, w, b)),
+        "max_abs_err": err, "repeat_bit_identical": True,
+        **kernel_times(torch, lambda: CH.cam_head_bgd(feat, w, b),
+                       "cam_tile_kernel"),
         "plain_ms": time_ms(torch, lambda: CH.cam_head_plain(feat, w, b)),
         "bound_ms": bnd, "bound_by": by,
-        "library_ms": time_ms(torch, lambda: torch.matmul(feat, w)),
+        **library_entry(kernel_times(torch, lambda: torch.matmul(feat, w))),
         "shape": [Bf, P, D, Cw]})
     return entries
 
 
+def attention64(torch, q, k, v, causal):
+    """The plain version's function in float64 (no window)."""
+    q, k, v = (t.double() for t in (q, k, v))
+    G = q.shape[1] // k.shape[1]
+    k, v = (t.repeat_interleave(G, dim=1) for t in (k, v))
+    s = q @ k.transpose(-1, -2) / q.shape[-1] ** 0.5
+    if causal:
+        i = torch.arange(q.shape[2], device=q.device)[:, None]
+        j = torch.arange(k.shape[2], device=q.device)[None, :]
+        s = torch.where(i >= j, s, torch.full((), -0.7 * 3.4028234663852886e38,
+                                              dtype=s.dtype, device=s.device))
+    return torch.softmax(s, -1) @ v
+
+
 def flash_phase(torch, qkv):
     """Flash attention at the main path's shape against its plain
-    version, timed; then the sweep of ``FLASH_SWEEP``."""
+    version, timed; the in-run TF32 check; then the sweep of
+    ``FLASH_SWEEP`` and the float32 stress sweep."""
     from repro_torch.kernels import flash_attention as FA
     q, k, v = qkv
     out = FA.flash_attention_bhsd(q, k, v, causal=False)
@@ -505,21 +625,27 @@ def flash_phase(torch, qkv):
     del out, want
     B, H, S, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]
-    bnd, by = bound_ms((2 * B * H * S + 2 * B * KV * Sk) * hd * 4,
-                       4 * B * H * S * Sk * hd)
+    n_bytes = (2 * B * H * S + 2 * B * KV * Sk) * hd * 4
+    flops = 4 * B * H * S * Sk * hd
+    # the float32 kernel runs three TF32 tensor-core products per product
+    bnd, by = bound_ms(n_bytes, 3 * flops, TF32_FLOPS)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     entry = {
         "name": "flash_attention_bhsd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:87",
         "max_abs_err": err,
-        "ms": time_ms(torch, lambda: FA.flash_attention_bhsd(q, k, v,
-                                                             causal=False)),
+        **kernel_times(torch, lambda: FA.flash_attention_bhsd(
+            q, k, v, causal=False), "flash_attention_kernel"),
         "plain_ms": time_ms(torch, lambda: FA.flash_attention_plain(
             q, k, v, causal=False)),
         "bound_ms": bnd, "bound_by": by,
-        "library_ms": time_ms(torch, lambda: sdpa(q, k, v)),
+        "bound_note": f"3 x {flops / 1e9:.1f} GFLOP of TF32 at 495 TFLOP/s "
+                      f"(3xTF32); in SIMT fp32 at 67 TFLOP/s "
+                      f"{bound_ms(n_bytes, flops)[0]:.4f} ms",
+        **library_entry(kernel_times(torch, lambda: sdpa(q, k, v))),
         "shape": [B, S, H, hd]}
+    lines = [tf32_check(torch, FA, q.shape)]
 
     worst = {"float32": 0.0, "bfloat16": 0.0}
     for i, (B, Sq, Sk, H, KV, hd, causal, sw, dt) in enumerate(FLASH_SWEEP):
@@ -539,11 +665,88 @@ def flash_phase(torch, qkv):
               f"flash sweep {(B, Sq, Sk, H, KV, hd, causal, sw, dt)}: max "
               f"abs err {e} (tol {tol}), dtype {o.dtype}")
         worst[dt] = max(worst[dt], e)
-    return entry, (f"flash sweep: {len(FLASH_SWEEP)} cases (hd 32/64/128, "
-                   f"causal and not, windows 32/128/100, GQA, ragged S 300 "
-                   f"and Sq 77 x Sk 300) within tolerance: max abs err "
-                   f"{worst['float32']:.3g} float32 (tol 1e-4), "
-                   f"{worst['bfloat16']:.3g} bfloat16 (tol 2e-2)")
+    lines.append(f"flash sweep: {len(FLASH_SWEEP)} cases (hd 32/64/128, "
+                 f"causal and not, windows 32/128/100, GQA, ragged S 300 "
+                 f"and Sq 77 x Sk 300) within tolerance: max abs err "
+                 f"{worst['float32']:.3g} float32 (tol 1e-4), "
+                 f"{worst['bfloat16']:.3g} bfloat16 (tol 2e-2)")
+    lines.append(flash_stress(torch, FA, q.device))
+    return entry, lines
+
+
+def tf32_check(torch, FA, shape):
+    """The 1e-4 the float32 kernel is held to must catch a kernel with one
+    TF32 pass: the plain version with ``allow_tf32`` on, at the main
+    shape with q and k scaled by 3 (seeded normal inputs), must miss the
+    float32 plain version by more than 1e-4; the kernel must not."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               for _ in range(3))
+    q, k = q * 3, k * 3
+    want = FA.flash_attention_plain(q, k, v, causal=False)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        one = FA.flash_attention_plain(q, k, v, causal=False)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    e_one = float((one - want).abs().max())
+    del one
+    e_kernel = float((FA.flash_attention_bhsd(q, k, v, causal=False)
+                      - want).abs().max())
+    check(e_one > 1e-4, f"a one-pass TF32 plain version is within 1e-4 "
+          f"({e_one}): the float32 tolerance would not catch TF32")
+    check(e_kernel <= 1e-4, f"flash_attention_bhsd at the main shape with "
+          f"q, k x3: max abs err {e_kernel} (tol 1e-4)")
+    return (f"TF32 check at {list(shape)}, q and k x3: the plain version "
+            f"with one TF32 pass misses float32 by {e_one:.3g} (> 1e-4), "
+            f"the 3xTF32 kernel by {e_kernel:.3g} (tol 1e-4)")
+
+
+# (hd, causal, kind) of tests/test_torch_cuda.py's FLASH_STRESS
+FLASH_STRESS = [(hd, causal, kind) for hd in (32, 128)
+                for causal in (False, True)
+                for kind in ("qk x3", "qk x8", "v spread")]
+
+
+def flash_stress(torch, FA, dev):
+    """The float32 kernel on inputs that stress its 3xTF32 split, at
+    (B, H, KV, S) = (1, 4, 2, 1000): max abs err 1e-4 against float64;
+    against the plain version too, except at x8, where the plain
+    version's own error against float64 is reported beside it."""
+    worst = {"k64": 0.0, "kplain": 0.0, "plain64_x8": 0.0, "k64_x8": 0.0}
+    for hd, causal, kind in FLASH_STRESS:
+        rng = np.random.default_rng(hd + causal)    # the card test's inputs
+        q, k, v = (torch.as_tensor(rng.normal(0, 1, (1, n, 1000, hd)).astype(
+            np.float32), device=dev) for n in (4, 2, 2))
+        if kind.startswith("qk"):
+            f = float(kind[-1])
+            q, k = q * f, k * f
+        else:
+            v = v * torch.as_tensor(10.0 ** np.random.default_rng(7).uniform(
+                -3, 1, v.shape).astype(np.float32), device=dev)
+        out = FA.flash_attention_bhsd(q, k, v, causal=causal)
+        w64 = attention64(torch, q, k, v, causal)
+        want = FA.flash_attention_plain(q, k, v, causal=causal)
+        e64 = float((out.double() - w64).abs().max())
+        ep = float((out - want).abs().max())
+        check(e64 <= 1e-4 and (kind == "qk x8" or ep <= 1e-4),
+              f"flash stress {(hd, causal, kind)}: max abs err {e64} "
+              f"against float64, {ep} against plain (tol 1e-4)")
+        if kind == "qk x8":
+            worst["k64_x8"] = max(worst["k64_x8"], e64)
+            worst["plain64_x8"] = max(
+                worst["plain64_x8"],
+                float((want.double() - w64).abs().max()))
+        else:
+            worst["k64"] = max(worst["k64"], e64)
+            worst["kplain"] = max(worst["kplain"], ep)
+    return (f"flash float32 stress: {len(FLASH_STRESS)} cases (hd 32/128, "
+            f"causal and not, q and k x3 / x8, v over 1e-3..10): max abs "
+            f"err {worst['k64']:.3g} against float64 and "
+            f"{worst['kplain']:.3g} against plain at x3 and v spread; at "
+            f"x8 {worst['k64_x8']:.3g} against float64, where the float32 "
+            f"plain version itself is {worst['plain64_x8']:.3g} off "
+            f"(tol 1e-4)")
 
 
 def trunk_compare(torch, dev, tf, serve, data):
@@ -784,7 +987,7 @@ def scan_err(torch, got, want):
     return err, ok
 
 
-def rwkv_kernel_phase(torch, dev, calls, timer):
+def rwkv_kernel_phase(torch, dev, calls, timer, ktimer):
     """The WKV kernel against its plain version at the serving path's
     prefill and decode shapes (layer 0's inputs), timed; then a sweep."""
     from repro_torch.kernels import rwkv6_scan as RK
@@ -808,7 +1011,7 @@ def rwkv_kernel_phase(torch, dev, calls, timer):
         "replaces": "src/repro/kernels/rwkv6_scan.py:66",
         "max_abs_err": err, "max_abs_err_state": state_err,
         "max_rel_err_out": rel, "tolerance": SCAN_TOL,
-        "ms": timer(lambda: RK.rwkv6_scan_bhtk(*args)),
+        **ktimer(lambda: RK.rwkv6_scan_bhtk(*args), "rwkv6_scan_kernel"),
         "plain_ms": timer(lambda: RK.rwkv6_scan_plain(*args)),
         "bound_ms": bnd, "bound_by": by, "library_ms": None,
         "library_note": "no single PyTorch call computes the recurrence",
@@ -818,8 +1021,10 @@ def rwkv_kernel_phase(torch, dev, calls, timer):
     check(ok, f"rwkv6_scan_bhtk differs from plain at the decode shape "
           f"(max abs err {d_err})")
     d_bnd, d_by = scan_bound(dec)
+    d_t = ktimer(lambda: RK.rwkv6_scan_bhtk(*dec), "rwkv6_scan_kernel")
     lines = [f"rwkv6_scan_bhtk at the decode shape {list(dec[0].shape)}: "
-             f"{timer(lambda: RK.rwkv6_scan_bhtk(*dec))} ms (plain "
+             f"device {d_t['ms']} ms (call {d_t['call_ms']} ms, "
+             f"back-to-back {d_t['b2b_ms']} ms; plain "
              f"{timer(lambda: RK.rwkv6_scan_plain(*dec))} ms, bound "
              f"{d_bnd:.6f} ms by {d_by}), max abs err {d_err:.3g}"]
 
@@ -855,7 +1060,7 @@ def rwkv_kernel_phase(torch, dev, calls, timer):
 # decode attention, through its own entry point
 # ---------------------------------------------------------------------------
 
-def decode_phase(torch, dev, timer, rehearse):
+def decode_phase(torch, dev, timer, ktimer, rehearse):
     """``ops.decode_attention`` (the JAX wrapper's layout) once at
     qwen2-0.5b's decode_32k shape, counts reset just before and read just
     after; then the kernel against its plain version and the library call
@@ -922,11 +1127,12 @@ def decode_phase(torch, dev, timer, rehearse):
         "launches": launches["decode_attention_bkgd"],
         "tolerance": f"{tol:.3g} in bf16 (four bf16 steps of the largest "
                      f"output), 1e-4 in float32 on the same values",
-        "ms": timer(lambda: DA.decode_attention_bkgd(qg, kt, vt, length)),
+        **ktimer(lambda: DA.decode_attention_bkgd(qg, kt, vt, length),
+                 "decode_attention_kernel"),
         "plain_ms": timer(lambda: DA.decode_attention_plain(qg, kt, vt,
                                                             kv_len)),
         "bound_ms": bnd, "bound_by": by,
-        "library_ms": timer(lambda: sdpa(qg, kt, vt, attn_mask=mask)),
+        **library_entry(ktimer(lambda: sdpa(qg, kt, vt, attn_mask=mask))),
         "shape": [B, KV, G, S, hd], "kv_len": kv_len,
         "dtype": "torch.bfloat16"}
     del qg, kt, vt
@@ -986,9 +1192,12 @@ def kernel_line(e):
     extra = "".join(f", {k} {e[k]:.3g}" for k in ("max_abs_err_state",
                                                    "max_rel_err_out")
                     if k in e)
-    return (f"kernel {e['name']} {e['shape']} {e['dtype']}: {e['ms']} ms "
-            f"(plain {e['plain_ms']} ms, bound {e['bound_ms']:.6f} ms by "
-            f"{e['bound_by']}, library {e['library_ms']}), max abs err "
+    return (f"kernel {e['name']} {e['shape']} {e['dtype']}: device "
+            f"{e['ms']} ms (call {e['call_ms']} ms, back-to-back "
+            f"{e['b2b_ms']} ms; plain {e['plain_ms']} ms, bound "
+            f"{e['bound_ms']:.6f} ms by {e['bound_by']}, library device "
+            f"{e['library_ms']} ms, call {e.get('library_call_ms')} ms), "
+            f"max abs err "
             f"{e['max_abs_err']:.3g}{extra} (tolerance: {e['tolerance']}), "
             f"launches {e['launches']}")
 
@@ -1071,6 +1280,8 @@ def main(argv=None):
         libs = build.build_all()
         print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s",
               flush=True)
+        for line in ptxas_lines(libs):
+            print(line, flush=True)
 
     scene, trunk, spec = configure(args.rehearse)
     tf, lines = training_phase(torch, dev, scene, trunk, spec,
@@ -1088,14 +1299,18 @@ def main(argv=None):
         entries = []
     else:
         entries = kernel_phase(torch, dev, feat, params, grid, rows)
-        flash, sweep_line = flash_phase(torch, qkv)
+        flash, flash_lines = flash_phase(torch, qkv)
         entries.append(flash)
         for e in entries:
-            print(f"kernel {e['name']} {e['shape']}: {e['ms']:.4f} ms "
-                  f"(plain {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f}"
-                  f" ms by {e['bound_by']}, library {e['library_ms']}), "
-                  f"max abs err {e['max_abs_err']:.3g}", flush=True)
-        print(sweep_line, flush=True)
+            print(f"kernel {e['name']} {e['shape']}: device {e['ms']:.4f} "
+                  f"ms (call {e['call_ms']:.4f} ms, back-to-back "
+                  f"{e['b2b_ms']:.4f} ms; plain {e['plain_ms']:.4f} ms, "
+                  f"bound {e['bound_ms']:.4f} ms by {e['bound_by']}, "
+                  f"library device {e['library_ms']} ms, call "
+                  f"{e.get('library_call_ms')} ms), max abs err "
+                  f"{e['max_abs_err']:.3g}", flush=True)
+        for line in flash_lines:
+            print(line, flush=True)
     del qkv, feat, grid, rows
     print(plain_head_check(torch, dev, trunk, spec, params, data),
           flush=True)
@@ -1123,19 +1338,30 @@ def main(argv=None):
     del tf, serve, params, data
 
     # on the CPU each timed call runs once, untimed
-    timer = (lambda fn: (fn(), None)[1]) if args.rehearse else \
-        (lambda fn: time_ms(torch, fn))
+    if args.rehearse:
+        def timer(fn):
+            fn()
+
+        def ktimer(fn, expect=None):
+            fn()
+            return {"ms": None, "call_ms": None, "b2b_ms": None}
+    else:
+        def timer(fn):
+            return time_ms(torch, fn)
+
+        def ktimer(fn, expect=None):
+            return kernel_times(torch, fn, expect)
     rwkv_launches, calls, lines = rwkv_serving_phase(torch, dev,
                                                      args.rehearse)
     for line in lines:
         print(line, flush=True)
-    scan, lines = rwkv_kernel_phase(torch, dev, calls, timer)
+    scan, lines = rwkv_kernel_phase(torch, dev, calls, timer, ktimer)
     scan["launches"] = rwkv_launches["rwkv6_scan_bhtk"]
     del calls
     print(kernel_line(scan), flush=True)
     for line in lines:
         print(line, flush=True)
-    decode, lines = decode_phase(torch, dev, timer, args.rehearse)
+    decode, lines = decode_phase(torch, dev, timer, ktimer, args.rehearse)
     print(kernel_line(decode), flush=True)
     for line in lines:
         print(line, flush=True)

@@ -44,8 +44,7 @@ _SIGNATURES = {
     "spatial_stats": {
         "spatial_stats_launch": ([_VP, _VP, _VP, _I, _I, _I, _F, _VP], _I)},
     "cam_head": {
-        "cam_head_launch": ([_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
-                            _I)},
+        "cam_head_launch": ([_VP] * 6 + [_I] * 4 + [_VP], _I)},
     "flash_attention": {
         "flash_attention_launch": ([_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
                                     _I, _I, _I, _I, _F, _VP], _I)},

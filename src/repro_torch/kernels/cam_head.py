@@ -15,6 +15,7 @@ import torch
 from repro_torch.kernels import build
 
 MAX_CLASSES = 64
+CELL_TILE = 64        # cells per block of csrc/cam_head.cu (its kTile)
 
 
 def cam_head_plain(feat: torch.Tensor, w: torch.Tensor, b: torch.Tensor
@@ -47,18 +48,23 @@ def cam_head_bgd(feat: torch.Tensor, w: torch.Tensor, b: torch.Tensor
                              f"{t.is_contiguous()}")
     B, P, D = feat.shape
     C = w.shape[1]
-    if not 1 <= C <= MAX_CLASSES or P < 1:
-        raise ValueError(f"cam_head kernel takes 1..{MAX_CLASSES} classes "
-                         f"and at least one cell, got C={C}, P={P}")
+    if not 1 <= C <= MAX_CLASSES or P < 1 or B > 65535:
+        raise ValueError(f"cam_head kernel takes 1..{MAX_CLASSES} classes, "
+                         f"at least one cell and at most 65535 frames, got "
+                         f"C={C}, P={P}, B={B}")
     lib = build.library("cam_head")
     counts = torch.empty((B, C), dtype=torch.float32, device=feat.device)
     cam = torch.empty((B, P, C), dtype=torch.float32, device=feat.device)
     if B == 0:
         return counts, cam
+    # per-tile column sums of the CAM, summed in tile order by the kernel's
+    # second launch
+    part = torch.empty((B, -(-P // CELL_TILE), C), dtype=torch.float32,
+                       device=feat.device)
     stream = torch.cuda.current_stream(feat.device).cuda_stream
     rc = lib.cam_head_launch(feat.data_ptr(), w.data_ptr(), b.data_ptr(),
-                             counts.data_ptr(), cam.data_ptr(), B, P, D, C,
-                             stream)
+                             counts.data_ptr(), cam.data_ptr(),
+                             part.data_ptr(), B, P, D, C, stream)
     build.check(rc, "cam_head_launch")
     build.LAUNCHES["cam_head_bgd"] += 1
     return counts, cam

@@ -78,6 +78,9 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"and batch rows, got H={H}, B={B}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel needs contiguous inputs")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention kernel copies 16-byte chunks: "
+                         "q, k and v must start on a 16-byte boundary")
     lib = build.library("flash_attention")
     out = torch.empty_like(q)
     if out.numel() == 0:

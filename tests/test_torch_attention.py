@@ -9,7 +9,9 @@ at every length, so both sides of the fallback are held.  Tolerances:
 max abs err 1e-4 in float32 and 2e-2 in bfloat16 (one bf16 rounding of
 outputs of magnitude ~1), as tests/test_kernels.py holds the Pallas
 kernel; the filter forward at rtol 1e-4 / atol 1e-3, as the port's other
-filter tests (float32 matmuls summed in another order).
+filter tests (float32 matmuls summed in another order).  A TF32
+emulation on numpy's float32 bits pins the float32 kernel's numerical
+premise: its 3xTF32 split holds 1e-4 where one TF32 pass does not.
 """
 import dataclasses
 
@@ -78,6 +80,52 @@ def test_flash_attention_refusals_on_cpu():
     with pytest.raises(ValueError, match="device"):
         FA.flash_attention_bhsd(*(torch.empty((1, 2, 8, 32), device="meta")
                                   for _ in range(3)))
+
+
+def _tf32(x):
+    """TF32 rounding of float32 values (round to nearest, ties away from
+    zero, at 10 mantissa bits), as ``cvt.rna.tf32.f32`` does."""
+    u = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _matmul_tf32(a, b, passes):
+    """a @ b from TF32 operands, products summed exactly, then float32:
+    one pass (hi hi) or the 3xTF32 split (hi hi + hi lo + lo hi, with
+    lo = tf32(x - hi)) of the flash kernel's float32 body."""
+    ah, bh = _tf32(a), _tf32(b)
+    out = ah.astype(np.float64) @ bh.astype(np.float64)
+    if passes == 3:
+        al, bl = _tf32(a - ah), _tf32(b - bh)
+        out += ah.astype(np.float64) @ bl.astype(np.float64)
+        out += al.astype(np.float64) @ bh.astype(np.float64)
+    return out.astype(np.float32)
+
+
+def _attention_tf32(q, k, v, passes):
+    s = _matmul_tf32(q, k.T, passes) / np.float32(np.sqrt(q.shape[-1]))
+    p = np.exp(s - s.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    return _matmul_tf32(p, v, passes)
+
+
+def test_tf32_split_holds_fp32_tolerance_where_one_pass_misses():
+    """The float32 flash kernel's premise, on the CPU: at one head of the
+    filter trunk's shape (S 3136, hd 32) with q and k scaled by 3, the
+    3xTF32 products stay within the kernel's 1e-4 of the float32 plain
+    version (~1.2e-5), and one TF32 pass misses it (~1.3e-2)."""
+    rng = np.random.default_rng(0)
+    q, k, v = (rng.normal(0, 1, (3136, 32)).astype(np.float32)
+               for _ in range(3))
+    q, k = q * np.float32(3), k * np.float32(3)
+    want = FA.flash_attention_plain(
+        *(torch.as_tensor(a)[None, None] for a in (q, k, v)),
+        causal=False)[0, 0].numpy()
+    three = float(np.abs(_attention_tf32(q, k, v, 3) - want).max())
+    one = float(np.abs(_attention_tf32(q, k, v, 1) - want).max())
+    assert three <= 1e-4, three
+    assert one > 1e-4, one
+    assert _tf32(np.float32(1 + 2 ** -11)) == np.float32(1 + 2 ** -10)
 
 
 @pytest.mark.parametrize("S,impl,to_flash", [

@@ -8,10 +8,12 @@ conftest:
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Spatial stats are held bit for bit; the CAM head at 1e-4 (the same fp32
-products summed in another order), with TF32 off for matmuls and cuDNN.
-Flash and decode attention are held at max abs err 1e-4 in float32 and
-2e-2 in bfloat16 (one bf16 rounding of outputs of magnitude ~1), as
-tests/test_kernels.py holds the Pallas kernels; decode attention in
+products summed in another order), with TF32 off for matmuls and cuDNN,
+and bit for bit on a repeated call.  Flash and decode attention are held
+at max abs err 1e-4 in float32 and 2e-2 in bfloat16 (one bf16 rounding
+of outputs of magnitude ~1), as tests/test_kernels.py holds the Pallas
+kernels; the float32 flash kernel's stress cases (3xTF32 tensor-core
+products) at 1e-4 against the function in float64; decode attention in
 bfloat16 also at four bf16 steps of its largest output where that is
 smaller, since a long cache's outputs are far below 1.  The WKV scan at
 the JAX kernel test's 5e-3 (and one bf16 step of its output, rtol 1e-2).
@@ -84,6 +86,38 @@ def test_cam_head_kernel_matches_plain(cuda_device, P, D, C):
     b = (torch.randn((C,), generator=g) * 0.1).to(cuda_device)
     counts, cam = CH.cam_head_bgd(feat, w, b)
     pc, pcam = CH.cam_head_plain(feat, w, b)
+    torch.testing.assert_close(cam, pcam, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(counts, pc, rtol=1e-4, atol=1e-4)
+    again, cam2 = CH.cam_head_bgd(feat, w, b)
+    assert torch.equal(again, counts) and torch.equal(cam2, cam)
+
+
+# (B, P, D, C, aligned): the edges of the kernel's (64-cell tile, frame)
+# grid: one cell, a ragged last tile, D not a multiple of 4 and a feature
+# array that starts off a 16-byte boundary (both take the scalar path),
+# one frame and 128 frames at the filter's shape
+CAM_EDGES = [(4, 1, 256, 3, True), (4, 3137, 256, 3, True),
+             (4, 3136, 30, 3, True), (1, 3136, 256, 3, True),
+             (128, 3136, 256, 3, True), (4, 100, 256, 5, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,P,D,C,aligned", CAM_EDGES, ids=str)
+def test_cam_head_kernel_grid_edges(cuda_device, B, P, D, C, aligned):
+    rng = np.random.default_rng(B + P + D + C)
+    flat = torch.as_tensor(rng.normal(0, 1, B * P * D + 1).astype(
+        np.float32), device=cuda_device)
+    feat = (flat[:-1] if aligned else flat[1:]).view(B, P, D)
+    assert (feat.data_ptr() % 16 == 0) == aligned
+    w = torch.as_tensor((rng.normal(0, 1, (D, C)) * 0.1).astype(np.float32),
+                        device=cuda_device)
+    b = torch.as_tensor((rng.normal(0, 1, C) * 0.1).astype(np.float32),
+                        device=cuda_device)
+    before = build.LAUNCHES["cam_head_bgd"]
+    counts, cam = CH.cam_head_bgd(feat, w, b)
+    pc, pcam = CH.cam_head_plain(feat, w, b)
+    assert build.LAUNCHES["cam_head_bgd"] == before + 1
+    assert cam.shape == (B, P, C) and counts.shape == (B, C)
     torch.testing.assert_close(cam, pcam, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(counts, pc, rtol=1e-4, atol=1e-4)
     again, cam2 = CH.cam_head_bgd(feat, w, b)
@@ -174,6 +208,55 @@ def test_flash_attention_kernel_matches_plain(cuda_device, case):
     assert torch.equal(again, out)
 
 
+def _attention64(q, k, v, causal):
+    """The plain version's function in float64 (one kv head per q head)."""
+    q, k, v = (t.double() for t in (q, k, v))
+    G = q.shape[1] // k.shape[1]
+    k, v = (t.repeat_interleave(G, dim=1) for t in (k, v))
+    s = q @ k.transpose(-1, -2) / q.shape[-1] ** 0.5
+    if causal:
+        i = torch.arange(q.shape[2], device=q.device)[:, None]
+        j = torch.arange(k.shape[2], device=q.device)[None, :]
+        s = torch.where(i >= j, s, torch.full((), -0.7 * 3.4028234663852886e38,
+                                              dtype=s.dtype, device=s.device))
+    return torch.softmax(s, -1) @ v
+
+
+# (hd, causal, kind): inputs that stress the 3xTF32 split of the float32
+# kernel: q and k scaled by 3 and by 8 (a peaky softmax, where one TF32
+# pass misses float32 by ~1e-2), and values spread over four decades
+FLASH_STRESS = [(hd, causal, kind) for hd in (32, 128)
+                for causal in (False, True)
+                for kind in ("qk x3", "qk x8", "v spread")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_STRESS, ids=str)
+def test_flash_attention_kernel_fp32_stress(cuda_device, case):
+    """Held at max abs err 1e-4 against the function in float64.  At
+    "qk x8" the scores have a standard deviation of 64, and the float32
+    plain version itself is ~1e-4 from float64 (its own sums round at
+    1e-5 of scores that large), so there the kernel is held against
+    float64 alone; elsewhere also against the plain version at 1e-4."""
+    hd, causal, kind = case
+    q, k, v = _qkv((1, 1000, 1000, 4, 2, hd, causal, None, "float32"),
+                   cuda_device, seed=hd + causal)
+    if kind.startswith("qk"):
+        f = float(kind[-1])
+        q, k = q * f, k * f
+    else:
+        rng = np.random.default_rng(7)
+        v = v * torch.as_tensor(10.0 ** rng.uniform(-3, 1, v.shape).astype(
+            np.float32), device=cuda_device)
+    out = FA.flash_attention_bhsd(q, k, v, causal=causal)
+    err64 = float((out.double() - _attention64(q, k, v, causal)).abs().max())
+    assert err64 <= 1e-4, err64
+    if kind != "qk x8":
+        want = FA.flash_attention_plain(q, k, v, causal=causal)
+        err = float((out - want).abs().max())
+        assert err <= 1e-4, err
+
+
 @pytest.mark.cuda
 def test_flash_attention_dispatch_counts_and_refusals(cuda_device):
     case = (2, 300, 300, 4, 2, 32, False, None, "float32")
@@ -193,6 +276,9 @@ def test_flash_attention_dispatch_counts_and_refusals(cuda_device):
             FA.flash_attention_bhsd(q2, k2, v2)
     with pytest.raises(TypeError):
         FA.flash_attention_bhsd(q.half(), k.half(), v.half())
+    off = torch.empty(q.numel() + 1, device=cuda_device)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        FA.flash_attention_bhsd(off, k, v)
     assert build.LAUNCHES["flash_attention_bhsd"] == before + 1
 
 
