@@ -53,17 +53,26 @@ Phases (any failure exits non-zero and prints no result line):
    after: ``rwkv6_scan_bhtk`` must have launched once per layer and call
    (32 x 33); the tokens must lie in the vocabulary and every logit be
    finite.  Prefill tokens/s, ms per decode step and peak memory.
+   The profile lines give the WKV scan's share of the device time.
 7. The WKV-scan kernel against its plain version at that path's prefill
-   and decode shapes (layer 0's inputs, kept from the warm-up), timed, and a
+   and decode shapes (layer 0's inputs, kept from the warm-up with their
+   strides: the time-mix's (B, T, H, K) tensors, read in place), timed;
+   the strided call must equal the contiguous one bit for bit; and a
    sweep (T 1/32/50/1024, K 16/64, fp32 and bf16, non-zero u and s0, two
    halves carried through sT); 5e-3, plus one bf16 step of the output.
 8. Decode attention through its entry point ``ops.decode_attention`` at
    qwen2-0.5b's decode_32k shape (B 128, S 32768, 14 heads over 2 kv
-   heads, hd 64, bf16, kv_len 30000), counts reset just before and read
-   just after; the kernel against its plain version, timed beside it
-   and ``scaled_dot_product_attention``, there in bf16 and in float32
-   (the same values); a sweep (the Pallas test's cases, ragged S, G
-   7/16, hd 128, a 20000-key cache in both types).  Tolerances: 1e-4 in
+   heads, hd 64, bf16, kv_len 30000) on the model's (B, S, KV, hd) cache,
+   counts reset just before and read just after; the call is timed whole,
+   and its added peak memory must be no more than its output and split
+   scratch (the cache is read in place, never copied); a repeated call
+   and the (B, KV, S, hd) layout must give the same bits.  The kernel
+   against its plain version, timed beside it and two
+   ``scaled_dot_product_attention`` yardsticks (a boolean kv_len mask over
+   all S rows; the kv_len slice, which reads the kernel's bytes), there
+   in bf16 and in float32 (the same values); a sweep (the Pallas test's
+   cases, ragged S, G 7/16, hd 128, a 20000-key cache in both types).
+   Tolerances: 1e-4 in
    float32; in bf16 the Pallas test's 2e-2 or four bf16 steps of the
    largest output, whichever is smaller (a long cache's outputs are
    ~0.04, and a fixed 2e-2 would pass a kernel that ignored kv_len).
@@ -881,12 +890,14 @@ def rwkv_serving_phase(torch, dev, rehearse):
         _, cache, _ = SV.prefill(params, cfg, prompts, cache=cache)
         lines.append(profile_line(
             torch, "one decode step", lambda: SV.decode_step(
-                params, cfg, prompts[:, -1:], cache=cache)))
+                params, cfg, prompts[:, -1:], cache=cache),
+            share_of="rwkv6_scan_kernel"))
         del cache
         lines.append(profile_line(
             torch, "one prefill", lambda: SV.prefill(
                 params, cfg, prompts, cache=SV.init_cache(
-                    cfg, n_req, prompt_len, device=dev))))
+                    cfg, n_req, prompt_len, device=dev)),
+            share_of="rwkv6_scan_kernel"))
     reset_peak(torch, dev)
     ops.reset_launch_counts()
     t_pre, steps, toks, finite = serve()
@@ -918,10 +929,11 @@ def rwkv_serving_phase(torch, dev, rehearse):
         f"{toks[0].tolist()}"]
 
 
-def profile_line(torch, what, fn):
+def profile_line(torch, what, fn, share_of=None):
     """Device time by kernel over one call of ``fn`` (torch.profiler) and
     the host clock around it; the idle share is 1 - busy / wall (the
-    profiler's own host cost counts in the wall)."""
+    profiler's own host cost counts in the wall).  ``share_of`` names a
+    kernel (a piece of its name) whose share of the busy time is given."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -937,9 +949,16 @@ def profile_line(torch, what, fn):
     if busy <= 0:
         return f"profile of {what}: no device time recorded (not measured)"
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
+    share = ""
+    if share_of is not None:
+        mine = [e for e in kern if share_of in e.key]
+        ms = sum(e.self_device_time_total for e in mine) / 1e3
+        share = (f"{share_of} {ms:.3f} ms over "
+                 f"{sum(e.count for e in mine)} launches = "
+                 f"{ms / busy:.3f} of device busy; ")
     return (f"profile of {what} (torch.profiler): wall {wall:.3f} ms, "
             f"device busy {busy:.3f} ms, idle share {1 - busy / wall:.3f}; "
-            f"{sum(e.count for e in kern)} kernel launches; top: " +
+            f"{sum(e.count for e in kern)} kernel launches; {share}top: " +
             "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} "
                       f"ms x{e.count}" for e in top))
 
@@ -991,12 +1010,23 @@ def rwkv_kernel_phase(torch, dev, calls, timer, ktimer):
     """The WKV kernel against its plain version at the serving path's
     prefill and decode shapes (layer 0's inputs), timed; then a sweep."""
     from repro_torch.kernels import rwkv6_scan as RK
-    args, dec = (tuple(t.to(dev).contiguous() for t in calls[key])
+    # the recorded inputs keep their strides: r, k, v, lw are the time-mix's
+    # (B, T, H, K) tensors seen as (B, H, T, K), read in place
+    args, dec = (tuple(t.to(dev) for t in calls[key])
                  for key in ("prefill", "decode"))
     err, ok = scan_err(torch, RK.rwkv6_scan_bhtk(*args),
                        RK.rwkv6_scan_plain(*args))
     check(ok, f"rwkv6_scan_bhtk differs from plain at the prefill shape "
           f"(max abs err {err})")
+    check(not args[0].is_contiguous() or dev.type == "cpu",
+          "rwkv scan: the recorded prefill inputs are not the time-mix's "
+          "strided views")
+    dense = tuple(t.contiguous() for t in args)
+    same = all(torch.equal(x, y) for x, y in zip(RK.rwkv6_scan_bhtk(*args),
+                                                  RK.rwkv6_scan_bhtk(*dense)))
+    check(same, "rwkv6_scan_bhtk on the strided views differs from the "
+          "same inputs made contiguous")
+    del dense
     o, sT = RK.rwkv6_scan_bhtk(*args)
     wo, ws = RK.rwkv6_scan_plain(*args)
     state_err = float((sT - ws).abs().max())
@@ -1022,7 +1052,9 @@ def rwkv_kernel_phase(torch, dev, calls, timer, ktimer):
           f"(max abs err {d_err})")
     d_bnd, d_by = scan_bound(dec)
     d_t = ktimer(lambda: RK.rwkv6_scan_bhtk(*dec), "rwkv6_scan_kernel")
-    lines = [f"rwkv6_scan_bhtk at the decode shape {list(dec[0].shape)}: "
+    lines = ["rwkv6_scan_bhtk on the time-mix's strided views equals the "
+             "contiguous call bit for bit",
+             f"rwkv6_scan_bhtk at the decode shape {list(dec[0].shape)}: "
              f"device {d_t['ms']} ms (call {d_t['call_ms']} ms, "
              f"back-to-back {d_t['b2b_ms']} ms; plain "
              f"{timer(lambda: RK.rwkv6_scan_plain(*dec))} ms, bound "
@@ -1088,8 +1120,37 @@ def decode_phase(torch, dev, timer, ktimer, rehearse):
     check(rehearse or launches["decode_attention_bkgd"] == 1,
           f"ops.decode_attention launched {launches} kernels")
     qg = q.reshape(B, KV, G, hd)
-    kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
-    del k, v
+    kv_, vv_ = k.transpose(1, 2), v.transpose(1, 2)   # views, as ops passes
+    # the entry point reads the cache in place: the call adds only its
+    # output and the split scratch to the peak, and is timed whole
+    reset_peak(torch, dev)
+    base = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+    again = ops.decode_attention(q, k, v, length)
+    sync(torch, dev)
+    call_peak = (torch.cuda.max_memory_allocated() - base
+                 if dev.type == "cuda" else None)
+    check(torch.equal(again, out), "ops.decode_attention is not "
+          "bit-identical on a repeated call")
+    del again
+    plan = "split plan not measured (CPU)"
+    if dev.type == "cuda":
+        n_sm, per_sm = DA._slots(out.device, hd, 1, G,
+                                 DA.build.library("decode_attention"))
+        nsplit = DA.split_count(B, KV, S, n_sm, per_sm)
+        plan = (f"{nsplit} splits per (b, kv head), {n_sm} SMs x {per_sm} "
+                f"resident blocks (occupancy calculator)")
+        scratch = (B * KV * G * hd * 2
+                   + (B * KV * nsplit * G * (hd + 2) * 4 if nsplit > 1 else 0))
+        check(call_peak <= scratch + 4096, f"ops.decode_attention added "
+              f"{call_peak} bytes to the peak; its output and split scratch "
+              f"are {scratch}: the cache was copied")
+    entry_call = ktimer(lambda: ops.decode_attention(q, k, v, length),
+                        "decode_attention_mma")
+    kt, vt = (t.contiguous() for t in (kv_, vv_))
+    check(torch.equal(DA.decode_attention_bkgd(qg, kt, vt, length),
+                      out.reshape(B, KV, G, hd)),
+          "decode_attention_bkgd on the (B, KV, S, hd) layout differs from "
+          "the same cache read in place")
     want = DA.decode_attention_plain(qg, kt, vt, kv_len)
     err = float((out.reshape(B, KV, G, hd).float() - want.float()).abs()
                 .max())
@@ -1119,6 +1180,9 @@ def decode_phase(torch, dev, timer, ktimer, rehearse):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     n_bytes = 2 * B * KV * kv_len * hd * 2 + 2 * B * H * hd * 2
     bnd, by = bound_ms(n_bytes, 4 * B * H * kv_len * hd)
+    sliced = ktimer(lambda: sdpa(qg, kt[:, :, :kv_len], vt[:, :, :kv_len]))
+    contiguous = ktimer(lambda: DA.decode_attention_bkgd(qg, kt, vt, length),
+                        "decode_attention_mma")
     entry = {
         "name": "decode_attention_bkgd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -1127,15 +1191,23 @@ def decode_phase(torch, dev, timer, ktimer, rehearse):
         "launches": launches["decode_attention_bkgd"],
         "tolerance": f"{tol:.3g} in bf16 (four bf16 steps of the largest "
                      f"output), 1e-4 in float32 on the same values",
-        **ktimer(lambda: DA.decode_attention_bkgd(qg, kt, vt, length),
-                 "decode_attention_kernel"),
+        # the kernel on the model's cache, read in place (the path)
+        **ktimer(lambda: DA.decode_attention_bkgd(qg, kv_, vv_, length),
+                 "decode_attention_mma"),
+        "contiguous_ms": contiguous["ms"],
+        "entry_point_ms": entry_call["ms"],
+        "entry_point_call_ms": entry_call["call_ms"],
+        "entry_point_added_peak_bytes": call_peak,
         "plain_ms": timer(lambda: DA.decode_attention_plain(qg, kt, vt,
                                                             kv_len)),
         "bound_ms": bnd, "bound_by": by,
         **library_entry(ktimer(lambda: sdpa(qg, kt, vt, attn_mask=mask))),
+        "library_note": "SDPA with a boolean kv_len mask over all S rows",
+        "library_sliced_ms": sliced["ms"],
+        "library_sliced_call_ms": sliced["call_ms"],
         "shape": [B, KV, G, S, hd], "kv_len": kv_len,
         "dtype": "torch.bfloat16"}
-    del qg, kt, vt
+    del qg, kt, vt, kv_, vv_, k, v
 
     worst, worst_share = {"float32": 0.0, "bfloat16": 0.0}, 0.0
     sweep = ([(2, 2, 4, S, klen, 64, dt)
@@ -1163,6 +1235,16 @@ def decode_phase(torch, dev, timer, ktimer, rehearse):
         if dt == "bfloat16":
             worst_share = max(worst_share, e / case_tol)
     return entry, [
+        f"decode_attention_bkgd at decode_32k, bf16, on the model's (B, S, "
+        f"KV, hd) cache read in place: device {entry['ms']} ms; on a "
+        f"(B, KV, S, hd) copy {entry['contiguous_ms']} ms; "
+        f"ops.decode_attention device {entry['entry_point_ms']} ms, call "
+        f"{entry['entry_point_call_ms']} ms, added peak memory "
+        f"{call_peak} bytes (output and split scratch only, no copy of the "
+        f"cache); SDPA masked over all S device {entry['library_ms']} ms, "
+        f"SDPA on the kv_len slice device {entry['library_sliced_ms']} ms "
+        f"(call {entry['library_sliced_call_ms']} ms); bit-identical on a "
+        f"repeated call and across the two layouts; {plan}",
         f"decode_attention_bkgd at decode_32k in float32 (the same "
         f"values): max abs err {err32:.3g} (tol 1e-4); the plain version "
         f"with kv_len ignored is {no_len:.3g} off in bf16 (tol {tol:.3g}), "

@@ -40,6 +40,8 @@ LAUNCHES: Dict[str, int] = {"spatial_stats_bgc": 0,
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL, _PI = ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)
+_PLL = ctypes.POINTER(_LL)
 _SIGNATURES = {
     "spatial_stats": {
         "spatial_stats_launch": ([_VP, _VP, _VP, _I, _I, _I, _F, _VP], _I)},
@@ -49,9 +51,11 @@ _SIGNATURES = {
         "flash_attention_launch": ([_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
                                     _I, _I, _I, _I, _F, _VP], _I)},
     "rwkv6_scan": {
-        "rwkv6_scan_launch": ([_VP] * 8 + [_I] * 6 + [_VP], _I)},
+        "rwkv6_scan_launch": ([_PLL, _VP], _I)},
     "decode_attention": {
-        "decode_attention_launch": ([_VP] * 6 + [_I] * 8 + [_F, _VP], _I)},
+        "decode_attention_launch": ([_VP] * 6 + [_I] * 7 + [_F] + [_LL] * 6
+                                    + [_VP], _I),
+        "decode_attention_blocks_per_sm": ([_I, _I, _I, _PI], _I)},
 }
 
 

@@ -53,13 +53,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensor -> (B, H, hd).
 
     Every S goes to the kernel on the card, which masks the ragged edge
-    itself."""
+    itself and reads the cache in place: k and v go to it as (B, KV, S,
+    hd) views, never copied."""
     del block_k
     B, H, hd = q.shape
     KV = k.shape[2]
     out = decode_attention_bkgd(q.reshape(B, KV, H // KV, hd),
-                                k.transpose(1, 2).contiguous(),
-                                v.transpose(1, 2).contiguous(), kv_len)
+                                k.transpose(1, 2), v.transpose(1, 2), kv_len)
     return out.reshape(B, H, hd)
 
 
@@ -91,6 +91,8 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """r, k, v, lw: (B, H, T, K); u: (H, K); s0: (B, H, K, V) ->
     (out (B, H, T, V) in r's dtype, sT (B, H, K, V) float32).
 
-    Every T goes to the kernel on the card (it runs token by token)."""
+    Every T goes to the kernel on the card (it runs token by token), and
+    r, k, v and lw go to it as they are: it reads them through their
+    strides."""
     del chunk
-    return rwkv6_scan_bhtk(*(t.contiguous() for t in (r, k, v, lw, u, s0)))
+    return rwkv6_scan_bhtk(r, k, v, lw, u.contiguous(), s0.contiguous())

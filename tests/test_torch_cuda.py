@@ -307,11 +307,14 @@ RWKV_SWEEP = (
     [(2, 3, T, K, K, dt) for T in (1, 32, 50, 1024) for K in (16, 64)
      for dt in ("float32", "bfloat16")]
     + [(1, 2, 77, 32, 32, "float32"), (1, 2, 40, 128, 128, "bfloat16"),
-       (2, 2, 33, 64, 40, "float32")])
+       (2, 2, 33, 64, 40, "float32")]
+    # K = 128 over more chunks than the kernel's three pipeline stages
+    + [(1, 2, 100, 128, 128, dt) for dt in ("float32", "bfloat16")])
 
 
-def _scan_inputs(case, dev, seed=0):
-    """The JAX kernel test's distributions, with a non-zero u and s0."""
+def _scan_inputs(case, dev, seed=0, strong=False):
+    """The JAX kernel test's distributions, with a non-zero u and s0;
+    ``strong``: decays at the time-mix's clamp, lw in [-2, -1.9]."""
     B, H, T, K, V, dt = case
     rng = np.random.default_rng(seed)
     dtype = getattr(torch, dt)
@@ -322,7 +325,8 @@ def _scan_inputs(case, dev, seed=0):
     r, k = (t(rng.normal(0, 1, (B, H, T, K)), dtype) for _ in range(2))
     v = t(rng.normal(0, 1, (B, H, T, V)), dtype)
     lw = t(np.clip(-np.exp(rng.normal(0, 1, (B, H, T, K)) * 0.3), -2.0,
-                   -1e-6))
+                   -1e-6) if not strong
+           else -2.0 + 0.1 * rng.random((B, H, T, K)))
     u = t(rng.normal(0, 1, (H, K)) * 0.1)
     s0 = t(rng.normal(0, 1, (B, H, K, V)) * 0.1)
     return r, k, v, lw, u, s0
@@ -369,6 +373,82 @@ def test_rwkv6_scan_kernel_state_continuation(cuda_device, dt):
     torch.testing.assert_close(s2, whole_s, rtol=0, atol=1e-5)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(2, 3, 100, 64, 64, "bfloat16"),
+                                  (4, 40, 50, 64, 64, "bfloat16"),
+                                  (1, 2, 70, 128, 128, "float32"),
+                                  (2, 3, 33, 16, 16, "float32")], ids=str)
+def test_rwkv6_scan_kernel_reads_strided_views(cuda_device, case):
+    """The time-mix's layout: r, k, v, lw made as (B, T, H, K) and seen as
+    (B, H, T, K); the kernel reads them in place and gives the bits of the
+    contiguous call; ``ops.rwkv6_scan`` hands them on without a copy."""
+    B, H, T, K, V, dt = case
+    args = _scan_inputs((B, T, H, K, V, dt), cuda_device, seed=3)
+    r, k, v, lw = (a.transpose(1, 2) for a in args[:4])
+    u = args[4][:1].expand(H, K).contiguous() + 0.01
+    s0 = torch.zeros((B, H, K, V), device=cuda_device) + 0.05
+    views = (r, k, v, lw, u, s0)
+    dense = tuple(a.contiguous() for a in views)
+    assert not r.is_contiguous()
+    got, want = RK.rwkv6_scan_bhtk(*views), RK.rwkv6_scan_bhtk(*dense)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    _scan_close(*got, *RK.rwkv6_scan_plain(*dense))
+    seen = []
+    inner = RK.rwkv6_scan_bhtk
+
+    def spy(*a):
+        seen.append(a)
+        return inner(*a)
+
+    ops.rwkv6_scan_bhtk, keep = spy, ops.rwkv6_scan_bhtk
+    try:
+        ops.rwkv6_scan(*views)
+    finally:
+        ops.rwkv6_scan_bhtk = keep
+    assert all(a.data_ptr() == b.data_ptr() and a.stride() == b.stride()
+               for a, b in zip(seen[0][:4], views[:4]))
+
+
+@pytest.mark.cuda
+def test_rwkv6_scan_kernel_refuses_unaligned_rows(cuda_device):
+    """Rows the kernel cannot copy by 16 bytes raise, before any launch."""
+    r, k, v, lw, u, s0 = _scan_inputs((1, 2, 20, 16, 16, "float32"),
+                                      cuda_device)
+    before = build.LAUNCHES["rwkv6_scan_bhtk"]
+    wide = torch.zeros((1, 2, 20, 17), device=cuda_device)
+    wide[..., 1:] = r
+    with pytest.raises(ValueError, match="16-byte"):
+        RK.rwkv6_scan_bhtk(wide[..., 1:], k, v, lw, u, s0)
+    assert build.LAUNCHES["rwkv6_scan_bhtk"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_rwkv6_scan_kernel_strong_decays(cuda_device, dt):
+    """Decays at the time-mix's clamp (lw near -2, exp(lw) ~ 0.14 a token)
+    over many chunks, at the kernel test's tolerance."""
+    args = _scan_inputs((2, 3, 300, 64, 64, dt), cuda_device, seed=4,
+                        strong=True)
+    _scan_close(*RK.rwkv6_scan_bhtk(*args), *RK.rwkv6_scan_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_rwkv6_scan_kernel_state_continuation_k128(cuda_device, dt):
+    """K = 128, halves carried through sT across a chunk boundary."""
+    r, k, v, lw, u, s0 = _scan_inputs((1, 2, 90, 128, 128, dt), cuda_device,
+                                      seed=5)
+    whole, whole_s = RK.rwkv6_scan_bhtk(r, k, v, lw, u, s0)
+    h = 41
+    o1, s1 = ops.rwkv6_scan(r[:, :, :h], k[:, :, :h], v[:, :, :h],
+                            lw[:, :, :h], u, s0)
+    o2, s2 = ops.rwkv6_scan(r[:, :, h:], k[:, :, h:], v[:, :, h:],
+                            lw[:, :, h:], u, s1)
+    torch.testing.assert_close(torch.cat([o1, o2], 2), whole, rtol=0,
+                               atol=1e-5 if dt == "float32" else 0)
+    torch.testing.assert_close(s2, whole_s, rtol=0, atol=1e-5)
+
+
 # (B, KV, G, S, kv_len, hd, dtype): the JAX decode test's cases, a ragged
 # S, qwen2-0.5b's group of 7, the widest group and head, one kv_len of 1,
 # and a long cache that the wrapper cuts into many splits
@@ -380,7 +460,14 @@ DECODE_SWEEP = (
     + [(3, 2, 7, 1000, 999, 64, "bfloat16"), (1, 1, 16, 640, 333, 128,
                                               "float32"),
        (2, 2, 1, 129, 65, 128, "bfloat16")]
-    + [(1, 1, 7, 20000, 12345, 64, dt) for dt in ("float32", "bfloat16")])
+    + [(1, 1, 7, 20000, 12345, 64, dt) for dt in ("float32", "bfloat16")]
+    # many splits (B KV = 1): kv_len of 1, one tile, one key past it, the
+    # whole cache, and 4097, whose last live split holds one key
+    + [(1, 1, 7, 20000, klen, 64, "bfloat16")
+       for klen in (1, 64, 65, 20000, 4097)]
+    # every group size the A operand pads, and hd 128 in bf16 at S >= 8192
+    + [(2, 2, G, 1000, 999, 64, "bfloat16") for G in (1, 2, 7, 8, 16)]
+    + [(1, 2, G, 8192, 8000, 128, "bfloat16") for G in (7, 16)])
 
 
 def _decode_tol(want):
@@ -418,6 +505,47 @@ def test_decode_attention_kernel_matches_plain(cuda_device, case):
     got = ops.decode_attention(q.reshape(B, KV * G, hd), k.transpose(1, 2),
                                v.transpose(1, 2), length)
     assert torch.equal(got, out.reshape(B, KV * G, hd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(4, 2, 7, 4096, 3000, 64, "bfloat16"),
+                                  (1, 2, 7, 20000, 4097, 64, "bfloat16"),
+                                  (2, 2, 16, 8192, 8191, 128, "bfloat16"),
+                                  (2, 2, 7, 1000, 999, 64, "float32")],
+                         ids=str)
+def test_decode_attention_reads_the_model_cache_in_place(cuda_device, case):
+    """The model's (B, S, KV, hd) cache through ``ops.decode_attention``:
+    the kernel reads it in place, bit-identical to the contiguous
+    (B, KV, S, hd) call, and the call adds only its output and the split
+    scratch to the peak memory."""
+    B, KV, G, S, klen, hd, dt = case
+    rng = np.random.default_rng(S + klen + G)
+    dtype = getattr(torch, dt)
+    q, k, v = (torch.as_tensor(rng.normal(0, 1, shape).astype(np.float32),
+                               device=cuda_device).to(dtype)
+               for shape in ((B, KV * G, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    length = torch.tensor([klen], dtype=torch.int32, device=cuda_device)
+    qg = q.reshape(B, KV, G, hd)
+    dense = DA.decode_attention_bkgd(qg, k.transpose(1, 2).contiguous(),
+                                     v.transpose(1, 2).contiguous(), length)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = ops.decode_attention(q, k, v, length)
+    torch.cuda.synchronize()
+    added = torch.cuda.max_memory_allocated() - base
+    assert torch.equal(got, dense.reshape(B, KV * G, hd))
+    assert torch.equal(ops.decode_attention(q, k, v, length), got)
+    want = DA.decode_attention_plain(qg, k.transpose(1, 2),
+                                     v.transpose(1, 2), klen)
+    assert float((got.reshape(qg.shape).float() - want.float()).abs().max()
+                 ) <= _decode_tol(want)
+    nsplit = DA.split_count(B, KV, S, *DA._slots(
+        got.device, hd, DA._DTYPE_CODES[dtype], G,
+        build.library("decode_attention")))
+    scratch = got.numel() * got.element_size() + (
+        B * KV * nsplit * G * (hd + 2) * 4 if nsplit > 1 else 0)
+    assert added <= scratch + 4096                    # no copy of k or v
 
 
 @pytest.mark.cuda

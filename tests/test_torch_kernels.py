@@ -168,16 +168,92 @@ def test_decode_attention_plain_vs_pallas_interpreter(S, klen, dt):
             np.float32), atol=1e-4 if dt == "float32" else 2e-2)
 
 
-def test_decode_attention_splits_cover_the_cache():
-    for B, KV, S in [(128, 2, 32768), (2, 2, 512), (1, 1, 1), (4, 8, 300),
-                     (1, 2, 100000)]:
-        span, nsplit = DA.splits(B, KV, S, 132)
-        assert span % DA.TILE == 0 and nsplit >= 1
-        assert (nsplit - 1) * span < S <= nsplit * span
+# (B, KV, S, SMs, resident blocks per SM, kv_len): qwen2-0.5b's
+# decode_32k, small batches whose grid the splits must fill, a one-key
+# cache, a kv_len of 1 in a long cache, and one just past a split boundary
+SPLIT_CASES = [(128, 2, 32768, 132, 4, 30000), (128, 2, 32768, 132, 4, 32768),
+               (2, 2, 512, 132, 4, 300), (1, 1, 1, 132, 4, 1),
+               (4, 8, 300, 132, 2, 77), (1, 2, 100000, 132, 4, 100000),
+               (1, 1, 20000, 132, 4, 1), (1, 1, 20000, 132, 4, 12345),
+               (2, 2, 9000, 132, 4, 4609), (64, 8, 4096, 132, 2, 4000)]
+
+
+@pytest.mark.parametrize("B,KV,S,n_sm,per_sm,kv_len", SPLIT_CASES)
+def test_decode_attention_splits_cover_the_cache(B, KV, S, n_sm, per_sm,
+                                                 kv_len):
+    """The host's split count fills whole waves of resident blocks (or is
+    the best-filled count), and the spans the kernel derives from kv_len
+    cover [0, kv_len) in order, in whole tiles, no live span shorter than
+    another but the last."""
+    nsplit = DA.split_count(B, KV, S, n_sm, per_sm)
+    assert 1 <= nsplit <= min(-(-S // DA.TILE), DA.MAX_SPLITS)
+
+    def fill(n):
+        blocks = B * KV * n
+        slots = n_sm * per_sm
+        return blocks / (-(-blocks // slots) * slots)
+
+    cap = min(-(-S // DA.TILE), DA.MAX_SPLITS)
+    assert fill(nsplit) >= DA.WAVE_FILL or fill(nsplit) == max(
+        fill(n) for n in range(1, cap + 1))
+    spans = [DA.split_span(kv_len, nsplit, i) for i in range(nsplit)]
+    assert spans[0][0] == 0 and spans[-1][1] == kv_len
+    assert all(lo2 == hi for (_, hi), (lo2, _) in zip(spans, spans[1:]))
+    n_live = sum(1 for lo, hi in spans if hi > lo)
+    live, empty = spans[:n_live], spans[n_live:]
+    assert n_live >= 1 and all(hi == lo for lo, hi in empty)
+    assert all(lo % DA.TILE == 0 for lo, _ in live)
+    full = {hi - lo for lo, hi in live[:-1]}
+    assert len(full) <= 1 and all(n % DA.TILE == 0 for n in full)
+    assert 0 < live[-1][1] - live[-1][0] <= max(full | {kv_len})
     with pytest.raises(ValueError, match="kv_len"):
         DA.decode_attention_bkgd(torch.zeros(1, 1, 1, 64),
                                  torch.zeros(1, 1, 8, 64),
                                  torch.zeros(1, 1, 8, 64), 9)
+
+
+@pytest.mark.parametrize("G,hd,dt", [(7, 64, "bfloat16"), (1, 128, "float32"),
+                                     (16, 64, "float32")])
+def test_decode_attention_reads_the_model_cache_in_place(G, hd, dt,
+                                                         monkeypatch):
+    """``ops.decode_attention`` hands the kernel wrapper (B, KV, S, hd)
+    views of the model's (B, S, KV, hd) cache, never a copy; the strides
+    the kernel would read them through address the same rows; and the
+    plain version gives the same result from the view as from a
+    contiguous copy (the kernel's bit-identity is a card test)."""
+    B, KV, S, klen = 2, 2, 300, 77
+    dtype = getattr(torch, dt)
+    rng = np.random.default_rng(G + hd)
+    q, k, v = (torch.as_tensor(rng.normal(0, 1, shape).astype(np.float32))
+               .to(dtype) for shape in ((B, KV * G, hd), (B, S, KV, hd),
+                                        (B, S, KV, hd)))
+    seen = []
+
+    def spy(qq, kk, vv, kv_len):
+        seen.append((kk, vv))
+        return DA.decode_attention_bkgd(qq, kk, vv, kv_len)
+
+    monkeypatch.setattr(ops, "decode_attention_bkgd", spy)
+    got = ops.decode_attention(q, k, v, klen)
+    (kk, vv), = seen
+    assert kk.data_ptr() == k.data_ptr() and vv.data_ptr() == v.data_ptr()
+    assert kk.shape == (B, KV, S, hd) and not kk.is_contiguous()
+    assert DA.cache_strides(kk) == (S * KV * hd, hd, KV * hd)
+    assert DA.cache_strides(kk.contiguous()) == (KV * S * hd, S * hd, hd)
+    want = DA.decode_attention_bkgd(q.reshape(B, KV, G, hd),
+                                    kk.contiguous(), vv.contiguous(), klen)
+    # the CPU einsum may sum a strided operand in another order: one ulp
+    torch.testing.assert_close(got, want.reshape(B, KV * G, hd), rtol=0,
+                               atol=1e-6 if dt == "float32" else 0)
+
+
+def test_decode_attention_cache_strides_refuse_what_the_kernel_cannot_read():
+    k = torch.zeros(2, 300, 2, 64)
+    assert DA.cache_strides(k[:1].transpose(1, 2)) == (0, 64, 128)
+    with pytest.raises(ValueError, match="in place"):
+        DA.cache_strides(k.transpose(1, 3))        # last dim not contiguous
+    with pytest.raises(ValueError, match="in place"):
+        DA.cache_strides(k[..., 1:].transpose(1, 2)[..., :60])  # misaligned
 
 
 def test_cpu_dispatch_never_launches_and_other_devices_raise():

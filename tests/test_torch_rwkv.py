@@ -213,3 +213,49 @@ def test_rwkv_state_init_matches_jax_shapes_and_dtypes():
         assert tuple(got[name].shape) == a.shape
         assert str(got[name].dtype).split(".")[-1] == str(a.dtype)
         assert not got[name].any()
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_rwkv_time_mix_hands_the_scan_views(with_state, monkeypatch):
+    """The kernel path hands the scan the time-mix's (B, T, H, K) tensors
+    seen as (B, H, T, K), never copies, with the strides the kernel reads
+    them through; the scan's result from those views equals its result
+    from contiguous copies."""
+    cfg, p = _rwkv_params(1)
+    tcfg = dataclasses.replace(get_smoke_config("rwkv6_3b"),
+                               attn_impl="pallas")
+    rng = np.random.default_rng(5)
+    B, S = 2, 24
+    x = rng.normal(0, 1, (B, S, cfg.d_model)).astype(np.float32)
+    st = _state(rng, B, cfg) if with_state else None
+    seen = []
+
+    def spy(*args):
+        seen.append(args)
+        return RK.rwkv6_scan_bhtk(*args)
+
+    monkeypatch.setattr(ops, "rwkv6_scan_bhtk", spy)
+    TS.rwkv_time_mix(params_from_numpy(p, "cpu"), torch.as_tensor(x), tcfg,
+                     state=None if st is None else params_from_numpy(st,
+                                                                     "cpu"),
+                     use_kernel=True)
+    (args,) = seen
+    H, K = tcfg.n_rwkv_heads, tcfg.rwkv_head_dim
+    D = H * K
+    for t in args[:4]:
+        assert t.shape == (B, H, S, K) and not t.is_contiguous()
+        assert t._base is not None                  # a view, not a copy
+        assert RK.scan_strides(t) == (S * D, K, D)
+    got = RK.rwkv6_scan_bhtk(*args)
+    want = RK.rwkv6_scan_bhtk(*(a.contiguous() for a in args))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+
+
+def test_rwkv6_scan_strides_refuse_what_the_kernel_cannot_read():
+    x = torch.zeros(2, 5, 3, 16)
+    assert RK.scan_strides(x.transpose(1, 2)) == (240, 16, 48)
+    assert RK.scan_strides(x[1:].transpose(1, 2)) == (240, 16, 48)
+    assert RK.scan_strides(x[..., 1:].transpose(1, 2)) == (240, 16, 48)
+    with pytest.raises(ValueError, match="contiguous last"):
+        RK.scan_strides(x.transpose(1, 3))          # last dim not contiguous
