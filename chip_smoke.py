@@ -15,8 +15,16 @@ Phases (any failure exits non-zero and prints no result line):
    count accuracy on held-out frames, and the phase's peak memory.
 3. Each kernel against its plain PyTorch version on the card, at the
    main path's shapes (the trained weights' inputs): the two
-   spatial-stats kernels bit for bit (``torch.equal``; the row kernel on
-   an unsorted row list with duplicates), the CAM head at 1e-4, flash
+   spatial-stats kernels bit for bit (``torch.equal``) as the planner
+   calls them: ``classes=`` with the two classes it reads, on the full
+   (32, 56, 56, 3) grid, the row kernel on an unsorted list of 16 int64
+   row ids on the card, with duplicates; each beside two "before"
+   readings, the kernel on the grid sliced beforehand and the
+   composition the planner ran before (gather the planes,
+   ``.contiguous()``, then the kernel); then the kernel's device time
+   with the host's pick of the cluster size and at each size 1..8, at
+   those calls and on (32, 56, 56, 8) grids, each bit for bit.  The CAM
+   head at 1e-4, flash
    attention at max abs err 1e-4 (float32), plus a sweep of shapes,
    types, masks, GQA and ragged lengths (1e-4 float32, 2e-2 bfloat16),
    and a stress sweep of the float32 kernel's 3xTF32 split (q and k
@@ -239,8 +247,10 @@ def ptxas_lines(libs):
             if m:
                 fn = mangled[m.end():m.end() + int(m.group(1))]
                 rest = mangled[m.end() + int(m.group(1)):]
-            args = [{"f": "float", "13__nv_bfloat16": "bf16"}[a]
-                    for a in re.findall(r"^I(f|13__nv_bfloat16)", rest)]
+            args = [{"f": "float", "13__nv_bfloat16": "bf16",
+                     "6__half": "half"}[a]
+                    for a in re.findall(r"^I(f|13__nv_bfloat16|6__half)",
+                                        rest)]
             args += re.findall(r"Li(\d+)E", rest.split("Ev")[0])
             args += [{"0": "false", "1": "true"}[b]
                      for b in re.findall(r"Lb([01])E", rest.split("Ev")[0])]
@@ -509,9 +519,10 @@ def check_main_path(torch, data, scene, runs, record):
 
 def kernel_inputs(torch, dev, trunk, spec, params, data):
     """The main path's kernel inputs for the first batch: the first trunk
-    layer's q, k, v (B, H, S, hd), the CAM head's features, and the
-    ground-truth grid sliced to the two classes the first window's
-    spatial stage reads (contiguous, as the planner passes it)."""
+    layer's q, k, v (B, H, S, hd), the CAM head's features, the
+    ground-truth (B, g, g, 3) grid with the two classes the first
+    window's spatial stage reads (the planner passes both to the stats
+    kernel), and a padded 16-row list of int64 ids on the card."""
     from repro_torch.core import cam as CAM
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
@@ -530,54 +541,129 @@ def kernel_inputs(torch, dev, trunk, spec, params, data):
                                    params["branch"]["proj"]))
     B, g, _, D = feat.shape
     feat = feat.reshape(B, g * g, D).contiguous()
-    grid = torch.as_tensor(data["occupancy"][:BATCH], device=dev).float()
-    grid = grid[..., torch.tensor([0, 1], device=dev)].contiguous()
+    full = torch.as_tensor(data["occupancy"][:BATCH], device=dev).float()
+    classes = torch.tensor([0, 1], device=dev)
     gen = torch.Generator().manual_seed(SEED)
     rows = torch.randint(0, BATCH, (16,), generator=gen)
     rows[-4:] = rows[-5]                         # bucket-style padding
-    return qkv, feat, grid, rows.to(dev)
+    return qkv, feat, (full, classes), rows.to(dev)
 
 
-def kernel_phase(torch, dev, feat, params, grid, rows):
+def stats_entry(torch, SP, full, classes, rows):
+    """Row 1 (``rows`` None) or 2 of the kernel line, at the planner's
+    call: ``classes=`` on the full grid (and, for row 2, the plan's int64
+    row ids on the card), bit for bit against its plain version, with its
+    bytes bound counting every plane it reads.  Beside it, two "before"
+    readings: the kernel on the grid sliced beforehand, and the
+    composition the planner ran before (gather the planes,
+    ``.contiguous()``, then the kernel), timed with the call in the order
+    old, new, new, old and averaged."""
+    sliced = full[..., classes].contiguous()
+    B, g, _, C = full.shape
+    Cp = classes.numel()
+    if rows is None:
+        def new():
+            return SP.spatial_stats_bgc(full, classes=classes)
+
+        def plain():
+            return SP.spatial_stats_plain(full, classes=classes)
+
+        def on_sliced():
+            return SP.spatial_stats_bgc(sliced)
+
+        def compose():
+            return SP.spatial_stats_bgc(full[..., classes].contiguous())
+        name, line, R, frames = "spatial_stats_bgc", 44, B, B
+    else:
+        def new():
+            return SP.spatial_stats_rows_bgc(full, rows, classes=classes)
+
+        def plain():
+            return SP.spatial_stats_rows_plain(full, rows, classes=classes)
+
+        def on_sliced():
+            return SP.spatial_stats_rows_bgc(sliced, rows)
+
+        def compose():
+            return SP.spatial_stats_rows_bgc(
+                full[..., classes].contiguous(), rows)
+        name, line = "spatial_stats_rows_bgc", 66
+        R, frames = rows.numel(), int(torch.unique(rows).numel())
+    got, want = new(), plain()
+    check(torch.equal(got, want), f"{name}(classes=) on the full grid "
+          f"differs from plain")
+    check(torch.equal(on_sliced(), want), f"{name} on the sliced grid "
+          f"differs from plain")
+    times = {"new": [], "compose": []}
+    for which, fn in (("compose", compose), ("new", new), ("new", new),
+                      ("compose", compose)):
+        times[which].append(kernel_times(torch, fn, "spatial_stats_kernel"))
+    before = kernel_times(torch, on_sliced, "spatial_stats_kernel")
+    read = {"ms": "", "call_ms": "call_", "b2b_ms": "b2b_"}
+    n_bytes = (frames * g * g * C * full.element_size() + Cp * 8
+               + R * Cp * 5 * 4 + (R * 8 if rows is not None else 0))
+    bnd, by = bound_ms(n_bytes, frames * g * g * Cp)
+    return {
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/spatial_stats.cu",
+        "replaces": f"src/repro/kernels/spatial_predicate.py:{line}",
+        "max_abs_err": float((got - want).abs().max()),
+        **{k: sum(t[k] for t in times["new"]) / 2 for k in read},
+        "profiler_windows": times["new"][0]["profiler_windows"],
+        "plain_ms": time_ms(torch, plain),
+        "bound_ms": bnd, "bound_by": by, "library_ms": None,
+        "shape": [B, g, g, C] + ([R] if rows is not None else []),
+        "classes": classes.tolist(),
+        **({"rows_dtype": str(rows.dtype)} if rows is not None else {}),
+        **{f"sliced_{p}ms": before[k] for k, p in read.items()},
+        **{f"compose_{p}ms": sum(t[k] for t in times["compose"]) / 2
+           for k, p in read.items()}}
+
+
+def cluster_sweep(torch, SP, dev, full, classes, rows):
+    """Device time of the stats kernel with the host's pick of the
+    cluster size ("auto") and forced to each size 1..8, each result equal
+    to the plain version bit for bit: at the planner's two calls on the
+    C = 3 grid, and on (32, 56, 56, 8) grids, the frames of the model
+    configurations' g = 56 branches with 8 classes, where the host
+    splits a frame."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    wide = (torch.rand((full.shape[0], 56, 56, 8), generator=gen,
+                       device=dev) < 0.05).float()
+    lines = []
+    for name, x, r, c in (
+            ("(32, 56, 56, 3) classes=[0, 1]", full, None, classes),
+            ("16 rows of (32, 56, 56, 3) classes=[0, 1]", full, rows,
+             classes),
+            ("(32, 56, 56, 8)", wide, None, None),
+            ("(32, 56, 56, 8) classes=[0, 1]", wide, None, classes),
+            ("16 rows of (32, 56, 56, 8) classes=[0, 1]", wide, rows,
+             classes),
+            ("(32, 56, 56, 8) bfloat16", wide.bfloat16(), None, None)):
+        want = SP.spatial_stats_plain(x, classes=c) if r is None \
+            else SP.spatial_stats_rows_plain(x, r, classes=c)
+        parts = []
+        for S in range(9):
+            def fn():
+                return SP._launch(x, r, c, 0.2, cluster=S)
+            check(torch.equal(fn(), want), f"spatial_stats at cluster size "
+                  f"{S or 'auto'} on {name} differs from plain")
+            ms, _ = device_ms(torch, fn, "spatial_stats_kernel")
+            parts.append(f"{S or 'auto'}: {ms:.5f}")
+        lines.append(f"spatial_stats cluster sweep {name}, device ms by "
+                     f"cluster size: " + ", ".join(parts))
+    return lines
+
+
+def kernel_phase(torch, dev, feat, params, grids, rows):
     from repro_torch.kernels import cam_head as CH
     from repro_torch.kernels import spatial_predicate as SP
     w = params["branch"]["w"].contiguous()
     b = params["branch"]["b"].contiguous()
-    entries = []
-
-    s_k = SP.spatial_stats_bgc(grid)
-    s_p = SP.spatial_stats_plain(grid)
-    check(torch.equal(s_k, s_p), "spatial_stats_bgc differs from plain")
-    B, g, _, C = grid.shape
-    bnd, by = bound_ms(B * g * g * C * 4 + B * C * 5 * 4, B * g * g * C)
-    entries.append({
-        "name": "spatial_stats_bgc", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/spatial_stats.cu",
-        "replaces": "src/repro/kernels/spatial_predicate.py:44",
-        "max_abs_err": float((s_k - s_p).abs().max()),
-        **kernel_times(torch, lambda: SP.spatial_stats_bgc(grid),
-                       "spatial_stats_kernel"),
-        "plain_ms": time_ms(torch, lambda: SP.spatial_stats_plain(grid)),
-        "bound_ms": bnd, "bound_by": by, "library_ms": None,
-        "shape": [B, g, g, C]})
-
-    r_k = SP.spatial_stats_rows_bgc(grid, rows)
-    r_p = SP.spatial_stats_rows_plain(grid, rows)
-    check(torch.equal(r_k, r_p), "spatial_stats_rows_bgc differs from plain")
-    R, U = rows.numel(), int(torch.unique(rows).numel())
-    bnd, by = bound_ms(U * g * g * C * 4 + R * 8 + R * C * 5 * 4,
-                       U * g * g * C)
-    entries.append({
-        "name": "spatial_stats_rows_bgc", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/spatial_stats.cu",
-        "replaces": "src/repro/kernels/spatial_predicate.py:66",
-        "max_abs_err": float((r_k - r_p).abs().max()),
-        **kernel_times(torch, lambda: SP.spatial_stats_rows_bgc(grid, rows),
-                       "spatial_stats_kernel"),
-        "plain_ms": time_ms(torch,
-                            lambda: SP.spatial_stats_rows_plain(grid, rows)),
-        "bound_ms": bnd, "bound_by": by, "library_ms": None,
-        "shape": [B, g, g, C, R]})
+    full, classes = grids
+    entries = [stats_entry(torch, SP, full, classes, None),
+               stats_entry(torch, SP, full, classes, rows)]
+    sweep = cluster_sweep(torch, SP, dev, full, classes, rows)
 
     c_k, m_k = CH.cam_head_bgd(feat, w, b)
     c_p, m_p = CH.cam_head_plain(feat, w, b)
@@ -603,7 +689,7 @@ def kernel_phase(torch, dev, feat, params, grid, rows):
         "bound_ms": bnd, "bound_by": by,
         **library_entry(kernel_times(torch, lambda: torch.matmul(feat, w))),
         "shape": [Bf, P, D, Cw]})
-    return entries
+    return entries, sweep
 
 
 def attention64(torch, q, k, v, causal):
@@ -1375,12 +1461,12 @@ def main(argv=None):
         tf, trunk_cfg=dataclasses.replace(trunk, attn_impl="pallas"))
     data = collect(VideoStream(scene, dynamics_seed=SEED), N_FRAMES)
 
-    qkv, feat, grid, rows = kernel_inputs(torch, dev, trunk, spec, params,
-                                          data)
+    qkv, feat, grids, rows = kernel_inputs(torch, dev, trunk, spec, params,
+                                           data)
     if args.rehearse:
         entries = []
     else:
-        entries = kernel_phase(torch, dev, feat, params, grid, rows)
+        entries, sweep = kernel_phase(torch, dev, feat, params, grids, rows)
         flash, flash_lines = flash_phase(torch, qkv)
         entries.append(flash)
         for e in entries:
@@ -1391,9 +1477,19 @@ def main(argv=None):
                   f"library device {e['library_ms']} ms, call "
                   f"{e.get('library_call_ms')} ms), max abs err "
                   f"{e['max_abs_err']:.3g}", flush=True)
+        for e in entries[:2]:
+            print(f"kernel {e['name']} before, on the grid sliced to "
+                  f"classes {e['classes']}: device {e['sliced_ms']:.5f} ms, "
+                  f"call {e['sliced_call_ms']:.5f} ms, back-to-back "
+                  f"{e['sliced_b2b_ms']:.5f} ms; gather + .contiguous() + "
+                  f"kernel: device {e['compose_ms']:.5f} ms, call "
+                  f"{e['compose_call_ms']:.5f} ms, back-to-back "
+                  f"{e['compose_b2b_ms']:.5f} ms", flush=True)
+        for line in sweep:
+            print(line, flush=True)
         for line in flash_lines:
             print(line, flush=True)
-    del qkv, feat, grid, rows
+    del qkv, feat, grids, rows
     print(plain_head_check(torch, dev, trunk, spec, params, data),
           flush=True)
 

@@ -503,30 +503,35 @@ class QueryPlan:
                         body: str = "rows") -> torch.Tensor:
         """(B, k) bool for the spatial tier from the (C', 5) stats.
 
-        ``class_slice=(classes, a_idx, b_idx)`` gathers only the grid
-        planes the tier's leaves reference before the reduction (made
-        contiguous here, as the kernel requires).  ``rows`` restricts the
-        reduction to a row subset; ``body`` picks ``"rows"`` (the
-        row-list kernel, reading frames in place) or ``"full"`` (gather
-        the rows, then the full-batch kernel).  Either way (R, k)."""
+        ``class_slice=(classes, a_idx, b_idx)`` reduces only the grid
+        planes the tier's leaves reference: the stats kernel reads them
+        from the full grid in place (its plain version gathers them).
+        ``rows`` restricts the reduction to a row subset; ``body`` picks
+        ``"rows"`` (the row-list kernel, reading frames in place) or
+        ``"full"`` (gather the rows, then the full-batch kernel).  Either
+        way (R, k)."""
         _, a, b, use_row, radius = payload if payload is not None \
             else self._spa
         dev = out.grid.device
         g = out.grid.shape[1]
         grid = out.grid
+        classes = None
         if class_slice is not None and \
                 len(class_slice[0]) < out.grid.shape[-1]:
             classes, a, b = class_slice
-            grid = grid[..., self._const(classes, dev, index=True)]
+            classes = self._const(classes, dev, index=True)
         if rows is not None:
             if body == "full":
-                stats = kops.spatial_stats_inline(grid[rows], self.tau)
+                stats = kops.spatial_stats_inline(grid[rows], self.tau,
+                                                  classes=classes)
             else:
-                stats = kops.spatial_stats_rows_inline(grid, rows, self.tau)
-        elif grid is out.grid:
+                stats = kops.spatial_stats_rows_inline(grid, rows, self.tau,
+                                                       classes=classes)
+        elif classes is None:
             stats = out.spatial_stats(self.tau)
         else:
-            stats = kops.spatial_stats_inline(grid, self.tau)
+            stats = kops.spatial_stats_inline(grid, self.tau,
+                                              classes=classes)
         return SP.eval_spatial_leaves(
             stats, self._const(a, dev, index=True),
             self._const(b, dev, index=True), self._const(use_row, dev),

@@ -44,7 +44,7 @@ _LL, _PI = ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)
 _PLL = ctypes.POINTER(_LL)
 _SIGNATURES = {
     "spatial_stats": {
-        "spatial_stats_launch": ([_VP, _VP, _VP, _I, _I, _I, _F, _VP], _I)},
+        "spatial_stats_launch": ([ctypes.c_char_p, _F, _VP], _I)},
     "cam_head": {
         "cam_head_launch": ([_VP] * 6 + [_I] * 4 + [_VP], _I)},
     "flash_attention": {

@@ -73,16 +73,22 @@ def cam_head(feat: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     return counts, cam.reshape(B, g, g, C)
 
 
-def spatial_stats_inline(grid_logits: torch.Tensor,
-                         tau: float = 0.2) -> torch.Tensor:
-    """(B, g, g, C) -> per-class stats (B, C, 5)."""
-    return spatial_stats_bgc(grid_logits.contiguous(), tau=tau)
+def spatial_stats_inline(grid_logits: torch.Tensor, tau: float = 0.2, *,
+                         classes: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """(B, g, g, C) -> per-class stats (B, C', 5) of the planes
+    ``classes`` (all C when None), read in place on the card."""
+    return spatial_stats_bgc(grid_logits.contiguous(), tau=tau,
+                             classes=classes)
 
 
 def spatial_stats_rows_inline(grid_logits: torch.Tensor, rows: torch.Tensor,
-                              tau: float = 0.2) -> torch.Tensor:
-    """Stats over a row subset: (B, g, g, C) x (R,) -> (R, C, 5)."""
-    return spatial_stats_rows_bgc(grid_logits.contiguous(), rows, tau=tau)
+                              tau: float = 0.2, *,
+                              classes: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """Stats over a row subset: (B, g, g, C) x (R,) -> (R, C', 5)."""
+    return spatial_stats_rows_bgc(grid_logits.contiguous(), rows, tau=tau,
+                                  classes=classes)
 
 
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

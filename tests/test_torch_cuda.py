@@ -7,9 +7,10 @@ conftest:
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Spatial stats are held bit for bit; the CAM head at 1e-4 (the same fp32
-products summed in another order), with TF32 off for matmuls and cuDNN,
-and bit for bit on a repeated call.  Flash and decode attention are held
+Spatial stats are held bit for bit (every grid type, class list, row-id
+type, and frames the host splits over clusters of 1-8 blocks); the CAM
+head at 1e-4 (the same fp32 products summed in another order), with
+TF32 off for matmuls and cuDNN, and bit for bit on a repeated call.  Flash and decode attention are held
 at max abs err 1e-4 in float32 and 2e-2 in bfloat16 (one bf16 rounding
 of outputs of magnitude ~1), as tests/test_kernels.py holds the Pallas
 kernels; the float32 flash kernel's stress cases (3xTF32 tensor-core
@@ -74,6 +75,230 @@ def test_spatial_stats_kernels_bit_exact(cuda_device, seed):
         before["spatial_stats_rows_bgc"] + 6
     with pytest.raises(IndexError):
         SP.spatial_stats_rows_bgc(gl, torch.tensor([0, 16]))
+
+
+def _stats_grid(dev, seed, B, g, C, dtype="float32", density=0.02,
+                flat_offset=0):
+    """A (B, g, g, C) grid on the card: sparse occupied cells (1.0) over
+    noise of std 0.1 (a few cells cross tau), whole classes knocked out per
+    frame; ``flat_offset`` elements into a flat buffer, so an offset of 1
+    starts the grid off a 16-byte boundary."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = B * g * g * C
+    noise = torch.randn(n + flat_offset, generator=gen, device=dev) * 0.1
+    occ = torch.rand(n + flat_offset, generator=gen, device=dev) < density
+    flat = torch.where(occ, torch.ones((), device=dev), noise)
+    dead = torch.rand((B, 1, 1, C), generator=gen, device=dev) < 0.3
+    flat[flat_offset:].view(B, g, g, C).masked_fill_(dead, -1.0)
+    return flat.to(getattr(torch, dtype))[flat_offset:].view(B, g, g, C)
+
+
+def _stats_equal(grid, rows=None, classes=None):
+    """Kernel (one launch) and plain version agree bit for bit."""
+    name = "spatial_stats_bgc" if rows is None else "spatial_stats_rows_bgc"
+    before = build.LAUNCHES[name]
+    if rows is None:
+        got = SP.spatial_stats_bgc(grid, classes=classes)
+    else:
+        got = SP.spatial_stats_rows_bgc(grid, rows, classes=classes)
+    if rows is None:
+        want = SP.spatial_stats_plain(grid, classes=classes)
+    else:
+        want = SP.spatial_stats_rows_plain(grid, rows.to(grid.device),
+                                           classes=classes)
+    assert build.LAUNCHES[name] == before + 1
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+# R x g x C of the sweep, each in the three grid types
+STATS_SWEEP = [(R, g, C) for R in (1, 5, 16, 32, 200) for g in (8, 56, 64)
+               for C in (1, 2, 3, 8, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("R,g,C", STATS_SWEEP, ids=str)
+def test_spatial_stats_sweep_bit_exact(cuda_device, R, g, C, dt):
+    grid = _stats_grid(cuda_device, R * g + C, R, g, C, dt)
+    gen = torch.Generator().manual_seed(R + g + C)
+    _stats_equal(grid)
+    cls = torch.randperm(C, generator=gen)[:max(1, C // 2 + 1)]
+    _stats_equal(grid, classes=cls.to(cuda_device))
+    rows = torch.randint(0, R, (max(1, R // 2),), generator=gen)
+    _stats_equal(grid, rows=rows.to(cuda_device), classes=cls.to(cuda_device))
+    _stats_equal(grid, rows=rows.to(cuda_device))
+
+
+# every length of an unsorted class list (a repeated class too) for small
+# C; for C = 1024 a few lengths up to all
+CLASS_LISTS = ([(C, L) for C in (1, 2, 3, 8) for L in range(1, C + 2)]
+               + [(1024, L) for L in (1, 2, 32, 33, 500, 1024)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("C,L", CLASS_LISTS, ids=str)
+def test_spatial_stats_class_lists_bit_exact(cuda_device, C, L, dt):
+    grid = _stats_grid(cuda_device, C + L, 16, 56 if C < 1024 else 8, C, dt,
+                       density=0.05)
+    gen = torch.Generator().manual_seed(C * 7 + L)
+    cls = torch.randperm(C, generator=gen)[:L]
+    if L > C:                                   # a repeated class
+        cls = torch.cat([cls, cls[:1]])[:L] if C > 1 else torch.zeros(
+            L, dtype=torch.long)
+    for ids in (cls.to(cuda_device), cls.int().to(cuda_device), cls):
+        _stats_equal(grid, classes=ids)
+        _stats_equal(grid, rows=torch.tensor([15, 0, 7, 7], device=ids.device),
+                     classes=ids)
+
+
+# unaligned spans: odd C at g = 57 (a frame of 57 * 57 * C elements is no
+# multiple of 16 bytes), and grids that start off a 16-byte boundary
+UNALIGNED = ([(57, C, dt, 0) for C in (1, 3, 5, 1023)
+              for dt in ("float32", "bfloat16", "float16")]
+             + [(56, C, dt, 1) for C in (2, 3, 8)
+                for dt in ("float32", "bfloat16")])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,C,dt,offset", UNALIGNED, ids=str)
+def test_spatial_stats_unaligned_bit_exact(cuda_device, g, C, dt, offset):
+    grid = _stats_grid(cuda_device, g + C, 5 if C < 1000 else 2, g, C, dt,
+                       flat_offset=offset)
+    assert (grid.data_ptr() % 16 == 0) == (offset == 0)
+    _stats_equal(grid)
+    cls = torch.tensor([C - 1, 0], device=cuda_device)[:min(C, 2)]
+    _stats_equal(grid, classes=cls)
+    _stats_equal(grid, rows=torch.tensor([1, 1, 0], device=cuda_device),
+                 classes=cls)
+
+
+# (R, g, g, C, dtype) and the cluster size the host picks on an H100's 132
+# SMs: more than two rounds of loads a block split a frame, into about a
+# round a block on at most three quarters of the SMs
+CLUSTER_SHAPES = [((1, 56, 56, 3, "float32"), 1),
+                  ((40, 56, 56, 8, "float32"), 2),
+                  ((32, 56, 56, 8, "float32"), 3),
+                  ((16, 56, 56, 8, "float32"), 4),
+                  ((2, 64, 64, 8, "bfloat16"), 4),
+                  ((5, 57, 57, 3, "float32"), 5),
+                  ((1, 64, 64, 12, "float32"), 6),
+                  ((1, 56, 56, 16, "float16"), 7),
+                  ((1, 57, 57, 5, "float32"), 8),
+                  ((5, 8, 8, 1024, "float32"), 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,S", CLUSTER_SHAPES, ids=str)
+def test_spatial_stats_cluster_split_bit_exact(cuda_device, shape, S):
+    """Frames the host splits over a cluster of S blocks (S = 1: one block
+    a frame): the distributed-shared-memory merge is exact, for the full
+    grid, a class list and a reversed row list."""
+    R, g, _, C, dt = shape
+    grid = _stats_grid(cuda_device, S + R + C, R, g, C, dt)
+    _stats_equal(grid)
+    _stats_equal(grid, classes=torch.tensor([C - 1, 0], device=cuda_device))
+    _stats_equal(grid, rows=torch.arange(R - 1, -1, -1, device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("where", ["device", "host", "strided"])
+def test_spatial_stats_row_ids_int32_int64(cuda_device, dtype, where):
+    grid = _stats_grid(cuda_device, 3, 32, 56, 3)
+    rows = torch.tensor([31, 2, 2, 0, 17, 31], dtype=dtype)
+    if where == "device":
+        rows = rows.to(cuda_device)
+    elif where == "strided":
+        rows = torch.stack([rows, rows], 1).to(cuda_device)[:, 1]
+        assert rows.stride(0) == 2
+    _stats_equal(grid, rows=rows)
+    _stats_equal(grid, rows=rows, classes=torch.tensor([2, 0]).to(dtype))
+    want = SP.spatial_stats_rows_bgc(grid, rows.long())
+    assert torch.equal(SP.spatial_stats_rows_bgc(grid, rows), want)
+
+
+@pytest.mark.cuda
+def test_spatial_stats_one_launch_per_call(cuda_device):
+    """Device int64 row and class ids, as the plan passes them: the call
+    is one kernel on the card (no cast, check, gather or copy)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    grid = _stats_grid(cuda_device, 4, 32, 56, 3)
+    rows = torch.tensor([3, 1, 4, 1, 5], device=cuda_device)
+    cls = torch.tensor([2, 0], device=cuda_device)
+    for call in (lambda: SP.spatial_stats_bgc(grid, classes=cls),
+                 lambda: SP.spatial_stats_rows_bgc(grid, rows, classes=cls),
+                 lambda: ops.spatial_stats_rows_inline(grid, rows,
+                                                       classes=cls)):
+        call()
+        for _ in range(5):      # the profiler may drop a window's launches
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events()
+                     if e.device_type == DeviceType.CUDA]
+            if names:
+                break
+        assert len(names) == 1 and "spatial_stats_kernel" in names[0], \
+            names
+
+
+FAULT_SCRIPT = """
+import sys, torch
+sys.path.insert(0, {src!r})
+from repro_torch.kernels import spatial_predicate as SP
+grid = torch.zeros((4, 8, 8, 3), device="cuda")
+ids = torch.tensor({ids}, device="cuda", dtype=torch.{dtype})
+if {rows}:
+    SP.spatial_stats_rows_bgc(grid, ids)
+else:
+    SP.spatial_stats_bgc(grid, classes=ids)
+print("launched", flush=True)
+torch.cuda.synchronize()
+print("no fault")
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,ids,dtype", [
+    (True, [0, 4], "int64"), (True, [-1], "int32"),
+    (False, [0, 3], "int64"), (False, [-2, 1], "int32")], ids=str)
+def test_spatial_stats_device_id_out_of_range_faults(cuda_device, rows, ids,
+                                                      dtype):
+    """A bad device id faults the launch and surfaces at the next sync
+    (in a subprocess: a device fault poisons the CUDA context)."""
+    import os
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                       "src")
+    code = FAULT_SCRIPT.format(src=src, ids=ids, dtype=dtype, rows=rows)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert "launched" in res.stdout, res.stderr
+    assert res.returncode != 0 and "no fault" not in res.stdout
+    assert "CUDA error" in res.stderr or "AcceleratorError" in res.stderr, \
+        res.stderr
+
+
+@pytest.mark.cuda
+def test_spatial_stats_refusals(cuda_device):
+    grid = _stats_grid(cuda_device, 5, 4, 8, 3)
+    with pytest.raises(TypeError):
+        SP.spatial_stats_bgc(grid.to(torch.float64))
+    with pytest.raises(TypeError):
+        SP.spatial_stats_rows_bgc(grid, torch.tensor([0], dtype=torch.int16,
+                                                     device=cuda_device))
+    with pytest.raises(IndexError):
+        SP.spatial_stats_bgc(grid, classes=torch.tensor([3]))
+    with pytest.raises(ValueError):
+        SP.spatial_stats_bgc(grid.transpose(1, 2))
+    empty = SP.spatial_stats_bgc(grid, classes=torch.tensor(
+        [], dtype=torch.long, device=cuda_device))
+    assert empty.shape == (4, 0, 5)
 
 
 @pytest.mark.cuda

@@ -74,6 +74,95 @@ def test_spatial_stats_rows_plain_bit_exact_unsorted_duplicates(rows):
                                       torch.as_tensor(rows)).numpy(), want)
 
 
+def _class_set(seed):
+    """A seeded, unsorted class set of a C in 3..5 (one class in some)."""
+    rng = np.random.default_rng(100 + seed)
+    C = 3 + seed % 3
+    return C, rng.permutation(C)[:int(rng.integers(1, C + 1))]
+
+
+# seeded sets (seeds 0-5), and fixed ones: single classes, unsorted sets
+CLASS_SETS = ([_class_set(seed) for seed in range(6)]
+              + [(3, np.array([2])), (5, np.array([0])),
+                 (5, np.array([4, 1, 3])), (4, np.array([3, 0, 2, 1]))])
+
+
+@pytest.mark.parametrize("g", [8, 16])
+@pytest.mark.parametrize("C,classes", CLASS_SETS, ids=str)
+def test_spatial_stats_classes_bit_exact_vs_pallas_interpreter(C, classes,
+                                                               g):
+    """``classes=`` (the plain body on the CPU) equals the JAX kernels on
+    the gathered planes ``grid[..., classes]``, full batch and row list,
+    with int32 and int64 class ids."""
+    gl = _occupancy_grid(int(classes.sum()) + g, B=6, g=g, C=C,
+                         density=0.12)
+    sl = jnp.asarray(gl[..., classes])
+    want = np.asarray(ref_stats(sl, interpret=True))
+    rows = np.array([5, 0, 3, 3, 1], np.int32)
+    want_rows = np.asarray(ref_rows(sl, jnp.asarray(rows), interpret=True))
+    for ids in (torch.as_tensor(classes), torch.as_tensor(classes).int()):
+        got = SP.spatial_stats_bgc(torch.as_tensor(gl), classes=ids).numpy()
+        np.testing.assert_array_equal(got, want)
+        got = SP.spatial_stats_rows_bgc(torch.as_tensor(gl),
+                                        torch.as_tensor(rows),
+                                        classes=ids).numpy()
+        np.testing.assert_array_equal(got, want_rows)
+        np.testing.assert_array_equal(
+            ops.spatial_stats_inline(torch.as_tensor(gl),
+                                     classes=ids).numpy(), want)
+
+
+@pytest.mark.parametrize("rows_kernel", [False, True])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_spatial_stats_16_bit_grids_bit_exact_vs_pallas_interpreter(
+        dtype, rows_kernel):
+    """bfloat16 and float16 grids are widened before the compare, as the
+    TPU kernel's ``astype`` does: both get the same bits in the same
+    type (values near tau included, so rounding moves some across it)."""
+    rng = np.random.default_rng(17)
+    gl = rng.normal(0.2, 0.05, (5, 12, 12, 4)).astype(np.float32)
+    gl[rng.random(gl.shape) < 0.5] = -1.0
+    # just above and just below tau: float16 rounds the first under it,
+    # bfloat16 the second over it
+    gl[0, 0, :3, 0] = 0.2 + 1e-5
+    gl[1, 5, :3, 1] = 0.2 - 1e-5
+    t = torch.as_tensor(gl).to(getattr(torch, dtype))
+    j = jnp.asarray(t.float().numpy()).astype(getattr(jnp, dtype))
+    assert np.array_equal(np.asarray(j.astype(jnp.float32)),
+                          t.float().numpy())
+    if rows_kernel:
+        rows = np.array([1, 4, 4, 0], np.int32)
+        want = ref_rows(j, jnp.asarray(rows), interpret=True)
+        got = SP.spatial_stats_rows_bgc(t, torch.as_tensor(rows))
+    else:
+        want = ref_stats(j, interpret=True)
+        got = SP.spatial_stats_bgc(t)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # some cell flips across tau on rounding: the test sees the type
+    assert not np.array_equal(
+        got.numpy(), SP.spatial_stats_plain(torch.as_tensor(gl)).numpy()
+        if not rows_kernel else
+        SP.spatial_stats_rows_plain(torch.as_tensor(gl),
+                                    torch.as_tensor(rows)).numpy())
+
+
+@pytest.mark.parametrize("rows", [[4, 1, 1, 3], [0], [5, 5, 2, 0, 1, 3]])
+def test_spatial_stats_rows_int32_and_int64_ids_agree(rows):
+    gl = torch.as_tensor(_occupancy_grid(23, density=0.15))
+    r64 = torch.tensor(rows, dtype=torch.int64)
+    got64 = SP.spatial_stats_rows_bgc(gl, r64)
+    got32 = SP.spatial_stats_rows_bgc(gl, r64.int())
+    assert torch.equal(got64, got32)
+    want = np.asarray(ref_rows(jnp.asarray(gl.numpy()),
+                               jnp.asarray(np.asarray(rows, np.int32)),
+                               interpret=True))
+    np.testing.assert_array_equal(got32.numpy(), want)
+    cls = torch.tensor([2, 0])
+    assert torch.equal(SP.spatial_stats_rows_bgc(gl, r64, classes=cls),
+                       SP.spatial_stats_rows_bgc(gl, r64.int(),
+                                                 classes=cls.int()))
+
+
 @pytest.mark.parametrize("g,D,C", [(8, 16, 3), (4, 32, 2), (8, 64, 8)])
 def test_cam_head_plain_vs_pallas_interpreter(g, D, C):
     rng = np.random.default_rng(g * D + C)

@@ -103,6 +103,57 @@ def test_staged_reports_rows_body_on_skewed_traffic():
     assert report_fields(ts.last_report) == report_fields(rs.last_report)
 
 
+# (a, b) class pairs of two Spatial leaves over a C = 5 grid: the stage
+# reads 2-4 of the 5 planes, listed unsorted
+SLICED_PAIRS = [((4, 1), (1, 4)), ((3, 0), (2, 3)), ((2, 2), (0, 4))]
+
+
+@pytest.mark.parametrize("body", ["rows", "full", "auto"])
+@pytest.mark.parametrize("pairs", SLICED_PAIRS, ids=str)
+def test_staged_spatial_tier_passes_classes_identical(pairs, body,
+                                                      monkeypatch):
+    """A spatial tier that reads fewer planes than the grid holds hands
+    the full grid and the class list to the stats kernel (no gather);
+    its staged masks equal the exhaustive plan's and the JAX package's
+    bit for bit, under count-guard compaction too."""
+    C5 = 5
+    rq = [RQ.And((RQ.ClassCount(a, RQ.Op.GE, 1),
+                  RQ.Spatial(a, RQ.Rel.LEFT, b, radius=1)))
+          for a, b in pairs] + [RQ.Spatial(pairs[0][1], RQ.Rel.ABOVE,
+                                           pairs[0][0])]
+    tq = [to_port(q) for q in rq]
+    rng = np.random.default_rng(sum(sum(p) for p in pairs))
+    counts = rng.normal(1, 1.5, (B, C5)).astype(np.float32)
+    counts[rng.random(B) < 0.6] = 0.0            # compaction
+    grid = rng.normal(0, 0.5, (B, G, G, C5)).astype(np.float32)
+    ro, to = outputs_pair(counts, grid)
+    calls = []
+    from repro_torch.kernels import ops as kops
+    for name in ("spatial_stats_inline", "spatial_stats_rows_inline"):
+        real = getattr(kops, name)
+
+        def spy(grid_logits, *args, _real=real, **kw):
+            calls.append((grid_logits.shape[-1], kw.get("classes")))
+            return _real(grid_logits, *args, **kw)
+
+        monkeypatch.setattr(kops, name, spy)
+    want = TPlan(tq).evaluate(to)
+    np.testing.assert_array_equal(want.numpy(),
+                                  np.asarray(RPlan(rq).evaluate(ro)))
+    rs = RPlan(rq).build_staged(None, min_bucket=2)
+    for mb in (1, 2, B):
+        staged = TPlan(tq).build_staged(None, min_bucket=mb,
+                                        spatial_body=body)
+        got = staged.evaluate(to)
+        assert torch.equal(got, want)
+        np.testing.assert_array_equal(got.numpy(),
+                                      np.asarray(rs.evaluate(ro)))
+    n_read = len({c for p in pairs for c in p} | set(pairs[0]))
+    sliced = [(c, cls) for c, cls in calls if cls is not None]
+    assert sliced and all(c == C5 and len(cls) == n_read
+                          for c, cls in sliced)
+
+
 @pytest.mark.parametrize("seed", range(6))
 def test_port_staged_identical_to_exhaustive(seed):
     """Port-internal: every stage order, bucket floor, spatial body and
