@@ -53,6 +53,35 @@ Phases (any failure exits non-zero and prints no result line):
    serving peak memory must stay under 2 GiB (no S x S scores).
 5. One batch through the naive and the pallas trunk on the same trained
    weights: both timed, their outputs equal within rtol 1e-4 / atol 1e-3.
+5b. The aggregate half at full width: 2048 frames of the same detrac-like
+   stream (1.6 GB of float32 embeddings on the card), the learned filter
+   served through the pallas trunk and the CAM head, the ground-truth
+   object lists as the oracle (``make_value_fn``).  Counts are reset
+   just before and read just after; flash attention, the CAM head and
+   both stats kernels must have launched.  Checks: (1) a census — a
+   count contract with ``max_oracle = n`` and ``eps = 1e-9`` returns the
+   exact count, a zero-width interval and n oracle calls, each frame
+   charged once; (2) error-bounded contracts through
+   ``AggregateStreamSession`` (Thompson allocation, ±10% at 95%) on the
+   learned and the ground-truth filter, for a count of car-left-of-bus
+   frames and the number of cars over them: under ``cv="auto"`` the
+   truth within 3 half-widths and the pooled CV variance at most the
+   naive one; under ``cv="eager"`` the variance check and a second run
+   with the same seed equal in every field that is not a measured
+   microsecond (chunks priced by an explicit uniform vector;
+   ``cv="auto"`` decides its sweeps on wall-clock prices), its coverage
+   reported; beside the uniform ``cv="off"`` baseline's oracle calls;
+   (3) the
+   per-chunk float64 ``CVAccumulator``s on the card, merged, equal to
+   ``pooled_accumulator()``, ``distributed_reduce`` and numpy
+   ``mcv_estimate`` within 1e-9 relative; (4) ``calibrate`` at the
+   planner's shape (batch 32, g = 56, C = 3; CUDA events), saved to
+   results/calibration/torch-cuda.json, loaded back, with
+   ``calibrate_oracle`` folded in; the filter stream's learned pass again
+   under that model (staged == exhaustive bit for bit, answers equal to
+   the static model's), and a contract priced by it reporting
+   ``measured``; (5) that stream and an aggregate session on one
+   ``QueryRegistry`` charging one budget ledger.
 6. The RWKV-6 serving path at full width: rwkv6-3b (32 layers, d_model
    2560, vocab 65536, bf16) with random weights from a seeded CUDA
    generator, ``attn_impl="pallas"``; four requests of 1024 prompt tokens
@@ -118,6 +147,8 @@ SERVING_PEAK_LIMIT = 2 * 2**30   # bytes; one S x S score tensor is 4.7 GiB
 RWKV_REQUESTS, RWKV_PROMPT, RWKV_DECODE = 4, 1024, 32
 RWKV_FP32_PROMPT, RWKV_FP32_DECODE = 256, 8
 DECODE_KV_LEN = 30000            # valid rows of the 32768-row decode cache
+AGG_FRAMES, AGG_FRAMES_REHEARSE = 2048, 384  # the aggregate phase's stream
+AGG_CHUNKS, AGG_EPS = 8, 0.1     # contract strata; +-10% at 95%
 # (B, Sq, Sk, H, KV, hd, causal, sliding_window, dtype): the Pallas kernel
 # test's shapes in both types and both maskings, sliding windows with
 # GQA 4/2, and ragged lengths that no 64-row tile divides
@@ -379,24 +410,29 @@ def training_phase(torch, dev, scene, trunk, spec, rehearse):
 # the main path
 # ---------------------------------------------------------------------------
 
-def run_stream(torch, dev, data, scene, filter_fn_for, record):
-    """One pass of the stream through the port's executors.  Returns the
-    window results, the (name -> qid) map and the engines built."""
+def run_stream(torch, dev, data, scene, filter_fn_for, record, cost_model,
+               registry=None):
+    """One pass of the stream through the port's executors (the adaptive
+    cascades priced by ``cost_model``; the executors charge the
+    registry's budget ledger).  Returns the window results, the (name ->
+    qid) map and the engines built."""
     from repro_torch.core import cascade as CS
     from repro_torch.core.streaming import (HoppingWindow,
                                             MultiQueryStreamExecutor,
                                             QueryRegistry)
     initial, late, retire = queries(scene.grid)
-    registry = QueryRegistry()
+    registry = registry if registry is not None else QueryRegistry()
     names = {name: registry.register(q) for name, q in initial.items()}
     engines = []
     plan_s = [0.0]
 
-    def factory(queries, slot_stats, leaf_table, step_cache, device):
+    def factory(queries, slot_stats, leaf_table, step_cache, budget_ledger,
+                device):
         mqc = CS.MultiQueryCascade(queries, adaptive=True,
                                    slot_stats=slot_stats,
                                    leaf_table=leaf_table,
-                                   step_cache=step_cache)
+                                   step_cache=step_cache,
+                                   cost_model=cost_model)
         staged_masks = mqc.masks
 
         def masks(out, presumed_decided=None):
@@ -412,7 +448,8 @@ def run_stream(torch, dev, data, scene, filter_fn_for, record):
         ex = CS.MultiQueryExecutor(
             mqc, filter_fn_for, lambda idx, sel: [data["objects"][idx[j]]
                                                   for j in sel],
-            scene.n_classes, scene.grid, oracle_bucket=16, device=device)
+            scene.n_classes, scene.grid, oracle_bucket=16,
+            budget_ledger=budget_ledger, device=device)
         engines.append(ex)
         return lambda idx: ex.run_batch(idx).answers
 
@@ -452,6 +489,7 @@ def main_path(torch, dev, scene, serve, data):
     trained filter on the pallas trunk, CAM head kernel); returns what
     the checks and the report need.  Launch counts and the peak memory
     cover exactly these two passes."""
+    from repro_torch.core import costmodel as CM
     from repro_torch.core.filters import FilterOutputs
     from repro_torch.kernels import ops
     embeds = torch.as_tensor(data["embeds"], device=dev)
@@ -468,10 +506,14 @@ def main_path(torch, dev, scene, serve, data):
 
     record = {"learned": [], "ground_truth": []}
     runs = {}
+    # priced by the static model: a calibration file that an earlier run
+    # left in results/calibration/ must not change the main path's plan
+    static = CM.static_cost_model()
     reset_peak(torch, dev)
     ops.reset_launch_counts()
     for name, fn in (("learned", learned), ("ground_truth", ground_truth)):
-        runs[name] = run_stream(torch, dev, data, scene, fn, record[name])
+        runs[name] = run_stream(torch, dev, data, scene, fn, record[name],
+                                cost_model=static)
     launches = ops.launch_counts()
     return runs, record, launches, peak_bytes(torch, dev)
 
@@ -892,6 +934,355 @@ def plain_head_check(torch, dev, trunk, spec, params, data):
           "filter outputs are not finite or have the wrong shape")
     return f"kernel head vs plain head: max abs err {err:.3g} (tol 1e-4)"
 
+
+
+# ---------------------------------------------------------------------------
+# the aggregate half: contracts, the float64 accumulator, the cost model
+# ---------------------------------------------------------------------------
+
+def _contract_fields(res):
+    """Every ContractResult field that is not a measured microsecond."""
+    return (res.estimate, tuple(res.ci), res.mean, res.n_sampled,
+            res.oracle_calls, res.satisfied, res.terminated, res.rounds,
+            tuple(res.confirmations), tuple(res.allocation.tolist()),
+            tuple(res.decision_calls.tolist()), res.cv_chunks,
+            res.variance_reduction)
+
+
+def _ledger_text(led):
+    return (f"ledger: oracle {led.oracle_calls} frames "
+            f"{led.oracle_us / 1e3:.3f} ms, filter {led.filter_frames} "
+            f"frames {led.filter_us / 1e3:.3f} ms")
+
+
+def aggregate_inputs(torch, dev, scene, serve, n_frames):
+    """The detrac-like stream at the smoke's width, its embeddings on the
+    card, and the three taps the aggregate half reads: the learned filter
+    (the trained weights through the pallas trunk and the CAM head, in
+    batches of ``BATCH`` frames), the ground-truth filter outputs, and
+    the oracle (the ground-truth object lists)."""
+    from repro_torch.core.filters import FilterOutputs
+    from repro_torch.data.synthetic import VideoStream, collect
+    t0 = time.perf_counter()
+    data = collect(VideoStream(scene, dynamics_seed=SEED), n_frames)
+    collect_s = time.perf_counter() - t0
+    embeds = torch.as_tensor(data["embeds"], device=dev)
+    gt_counts = torch.as_tensor(data["counts"].astype("float32"), device=dev)
+    gt_grid = torch.as_tensor(data["occupancy"], device=dev).float()
+
+    def learned(idx):
+        i = torch.as_tensor(np.asarray(idx), device=dev)
+        parts = [serve.apply(embeds[i[k:k + BATCH]], use_kernel=True,
+                             device=dev) for k in range(0, len(i), BATCH)]
+        return FilterOutputs(counts=torch.cat([p.counts for p in parts]),
+                             grid=torch.cat([p.grid for p in parts]))
+
+    def ground_truth(idx):
+        i = torch.as_tensor(np.asarray(idx), device=dev)
+        return FilterOutputs(counts=gt_counts[i], grid=gt_grid[i])
+
+    def oracle(idx):
+        return [data["objects"][int(i)] for i in idx]
+
+    return data, collect_s, {"learned": learned,
+                             "ground_truth": ground_truth}, oracle
+
+
+def aggregate_queries(scene):
+    """A count with a spatial predicate (car-left-of-bus, from the
+    monitor's population) and the number of cars over those frames."""
+    from repro_torch.core.contracts import AggregateQuery
+    initial, _, _ = queries(scene.grid)
+    pred = initial["car-left-of-bus"]
+    return {"count car-left-of-bus": AggregateQuery(pred=pred, agg="count",
+                                                    eps=AGG_EPS),
+            "sum cars | car-left-of-bus": AggregateQuery(
+                pred=pred, agg="sum", cls=0, eps=AGG_EPS)}
+
+
+def run_session(dev, registry, q, filter_fn, oracle, scene, n, **knobs):
+    from repro_torch.core.streaming import AggregateStreamSession
+    t0 = time.perf_counter()
+    with AggregateStreamSession(registry, q, filter_fn=filter_fn,
+                                oracle_fn=oracle, n_frames=n,
+                                n_classes=scene.n_classes, grid=scene.grid,
+                                n_chunks=AGG_CHUNKS, seed=SEED, device=dev,
+                                **knobs) as sess:
+        res = sess.run()
+    return res, sess.executor, time.perf_counter() - t0
+
+
+def census_check(dev, scene, oracle, n, truth, gpu):
+    """Check 1: a count contract with ``max_oracle = n`` and ``eps =
+    1e-9`` is a census: the exact count, a zero-width interval, every
+    frame oracled and charged once.  ``cv="off"``: exact control
+    variates could collapse the interval before the census ends."""
+    from repro_torch.core import costmodel as CM
+    from repro_torch.core.contracts import AggregateQuery
+    from repro_torch.core.streaming import QueryRegistry
+    initial, _, _ = queries(scene.grid)
+    seen = []
+
+    def counted(idx):
+        seen.extend(int(i) for i in idx)
+        return oracle(idx)
+
+    q = AggregateQuery(pred=initial["car-left-of-bus"], agg="count",
+                       eps=1e-9)
+    reg = QueryRegistry()
+    res, _, wall = run_session(dev, reg, q, None, counted, scene, n,
+                               max_oracle=n, cv="off",
+                               cost_model=CM.static_cost_model())
+    check(res.terminated in ("contract", "census") and res.satisfied,
+          f"census ended {res.terminated}, satisfied {res.satisfied}")
+    check(abs(res.estimate - truth) <= 1e-9 * max(truth, 1.0),
+          f"census estimate {res.estimate} is not the exact {truth}")
+    check(res.half_width == 0.0, f"census interval {res.ci} has width")
+    check(res.oracle_calls == n == reg.budget_ledger.oracle_calls
+          == len(seen) == len(set(seen)),
+          f"census oracle calls {res.oracle_calls}, ledger "
+          f"{reg.budget_ledger.oracle_calls}, frames seen {len(seen)} "
+          f"({len(set(seen))} distinct), want {n} each")
+    return (f"aggregate census: count car-left-of-bus = {res.estimate:.1f} "
+            f"(exact {truth}), CI {res.ci}, {res.oracle_calls} oracle "
+            f"calls of {n} frames, each charged once, terminated by "
+            f"{res.terminated}, wall {wall:.3f} s [{gpu}]")
+
+
+def contract_checks(dev, scene, filters, oracle, n, truths, gpu,
+                    cost_model):
+    """Check 2: the error-bounded contracts through
+    ``AggregateStreamSession`` with Thompson allocation, on the learned
+    and the ground-truth filter, each with its own registry and ledger:
+    the truth inside 3 half-widths and the pooled CV variance at most the
+    naive one under ``cv="auto"``; under ``cv="eager"`` the variance
+    check and a second run with the same seed equal in every field that
+    is not a measured microsecond (chunks priced by an explicit uniform
+    vector).  The repeat is held under ``cv="eager"`` because
+    ``cv="auto"`` decides each chunk's sweep on the realized wall-clock
+    prices of the filter and the oracle, as the JAX package does, so a
+    decision near its threshold can go either way between two runs.  The
+    eager runs' coverage is reported, not held: where a chunk's sampled
+    residuals are all equal, the JAX package's estimator (which the port
+    copies) gives that chunk zero variance, and on the ground-truth count
+    the interval collapses around a biased estimate.  The uniform
+    ``cv="off"`` baseline's oracle calls are reported beside them."""
+    from repro_torch.core.streaming import QueryRegistry
+    lines, kept = [], {}
+    prices = np.ones(AGG_CHUNKS)
+    for fname, ffn in filters.items():
+        for qname, q in aggregate_queries(scene).items():
+            truth = truths[qname]
+            slack = 1e-9 * max(abs(truth), 1.0)
+            runs = {}
+            for cv in ("auto", "eager", "eager-repeat"):
+                runs[cv] = run_session(
+                    dev, QueryRegistry(), q, ffn, oracle, scene, n,
+                    cv=cv.split("-")[0], cost_model=cost_model,
+                    chunk_oracle_cost=prices)
+            res = runs["auto"][0]
+            check(abs(res.estimate - truth) <= 3 * res.half_width + slack,
+                  f"{fname} {qname} cv=auto: estimate {res.estimate} is "
+                  f"more than 3 half-widths ({res.half_width}) from {truth}")
+            for cv in ("auto", "eager"):
+                res, ex, _ = runs[cv]
+                pooled = ex.pooled_accumulator().estimate()
+                check(pooled.var <= pooled.naive_var * (1 + 1e-9)
+                      and res.variance_reduction >= 1.0,
+                      f"{fname} {qname} cv={cv}: pooled CV variance "
+                      f"{pooled.var} exceeds the naive {pooled.naive_var}")
+            eager, repeat = runs["eager"][0], runs["eager-repeat"][0]
+            check(_contract_fields(eager) == _contract_fields(repeat),
+                  f"{fname} {qname}: a second cv=eager run with seed "
+                  f"{SEED} differs: {_contract_fields(eager)} vs "
+                  f"{_contract_fields(repeat)}")
+            base, _, base_wall = run_session(
+                dev, QueryRegistry(), q, ffn, oracle, scene, n,
+                allocation="uniform", cv="off", cost_model=cost_model)
+            kept[(fname, qname)] = runs["eager"][:2]
+            for cv in ("auto", "eager"):
+                res, _, wall = runs[cv]
+                covered = abs(res.estimate - truth) \
+                    <= 3 * res.half_width + slack
+                lines.append(
+                    f"aggregate {fname} filter, {qname} (eps {AGG_EPS}, "
+                    f"thompson, cv={cv}): estimate {res.estimate:.3f}, CI "
+                    f"[{res.ci[0]:.3f}, {res.ci[1]:.3f}], exact "
+                    f"{truth:.1f}, {res.oracle_calls} novel oracle calls "
+                    f"in {res.rounds} rounds (uniform cv=off baseline "
+                    f"{base.oracle_calls}, estimate {base.estimate:.3f}, "
+                    f"{base_wall:.3f} s), cv chunks "
+                    f"{res.cv_chunks}/{AGG_CHUNKS}, variance reduction "
+                    f"{res.variance_reduction:.4g}, terminated by "
+                    f"{res.terminated}, pricing {res.pricing}, wall "
+                    f"{wall:.3f} s [{gpu}]; {_ledger_text(res.ledger)}"
+                    + (f"; truth within 3 half-widths: {covered}"
+                       f"; a repeat run identical (wall "
+                       f"{runs['eager-repeat'][2]:.3f} s)"
+                       if cv == "eager" else ""))
+    return lines, kept
+
+
+def accumulator_check(torch, dev, ex):
+    """Check 3: the per-chunk float64 accumulators on the card, merged,
+    equal ``pooled_accumulator()``, the stream-axis
+    ``distributed_reduce`` and numpy ``mcv_estimate`` on the same
+    samples, each within 1e-9 relative."""
+    import functools
+    from repro_torch.core import aggregates as AGG
+    accs = ex.chunk_accumulators()
+    check(all(a.M2.device.type == dev.type and a.M2.dtype == torch.float64
+              for a in accs), "chunk accumulators are not float64 on the "
+          "device")
+    merged = functools.reduce(AGG.CVAccumulator.merge, accs)
+    ys = np.concatenate([np.concatenate(c) for c in ex._y if c])
+    zs = np.concatenate([np.concatenate(c, 0) for c in ex._z if c], 0)
+    want = AGG.mcv_estimate(ys, zs)
+    worst = 0.0
+    for name, acc in (("merged", merged), ("pooled", ex.pooled_accumulator()),
+                      ("distributed_reduce", AGG.distributed_reduce(accs))):
+        got = acc.estimate()
+        check(got.n == want.n, f"{name}: n {got.n}, numpy {want.n}")
+        for field in ("mean", "var", "naive_var"):
+            a, b = getattr(got, field), getattr(want, field)
+            err = abs(a - b) / max(abs(b), 1e-300)
+            worst = max(worst, err)
+            check(err <= 1e-9, f"{name} {field} {a} vs numpy {b}: "
+                  f"relative error {err:.3g} > 1e-9")
+    return (f"aggregate accumulators: {len(accs)} per-chunk float64 "
+            f"CVAccumulators on {dev.type} over {want.n} estimation "
+            f"samples (d = {zs.shape[1]}); merged, pooled_accumulator(), "
+            f"distributed_reduce and numpy mcv_estimate agree within "
+            f"{worst:.3g} relative (tol 1e-9)")
+
+
+def cost_model_checks(torch, dev, scene, data, learned_run, learned,
+                      oracle, n, gpu):
+    """Check 4: ``calibrate`` at the planner's shape (batch 32, g, C = 3),
+    saved under results/calibration/ and loaded back, with the oracle
+    folded in; the filter stream's learned pass again under that model
+    (staged masks equal the exhaustive plan bit for bit, answers equal
+    the static-model run's), and a contract priced by it reports
+    ``measured``.  Check 5: that stream and an aggregate session on one
+    registry charge one budget ledger."""
+    from repro_torch.core import costmodel as CM
+    from repro_torch.core.contracts import make_value_fn
+    from repro_torch.core.plan import QueryPlan
+    from repro_torch.core.streaming import QueryRegistry
+    lines = []
+    path = CM.calibration_path(device=dev)
+    t0 = time.perf_counter()
+    model = CM.calibrate(batch=BATCH, grid=scene.grid,
+                         classes=scene.n_classes, device=dev, path=path)
+    cal_s = time.perf_counter() - t0
+    loaded = CM.load_calibration(path, device=dev)
+    check(loaded is not None and loaded.coeffs == model.coeffs,
+          f"the calibration saved to {path} does not load back")
+    q = aggregate_queries(scene)["count car-left-of-bus"]
+    value_fn = make_value_fn(q, oracle, scene.n_classes, scene.grid)
+    measured = CM.calibrate_oracle(loaded, value_fn,
+                                   lambda r: np.arange(r),
+                                   rows_points=(1, 8, 32, 128), device=dev,
+                                   save=True, path=path)
+    check(CM.load_calibration(path, device=dev).coeffs == measured.coeffs,
+          "the calibration with the oracle does not load back")
+    coeffs = {k: (round(c.overhead, 3), round(c.per_row, 4))
+              for k, c in measured.coeffs.items()}
+    clock = "CUDA events" if dev.type == "cuda" else "host clock"
+    lines.append(f"calibration ({measured.backend}, {path}, "
+                 f"{cal_s:.2f} s; {clock}): "
+                 f"(overhead us, per-row us) {coeffs}, step overhead "
+                 f"{measured.step_overhead():.2f} us, derived min_bucket "
+                 f"{measured.derived_min_bucket()}, spatial crossover rows "
+                 f"{measured.spatial_crossover_rows()} [{gpu}]")
+
+    reg = QueryRegistry()
+    record = []
+    run = run_stream(torch, dev, data, scene, learned, record,
+                     cost_model=measured, registry=reg)
+    results, names, engines, wall, plan_s, _ = run
+    for qs, out, staged in record:
+        check(torch.equal(staged, QueryPlan(qs).evaluate(out)),
+              "measured model: staged masks differ from the exhaustive plan")
+    check([r.hits for r in results] == [r.hits for r in learned_run[0]],
+          f"measured model: answers {[r.hits for r in results]} differ "
+          f"from the static model's {[r.hits for r in learned_run[0]]}")
+    monitor = engines[-1].cascade.calibration_monitor
+    modes = [(e.cascade.mode, e.cascade.restages) for e in engines]
+    lines.append(f"learned pass under the measured model: "
+                 f"{N_FRAMES / wall:.1f} frames/s (plan {plan_s * 1e3:.1f} "
+                 f"ms; each engine's final mode and restages {modes}), "
+                 f"staged == exhaustive on {len(record)} batches, answers "
+                 f"equal the static model's, drift monitor "
+                 f"{monitor.describe()} [{gpu}]")
+
+    stream_oracle = sum(e.stats.oracle_calls for e in engines)
+    stream_frames = sum(e.stats.frames_in for e in engines)
+    led = reg.budget_ledger
+    check(led.oracle_calls == stream_oracle
+          and led.filter_frames == stream_frames == N_FRAMES,
+          f"the stream charged {led.oracle_calls} oracle / "
+          f"{led.filter_frames} filter frames, its engines counted "
+          f"{stream_oracle} / {stream_frames}")
+    res, _, swall = run_session(dev, reg, q, learned, oracle, scene, n,
+                                cv="auto", cost_model=measured)
+    check(res.pricing["oracle_price_source"] == "measured",
+          f"a contract priced by the measured model reports "
+          f"{res.pricing['oracle_price_source']}")
+    check(res.ledger is led and led.oracle_calls == stream_oracle
+          + res.oracle_calls and led.filter_frames > stream_frames,
+          f"the session did not charge the stream's ledger: {led}")
+    lines.append(f"one ledger: the stream ({stream_frames} filter, "
+                 f"{stream_oracle} oracle frames) and a measured-priced "
+                 f"session ({res.oracle_calls} oracle calls, estimate "
+                 f"{res.estimate:.3f}, pricing {res.pricing}, wall "
+                 f"{swall:.3f} s [{gpu}]) on one registry: "
+                 f"{_ledger_text(led)}")
+    return lines
+
+
+def aggregate_phase(torch, dev, scene, serve, data, learned_run, gpu,
+                    rehearse):
+    """The aggregate half on the card, its five checks.  Launch counts are
+    reset just before and read just after: the learned filter must have
+    run the trunk's flash attention and the CAM head, and the verdict tap
+    and the calibration the two stats kernels."""
+    from repro_torch.core.contracts import make_value_fn
+    from repro_torch.kernels import ops
+    n = AGG_FRAMES_REHEARSE if rehearse else AGG_FRAMES
+    agg_data, collect_s, filters, oracle = aggregate_inputs(
+        torch, dev, scene, serve, n)
+    # the stream is deterministic: its first N_FRAMES frames are the main
+    # path's, so the filter stream can be served again from these
+    check(all(np.array_equal(agg_data[k][:N_FRAMES], data[k])
+              for k in ("embeds", "counts", "occupancy")),
+          "the aggregate stream does not begin with the main path's frames")
+    lines = [f"aggregate phase: {n} frames of the detrac-like stream at "
+             f"g = {scene.grid} (collected in {collect_s:.2f} s; "
+             f"{n * scene.grid ** 2 * scene.d_embed * 4 / 2**30:.3f} GiB "
+             f"of float32 embeddings on {dev.type}), {AGG_CHUNKS} chunks"]
+    truths = {name: float(make_value_fn(q, oracle, scene.n_classes,
+                                        scene.grid)(np.arange(n)).sum())
+              for name, q in aggregate_queries(scene).items()}
+    ops.reset_launch_counts()
+    lines.append(census_check(dev, scene, oracle, n,
+                              truths["count car-left-of-bus"], gpu))
+    from repro_torch.core import costmodel as CM
+    more, kept = contract_checks(dev, scene, filters, oracle, n, truths, gpu,
+                                 CM.static_cost_model())
+    lines += more
+    lines.append(accumulator_check(
+        torch, dev, kept[("learned", "sum cars | car-left-of-bus")][1]))
+    lines += cost_model_checks(torch, dev, scene, agg_data, learned_run,
+                               filters["learned"], oracle, n, gpu)
+    launches = ops.launch_counts()
+    lines.append(f"aggregate phase launches: {launches}")
+    if not rehearse:
+        for name in ("flash_attention_bhsd", "cam_head_bgd",
+                     "spatial_stats_bgc", "spatial_stats_rows_bgc"):
+            check(launches[name] > 0,
+                  f"{name} was not launched in the aggregate phase")
+    return lines
 
 
 # ---------------------------------------------------------------------------
@@ -1438,10 +1829,12 @@ def main(argv=None):
 
     if args.rehearse:
         dev = torch.device("cpu")
+        gpu = "CPU rehearsal"
     else:
         check(torch.cuda.is_available(), "torch finds no CUDA device")
         dev = torch.device("cuda")
-        print(gpu_line(), flush=True)
+        gpu = gpu_line()
+        print(gpu, flush=True)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         t0 = time.perf_counter()
@@ -1501,6 +1894,11 @@ def main(argv=None):
         print(line, flush=True)
     for line in trunk_compare(torch, dev, tf, serve, data):
         print(line, flush=True)
+    for line in aggregate_phase(torch, dev, scene, serve, data,
+                                runs["learned"], gpu, args.rehearse):
+        print(line, flush=True)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     if not args.rehearse:
         check(peak < SERVING_PEAK_LIMIT, f"serving peak {gib(peak)} is not "
               f"under {gib(SERVING_PEAK_LIMIT)}")

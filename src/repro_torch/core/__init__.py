@@ -1,7 +1,9 @@
-# The paper's filter pipeline: CF/CCF/CLF branch heads, CAM localisation,
-# the shared staged query plan, cascade execution and streaming windows.
-from repro_torch.core import (cam, cascade, costmodel, filters, plan, query,
-                              stats, stepcache, streaming)
+# The paper's filter pipeline (CF/CCF/CLF branch heads, CAM localisation,
+# the shared staged query plan, cascade execution, streaming windows) and
+# its aggregate half (control variates, accuracy contracts).
+from repro_torch.core import (aggregates, cam, cascade, contracts, costmodel,
+                              filters, plan, query, stats, stepcache,
+                              streaming)
 
-__all__ = ["cam", "cascade", "costmodel", "filters", "plan", "query",
-           "stats", "stepcache", "streaming"]
+__all__ = ["aggregates", "cam", "cascade", "contracts", "costmodel",
+           "filters", "plan", "query", "stats", "stepcache", "streaming"]

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -268,7 +269,16 @@ class MultiQueryCascade:
     cascade runs ``evaluate_with_counts`` so the statistics keep
     learning, and probes staging again one batch per boundary.
     ``leaf_table`` / ``step_cache`` are the registry-owned stores that
-    keep slot ids and built steps across plan rebuilds."""
+    keep slot ids and built steps across plan rebuilds.
+
+    A measured ``cost_model`` is also *watched*: each staged batch's
+    predicted cost and observed wall time (host clock, after a device
+    sync) feed a ``costmodel.CalibrationMonitor`` (pass
+    ``calibration_monitor=`` to share one across epoch rebuilds, as
+    ``QueryRegistry`` does), and at restage boundaries a drifted or stale
+    model latches ``recalibration_due``.  The cascade never re-measures
+    on its own; ``MultiQueryStreamExecutor(auto_recalibrate=True)`` or
+    the operator acts on the flag."""
 
     def __init__(self, queries: Sequence[Q.Predicate], *, tau: float = 0.2,
                  adaptive: bool = False,
@@ -277,6 +287,7 @@ class MultiQueryCascade:
                  step_overhead: Optional[float] = None,
                  min_bucket: Optional[int] = None, cost_model=None,
                  spatial_body: str = "auto",
+                 calibration_monitor=None,
                  leaf_table=None, step_cache=None):
         from repro_torch.core import costmodel as CM
         from repro_torch.core.plan import QueryPlan
@@ -292,6 +303,10 @@ class MultiQueryCascade:
             if cost_model is not None:
                 raise ValueError("cost_model only drives the adaptive "
                                  "cascade's staging decisions; pass "
+                                 "adaptive=True")
+            if calibration_monitor is not None:
+                raise ValueError("calibration_monitor is only fed by the "
+                                 "adaptive cascade's staged batches; pass "
                                  "adaptive=True")
             if step_cache is not None:
                 raise ValueError("step_cache holds the adaptive cascade's "
@@ -318,14 +333,50 @@ class MultiQueryCascade:
         self._staged_batches = 0     # batches behind _cost_staged
         self.mode = "staged" if adaptive else "exhaustive"
         self.restages = 0
+        # drift watch: measured models are monitored by default (one
+        # perf_counter pair + an EWMA update per staged batch); the
+        # monitor only flags — ``recalibration_due`` latches at the next
+        # restage boundary and an opt-in consumer re-measures
+        self.calibration_monitor = (
+            calibration_monitor if calibration_monitor is not None
+            else CM.CalibrationMonitor(self.cost_model)
+            if adaptive and self.cost_model.source == "measured" else None)
+        if self.calibration_monitor is not None \
+                and self.calibration_monitor.active \
+                and self.cost_model.source != "measured":
+            # abstract static units against wall microseconds would be
+            # garbage drift (and, under auto mode, spurious re-profiles)
+            warnings.warn(
+                "calibration_monitor watches a measured model but this "
+                "cascade prices with the static model; its drift ledger "
+                "will not be fed — pass "
+                "cost_model=calibration_monitor.model to monitor")
+        self.recalibration_due = False
+        self._monitor_gen = (self.calibration_monitor.generation
+                             if self.calibration_monitor is not None
+                             else -1)
 
     def _run_staged(self, out: FilterOutputs,
                     presumed_decided=None) -> torch.Tensor:
+        monitor = self.calibration_monitor
+        watch = (monitor is not None and monitor.active
+                 and self.cost_model.source == "measured")
+        if watch:
+            t0 = time.perf_counter()
         m = self._staged.evaluate(out, presumed_decided=presumed_decided)
+        if watch:
+            if m.is_cuda:
+                torch.cuda.synchronize(m.device)
+            wall_us = (time.perf_counter() - t0) * 1e6
         self._staged.flush_stats(self.slot_stats)
         rep = self._staged.last_report
-        self._cost_staged += rep.cost_run + self.step_overhead * rep.stages_run
+        predicted = rep.cost_run + self.step_overhead * rep.stages_run
+        self._cost_staged += predicted
         self._staged_batches += 1
+        # a batch that built new steps spent its wall time building, not
+        # executing: feeding it would latch a calibrated model as drifted
+        if watch and rep.steps_compiled == 0:
+            monitor.observe(predicted, wall_us)
         return m
 
     def masks(self, out: FilterOutputs,
@@ -366,6 +417,16 @@ class MultiQueryCascade:
             self._cost_staged = 0.0
             self._staged_batches = 0
             self.restages += int(self._staged.restage(self.slot_stats))
+            # the drift check rides the same boundary: latch (sticky
+            # across transient decay) until the monitor is reset
+            monitor = self.calibration_monitor
+            if monitor is not None:
+                if monitor.should_recalibrate():
+                    self.recalibration_due = True
+                    self._monitor_gen = monitor.generation
+                elif self.recalibration_due \
+                        and monitor.generation != self._monitor_gen:
+                    self.recalibration_due = False
         return m
 
     @property
@@ -388,20 +449,25 @@ class MultiQueryExecutor:
     ``stats.per_query_pass`` attributes the surviving frames per query.
     Each surviving frame's object list is parsed into an ``ObjectTable``
     once and shared by every query probing that frame.  The filter
-    outputs must lie on ``device`` (default CUDA)."""
+    outputs must lie on ``device`` (default CUDA).  ``budget_ledger``
+    (an ``aggregates.BudgetLedger``, e.g. the ``QueryRegistry``'s) is
+    charged once per call: the filter frames and µs, and the oracle
+    frames (bucket padding included) and µs — the account the aggregate
+    half (``ContractExecutor``) charges too."""
 
     def __init__(self, cascade: MultiQueryCascade,
                  filter_fn: Callable[[Any], FilterOutputs],
                  oracle_fn: Callable[[Any, np.ndarray], List],
                  n_classes: int, grid: int,
                  oracle_bucket: Optional[int] = None,
-                 device: DeviceLike = None):
+                 budget_ledger=None, device: DeviceLike = None):
         self.cascade = cascade
         self.filter_fn = filter_fn
         self.oracle_fn = oracle_fn
         self.n_classes = n_classes
         self.grid = grid
         self.oracle_bucket = oracle_bucket
+        self.budget_ledger = budget_ledger
         self.device = resolve_device(device)
         self.stats = CascadeStats(
             per_query_pass=[0] * len(cascade.queries))
@@ -438,4 +504,9 @@ class MultiQueryExecutor:
             self.stats.per_query_pass[qi] += int(masks[:, qi].sum())
         self.stats.filter_time_s += t1 - t0
         self.stats.oracle_time_s += t2 - t1
+        if self.budget_ledger is not None:
+            self.budget_ledger.charge_filter(B, (t1 - t0) * 1e6)
+            self.budget_ledger.charge_oracle(
+                oracle_frames_evaluated(int(idx.size), self.oracle_bucket),
+                (t2 - t1) * 1e6)
         return MultiCascadeResult(answers=answers, stats=self.stats)

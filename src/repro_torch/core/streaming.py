@@ -1,12 +1,19 @@
-"""Streaming execution: hopping windows and multi-query multiplexing.
+"""Streaming execution: windows, samplers, multi-query multiplexing and
+the aggregate session.
 
 Maps the paper's query surface (``WINDOW HOPPING (SIZE n, ADVANCE BY m)``)
-onto a batched executor that multiplexes the registered queries
-(queries register/retire mid-stream; the shared-cascade engine is
-rebuilt only when the registered set actually changes).  Plain Python
-and numpy, as in the JAX package; its samplers, the straggler-dropping
-``StreamExecutor``, auto-recalibration and the aggregate session are not
-ported yet.
+and its sampling-based aggregate evaluation onto a batched executor that
+multiplexes the registered queries (queries register/retire mid-stream;
+the shared-cascade engine is rebuilt only when the registered set
+actually changes), keeps the cost model fresh
+(``MultiQueryStreamExecutor(auto_recalibrate=True)`` re-runs
+``costmodel.calibrate`` when the registry's ``CalibrationMonitor`` flags
+drift), and runs error-bounded aggregate contracts against the same
+registry and budget ledger (``AggregateStreamSession``, whose verdict
+tap reads the filter's tensors).  Otherwise plain Python and numpy, as
+in the JAX package.  The straggler-dropping
+``StreamExecutor`` / ``StragglerPolicy`` and ``QueryRegistry(
+gossip_paths=)`` (fleet serving) are not ported yet.
 """
 from __future__ import annotations
 
@@ -19,9 +26,10 @@ from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
                     Tuple)
 
 import numpy as np
+import torch
 
 from repro_torch.core.stats import SlotStats
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, require_on, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,13 +60,49 @@ class HoppingWindow:
             yield (start, n_frames)
 
 
+def stream_seed(base_seed: int, stream_id) -> int:
+    """Per-stream seed derived from ``(base_seed, stream_id)``.
+
+    S parallel streams configured with one base seed must not sample
+    identical frame offsets (correlated sampling defeats the variance
+    reduction the aggregate estimators assume).  Hashing the pair
+    through blake2b gives each stream an independent, deterministic
+    sub-seed — the JAX package's, bit for bit."""
+    import hashlib
+    h = hashlib.blake2b(f"{base_seed}:{stream_id}".encode(), digest_size=8)
+    return int.from_bytes(h.digest(), "big")
+
+
+class FrameSampler:
+    """Uniform sampling of frame indices within a window (w/o replacement).
+
+    ``stream_id`` (optional) derives the rng seed via ``stream_seed`` so
+    per-stream samplers built from one base seed draw independent
+    sequences; without it the base seed is used directly."""
+
+    def __init__(self, seed: int = 0, stream_id=None):
+        if stream_id is not None:
+            seed = stream_seed(seed, stream_id)
+        self.rng = np.random.default_rng(seed)
+
+    def sample(self, lo: int, hi: int, n: int) -> np.ndarray:
+        """n distinct sorted indices from [lo, hi); clamped to the window.
+
+        A degenerate window (``hi <= lo``) yields an empty sample rather
+        than feeding ``rng.choice`` a negative size."""
+        n = max(min(n, hi - lo), 0)
+        return np.sort(self.rng.choice(np.arange(lo, max(hi, lo)), size=n,
+                                       replace=False))
+
+
 # --------------------------------------------------------------------------
 # Multi-query multiplexing (queries come and go mid-stream)
 # --------------------------------------------------------------------------
 
 def _accepts_kw(factory: Callable, name: str) -> bool:
     """Does the engine factory opt into receiving keyword ``name``
-    (``slot_stats``, ``leaf_table``, ``step_cache``, ``device``)?
+    (``slot_stats``, ``calibration_monitor``, ``leaf_table``,
+    ``step_cache``, ``budget_ledger``, ``device``)?
 
     Opt-in is by parameter NAME — never by arity: a legacy one-arg
     factory that happens to carry an unrelated second default
@@ -86,11 +130,23 @@ class QueryRegistry:
     steps).  ``stats_path`` merges a ``SlotStats.save`` snapshot at
     construction (a corrupt one is ignored with a warning) and
     ``save_stats()`` writes it back.  ``batch()`` / ``register_many``
-    coalesce a burst of registrations into one epoch bump."""
+    coalesce a burst of registrations into one epoch bump.
+
+    ``calibration_monitor`` (a ``costmodel.CalibrationMonitor``) rides
+    along like the stats store, so the cost model's drift ledger
+    survives plan rebuilds; ``MultiQueryStreamExecutor(
+    auto_recalibrate=True)`` reads it.  ``budget_ledger`` (an
+    ``aggregates.BudgetLedger``, a fresh one by default) is the
+    population's single spend account: the filter half
+    (``MultiQueryExecutor``) and the aggregate half
+    (``AggregateStreamSession``) both charge it."""
 
     def __init__(self, slot_stats: Optional[SlotStats] = None, *,
                  stats_path: Optional[str] = None,
-                 leaf_table=None, step_cache=None):
+                 calibration_monitor=None,
+                 leaf_table=None, step_cache=None,
+                 budget_ledger=None):
+        from repro_torch.core.aggregates import BudgetLedger
         from repro_torch.core.plan import CanonicalLeafTable
         from repro_torch.core.stepcache import StepCache
         self._next_id = 0
@@ -103,6 +159,9 @@ class QueryRegistry:
                            else CanonicalLeafTable())
         self.step_cache = (step_cache if step_cache is not None
                            else StepCache())
+        self.budget_ledger = (budget_ledger if budget_ledger is not None
+                              else BudgetLedger())
+        self.calibration_monitor = calibration_monitor
         self.stats_path = stats_path
         if stats_path is not None and os.path.exists(stats_path):
             try:
@@ -193,15 +252,29 @@ class MultiQueryStreamExecutor:
     the registry's store of that name (or the executor's device) as a
     keyword; the opt-in is by parameter name, never arity.
 
+    ``calibration_monitor`` and ``budget_ledger`` opt into the
+    registry's drift monitor and spend account the same way.
+
     ``device`` (default CUDA, raising when absent) is where the engines
     run.  ``on_window(result)`` fires after each hopping window and may
     register/retire queries (mid-stream multiplexing).
+
+    ``auto_recalibrate=True`` closes the calibration-freshness loop
+    (it needs a registry with a ``calibration_monitor``): at window
+    boundaries, when the monitor flags drift or staleness, the executor
+    runs ``recalibrate_fn`` (default ``costmodel.calibrate(save=True,
+    device=device)``), resets the monitor around the fresh model, and
+    bumps the registry epoch so the next batch rebuilds engines on the
+    new coefficients.  Off by default: recalibration is seconds of
+    foreground timing.
     """
 
     def __init__(self, registry: QueryRegistry,
                  engine_factory: Callable[...,
                                           Callable[[np.ndarray], np.ndarray]],
                  window: HoppingWindow, batch: int, *,
+                 auto_recalibrate: bool = False,
+                 recalibrate_fn: Optional[Callable[[], Any]] = None,
                  device: DeviceLike = None):
         self.registry = registry
         self.engine_factory = engine_factory
@@ -209,12 +282,22 @@ class MultiQueryStreamExecutor:
         self.batch = batch
         self.device = resolve_device(device)
         self.rebuilds = 0
+        self.recalibrations = 0
+        self.auto_recalibrate = auto_recalibrate
+        self.recalibrate_fn = recalibrate_fn
+        if auto_recalibrate and registry.calibration_monitor is None:
+            raise ValueError(
+                "auto_recalibrate needs a drift signal: construct the "
+                "registry with a costmodel.CalibrationMonitor "
+                "(QueryRegistry(calibration_monitor=...)) and hand it to "
+                "the adaptive cascade via the engine factory")
         self._epoch = -1
         self._engine: Optional[Callable] = None
         self._qids: Tuple[int, ...] = ()
         self._factory_kw = {name: _accepts_kw(engine_factory, name)
-                            for name in ("slot_stats", "leaf_table",
-                                         "step_cache", "device")}
+                            for name in ("slot_stats", "calibration_monitor",
+                                         "leaf_table", "step_cache",
+                                         "budget_ledger", "device")}
 
     def _refresh(self):
         if self.registry.epoch != self._epoch:
@@ -225,14 +308,61 @@ class MultiQueryStreamExecutor:
             else:
                 queries = tuple(q for _, q in items)
                 stores = {"slot_stats": self.registry.slot_stats,
+                          "calibration_monitor":
+                              self.registry.calibration_monitor,
                           "leaf_table": self.registry.leaf_table,
                           "step_cache": self.registry.step_cache,
+                          "budget_ledger": self.registry.budget_ledger,
                           "device": self.device}
                 kw = {k: v for k, v in stores.items() if self._factory_kw[k]}
                 self._engine = self.engine_factory(queries, **kw)
             self._epoch = self.registry.epoch
             self.rebuilds += 1
         return self._engine, self._qids
+
+    def _maybe_recalibrate(self) -> bool:
+        """Window-boundary freshness check (auto mode): re-measure when
+        the shared monitor flags, install the fresh model, force an
+        engine rebuild.  Never raises past a failed re-measure — a
+        monitoring stream keeps answering on drifted coefficients rather
+        than die re-profiling them."""
+        monitor = self.registry.calibration_monitor
+        if not (self.auto_recalibrate and monitor is not None
+                and monitor.should_recalibrate()):
+            return False
+        from repro_torch.core import costmodel as CM
+        fn = self.recalibrate_fn or (
+            lambda: CM.calibrate(save=True, device=self.device))
+        try:
+            model = fn()
+        except Exception as e:
+            warnings.warn(f"auto-recalibration failed ({e}); keeping the "
+                          f"current model")
+            return False
+        monitor.recalibrations += 1
+        if model is None:
+            # a recalibrate_fn that writes to disk and returns nothing:
+            # reload through the normal resolver so the monitor adopts
+            # the freshly saved coefficients
+            model = CM.default_cost_model(device=self.device)
+        monitor.reset(model)
+        if model.source == "measured":
+            # persist the bumped counters next to the fresh coefficients
+            # (best effort: a read-only disk must not kill the run)
+            try:
+                CM.save_calibration(model, monitor=monitor)
+            except (OSError, ValueError):
+                pass
+        if monitor.should_recalibrate():
+            # still flagged right after a re-measure (e.g. the reloaded
+            # model is static or past max_age): another attempt would
+            # loop seconds-long re-profiles forever
+            warnings.warn("recalibration did not clear the monitor's "
+                          "flag; disabling auto_recalibrate")
+            self.auto_recalibrate = False
+        self.recalibrations += 1
+        self.registry.touch()       # engines rebuild on the new model
+        return True
 
     def run(self, n_frames: int,
             on_window: Optional[Callable[[WindowResult], None]] = None
@@ -258,6 +388,80 @@ class MultiQueryStreamExecutor:
                     hits[qid] = hits.get(qid, 0) + int(ans[:, k].sum())
             res = WindowResult(span=(lo, hi), hits=hits, frames=hi - lo)
             results.append(res)
+            self._maybe_recalibrate()           # drift check per window
             if on_window is not None:
                 on_window(res)                  # may mutate the registry
         return results
+
+
+class AggregateStreamSession:
+    """One aggregate-contract run wired into a registry-backed stream.
+
+    The paper's two query halves meet here: the session registers the
+    contract's predicate in the shared ``QueryRegistry`` (same epoch and
+    leaf-table lifecycle as every filter query), taps the shared plan's
+    verdicts as the contract's control variates, and charges every
+    oracle and filter microsecond to the registry's ``budget_ledger`` —
+    the account ``MultiQueryExecutor(budget_ledger=...)`` charges too.
+
+    ``filter_fn(idx) -> FilterOutputs`` fetches the cheap per-frame filter
+    outputs for arbitrary frame indices, on ``device`` (default CUDA);
+    ``oracle_fn(idx) -> [objects...]`` is the expensive detector.  The
+    verdict tap runs the predicate's plan over the fetched outputs and —
+    when the aggregate targets a class's object count — adds the count
+    head's column for that class as a second control variate (BlazeIt's
+    specialized counter).  Both columns move to the host as float64.
+
+    Use as a context manager (the registration is retired on exit even
+    when the run raises)::
+
+        with AggregateStreamSession(registry, q, filter_fn=f,
+                                    oracle_fn=o, n_frames=n,
+                                    n_classes=c, grid=g) as sess:
+            result = sess.run()
+    """
+
+    def __init__(self, registry: QueryRegistry, query, *,
+                 filter_fn: Callable[[np.ndarray], Any],
+                 oracle_fn: Callable[[np.ndarray], List],
+                 n_frames: int, n_classes: int, grid: int,
+                 tau: float = 0.2, cost_model=None, seed: int = 0,
+                 device: DeviceLike = None, **executor_knobs):
+        from repro_torch.core.cascade import MultiQueryCascade
+        from repro_torch.core.contracts import ContractExecutor, make_value_fn
+        dev = resolve_device(device)
+        self.registry = registry
+        self.query = query
+        self.qid = registry.register(query.pred)
+        self._retired = False
+        cascade = MultiQueryCascade([query.pred], tau=tau,
+                                    leaf_table=registry.leaf_table)
+        cls = query.cls
+
+        def verdict_fn(idx: np.ndarray) -> np.ndarray:
+            fout = filter_fn(idx)
+            require_on(fout.counts, dev, "filter outputs")
+            cols = [cascade.masks(fout)[:, 0].double()]
+            if cls is not None:
+                cols.append(fout.counts[:, cls].double())
+            return torch.stack(cols, dim=1).cpu().numpy()
+
+        self.executor = ContractExecutor(
+            query, make_value_fn(query, oracle_fn, n_classes, grid),
+            n_frames, verdict_fn=verdict_fn, cost_model=cost_model,
+            ledger=registry.budget_ledger, seed=seed, device=dev,
+            **executor_knobs)
+
+    def run(self):
+        return self.executor.run()
+
+    def close(self) -> None:
+        if not self._retired:
+            self.registry.retire(self.qid)
+            self._retired = True
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

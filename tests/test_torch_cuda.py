@@ -807,3 +807,116 @@ def test_rwkv_model_pallas_path_matches_plain_path(cuda_device):
     la = TM.forward(p, plain, prompt).logits
     lb = TM.forward(p, pallas, prompt).logits
     torch.testing.assert_close(lb, la, rtol=0, atol=2e-2)
+
+
+# ---------------------------------------------------------------------------
+# the aggregate half on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,splits", [(4096, 2, 8), (10 ** 6, 3, 100)])
+def test_float64_accumulator_on_the_card_matches_numpy(cuda_device, n, d,
+                                                       splits):
+    from repro_torch.core import aggregates as AGG
+    rng = np.random.default_rng(n)
+    y = rng.normal(1000.0, 2.0, n)
+    Z = y[:, None] * rng.uniform(0.5, 1.5, d) + rng.normal(0, 1.0, (n, d))
+    parts = [AGG.CVAccumulator.init(d, device=cuda_device).update(
+        torch.as_tensor(y[i], device=cuda_device),
+        torch.as_tensor(Z[i], dtype=torch.float32, device=cuda_device))
+        for i in np.array_split(np.arange(n), splits)]
+    merged = parts[0]
+    for a in parts[1:]:
+        merged = merged.merge(a)
+    reduced = AGG.distributed_reduce(parts)
+    want = AGG.mcv_estimate(y, Z.astype(np.float32).astype(np.float64))
+    for acc in (merged, reduced):
+        assert acc.M2.is_cuda and acc.M2.dtype == torch.float64
+        got = acc.estimate()
+        assert got.n == n
+        np.testing.assert_allclose([got.mean, got.var, got.naive_var],
+                                   [want.mean, want.var, want.naive_var],
+                                   rtol=1e-10, atol=0)
+
+
+@pytest.mark.cuda
+def test_calibrate_on_the_card_times_with_cuda_events(cuda_device,
+                                                      tmp_path,
+                                                      monkeypatch):
+    from repro_torch.core import costmodel as CM
+    events = []
+    real = torch.cuda.Event
+
+    def spy(*a, **k):
+        events.append(1)
+        return real(*a, **k)
+
+    monkeypatch.setattr(torch.cuda, "Event", spy)
+    p = str(tmp_path / "torch-cuda.json")
+    ops.reset_launch_counts()
+    m = CM.calibrate(batch=32, grid=16, classes=3, repeat=2, path=p,
+                     device=cuda_device)
+    counts = ops.launch_counts()
+    assert events, "calibrate timed nothing with CUDA events"
+    assert counts["spatial_stats_bgc"] > 0
+    assert counts["spatial_stats_rows_bgc"] > 0
+    assert m.backend == "torch-cuda" == CM.backend_key(cuda_device)
+    assert m.fingerprint == CM.fingerprint_backend(cuda_device)
+    assert m.fingerprint["capability"].count(".") == 1
+    for c in m.coeffs.values():
+        assert np.isfinite(c.per_row) and c.per_row > 0
+        assert np.isfinite(c.overhead) and c.overhead >= 0
+    assert CM.load_calibration(p, device=cuda_device).coeffs == m.coeffs
+    assert CM.load_calibration(p, device="cpu") is None
+
+
+@pytest.mark.cuda
+def test_census_contract_through_session_on_the_card(cuda_device):
+    from repro_torch.core.contracts import AggregateQuery
+    from repro_torch.core.streaming import (AggregateStreamSession,
+                                            QueryRegistry)
+    n, C, g = 300, 3, 8
+    rng = np.random.default_rng(3)
+    objs = [[(int(rng.integers(0, C)), int(rng.integers(0, g)),
+              int(rng.integers(0, g))) for _ in range(int(rng.poisson(2)))]
+            for _ in range(n)]
+    counts = np.zeros((n, C), np.float32)
+    grid = np.zeros((n, g, g, C), np.float32)
+    for f, ob in enumerate(objs):
+        for c, r, col in ob:
+            counts[f, c] += 1
+            grid[f, r, col, c] = 1.0
+    counts_d = torch.as_tensor(counts, device=cuda_device)
+    grid_d = torch.as_tensor(grid, device=cuda_device)
+    pred = Q.And((Q.ClassCount(0, Q.Op.GE, 1), Q.Spatial(0, Q.Rel.LEFT, 1)))
+    truth = sum(Q.eval_objects(pred, o, C, g) for o in objs)
+    # cv="off": exact verdicts would let the CV interval collapse before
+    # every frame is oracled, and this is the census
+    q = AggregateQuery(pred=pred, agg="count", eps=1e-9)
+    reg = QueryRegistry()
+
+    def filter_fn(idx):
+        i = torch.as_tensor(idx, device=cuda_device)
+        return FilterOutputs(counts=counts_d[i], grid=grid_d[i])
+
+    with AggregateStreamSession(
+            reg, q, filter_fn=filter_fn,
+            oracle_fn=lambda idx: [objs[int(i)] for i in idx],
+            n_frames=n, n_classes=C, grid=g, n_chunks=4, max_oracle=n,
+            cv="off", device=cuda_device) as sess:
+        res = sess.run()
+        # the verdict tap: the plan's mask column on the card (the stats
+        # kernel) and the count head's column, both float64 on the host
+        ops.reset_launch_counts()
+        tap = sess.executor.verdict_fn(np.arange(64))
+        assert ops.launch_counts()["spatial_stats_bgc"] == 1
+    assert tap.dtype == np.float64 and tap.shape == (64, 1)
+    want = QueryPlan([pred]).evaluate(FilterOutputs(
+        counts=torch.as_tensor(counts[:64]), grid=torch.as_tensor(grid[:64])))
+    np.testing.assert_array_equal(tap[:, 0], want[:, 0].numpy())
+    assert res.terminated in ("contract", "census") and res.satisfied
+    assert res.estimate == pytest.approx(truth, rel=1e-12)
+    assert res.half_width == 0.0
+    assert res.oracle_calls == n == reg.budget_ledger.oracle_calls
+    acc = sess.executor.pooled_accumulator()
+    assert acc.M2.is_cuda and acc.M2.dtype == torch.float64
