@@ -82,6 +82,26 @@ Phases (any failure exits non-zero and prints no result line):
    the static model's), and a contract priced by it reporting
    ``measured``; (5) that stream and an aggregate session on one
    ``QueryRegistry`` charging one budget ledger.
+5c. Fleet serving with the temporal tier: 16 streams (cam0..cam15, each
+   its own detrac-like ``VideoStream`` seeded by ``stream_seed``) x 128
+   frames at g = 56, windows of 64, batch 32, through
+   ``MultiStreamExecutor`` on the group engine (``evaluate_group`` over
+   the flat stack, ``advance_group``): the reference fleet mix of
+   temporal queries and two frame-level ones, a ground-truth pass and a
+   learned pass (pallas trunk, CAM head), the learned one with a
+   register and a retire inside window 2.  Counts are reset just before
+   the two passes and read just after.  Checks: (1) ground-truth
+   answers equal ``replay_reference`` over ``eval_objects`` per frame,
+   and so do serial ``TemporalEngine`` runs with the exact oracle; (2)
+   learned answers equal each stream run alone under the same churn;
+   (3) ``evaluate_group`` equals ``evaluate`` per stream on every chunk
+   at each spatial body; (4) the torch scan backend equals the numpy
+   one; (5) frames and signal evaluations were skipped; (6) flash
+   attention, the CAM head and the full-batch stats kernel launched in
+   the passes, the row kernel there or in (3); (7) serving memory above
+   the resident embeddings under 2 GiB.  Fleet frames/s (group vs 16
+   serial loops), one chunk's plan and temporal-step ms and a profile
+   of it, the temporal step's launches.
 6. The RWKV-6 serving path at full width: rwkv6-3b (32 layers, d_model
    2560, vocab 65536, bf16) with random weights from a seeded CUDA
    generator, ``attn_impl="pallas"``; four requests of 1024 prompt tokens
@@ -149,6 +169,9 @@ RWKV_FP32_PROMPT, RWKV_FP32_DECODE = 256, 8
 DECODE_KV_LEN = 30000            # valid rows of the 32768-row decode cache
 AGG_FRAMES, AGG_FRAMES_REHEARSE = 2048, 384  # the aggregate phase's stream
 AGG_CHUNKS, AGG_EPS = 8, 0.1     # contract strata; +-10% at 95%
+FLEET_STREAMS, FLEET_STREAMS_REHEARSE = 16, 4   # the fleet phase's cameras
+FLEET_FRAMES, FLEET_WINDOW = 128, 64   # per stream: two hopping windows
+FLEET_CHURN_AT = 64              # the chunk inside window 2 before the churn
 # (B, Sq, Sk, H, KV, hd, causal, sliding_window, dtype): the Pallas kernel
 # test's shapes in both types and both maskings, sliding windows with
 # GQA 4/2, and ragged lengths that no 64-row tile divides
@@ -1286,6 +1309,622 @@ def aggregate_phase(torch, dev, scene, serve, data, learned_run, gpu,
 
 
 # ---------------------------------------------------------------------------
+# fleet serving: 16 streams through one group plan and the temporal tier
+# ---------------------------------------------------------------------------
+
+def fleet_queries(g):
+    """The fleet's population: the JAX package's fleet temporal mix (two
+    Durations, a SlidingCount and a Sequence: the reference fleet
+    benchmark's four, benchmarks/multi_query_sharing.py) and two
+    frame-level queries from the monitor's population (busy frames; a
+    car left of a bus, radius 0 so that the ground-truth grid answers it
+    exactly), then the churn inside window 2: a rare-class guarded
+    ordering query registers (at least two trucks, one left of a car: the
+    guard lets the count tier decide rows, so the spatial tier runs
+    compacted) and car-left-of-bus retires.
+
+    When each registers follows from what the short circuit can show.
+    A chunk is skipped only when every query of every stream is
+    window-decided before it, so never while a frame-level query is
+    registered (it is never window-decided), never in a window's first
+    chunk, and never in the first chunk of an engine rebuilt by churn.
+    The first window therefore runs the three operators that every
+    detrac-like stream decides within one batch (a car in four
+    consecutive frames; a crowd of six trucks that no 28-frame run
+    holds; an object within eight frames), and its second chunk is
+    skipped; the Sequence (car then bus), which a stream without a bus
+    in its first 32 frames leaves open, joins the frame-level pair at
+    the first window boundary."""
+    from repro_torch.core import query as Q
+    c0 = Q.ClassCount(0, Q.Op.GE, 1)
+    c1 = Q.ClassCount(1, Q.Op.GE, 1)
+    early = {
+        "car-run-4": Q.Duration(c0, 4),
+        "truck-crowd-60": Q.Duration(Q.ClassCount(2, Q.Op.GE, 6), 60),
+        "busy-8": Q.SlidingCount(Q.Count(Q.Op.GE, 1), 8, Q.Op.GE, 1),
+    }
+    boundary = {
+        "car-then-bus-6": Q.Sequence(c0, c1, 6),
+        "busy": Q.Count(Q.Op.GE, 3),
+        "car-left-of-bus": Q.And((c0, Q.Spatial(0, Q.Rel.LEFT, 1))),
+    }
+    late = ("trucks-left-of-car",
+            Q.And((Q.ClassCount(2, Q.Op.GE, 2), Q.Spatial(2, Q.Rel.LEFT, 0))))
+    return early, boundary, late, "car-left-of-bus"
+
+
+def fleet_final_queries(g):
+    """The population after the churn, in registration order."""
+    early, boundary, late, retire = fleet_queries(g)
+    return tuple(list(early.values())
+                 + [q for n, q in boundary.items() if n != retire]
+                 + [late[1]])
+
+
+class FleetSchedule:
+    """One registry and its schedule: the early temporal queries from the
+    start, the rest of the population at the first window boundary
+    (``on_window``), and — with ``churn`` — one register and one retire
+    inside window 2, after the chunk at ``FLEET_CHURN_AT``.  The fleet
+    and each serial stream get a schedule of their own."""
+
+    def __init__(self, g, churn):
+        from repro_torch.core.streaming import QueryRegistry
+        self.early, self.boundary, self.late, self.retire = fleet_queries(g)
+        self.with_churn = churn
+        self.registry = QueryRegistry()
+        self.qids, self.by_qid = {}, {}
+        for name, q in self.early.items():
+            self._register(name, q)
+        self.churned = False
+
+    def _register(self, name, q):
+        self.qids[name] = self.registry.register(q)
+        self.by_qid[self.qids[name]] = q
+
+    def on_window(self, res):
+        if res.span[0] == 0:
+            with self.registry.batch():
+                for name, q in self.boundary.items():
+                    self._register(name, q)
+
+    def churns_after(self, lo):
+        return self.with_churn and lo == FLEET_CHURN_AT
+
+    def churn(self):
+        if not self.churned:
+            self.churned = True
+            with self.registry.batch():
+                self._register(*self.late)
+                self.registry.retire(self.qids[self.retire])
+
+    def active_qids(self):
+        return tuple(qid for qid, _ in self.registry.active())
+
+
+class ChunkLog:
+    """Wraps an engine (a fleet group engine, or a serial per-batch
+    callable): records every chunk's answers with the engine and its
+    query ids, and fires the schedule's churn (a fleet engine then
+    stages nothing ahead: the next chunk is served by a rebuilt
+    engine)."""
+
+    def __init__(self, engine, sched, log):
+        self.engine, self.sched, self.log = engine, sched, log
+        self.qids = sched.active_qids()
+
+    def on_window_start(self, lo, hi):
+        self.engine.on_window_start(lo, hi)
+
+    def _done(self, lo, ans):
+        self.log.append((self, lo, np.asarray(ans)))
+        if self.sched.churns_after(lo):
+            self.sched.churn()
+        return ans
+
+    def run_chunk(self, idx, nxt=None):
+        lo = int(idx[0])
+        return self._done(lo, self.engine.run_chunk(
+            idx, None if self.sched.churns_after(lo) else nxt))
+
+    def __call__(self, idx):
+        return self._done(int(idx[0]), self.engine(idx))
+
+
+class MasksAsAnswers:
+    """One stream alone on the port's single-stream path, with the
+    fleet's semantics: its filter, the single-stream staged plan over
+    the program's deduped frame signals (window-decided signals
+    presumed), and the program's scan step on the card fed the masks,
+    which stay there, with suppressed columns zeroed."""
+
+    def __init__(self, torch, queries, fetch, cost_model, dev):
+        from repro_torch.core.plan import QueryPlan
+        from repro_torch.core.stats import SlotStats
+        from repro_torch.core.temporal import TemporalProgram
+        self.torch = torch
+        self.prog = TemporalProgram(queries, backend="scan", device=dev)
+        self.staged = QueryPlan(self.prog.frame_queries).build_staged(
+            SlotStats(), cost_model=cost_model)
+        self.fetch = fetch
+
+    def on_window_start(self, lo, hi):
+        self.prog.start_window(hi - lo)
+
+    def __call__(self, idx):
+        torch, dev = self.torch, self.prog.device
+        B, M = len(idx), self.prog.n_signals
+        if self.prog.all_decided:
+            return self.prog.advance(
+                torch.zeros((B, M), dtype=torch.bool, device=dev))
+        sup = self.prog.suppressed_signals()
+        m = self.staged.evaluate(self.fetch(idx), presumed_decided=sup
+                                 if sup.any() else None)
+        return self.prog.advance(
+            m & torch.as_tensor(~sup, device=dev)[None, :])
+
+
+def fleet_inputs(torch, dev, scene, serve, n_streams):
+    """``n_streams`` detrac-like streams (ids cam0..), each its own
+    ``VideoStream`` with a dynamics seed from ``stream_seed``, their
+    embeddings in one tensor on the card, and per-stream fetches: the
+    learned filter (one trunk + CAM-head call per stream and chunk; the
+    outputs of the first call per chunk are kept, and a later call for
+    the same chunk must give the same bits), the learned filter for the
+    timed serial runs (no check inside: its outputs are kept in
+    ``served`` and held against the fleet's after the timing) and the
+    ground truth."""
+    from repro_torch.core.filters import FilterOutputs
+    from repro_torch.core.streaming import stream_seed
+    from repro_torch.data.synthetic import VideoStream, collect
+    ids = [f"cam{i}" for i in range(n_streams)]
+    t0 = time.perf_counter()
+    data = {sid: collect(VideoStream(scene, dynamics_seed=stream_seed(
+        SEED, sid)), FLEET_FRAMES) for sid in ids}
+    collect_s = time.perf_counter() - t0
+    embeds = {sid: torch.as_tensor(d["embeds"], device=dev)
+              for sid, d in data.items()}
+    gt = {sid: (torch.as_tensor(d["counts"].astype("float32"), device=dev),
+                torch.as_tensor(d["occupancy"], device=dev).float())
+          for sid, d in data.items()}
+    kept, served = {}, {}
+
+    def learned_serial(sid, idx):
+        i = torch.as_tensor(np.asarray(idx), device=dev)
+        out = serve.apply(embeds[sid][i], use_kernel=True, device=dev)
+        served[(sid, int(idx[0]), len(idx))] = out
+        return out
+
+    def learned(sid, idx):
+        i = torch.as_tensor(np.asarray(idx), device=dev)
+        out = serve.apply(embeds[sid][i], use_kernel=True, device=dev)
+        key = (sid, int(idx[0]), len(idx))
+        if key in kept:
+            check(torch.equal(out.counts, kept[key].counts)
+                  and torch.equal(out.grid, kept[key].grid),
+                  f"{sid}: a second filter call on frames {key[1:]} gave "
+                  f"other bits")
+        else:
+            kept[key] = out
+        return out
+
+    def ground_truth(sid, idx):
+        i = torch.as_tensor(np.asarray(idx), device=dev)
+        c, g = gt[sid]
+        return FilterOutputs(counts=c[i], grid=g[i])
+
+    n_bytes = sum(e.numel() * e.element_size() for e in embeds.values())
+    return ids, data, {"learned": learned, "learned_serial": learned_serial,
+                       "ground_truth": ground_truth}, \
+        (kept, served), collect_s, n_bytes
+
+
+def fleet_run(dev, scene, ids, fetch, cost_model, churn):
+    """The fleet: ``MultiStreamExecutor`` over the group engine (the
+    group plan and ``advance_group``), timed whole.  Returns the chunk
+    log, the engines built, the window results and the wall time."""
+    from repro_torch.core.streaming import HoppingWindow
+    from repro_torch.distributed.multistream import (MultiStreamExecutor,
+                                                     plan_group_engine_factory)
+    sched = FleetSchedule(scene.grid, churn)
+    log, engines = [], []
+    inner = plan_group_engine_factory(lambda ctx, idx: fetch(ctx.stream_id,
+                                                             idx),
+                                      cost_model=cost_model)
+
+    def factory(queries, streams, slot_stats, leaf_table, step_cache,
+                device):
+        eng = inner(queries, streams, slot_stats=slot_stats,
+                    leaf_table=leaf_table, step_cache=step_cache,
+                    device=device)
+        engines.append(eng)
+        return ChunkLog(eng, sched, log)
+
+    ex = MultiStreamExecutor(sched.registry, factory,
+                             HoppingWindow(size=FLEET_WINDOW,
+                                           advance=FLEET_WINDOW),
+                             BATCH, ids, device=dev)
+    t0 = time.perf_counter()
+    results = ex.run(FLEET_FRAMES, sched.on_window)
+    wall = time.perf_counter() - t0
+    check(sched.churned == churn and ex.rebuilds == 2 + churn,
+          f"fleet: churn {sched.churned}, {ex.rebuilds} engine rebuilds, "
+          f"want {2 + churn}")
+    return sched, log, engines, ex, results, wall
+
+
+def serial_run(dev, scene, sid, make_engine, churn):
+    """One stream alone through ``MultiQueryStreamExecutor`` under the
+    same schedule; ``make_engine(queries)`` builds its per-batch engine."""
+    from repro_torch.core.streaming import (HoppingWindow,
+                                            MultiQueryStreamExecutor)
+    sched = FleetSchedule(scene.grid, churn)
+    log = []
+    ex = MultiQueryStreamExecutor(
+        sched.registry,
+        lambda queries: ChunkLog(make_engine(queries), sched, log),
+        HoppingWindow(size=FLEET_WINDOW, advance=FLEET_WINDOW), BATCH,
+        device=dev)
+    results = ex.run(FLEET_FRAMES, sched.on_window)
+    return sched, log, results
+
+
+def per_frame(log, pos=None):
+    """{(chunk start, qid): (B,) answers} of a chunk log (a fleet log's
+    stream at stack position ``pos``)."""
+    out = {}
+    for rec, lo, ans in log:
+        a = ans if pos is None else ans[pos]
+        for k, qid in enumerate(rec.qids):
+            out[(lo, qid)] = a[:, k]
+    return out
+
+
+def replay_check(log, pos, sched, objects, scene, what):
+    """Every (window, engine) segment's per-frame answers against
+    ``replay_reference`` over ``eval_objects`` verdicts from the
+    segment's first frame (an engine rebuilt mid-window restarts its
+    automata there)."""
+    from repro_torch.core import query as Q
+    from repro_torch.core.temporal import replay_reference
+    verdicts = {}
+
+    def fv_at(base):
+        def fv(pred, t):
+            v = verdicts.get(pred)
+            if v is None:
+                v = verdicts[pred] = np.array(
+                    [Q.eval_objects(pred, o, scene.n_classes, scene.grid)
+                     for o in objects])
+            return bool(v[base + t])
+        return fv
+
+    segments = {}
+    for rec, lo, ans in log:
+        key = (lo // FLEET_WINDOW, id(rec))
+        segments.setdefault(key, (rec, []))[1].append(
+            (lo, ans if pos is None else ans[pos]))
+    n = 0
+    for rec, parts in segments.values():
+        base = parts[0][0]
+        check([lo for lo, _ in parts] == list(range(
+            base, base + BATCH * len(parts), BATCH)),
+              f"{what}: the chunks from frame {base} are not contiguous")
+        got = np.concatenate([a for _, a in parts])
+        for k, qid in enumerate(rec.qids):
+            want = replay_reference(sched.by_qid[qid], fv_at(base),
+                                    got.shape[0])
+            check(np.array_equal(got[:, k], want),
+                  f"{what}: query {qid} from frame {base} differs from "
+                  f"replay_reference")
+            n += 1
+    return n
+
+
+def fleet_chunk_profile(torch, dev, scene, ids, fetches, cost_model, gpu):
+    """One chunk of the final population (frames 96..127 of window 2, its
+    first chunk at 64 run to warm the steps) on a fresh group engine, for
+    each source of filter outputs: the plan's and the temporal step's
+    host-clock ms (each between two synchronisations), then
+    torch.profiler over the same chunk replayed on a fresh engine
+    (device busy, idle share, launches); and over one ``advance_group``
+    call alone (the temporal step's launches)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.streaming import QueryRegistry
+    from repro_torch.core.temporal import TemporalProgram, advance_group
+    from repro_torch.distributed import multistream as MS
+    queries = fleet_final_queries(scene.grid)
+    ctxs = MS.route_streams(ids, 1)
+    reg = QueryRegistry()
+    lines = []
+
+    def engine(fetch):
+        eng = MS.ShardedPlanGroupEngine(
+            queries, ctxs, lambda ctx, idx: fetch(ctx.stream_id, idx),
+            slot_stats=reg.slot_stats, cost_model=cost_model,
+            leaf_table=reg.leaf_table, step_cache=reg.step_cache, device=dev)
+        eng.on_window_start(64, 128)
+        eng.run_chunk(np.arange(64, 96))
+        return eng
+
+    for name, fetch in fetches.items():
+        timings = {"plan": [], "temporal": []}
+
+        def timed(what, fn, timings=timings):
+            def wrapped(*a, **kw):
+                sync(torch, dev)
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                sync(torch, dev)
+                timings[what].append((time.perf_counter() - t0) * 1e3)
+                return out
+            return wrapped
+
+        eng = engine(fetch)
+        eng.staged.evaluate_group = timed("plan", eng.staged.evaluate_group)
+        inner_adv = MS.advance_group
+        MS.advance_group = timed("temporal", inner_adv)
+        try:
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            eng.run_chunk(np.arange(96, 128))
+            sync(torch, dev)
+            chunk_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            MS.advance_group = inner_adv
+        rep = eng.staged.last_report
+        lines.append(
+            f"fleet chunk, {name} (frames 96..127, {len(ids)} streams x "
+            f"{BATCH} frames, {len(queries)} queries, host clock): "
+            f"{chunk_ms:.3f} ms = plan (evaluate_group) "
+            f"{timings['plan'][0]:.3f} ms + temporal step (advance_group) "
+            f"{timings['temporal'][0]:.3f} ms + filter fetch and rest; "
+            f"plan bodies {rep.bodies}, rows {rep.rows_evaluated} [{gpu}]")
+        if dev.type == "cuda":
+            eng = engine(fetch)
+            lines.append(profile_line(
+                torch, f"one fleet chunk, {name} (run_chunk, frames "
+                f"96..127)", lambda: eng.run_chunk(np.arange(96, 128))))
+    if dev.type != "cuda":
+        return lines + ["fleet chunk profile: not measured (CPU)"]
+    progs = [TemporalProgram(queries, device=dev) for _ in ids]
+    for p in progs:
+        p.start_window(BATCH)
+    sig = torch.rand((len(ids), BATCH, progs[0].n_signals), device=dev) < 0.5
+    advance_group(progs, sig)                    # build the step
+    for p in progs:
+        p.start_window(BATCH)
+    sync(torch, dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        advance_group(progs, sig)
+        sync(torch, dev)
+        wall = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    lines.append(f"temporal step alone (advance_group, S = {len(ids)}, B = "
+                 f"{BATCH}, {progs[0].n_automata} automata over "
+                 f"{progs[0].n_signals} signals; torch.profiler): wall "
+                 f"{wall:.3f} ms, device busy {busy:.3f} ms, "
+                 f"{sum(e.count for e in kern)} kernel launches [{gpu}]")
+    return lines
+
+
+def fleet_phase(torch, dev, scene, serve, gpu, rehearse):
+    """The fleet path at full width, its seven checks.  Launch counts are
+    reset just before the two fleet passes and read just after."""
+    from repro_torch.core import costmodel as CM
+    from repro_torch.core.filters import FilterOutputs
+    from repro_torch.core.plan import QueryPlan
+    from repro_torch.core.temporal import TemporalEngine, TemporalProgram
+    from repro_torch.kernels import ops
+    S = FLEET_STREAMS_REHEARSE if rehearse else FLEET_STREAMS
+    static = CM.static_cost_model()
+    ids, data, fetches, (kept, served), collect_s, n_bytes = fleet_inputs(
+        torch, dev, scene, serve, S)
+    lines = [f"fleet phase: {S} streams x {FLEET_FRAMES} frames of the "
+             f"detrac-like scene at g = {scene.grid} (windows of "
+             f"{FLEET_WINDOW}, batch {BATCH}; collected in {collect_s:.2f} "
+             f"s; {n_bytes / 2**30:.3f} GiB of float32 embeddings on "
+             f"{dev.type}) [{gpu}]"]
+    sync(torch, dev)
+    resident = torch.cuda.memory_allocated() if dev.type == "cuda" else None
+    reset_peak(torch, dev)
+    ops.reset_launch_counts()
+    # the churn runs on the learned pass (check 2 holds it against the
+    # serial runs); the ground-truth pass keeps one engine through window
+    # 2, whose second chunk shows the per-stream signal suppression
+    fleet = {name: fleet_run(dev, scene, ids, fetches[name], static,
+                             churn=name == "learned")
+             for name in ("ground_truth", "learned")}
+    sync(torch, dev)
+    launches = ops.launch_counts()
+    peak = peak_bytes(torch, dev)
+    pos = {c.stream_id: c.position
+           for c in fleet["learned"][3].streams}
+
+    # check 1: ground truth, every stream against the replay oracle, and
+    # the serial TemporalEngine (with the exact oracle) against it too
+    sched, log, engines, _, _, gt_wall = fleet["ground_truth"]
+    n_replay = 0
+    t0 = time.perf_counter()
+    for sid in ids:
+        objects = data[sid]["objects"]
+        n_replay += replay_check(log, pos[sid], sched, objects, scene,
+                                 f"fleet ground truth {sid}")
+
+        def make(queries, sid=sid, objects=objects):
+            return TemporalEngine(
+                queries, lambda idx: fetches["ground_truth"](sid, idx),
+                lambda idx, sel: [objects[int(idx[j])] for j in sel],
+                scene.n_classes, scene.grid, oracle_bucket=16, device=dev,
+                adaptive=True, cost_model=static)
+        s_sched, s_log, _ = serial_run(dev, scene, sid, make, churn=False)
+        n_replay += replay_check(s_log, None, s_sched, objects, scene,
+                                 f"serial TemporalEngine {sid}")
+    gt_serial_wall = time.perf_counter() - t0
+    lines.append(f"fleet check 1 (ground truth): every stream's per-frame "
+                 f"answers equal replay_reference over eval_objects "
+                 f"verdicts, and so do {S} serial MultiQueryStreamExecutor"
+                 f" + TemporalEngine runs (exact oracle): {n_replay} "
+                 f"(segment, query) series")
+
+    # check 2: learned, every stream against its serial run.  The S
+    # serial runs (the port's single-stream path: the staged plan and the
+    # scan step on the card) are timed first with no check inside, as the
+    # fleet pass was, and checked after
+    sched, log, engines_l, ex_l, results, wall = fleet["learned"]
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    serial = {sid: serial_run(
+        dev, scene, sid, lambda queries, sid=sid: MasksAsAnswers(
+            torch, queries,
+            lambda idx: fetches["learned_serial"](sid, idx), static, dev),
+        churn=True) for sid in ids}
+    sync(torch, dev)
+    serial_wall = time.perf_counter() - t0
+    # a chunk that a serial run skips may still be fetched by the fleet,
+    # whose skip waits for every stream
+    check(served.keys() <= kept.keys() and all(
+        torch.equal(served[k].counts, kept[k].counts)
+        and torch.equal(served[k].grid, kept[k].grid) for k in served),
+          "fleet learned: the serial runs' filter outputs differ from the "
+          "fleet's")
+    serial_hits = {}
+    for sid, (s_sched, s_log, s_res) in serial.items():
+        want, got = per_frame(s_log), per_frame(log, pos[sid])
+        check(want.keys() == got.keys() and all(
+            np.array_equal(got[k], want[k]) for k in want),
+              f"fleet learned {sid}: answers differ from the serial run")
+        check([r.hits[sid] for r in results] == [r.hits for r in s_res],
+              f"fleet learned {sid}: window hits differ from the serial "
+              f"run")
+        serial_hits[sid] = [r.hits for r in s_res]
+    served.clear()
+    n_frames = S * FLEET_FRAMES
+    lines.append(f"fleet check 2 (learned filter): every stream's "
+                 f"per-frame answers equal its serial run (the stream "
+                 f"alone, the single-stream staged plan, the scan step on "
+                 f"{dev.type}) under the same churn, and so do the filter "
+                 f"outputs; hits of {ids[0]} {serial_hits[ids[0]]}")
+    lines.append(f"fleet frames/s, learned filter: group + temporal "
+                 f"{n_frames / wall:.1f} ({wall:.3f} s, chunk latency p50 "
+                 f"{ex_l.latency_percentile(50) * 1e3:.2f} ms p95 "
+                 f"{ex_l.latency_percentile(95) * 1e3:.2f} ms), serial "
+                 f"({S} loops of the single-stream path, no check inside) "
+                 f"{n_frames / serial_wall:.1f} "
+                 f"({serial_wall:.3f} s); ground truth: group + temporal "
+                 f"{n_frames / gt_wall:.1f}, serial TemporalEngine with "
+                 f"the oracle + replay checks "
+                 f"{n_frames / gt_serial_wall:.1f} [{gpu}]")
+
+    # check 3: evaluate_group at each body == evaluate on each stream
+    # alone, on every chunk of the final population's frame signals
+    # (the chunks where no stream has more than half its rows undecided
+    # after the count tier run the spatial tier compacted)
+    final = fleet_final_queries(scene.grid)
+    plan = QueryPlan(TemporalProgram(final, backend="numpy").frame_queries)
+    ops.reset_launch_counts()
+    bodies = {}
+    for name in ("ground_truth", "learned"):
+        for lo in range(0, FLEET_FRAMES, BATCH):
+            idx = np.arange(lo, lo + BATCH)
+            outs = [kept.get((sid, lo, BATCH)) if name == "learned"
+                    else None for sid in ids]
+            outs = [o if o is not None else fetches[name](sid, idx)
+                    for sid, o in zip(ids, outs)]
+            stacked = FilterOutputs(
+                counts=torch.stack([o.counts for o in outs]),
+                grid=torch.stack([o.grid for o in outs]))
+            for body in ("auto", "rows", "full"):
+                staged = plan.build_staged(None, cost_model=static,
+                                           spatial_body=body)
+                got = staged.evaluate_group(stacked)
+                for s, o in enumerate(outs):
+                    want = plan.build_staged(
+                        None, cost_model=static,
+                        spatial_body=body).evaluate(o)
+                    check(torch.equal(got[s], want),
+                          f"evaluate_group ({name}, frames {lo}.., "
+                          f"{body}) stream {s} differs from evaluate "
+                          f"alone")
+                rep = staged.last_report
+                if len(rep.bodies) > 1 and rep.bodies[1] != "batch":
+                    bodies[(name, lo, body)] = (rep.bodies[1],
+                                                rep.rows_evaluated[1])
+    check3 = ops.launch_counts()
+    lines.append(f"fleet check 3: evaluate_group over all {S} streams "
+                 f"equals evaluate on each alone, on every chunk and at "
+                 f"every spatial body; compacted spatial stages (source, "
+                 f"chunk, body asked): (body, rows) {bodies}; launches "
+                 f"{check3} [{gpu}]")
+
+    # check 4: the scan backend against the numpy one, stream 0
+    n_batches = 0
+    for w0 in range(0, FLEET_FRAMES, FLEET_WINDOW):
+        qs = final if w0 else tuple(fleet_queries(scene.grid)[0].values())
+        progs = (TemporalProgram(qs, backend="scan", device=dev),
+                 TemporalProgram(qs, backend="numpy"))
+        fq = QueryPlan(progs[0].frame_queries)
+        for p in progs:
+            p.start_window(FLEET_WINDOW)
+        for b0 in range(w0, w0 + FLEET_WINDOW, BATCH):
+            m = fq.evaluate(fetches["learned"](
+                ids[0], np.arange(b0, b0 + BATCH))).cpu().numpy()
+            outs = [p.advance(m & ~p.suppressed_signals()[None, :])
+                    for p in progs]
+            check(np.array_equal(*outs) and np.array_equal(
+                progs[0].query_decided, progs[1].query_decided),
+                  f"scan backend differs from numpy at frame {b0}")
+            n_batches += 1
+    lines.append(f"fleet check 4: the torch scan backend on {dev.type} "
+                 f"equals the numpy backend on stream {ids[0]}'s "
+                 f"{n_batches} batches, outputs and decidedness")
+
+    # check 5: the window-outcome short circuit fired
+    stats = [e.temporal_stats for name in fleet for e in fleet[name][2]]
+    skipped = sum(t.frames_skipped for t in stats)
+    evals = sum(t.signal_evals_skipped for t in stats)
+    check(skipped > 0 and evals > 0, f"fleet: {skipped} frames and "
+          f"{evals} signal evaluations skipped, want both > 0")
+    per_pass = {name: (sum(e.temporal_stats.frames_skipped
+                           for e in fleet[name][2]),
+                       sum(e.temporal_stats.frames_in
+                           for e in fleet[name][2]),
+                       sum(e.temporal_stats.signal_evals_skipped
+                           for e in fleet[name][2])) for name in fleet}
+    lines.append(f"fleet check 5: (frames skipped, frames in, signal evals "
+                 f"skipped) per pass {per_pass} [{gpu}]")
+
+    # checks 6 and 7: kernels launched in the passes, serving memory
+    lines.append(f"fleet phase launches (both passes): {launches} [{gpu}]")
+    if not rehearse:
+        for name in ("flash_attention_bhsd", "cam_head_bgd",
+                     "spatial_stats_bgc"):
+            check(launches[name] > 0,
+                  f"{name} was not launched in the fleet passes")
+        check(launches["spatial_stats_rows_bgc"]
+              + check3["spatial_stats_rows_bgc"] > 0,
+              "spatial_stats_rows_bgc was not launched in the fleet phase")
+        added = peak - resident
+        check(added < SERVING_PEAK_LIMIT,
+              f"fleet serving peak {gib(added)} above the resident "
+              f"streams is not under {gib(SERVING_PEAK_LIMIT)}")
+        lines.append(f"fleet serving peak device memory (both passes): "
+                     f"{gib(peak)}, of which {gib(resident)} resident "
+                     f"before the passes (the streams' embeddings and the "
+                     f"filter) and {gib(added)} added by serving "
+                     f"[{gpu}]")
+    lines += fleet_chunk_profile(
+        torch, dev, scene, ids,
+        {k: fetches[k] for k in ("learned", "ground_truth")}, static, gpu)
+    return lines, launches
+
+
+# ---------------------------------------------------------------------------
 # the RWKV-6 serving path (prefill + decode) and its WKV-scan kernel
 # ---------------------------------------------------------------------------
 
@@ -1899,6 +2538,12 @@ def main(argv=None):
         print(line, flush=True)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+    lines, fleet_launches = fleet_phase(torch, dev, scene, serve, gpu,
+                                        args.rehearse)
+    for line in lines:
+        print(line, flush=True)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     if not args.rehearse:
         check(peak < SERVING_PEAK_LIMIT, f"serving peak {gib(peak)} is not "
               f"under {gib(SERVING_PEAK_LIMIT)}")
@@ -1951,6 +2596,7 @@ def main(argv=None):
     entries += [scan, decode]
     for e in entries:
         e["kernel_ms"] = e["ms"]
+        e["fleet_launches"] = fleet_launches[e["name"]]
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

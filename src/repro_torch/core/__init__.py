@@ -1,9 +1,11 @@
 # The paper's filter pipeline (CF/CCF/CLF branch heads, CAM localisation,
 # the shared staged query plan, cascade execution, streaming windows) and
-# its aggregate half (control variates, accuracy contracts).
+# its aggregate half (control variates, accuracy contracts), and the
+# temporal tier (streaming automata over frame verdicts).
 from repro_torch.core import (aggregates, cam, cascade, contracts, costmodel,
                               filters, plan, query, stats, stepcache,
-                              streaming)
+                              streaming, temporal)
 
 __all__ = ["aggregates", "cam", "cascade", "contracts", "costmodel",
-           "filters", "plan", "query", "stats", "stepcache", "streaming"]
+           "filters", "plan", "query", "stats", "stepcache", "streaming",
+           "temporal"]

@@ -134,8 +134,9 @@ class AggregateQuery:
                              f"objects to aggregate)")
         if Q.has_temporal(self.pred):
             raise TypeError("AggregateQuery.pred must be frame-level; "
-                            "temporal operators aggregate through "
-                            "the temporal tier's windows instead")
+                            "temporal operators aggregate through the "
+                            "windows of repro_torch.core.temporal "
+                            "instead")
         if self.limit is None:
             if not 0 < self.eps:
                 raise ValueError(f"eps must be > 0, got {self.eps}")

@@ -40,8 +40,10 @@ architecture and core count) carries no jax version, so a JAX
 calibration and a torch one can never load into each other.
 ``load_calibration`` also refuses files older than ``max_age_s`` (30
 days).  ``REPRO_CALIBRATION`` overrides the default path; ``off`` / ``0``
-/ ``none`` disable loading (the test suite pins this).  The temporal
-tier's coefficient waits for that tier to be ported.
+/ ``none`` disable loading (the test suite pins this).  ``calibrate``
+also fits the optional ``"temporal"`` coefficient: the temporal tier's
+batched automaton step (``repro_torch.core.temporal``) on a reference
+12-query program, which ``temporal_cost`` prices.
 """
 from __future__ import annotations
 
@@ -77,6 +79,11 @@ STATIC_STEP_OVERHEAD = 4.0
 # is a ~2 orders-of-magnitude gap between the specialized filter and the
 # oracle, which is what makes cascades (and sampled aggregation) pay.
 STATIC_COST_ORACLE = 100.0
+# Static relative cost of advancing the temporal automata over one full
+# batch of frame verdicts (the batched step in repro_torch.core.temporal)
+# — cheap next to any filter stage, but nonzero so the temporal tier's
+# work stays priced instead of free.
+STATIC_COST_TEMPORAL = 2.0
 
 #: Reference batch size for batch-agnostic cost queries (stage ranking
 #: before any traffic has been seen).  The static model is scale-free in
@@ -334,6 +341,23 @@ class CostModel:
         c = self.coeffs.get("oracle")
         return c.cost(rows) if c is not None else None
 
+    def temporal_cost(self, *, frames: float,
+                      batch: Optional[float] = None) -> Optional[float]:
+        """Cost of advancing the temporal automata over ``frames``
+        frames of a ``batch``-frame batch (repro_torch.core.temporal's
+        batched step), in this model's units.  The static model follows
+        the stage convention (``unit * rows / batch``, scale-free at full
+        batch); a measured model answers in microseconds from its
+        ``"temporal"`` coefficient — optional like ``"oracle"``, fitted
+        by ``calibrate()``, absent from calibrations written before the
+        temporal tier was ported, where returning None beats mixing unit
+        systems."""
+        if self.source == "static":
+            b = batch if batch is not None else frames
+            return STATIC_COST_TEMPORAL * float(frames) / max(float(b), 1.0)
+        c = self.coeffs.get("temporal")
+        return c.cost(frames) if c is not None else None
+
     def describe(self) -> Dict:
         """Operator/provenance view (recorded next to bench results)."""
         return {
@@ -486,20 +510,23 @@ def load_calibration(path: Optional[str] = None, *,
                 or per_row < 0 or overhead < 0:
             return None
         coeffs[k] = StageCoeff(per_row=per_row, overhead=overhead)
-    # optional coefficient: "oracle" (calibrate_oracle — the oracle is
-    # caller code, absent in most calibrations).  It is advisory, so a
-    # malformed entry drops the entry, not the file
-    c = coeffs_raw.get("oracle")
-    if isinstance(c, dict):
-        try:
-            per_row = float(c["per_row"])
-            overhead = float(c.get("overhead", 0.0))
-            if np.isfinite(per_row) and np.isfinite(overhead) \
-                    and per_row >= 0 and overhead >= 0:
-                coeffs["oracle"] = StageCoeff(per_row=per_row,
-                                              overhead=overhead)
-        except (TypeError, KeyError, ValueError):
-            pass
+    # optional coefficients: "oracle" (calibrate_oracle — the oracle is
+    # caller code, absent in most calibrations) and "temporal" (the
+    # automaton step, absent from calibrations written before the
+    # temporal tier was ported).  Both are advisory, so a malformed entry
+    # drops the entry, not the file
+    for opt in ("oracle", "temporal"):
+        c = coeffs_raw.get(opt)
+        if isinstance(c, dict):
+            try:
+                per_row = float(c["per_row"])
+                overhead = float(c.get("overhead", 0.0))
+                if np.isfinite(per_row) and np.isfinite(overhead) \
+                        and per_row >= 0 and overhead >= 0:
+                    coeffs[opt] = StageCoeff(per_row=per_row,
+                                             overhead=overhead)
+            except (TypeError, KeyError, ValueError):
+                pass
     try:
         step = float(payload.get("step_overhead_us"))
         calibrated_at = float(payload.get("calibrated_at"))
@@ -638,10 +665,14 @@ def calibrate(*, batch: int = 256, grid: int = 16, classes: int = 8,
       stage runs,
     - the region body (threshold + summed-area table + rect gathers),
     - one Manhattan-dilation step (the per-radius increment),
-    - and the staged executor's per-stage overhead: the two-pass
+    - the staged executor's per-stage overhead: the two-pass
       three-valued propagation over a reference plan plus the host
       fetch of its (N + B,) undecided vector (the port's staged plan
-      syncs once per stage).
+      syncs once per stage),
+    - and the temporal tier's batched automaton step
+      (``TemporalProgram.build_scan_fn``) on a reference 12-query
+      program (four each of Duration, Sequence and SlidingCount), the
+      optional ``"temporal"`` coefficient.
 
     Fits ``overhead + per_row * rows`` per body and (by default) writes
     ``results/calibration/<backend>.json`` stamped with the fingerprint,
@@ -759,6 +790,22 @@ def calibrate(*, batch: int = 256, grid: int = 16, classes: int = 8,
         return torch.cat([~decided.all(0), ~decided.all(1)]).cpu()
 
     step_us = timeit(step_overhead_body, leaf_vals)
+
+    # --- temporal tier: the batched automaton step -----------------------
+    from repro_torch.core.temporal import TemporalProgram, _push
+    t_queries = []
+    for i in range(4):
+        p1 = Q.ClassCount(i % C, Q.Op.GE, 1)
+        p2 = Q.ClassCount((i + 1) % C, Q.Op.GE, 1)
+        t_queries += [Q.Duration(p1, 3), Q.Sequence(p1, p2, 4),
+                      Q.SlidingCount(p2, 6, Q.Op.GE, 2)]
+    t_prog = TemporalProgram(t_queries, device=dev)
+    t_sig_all = on_dev(rng.random((1, B, t_prog.n_signals)) < 0.5)
+    t_prog.start_window(B)
+    t_step = t_prog.build_scan_fn()
+    t_state = _push([t_prog], dev)
+    samples["temporal"] = [
+        (r, timeit(t_step, t_state, t_sig_all[:, :r])) for r in rows_points]
 
     coeffs = {k: _fit_affine(v) for k, v in samples.items()}
     model = CostModel(

@@ -32,6 +32,12 @@ and so are the results, bit for bit:
     in place.  Stage order comes from population statistics
     (``core.stats.SlotStats``) priced by a ``costmodel.CostModel``.
 
+5.  **Fleet execution** (``StagedQueryPlan.evaluate_group``).  S
+    streams' stacked batches go through one staged walk with
+    group-uniform staging decisions; the stream axis is a batch
+    dimension, so each executed tier is one step (and one stats-kernel
+    launch) for the whole fleet slice.  ``evaluate`` is its S = 1 case.
+
 Where the JAX package jit-compiles each stage step, the port builds an
 eager closure and caches it under the same content signature in a
 ``StepCache``; ``StageReport.steps_compiled`` counts closures built, so
@@ -54,7 +60,6 @@ import torch.nn.functional as F
 from repro_torch.core import cam as CAM
 from repro_torch.core import costmodel as CM
 from repro_torch.core import query as Q
-from repro_torch.core.cascade import compact_indices
 from repro_torch.core.filters import FilterOutputs
 from repro_torch.core.stepcache import StepCache, content_digest
 from repro_torch.kernels import ops as kops
@@ -255,36 +260,6 @@ class _Stage:
     radius: int = 0             # region dilation radius (cost queries)
 
 
-def _count_bounds(op: Q.Op, value: int, tol: int) -> Tuple[int, int]:
-    """EQ/GE/LE with +-tol as one closed interval [lo, hi] over int32."""
-    if op == Q.Op.EQ:
-        return value - tol, value + tol
-    if op == Q.Op.GE:
-        return value - tol, _I32_MAX
-    return _I32_MIN, value + tol
-
-
-@dataclasses.dataclass(frozen=True)
-class _Level:
-    """All And/Or nodes at one tree depth, across every query."""
-    node_ids: np.ndarray        # (P,) columns written by this level
-    child_idx: np.ndarray       # (K,) columns read (leaf slots or nodes)
-    child_neg: np.ndarray       # (K,) bool — NNF literal negation
-    incidence: np.ndarray       # (P, K) 0/1 parent-child matrix
-    required: np.ndarray        # (P,) n_children for And, 1 for Or
-
-
-@dataclasses.dataclass
-class _Stage:
-    """One cost tier of the staged plan (a lowering group of slots)."""
-    name: str
-    kind: str                   # 'count' | 'spatial' | 'region'
-    slots: np.ndarray           # slot columns this stage decides
-    cost: float                 # full-batch cost under the build-time model
-    payload: Tuple              # kind-specific baked index arrays
-    radius: int = 0             # region dilation radius (cost queries)
-
-
 class _DeviceConsts:
     """Baked numpy arrays as tensors on a device, converted once.
 
@@ -326,7 +301,8 @@ class QueryPlan:
             if Q.has_temporal(q):
                 raise TypeError(
                     f"QueryPlan evaluates frame-level predicates only; "
-                    f"temporal operators need the temporal tier: {q!r}")
+                    f"temporal operators go through "
+                    f"repro_torch.core.temporal (TemporalEngine): {q!r}")
         self.tau = tau
         self._const = _DeviceConsts()
         if leaf_table is None and prev is not None:
@@ -769,15 +745,15 @@ class StagedQueryPlan:
     tier none of whose slots appears in a still-undecided query;
     decidedness is monotone in the known-slot set, so the returned masks
     are bit-identical to ``QueryPlan.evaluate``.  Between tiers the
-    undecided rows are compacted (``cascade.compact_indices``, padded by
+    undecided rows are compacted into a power-of-two bucket (padded by
     repeating the last row) and the next tier evaluates only those rows,
     scattering results back into the full-batch state.
 
     Each executed tier is one *step* — stage evaluation, scatter, both
     propagation passes, the undecided reductions and the per-slot pass
-    counts — cached per (stage, set-of-stages-already-run, bucket, body)
-    under content signatures in a ``StepCache``.  The one host round trip
-    per executed tier is the (D + B,) undecided fetch.  Per-slot pass
+    counts — cached per (stage, set-of-stages-already-run, bucket, body,
+    stream count) under content signatures in a ``StepCache``.  The one
+    host round trip per executed tier is the (S, D + B) undecided fetch.  Per-slot pass
     counts stay on the device until ``flush_stats``.
     """
 
@@ -955,19 +931,38 @@ class StagedQueryPlan:
             return self.spatial_body
         return self.cost_model.spatial_body(rows=bucket)
 
+    # -- execution --------------------------------------------------------
+
     def _get_step(self, si: int, ran: frozenset, bucket: Optional[int],
-                  body: str = "batch") -> Callable:
-        """The step for stage ``si`` given the stages that already ran:
-        eval + scatter + both propagation passes + undecided reductions
-        + pass counts.  ``bucket=None`` is the full-batch step; with a
-        bucket the step takes a padded (bucket,) row-index vector plus
-        the real survivor count."""
-        key = ("step", self.plan.plan_sig, self._stage_sigs[si],
-               self._prefix_sig(ran), bucket, body)
+                  body: str, n_streams: int) -> Callable:
+        """The step for stage ``si`` given the stages that already ran,
+        over S = ``n_streams`` streams' flat (S·B) batch: eval + scatter
+        + both propagation passes + per-stream undecided reductions +
+        pass counts.  ``bucket=None`` is the full-batch step; with a
+        bucket the step takes (S·bucket,) flat row ids ``s·B + r`` (each
+        stream's survivors padded to the bucket) plus the (S,) real
+        survivor counts.
+
+        The JAX package keeps a single-stream step and vmaps it over the
+        stream axis for the fleet (``_get_group_step``, optionally
+        ``shard_map``-ed over a device mesh); here the stream axis is a
+        batch dimension of one step family, and one stream is S = 1.
+        The full-batch step sees the flat (S·B, g, g, C) view, so the
+        stage's stats kernel runs once over S·B frames; the compacted
+        step's row kernel runs once over every stream's survivors.  Only
+        the undecided reductions and ``presumed`` are per stream:
+        decidedness is reshaped to (S, B, D) before reducing.  Every
+        other operation is per row, so each stream's slice is
+        bit-identical to its walk alone (pinned by
+        tests/test_torch_multistream.py).  Keys carry the stream count
+        and the mesh slot, always None: one card has no stream mesh."""
+        key = ("gstep", self.plan.plan_sig, self._stage_sigs[si],
+               self._prefix_sig(ran), bucket, body, n_streams, None)
         step = self.step_cache.get(key)
         if step is not None:
             return step
         plan = self.plan
+        D = plan.n_distinct
         stage_body = self._stage_body(si)
         slots = self._stage_slots(si)
         spatial = self.stages[si].kind == "spatial"
@@ -976,38 +971,42 @@ class StagedQueryPlan:
             known[self.stages[sj].slots] = True
         known[slots] = True
 
+        def undecided(decided, presumed):
+            """(S, D + B): per stream, the undecided distinct columns and
+            the undecided rows (``presumed`` is (S, D))."""
+            dec = decided.view(presumed.shape[0], -1, D) \
+                | presumed[:, None, :]
+            return torch.cat([~dec.all(1), ~dec.all(2)], dim=1)
+
         if bucket is None:
             def step(out, leaf_vals, presumed):
-                vals = stage_body(out)                     # (B, k) bool
+                vals = stage_body(out)                 # (S·B, k) bool
                 leaf_vals[:, plan._const(slots, vals.device,
                                          index=True)] = vals
                 value, decided = plan._propagate_distinct(leaf_vals, known)
-                dec = decided | presumed[None, :]
-                undec = torch.cat([~dec.all(0), ~dec.all(1)])
-                return leaf_vals, value, decided, undec, vals.sum(0)
+                return (leaf_vals, value, decided,
+                        undecided(decided, presumed), vals.sum(0))
         else:
             def step(out, leaf_vals, value, decided, idx, n_real, presumed):
                 vals = (stage_body(out, rows=idx, body=body) if spatial
-                        else stage_body(out, rows=idx))    # (R, k) bool
+                        else stage_body(out, rows=idx))  # (S·bucket, k)
                 sub = leaf_vals[idx]
                 sub[:, plan._const(slots, vals.device, index=True)] = vals
                 leaf_vals[idx] = sub
                 v, dec = plan._propagate_distinct(sub, known)
                 value[idx] = v
                 decided[idx] = dec
-                dec_eff = decided | presumed[None, :]
-                undec = torch.cat([~dec_eff.all(0), ~dec_eff.all(1)])
-                # padded duplicate rows must not inflate the pass counts
-                valid = torch.arange(vals.shape[0],
-                                     device=vals.device) < n_real
-                return (leaf_vals, value, decided, undec,
+                # each stream's padded duplicate rows must not inflate
+                # the pass counts
+                valid = (torch.arange(bucket, device=vals.device)[None, :]
+                         < n_real[:, None]).reshape(-1)
+                return (leaf_vals, value, decided,
+                        undecided(decided, presumed),
                         (vals & valid[:, None]).sum(0))
 
         self._trace_count += 1
         self.step_cache.put(key, step)
         return step
-
-    # -- execution --------------------------------------------------------
 
     def evaluate(self, out: FilterOutputs,
                  presumed_decided: Optional[np.ndarray] = None
@@ -1019,50 +1018,116 @@ class StagedQueryPlan:
         ``presumed_decided`` — optional (N,) bool mask of query columns
         the caller already decided out of band; they stop contributing
         to the skip test, the early stop and the row compaction, and
-        their returned values are unspecified."""
+        their returned values are unspecified.
+
+        One stream is the S = 1 case of ``evaluate_group``: the outputs
+        gain a stream axis as views, so the kernels read them in place."""
+        N = len(self.plan.queries)
+        if presumed_decided is not None:
+            presumed_decided = np.asarray(presumed_decided, bool)
+            if presumed_decided.shape != (N,):
+                raise ValueError(f"presumed_decided must be shape ({N},), "
+                                 f"got {presumed_decided.shape}")
+            presumed_decided = presumed_decided[None]
+        stacked = FilterOutputs(
+            counts=out.counts[None],
+            grid=None if out.grid is None else out.grid[None])
+        return self.evaluate_group(
+            stacked, presumed_decided=presumed_decided)[0]
+
+    # -- fleet execution ----------------------------------------------------
+
+    def evaluate_group(self, outs: FilterOutputs, *,
+                       presumed_decided: Optional[np.ndarray] = None
+                       ) -> torch.Tensor:
+        """(S, B, N) bool masks for S streams' stacked batches — each
+        stream's slice bit-identical to ``evaluate`` on that stream's
+        batch alone.
+
+        ``outs`` carries a leading stream axis (counts (S, B, C), grid
+        (S, B, g, g, C) or None), typically stacked one chunk ahead by
+        ``distributed.multistream``.  The stages read the flat (S·B, ...)
+        view of it (a view when the stack is contiguous).
+
+        Staging decisions are **group-uniform**: a tier runs when ANY
+        stream's undecided queries need it, the row-compaction bucket is
+        the power of two covering the WORST stream's undecided count
+        (every stream's rows padded to it), and the spatial body is
+        chosen once for the group at that bucket.  Both relaxations only
+        ever evaluate *more* rows or tiers for a stream than its solo
+        staging would, and decided (frame, query) cells are invariant to
+        extra evaluation (the monotonicity that makes tier skipping
+        sound), so per-stream answers stay bit-identical while the group
+        keeps one step — and one host sync — per stage for the whole
+        fleet slice.
+
+        Ledger feedback aggregates across streams: full-batch stage
+        evaluations contribute S·B frames of unconditional per-slot pass
+        counts, and the stage row/survival ledgers see the group's total
+        paid rows over an S·B-row batch (``flush_stats`` is unchanged).
+        ``StageReport`` costs are priced per stream at the rows each
+        stream's slice evaluated, times S.
+
+        ``presumed_decided`` — optional (S, N) bool mask of query columns
+        each *stream's* temporal tier has already window-decided (see
+        ``evaluate``).  Presumption is per stream: stream s's presumed
+        columns stop feeding its skip/stop/compaction tests while other
+        streams keep evaluating.  Presumed columns' returned values are
+        UNSPECIFIED, as in ``evaluate``; stages skipped only thanks to
+        presumption land in ``StageReport.skipped_presumed`` /
+        ``cost_presumed_saved``."""
         plan = self.plan
-        dev = out.counts.device
-        B = out.counts.shape[0]
+        dev = outs.counts.device
+        S, B = outs.counts.shape[:2]
         self._last_batch = B
         N = len(plan.queries)
+        D = plan.n_distinct
         if presumed_decided is None:
-            presumed = np.zeros(N, bool)
+            presumed = np.zeros((S, N), bool)
         else:
             presumed = np.asarray(presumed_decided, bool)
-            if presumed.shape != (N,):
-                raise ValueError(f"presumed_decided must be shape ({N},), "
-                                 f"got {presumed.shape}")
-        if presumed.all():
+            if presumed.shape != (S, N):
+                raise ValueError(f"presumed_decided must be shape "
+                                 f"({S}, {N}), got {presumed.shape}")
+        # per-stream distinct-space presumption: a distinct column is
+        # presumed only when ALL query columns mapping to it are
+        presumed_d = np.ones((S, D), bool)
+        for s in range(S):
+            np.logical_and.at(presumed_d[s], plan.dup_map, presumed[s])
+        if presumed_d.all():
+            # every stream's every query is window-decided: the whole
+            # group batch is one presumed skip
             report = StageReport(
                 order=[self.stages[s].name for s in self.order],
-                cost_total=plan.exhaustive_cost_model(self.cost_model,
-                                                      batch=B),
-                batch=B)
+                cost_total=S * plan.exhaustive_cost_model(self.cost_model,
+                                                          batch=B),
+                batch=S * B)
             stage_rows = []
             for si in self.order:
                 st = self.stages[si]
                 report.skipped.append(st.name)
                 report.skipped_presumed.append(st.name)
-                report.cost_presumed_saved += self.cost_model.stage_cost(
+                report.cost_presumed_saved += S * self.cost_model.stage_cost(
                     st.kind, rows=B, batch=B, radius=st.radius)
-                stage_rows.append((st.name, 0, B, None, None))
+                stage_rows.append((st.name, 0, S * B, None, None))
             self.last_report = report
             self._pending = ([], stage_rows)
-            return torch.zeros((B, N), dtype=torch.bool, device=dev)
-        D = plan.n_distinct
-        presumed_d = np.ones(D, bool)
-        np.logical_and.at(presumed_d, plan.dup_map, presumed)
+            return torch.zeros((S, B, N), dtype=torch.bool, device=dev)
+        flat = FilterOutputs(
+            counts=outs.counts.reshape(S * B, *outs.counts.shape[2:]),
+            grid=None if outs.grid is None
+            else outs.grid.reshape(S * B, *outs.grid.shape[2:]))
         presumed_dev = torch.as_tensor(presumed_d, device=dev)
-        leaf_vals = torch.zeros((B, plan.n_slot_cols), dtype=torch.bool,
+        leaf_vals = torch.zeros((S * B, plan.n_slot_cols), dtype=torch.bool,
                                 device=dev)
-        value = torch.zeros((B, D), dtype=torch.bool, device=dev)
-        decided = torch.zeros((B, D), dtype=torch.bool, device=dev)
+        value = torch.zeros((S * B, D), dtype=torch.bool, device=dev)
+        decided = torch.zeros((S * B, D), dtype=torch.bool, device=dev)
         undecided_cols = ~presumed_d
-        undecided_rows = np.ones(B, bool)
+        undecided_rows = np.ones((S, B), bool)
         report = StageReport(order=[self.stages[s].name for s in self.order],
-                             cost_total=plan.exhaustive_cost_model(
+                             cost_total=S * plan.exhaustive_cost_model(
                                  self.cost_model, batch=B),
-                             batch=B)
+                             batch=S * B)
         traces_before = self._trace_count
         pending: List[Tuple[np.ndarray, torch.Tensor, int]] = []
         stage_rows: List[Tuple[str, int, int, Optional[int],
@@ -1070,71 +1135,87 @@ class StagedQueryPlan:
         ran: frozenset = frozenset()
         for si in self.order:
             st = self.stages[si]
-            if not (self._uses_stage[:, si] & undecided_cols).any():
+            if not (self._uses_stage[None, :, si] & undecided_cols).any():
                 report.skipped.append(st.name)
-                if (self._uses_stage[:, si] & presumed_d).any():
+                if (self._uses_stage[None, :, si] & presumed_d).any():
+                    # would have run for presumed columns' sake alone
                     report.skipped_presumed.append(st.name)
                     report.cost_presumed_saved += \
-                        self.cost_model.stage_cost(st.kind, rows=B,
-                                                   batch=B,
-                                                   radius=st.radius)
-                stage_rows.append((st.name, 0, B, None, None))
+                        S * self.cost_model.stage_cost(
+                            st.kind, rows=B, batch=B, radius=st.radius)
+                stage_rows.append((st.name, 0, S * B, None, None))
                 continue
-            if st.kind != "count" and out.grid is None:
+            if st.kind != "count" and outs.grid is None:
                 raise ValueError(
                     f"stage {st.name!r} has Spatial/Region leaves of an "
                     f"undecided query but the filter head emits no grid "
                     f"(OD-COF)")
-            n_rows = int(undecided_rows.sum())
-            if n_rows < B:
-                idx, _ = compact_indices(undecided_rows,
-                                         min_bucket=self.min_bucket, cap=B)
+            n_rows = undecided_rows.sum(1)              # (S,)
+            worst = int(n_rows.max())
+            if worst >= B:
+                bucket = B                              # full-batch step
             else:
-                idx = None
-            if idx is None or idx.size >= B:
+                bucket = max(1, int(self.min_bucket))
+                while bucket < worst:
+                    bucket <<= 1
+                bucket = min(bucket, B)
+            if bucket >= B:
                 body = self._body_for(si, None)
-                step = self._get_step(si, ran, None, body)
+                step = self._get_step(si, ran, None, body, S)
                 leaf_vals, value, decided, undec, counts = step(
-                    out, leaf_vals, presumed_dev)
-                rows_eval, seen = B, B
+                    flat, leaf_vals, presumed_dev)
+                rows_eval = B
             else:
-                body = self._body_for(si, idx.size)
-                step = self._get_step(si, ran, idx.size, body)
+                body = self._body_for(si, bucket)
+                step = self._get_step(si, ran, bucket, body, S)
+                # per-stream undecided rows padded (repeating the last
+                # survivor, so duplicate scatters are benign) to the
+                # GROUP bucket, as flat ids
+                idx = np.zeros((S, bucket), np.int64)
+                for s in range(S):
+                    rows_s = np.nonzero(undecided_rows[s])[0]
+                    n = rows_s.size
+                    idx[s, :n] = rows_s
+                    idx[s, n:] = rows_s[-1] if n else 0
+                idx += (np.arange(S, dtype=np.int64) * B)[:, None]
                 leaf_vals, value, decided, undec, counts = step(
-                    out, leaf_vals, value, decided,
-                    torch.as_tensor(idx, device=dev).long(), n_rows,
-                    presumed_dev)
-                rows_eval, seen = idx.size, n_rows
-            if seen == B:
-                # only full-batch evaluations feed the per-slot ledger (a
-                # compacted stage sees its slots conditioned on the row
-                # being undecided, not the frame-level selectivity)
-                pending.append((self._stage_slots(si), counts, seen))
-            undec = undec.cpu().numpy()             # ONE (D + B,) fetch
-            undecided_cols, undecided_rows = undec[:D], undec[D:]
-            stage_rows.append((st.name, rows_eval, B, n_rows,
+                    flat, leaf_vals, value, decided,
+                    torch.as_tensor(idx.reshape(-1), device=dev),
+                    torch.as_tensor(n_rows, device=dev), presumed_dev)
+                rows_eval = bucket
+            if rows_eval == B:
+                # only full-batch evaluations feed the per-slot ledger,
+                # S·B unconditional frames (a compacted stage sees its
+                # slots conditioned on the row being undecided, not the
+                # frame-level selectivity)
+                pending.append((self._stage_slots(si), counts, S * B))
+            undec = undec.cpu().numpy()     # ONE (S, D + B) fetch/stage
+            undecided_cols, undecided_rows = undec[:, :D], undec[:, D:]
+            stage_rows.append((st.name, rows_eval * S, S * B,
+                               int(n_rows.sum()),
                                int(undecided_rows.sum())))
             ran = ran | {si}
             report.ran.append(st.name)
-            report.rows_evaluated.append(rows_eval)
-            report.undecided_rows_in.append(n_rows)
+            report.rows_evaluated.append(rows_eval * S)
+            report.undecided_rows_in.append(int(n_rows.sum()))
             report.bodies.append(body)
-            report.cost_run += self.cost_model.stage_cost(
+            report.cost_run += S * self.cost_model.stage_cost(
                 st.kind, rows=rows_eval, batch=B, radius=st.radius,
                 body=body if body in ("rows", "full") else None)
             report.undecided_after.append(
-                int((undecided_cols[plan.dup_map] & ~presumed).sum()))
+                int((undecided_cols[:, plan.dup_map] & ~presumed).sum()))
             if not undecided_cols.any():
                 break
-        assert report.ran, "every query owns at least one slot, so the " \
-                           "first ordered stage always runs"
+        assert report.ran, "every query owns at least one slot, so a " \
+                           "stage runs while any column is undecided"
         for sj in self.order[len(report.ran) + len(report.skipped):]:
             report.skipped.append(self.stages[sj].name)
-            stage_rows.append((self.stages[sj].name, 0, B, None, None))
+            stage_rows.append((self.stages[sj].name, 0, S * B, None, None))
         report.steps_compiled = self._trace_count - traces_before
         self.last_report = report
         self._pending = (pending, stage_rows)
-        return value[:, plan._const(plan.dup_map, dev, index=True)]
+        dm = plan._const(plan.dup_map, dev, index=True)
+        return value.view(S, B, D)[:, :, dm]
 
     def flush_stats(self, stats) -> None:
         """Fold the last batch's per-slot pass counts into ``stats`` with

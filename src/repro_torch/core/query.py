@@ -23,10 +23,9 @@ frame-level predicates to events over a hopping window:
 
 They are declared here (they are part of the query language) but never
 evaluated by this module's two frame-level evaluators: a temporal query
-is compiled by the temporal tier (``repro.core.temporal`` in the JAX
-package; not ported yet) into a streaming automaton whose
-input alphabet is the per-frame verdicts of its frame-level
-sub-predicates.  ``And/Or/Not`` may combine temporal operators with
+is compiled by the temporal tier (``repro_torch.core.temporal``) into
+a streaming automaton whose input alphabet is the per-frame verdicts of
+its frame-level sub-predicates.  ``And/Or/Not`` may combine temporal operators with
 frame-level predicates; temporal operators may not nest inside each
 other (validated at construction).
 
@@ -193,7 +192,7 @@ Predicate = Union[Count, ClassCount, Spatial, Region, And, Or, Not,
 
 def has_temporal(q: Predicate) -> bool:
     """Does the tree contain any temporal operator?  (Such queries must
-    go through ``repro.core.temporal``; the frame-level evaluators and
+    go through ``repro_torch.core.temporal``; the frame-level evaluators and
     ``repro_torch.core.plan.QueryPlan`` reject them.)"""
     if isinstance(q, TEMPORAL_TYPES):
         return True

@@ -10,10 +10,12 @@ actually changes), keeps the cost model fresh
 ``costmodel.calibrate`` when the registry's ``CalibrationMonitor`` flags
 drift), and runs error-bounded aggregate contracts against the same
 registry and budget ledger (``AggregateStreamSession``, whose verdict
-tap reads the filter's tensors).  Otherwise plain Python and numpy, as
-in the JAX package.  The straggler-dropping
-``StreamExecutor`` / ``StragglerPolicy`` and ``QueryRegistry(
-gossip_paths=)`` (fleet serving) are not ported yet.
+tap reads the filter's tensors).  It also carries the production
+concerns of a live deployment: per-window deadlines with frame dropping
+(``StreamExecutor`` / ``StragglerPolicy`` — the stream does not wait for
+a straggling device) and the fleet warm start
+(``QueryRegistry(gossip_paths=)``, used by ``distributed.multistream``).
+Otherwise plain Python and numpy, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import contextlib
 import dataclasses
 import inspect
 import os
+import time
 import warnings
 from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
                     Tuple)
@@ -95,6 +98,92 @@ class FrameSampler:
                                        replace=False))
 
 
+@dataclasses.dataclass
+class StragglerPolicy:
+    """Deadline-based frame dropping.
+
+    A window of ``size`` frames at ``fps`` must complete within
+    ``size / fps * slack``; when the executor falls behind, incoming
+    frames are dropped (monitoring semantics: stale frames are worthless).
+    """
+    fps: float = 30.0
+    slack: float = 1.0
+
+    def deadline_s(self, n_frames: int) -> float:
+        return n_frames / self.fps * self.slack
+
+
+@dataclasses.dataclass
+class StreamStats:
+    frames_seen: int = 0
+    frames_processed: int = 0
+    frames_dropped: int = 0
+    windows: int = 0
+    wall_s: float = 0.0
+
+    @property
+    def drop_rate(self) -> float:
+        return self.frames_dropped / max(self.frames_seen, 1)
+
+    @property
+    def fps(self) -> float:
+        return self.frames_processed / max(self.wall_s, 1e-9)
+
+
+class StreamExecutor:
+    """Drives a per-batch processing fn over a (simulated) live stream.
+
+    ``process(batch_indices) -> None`` is charged against the deadline;
+    when cumulative processing time exceeds the arrival clock, whole
+    batches are dropped until the executor catches up (straggler
+    mitigation at the ingest boundary).  A ``process`` that launches
+    device work should synchronise before it returns, so the wall clock
+    it is charged covers that work.
+    """
+
+    def __init__(self, process: Callable[[np.ndarray], None],
+                 batch: int, policy: StragglerPolicy):
+        self.process = process
+        self.batch = batch
+        self.policy = policy
+        self.stats = StreamStats()
+
+    def run(self, n_frames: int,
+            simulate_slow: Optional[Callable[[int], float]] = None):
+        """Drive the stream.  ``budget`` is the processor's slack against
+        the arrival clock: each batch's arrival interval is credited, each
+        processed batch's cost is charged.  The drop decision is made the
+        moment a batch arrives, against the slack accrued *so far* — the
+        incoming batch's own interval must not subsidize it.  A dropped
+        batch still advances the arrival clock — its interval elapses
+        whether or not the frames are processed, and that elapsed time is
+        exactly how the processor catches back up.
+
+        ``simulate_slow(lo) -> seconds`` *replaces* the wall-clock charge
+        for the batch (it does not add to it), so simulated traces are
+        bit-deterministic."""
+        t_start = time.perf_counter()
+        arrival_per_batch = self.batch / self.policy.fps * self.policy.slack
+        budget = 0.0
+        for lo in range(0, n_frames, self.batch):
+            idx = np.arange(lo, min(lo + self.batch, n_frames))
+            self.stats.frames_seen += idx.size
+            if budget < 0:                      # behind schedule: drop
+                self.stats.frames_dropped += idx.size
+                budget += arrival_per_batch     # arrival clock still runs
+                continue
+            budget += arrival_per_batch
+            t0 = time.perf_counter()
+            self.process(idx)
+            if simulate_slow is not None:
+                budget -= simulate_slow(lo)
+            else:
+                budget -= time.perf_counter() - t0
+            self.stats.frames_processed += idx.size
+        self.stats.wall_s = time.perf_counter() - t_start
+        return self.stats
+
+
 # --------------------------------------------------------------------------
 # Multi-query multiplexing (queries come and go mid-stream)
 # --------------------------------------------------------------------------
@@ -139,10 +228,18 @@ class QueryRegistry:
     ``aggregates.BudgetLedger``, a fresh one by default) is the
     population's single spend account: the filter half
     (``MultiQueryExecutor``) and the aggregate half
-    (``AggregateStreamSession``) both charge it."""
+    (``AggregateStreamSession``) both charge it.
+
+    ``gossip_paths`` is the fleet-scale variant of ``stats_path``: a list
+    of PEER workers' snapshot files, merged on top at construction
+    (``SlotStats.load_merged`` — corrupt peers skipped with a warning),
+    so a new worker joining a fleet inherits the population's pooled
+    selectivity priors and stage ledgers instead of cold-starting its
+    stage order."""
 
     def __init__(self, slot_stats: Optional[SlotStats] = None, *,
                  stats_path: Optional[str] = None,
+                 gossip_paths: Optional[Sequence[str]] = None,
                  calibration_monitor=None,
                  leaf_table=None, step_cache=None,
                  budget_ledger=None):
@@ -169,6 +266,10 @@ class QueryRegistry:
             except (ValueError, OSError) as e:
                 warnings.warn(f"ignoring unreadable SlotStats snapshot "
                               f"{stats_path!r}: {e}")
+        if gossip_paths:
+            # fleet warm start: peer snapshots merged on top of whatever
+            # this worker already resumed from its own stats_path
+            self.slot_stats.merge(SlotStats.load_merged(gossip_paths))
 
     def touch(self) -> None:
         """Bump the epoch without changing the query set, forcing every

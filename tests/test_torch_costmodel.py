@@ -188,7 +188,8 @@ def test_calibrate_cpu_tiny_fits_finite_coefficients(tmp_path):
                      device="cpu")
     assert m.source == "measured" and m.backend == "torch-cpu"
     assert m.fingerprint == CM.fingerprint_backend("cpu")
-    assert set(m.coeffs) == set(CM.STAGE_COEFF_KEYS)
+    # every stage body, and the temporal tier's automaton step
+    assert set(m.coeffs) == set(CM.STAGE_COEFF_KEYS) | {"temporal"}
     for c in m.coeffs.values():
         assert np.isfinite(c.per_row) and c.per_row > 0
         assert np.isfinite(c.overhead) and c.overhead >= 0

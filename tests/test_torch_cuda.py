@@ -920,3 +920,118 @@ def test_census_contract_through_session_on_the_card(cuda_device):
     assert res.oracle_calls == n == reg.budget_ledger.oracle_calls
     acc = sess.executor.pooled_accumulator()
     assert acc.M2.is_cuda and acc.M2.dtype == torch.float64
+
+
+# ---------------------------------------------------------------------------
+# fleet serving: the group plan and the temporal step on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", ["rows", "full", "auto"])
+def test_group_plan_on_card_per_stream_identical(cuda_device, body):
+    """``evaluate_group`` over S stacked streams on the card: the
+    full-batch stats kernel runs once per stage over the flat S·B
+    frames, and the compacted spatial stage hands the row kernel the
+    flat ids ``s·B + r`` in one int64 tensor on the card, read in place;
+    every stream's slice equals ``evaluate`` on that stream alone."""
+    S, B = 4, 32
+    rng = np.random.default_rng(9)
+    counts = rng.normal(1, 1.5, (S, B, 3)).astype(np.float32)
+    for s in range(S):                # rare class 2, rarer on early streams
+        counts[s, rng.random(B) < 0.9 - 0.15 * s, 2] = 0.0
+    grid = np.stack([_grid(20 + s, B=B, g=16) for s in range(S)])
+    out = FilterOutputs(counts=torch.as_tensor(counts, device=cuda_device),
+                        grid=torch.as_tensor(grid, device=cuda_device))
+    queries = [Q.And((Q.ClassCount(2, Q.Op.GE, 1),
+                      Q.Spatial(2, Q.Rel.LEFT, 0))),
+               Q.Count(Q.Op.GE, 3)]
+    seen = []
+    inner = SP.spatial_stats_rows_bgc
+
+    def spy(grid_logits, rows, **kw):
+        seen.append((grid_logits.data_ptr(), rows.dtype, rows.device.type,
+                     tuple(rows.shape)))
+        return inner(grid_logits, rows, **kw)
+
+    ops.reset_launch_counts()
+    ops.spatial_stats_rows_bgc = spy
+    try:
+        staged = QueryPlan(queries).build_staged(None, min_bucket=1,
+                                                 spatial_body=body)
+        got = staged.evaluate_group(out)
+    finally:
+        ops.spatial_stats_rows_bgc = inner
+    launches = ops.launch_counts()
+    rep = staged.last_report
+    assert rep.ran == ["counts", "spatial"]
+    if rep.bodies[1] == "rows":
+        assert launches["spatial_stats_rows_bgc"] == 1
+        assert seen == [(out.grid.data_ptr(), torch.int64, "cuda",
+                         (rep.rows_evaluated[1],))]
+    else:
+        assert launches["spatial_stats_bgc"] == 1
+    for s in range(S):
+        want = QueryPlan(queries).evaluate(FilterOutputs(
+            counts=out.counts[s].cpu(), grid=out.grid[s].cpu()))
+        assert torch.equal(got[s].cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 16])
+def test_temporal_step_on_card_equals_numpy(cuda_device, S):
+    """The batched automaton step on the card against the numpy loop:
+    outputs and decidedness after every batch, bit for bit."""
+    from repro_torch.core.temporal import TemporalProgram, advance_group
+    c0, c1 = Q.ClassCount(0, Q.Op.GE, 1), Q.ClassCount(1, Q.Op.GE, 1)
+    queries = (Q.Duration(c0, 4), Q.Duration(Q.ClassCount(2, Q.Op.GE, 6), 60),
+               Q.SlidingCount(Q.Count(Q.Op.GE, 1), 8, Q.Op.GE, 1),
+               Q.Sequence(c0, c1, 6),
+               Q.And((c0, Q.SlidingCount(c1, 5, Q.Op.EQ, 2))))
+    progs = [TemporalProgram(queries, device=cuda_device) for _ in range(S)]
+    refs = [TemporalProgram(queries, backend="numpy") for _ in range(S)]
+    rng = np.random.default_rng(S)
+    M = progs[0].n_signals
+    for p in progs + refs:
+        p.start_window(64)
+    for b0 in range(0, 64, 16):
+        sig = rng.random((S, 16, M)) < 0.3 + 0.1 * (b0 // 16)
+        got = advance_group(progs, torch.as_tensor(sig, device=cuda_device))
+        for s in range(S):
+            np.testing.assert_array_equal(got[s], refs[s].advance(sig[s]))
+            np.testing.assert_array_equal(progs[s].query_decided,
+                                          refs[s].query_decided)
+            np.testing.assert_array_equal(progs[s].suppressed_signals(),
+                                          refs[s].suppressed_signals())
+
+
+@pytest.mark.cuda
+def test_group_engine_copies_host_outputs_on_a_side_stream(cuda_device):
+    """A fetch that returns host tensors: the engine copies the stacked
+    chunk to the card on its side stream (the prefetched chunk too) and
+    the answers equal each stream's plan on the host."""
+    from repro_torch.distributed.multistream import (ShardedPlanGroupEngine,
+                                                     route_streams)
+    ctxs = route_streams([f"cam{i}" for i in range(4)], 1)
+    rng = np.random.default_rng(3)
+    data = {c.stream_id: (rng.poisson(1.0, (64, 3)).astype(np.float32),
+                          _grid(40 + c.position, B=64, g=16))
+            for c in ctxs}
+    queries = [Q.And((Q.ClassCount(0, Q.Op.GE, 1),
+                      Q.Spatial(0, Q.Rel.LEFT, 1))),
+               Q.Count(Q.Op.GE, 3)]
+
+    def fetch(ctx, idx):
+        c, g = data[ctx.stream_id]
+        return FilterOutputs(counts=torch.as_tensor(c[idx]),
+                             grid=torch.as_tensor(g[idx]))
+
+    eng = ShardedPlanGroupEngine(queries, ctxs, fetch, device=cuda_device)
+    first = eng.run_chunk(np.arange(0, 32), np.arange(32, 64))
+    assert eng._next is not None and eng._next[2] is not None
+    assert eng._next[1].counts.is_cuda
+    second = eng.run_chunk(np.arange(32, 64))
+    for ans, lo in ((first, 0), (second, 32)):
+        for c in ctxs:
+            want = QueryPlan(queries).evaluate(fetch(c, np.arange(lo,
+                                                                  lo + 32)))
+            np.testing.assert_array_equal(ans[c.position], want.numpy())

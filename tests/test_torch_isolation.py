@@ -26,6 +26,7 @@ bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(len(names))
 print(",".join(bad))
+print(",".join(names))
 """
 
 
@@ -34,9 +35,13 @@ def test_port_imports_neither_jax_nor_reference_package():
     out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n, bad = (out.stdout.split("\n") + [""])[:2]
+    n, bad, names = (out.stdout.split("\n") + ["", ""])[:3]
     assert int(n) >= 20, out.stdout
     assert bad == "", f"repro_torch imported {bad}"
+    # the walk reaches every subpackage, the fleet engine's too
+    for mod in ("repro_torch.core.temporal", "repro_torch.distributed",
+                "repro_torch.distributed.multistream"):
+        assert mod in names.split(","), names
 
 
 def test_entry_points_default_to_cuda_and_never_fall_back():

@@ -38,6 +38,13 @@ def to_port(q):
         return TQ.Spatial(q.cls_a, TQ.Rel(q.rel.value), q.cls_b, q.radius)
     if isinstance(q, RQ.Region):
         return TQ.Region(q.cls, tuple(q.rect), q.min_count, q.radius)
+    if isinstance(q, RQ.Duration):
+        return TQ.Duration(to_port(q.pred), q.min_frames)
+    if isinstance(q, RQ.Sequence):
+        return TQ.Sequence(to_port(q.first), to_port(q.then), q.within)
+    if isinstance(q, RQ.SlidingCount):
+        return TQ.SlidingCount(to_port(q.pred), q.window, TQ.Op(q.op.value),
+                               q.value)
     raise TypeError(q)
 
 
