@@ -138,8 +138,40 @@ Phases (any failure exits non-zero and prints no result line):
    chunked plain path (``xla_flash``) on the same weights and tokens,
    logits within 2e-2; and the kernel path's decode against a full
    forward over prompt + generated tokens, within 2e-2.
-10. A ``kernels`` JSON line (all six kernels), then the device line as
-    the last line.
+10. The zoo's attention family (``attn_impl="pallas"``, random weights
+    from a seeded CUDA generator), counts reset just before each counted
+    window and read just after: qwen2-0.5b at full width in bf16 (24
+    layers, d_model 896, 14 heads over 2 of 64, vocab 151936), 16
+    requests x 1024 prompt tokens into a 1056-row cache and 32 greedy
+    decode steps after one untimed warm-up pass: prefill tokens/s, ms
+    per step, peak memory (the prefill's full logits are 4.64 GiB, as in
+    the JAX package), a profile of one prefill and one decode step;
+    decode attention once per layer and step, tokens in the vocab,
+    logits finite; layer 0's first decode call of the warm-up, on the
+    bf16 cache (G 7), against the plain version (``decode_tol``, and
+    1e-4 on the same values in float32).
+11. The decode_32k cell on qwen2-0.5b in bf16: batch 128, a 32768-row
+    cache (48.0 GiB) filled layer by layer with bf16 draws to len 30000,
+    then 8 ``decode_step``s: ms per step beside the step's bytes bound
+    (the valid rows and the weights at 3.35 TB/s); the cache tensors'
+    pointers fixed, under 0.5 GiB added to the peak above cache and
+    weights, decode attention once per layer and step.
+12. whisper-base at full width in bf16: 8 requests of 1500 stub frame
+    embeddings, 4 prompt tokens, 60 decode steps: encode ms (the encoder
+    alone), prefill ms, ms per step, peak; flash attention once per
+    encoder layer (the prefill's encoder), decode attention once per
+    decoder layer and step; encoder layer 0's flash call against the
+    plain version (2e-2 in bf16, 1e-4 on the same values in float32);
+    the decoder's first decode call (G 1) as in phase 10.
+13. qwen2-0.5b at full width in float32: 2 x 256 prompt tokens, 8 decode
+    steps; each step's logits against the cache-less forward over prompt
+    + generated tokens (264^2 scores: the flash kernel) within 1e-3 x
+    max|logit|, greedy tokens equal; layer 0's decode call on the
+    model's cache and the forward's first flash call against their plain
+    versions at 1e-4.
+14. A ``kernels`` JSON line (all six kernels; flash and decode attention
+    with their ``zoo_launches`` of phases 10-13), then the device line
+    as the last line.
 """
 import argparse
 import dataclasses
@@ -167,6 +199,11 @@ SERVING_PEAK_LIMIT = 2 * 2**30   # bytes; one S x S score tensor is 4.7 GiB
 RWKV_REQUESTS, RWKV_PROMPT, RWKV_DECODE = 4, 1024, 32
 RWKV_FP32_PROMPT, RWKV_FP32_DECODE = 256, 8
 DECODE_KV_LEN = 30000            # valid rows of the 32768-row decode cache
+ZOO_REQUESTS, ZOO_PROMPT, ZOO_DECODE = 16, 1024, 32   # qwen2-0.5b serving
+DECODE32K_STEPS = 8              # decode_step calls on the 48 GiB cache
+DECODE32K_ADDED_LIMIT = 2**29    # bytes a step may add above cache+weights
+WHISPER_REQUESTS, WHISPER_PROMPT, WHISPER_DECODE = 8, 4, 60
+ZOO_FP32_PROMPT, ZOO_FP32_DECODE = 256, 8
 AGG_FRAMES, AGG_FRAMES_REHEARSE = 2048, 384  # the aggregate phase's stream
 AGG_CHUNKS, AGG_EPS = 8, 0.1     # contract strata; +-10% at 95%
 FLEET_STREAMS, FLEET_STREAMS_REHEARSE = 16, 4   # the fleet phase's cameras
@@ -1928,34 +1965,76 @@ def fleet_phase(torch, dev, scene, serve, gpu, rehearse):
 # the RWKV-6 serving path (prefill + decode) and its WKV-scan kernel
 # ---------------------------------------------------------------------------
 
-def rwkv_config(rehearse, **overrides):
-    """rwkv6-3b at its published widths (32 layers, d_model 2560, 40 heads
-    of 64, d_ff 8960, vocab 65536, bf16); the smoke config on the CPU."""
+def model_config(name, rehearse, **overrides):
+    """A zoo model at its published widths (rwkv6-3b: 32 layers, d_model
+    2560, 40 heads of 64, d_ff 8960, vocab 65536); its smoke config on the
+    CPU."""
     from repro_torch.configs import get_config, get_smoke_config
-    cfg = get_smoke_config("rwkv6_3b") if rehearse else \
-        get_config("rwkv6_3b")
+    cfg = get_smoke_config(name) if rehearse else get_config(name)
     return dataclasses.replace(cfg, **overrides)
 
 
-class ScanRecorder:
-    """Wraps ``ops.rwkv6_scan`` to keep, on the host, the arguments of its
-    first call of each length class (prefill, decode); calls through
-    unchanged."""
+def serve_steps(torch, dev, SV, params, cfg, prompts, cache, n_dec,
+                frames=None):
+    """``prefill`` then ``n_dec`` greedy ``decode_step``s, host clock
+    around each synchronised call (a step's argmax included).  Returns
+    (prefill s, step s list, the (B, n_dec + 1) tokens, whether every
+    logit was finite, the cache)."""
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    logits, cache, _ = SV.prefill(params, cfg, prompts, cache=cache,
+                                  frames=frames)
+    sync(torch, dev)
+    t_pre = time.perf_counter() - t0
+    toks, finite, steps = [logits.argmax(-1)], \
+        bool(torch.isfinite(logits).all()), []
+    for _ in range(n_dec):
+        t0 = time.perf_counter()
+        logits, cache = SV.decode_step(params, cfg, toks[-1][:, None],
+                                       cache=cache)
+        toks.append(logits.argmax(-1))
+        sync(torch, dev)
+        steps.append(time.perf_counter() - t0)
+        finite &= bool(torch.isfinite(logits).all())
+    return t_pre, steps, torch.stack(toks, 1), finite, cache
 
-    def __init__(self, ops):
-        self.ops, self.inner, self.calls = ops, ops.rwkv6_scan, {}
+
+def steps_text(steps):
+    ms = sorted(x * 1e3 for x in steps)
+    return (f"median {ms[len(ms) // 2]:.3f} ms per step (min {ms[0]:.3f}, "
+            f"max {ms[-1]:.3f})")
+
+
+class CallRecorder:
+    """Wraps ``ops.<name>`` to keep, on the host, the arguments of its
+    first call of each key (``key(*args)``; one key, None, by default):
+    ``calls[key]`` the positional ones, ``kwargs[key]`` the keywords.
+    Calls go through unchanged; the copies keep their strides."""
+
+    def __init__(self, ops, name, key=lambda *args: None):
+        self.ops, self.name, self.key = ops, name, key
+        self.inner, self.calls, self.kwargs = getattr(ops, name), {}, {}
 
     def __enter__(self):
         def rec(*args, **kw):
-            key = "decode" if args[0].shape[2] == 1 else "prefill"
-            if key not in self.calls:
-                self.calls[key] = tuple(a.cpu() for a in args)
+            k = self.key(*args)
+            if k not in self.calls:
+                self.calls[k] = tuple(a.cpu() if hasattr(a, "cpu") else a
+                                      for a in args)
+                self.kwargs[k] = dict(kw)
             return self.inner(*args, **kw)
-        self.ops.rwkv6_scan = rec
+        setattr(self.ops, self.name, rec)
         return self
 
     def __exit__(self, *exc):
-        self.ops.rwkv6_scan = self.inner
+        setattr(self.ops, self.name, self.inner)
+
+    def first(self, dev):
+        """The first call's positional arguments on ``dev`` (one key), or
+        None where the op was not reached."""
+        args = self.calls.get(None)
+        return None if args is None else tuple(
+            a.to(dev) if hasattr(a, "to") else a for a in args)
 
 
 def rwkv_serving_phase(torch, dev, rehearse):
@@ -1968,7 +2047,8 @@ def rwkv_serving_phase(torch, dev, rehearse):
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
     from repro_torch.models import serve as SV
-    cfg = rwkv_config(rehearse, attn_impl="pallas", dtype="bfloat16")
+    cfg = model_config("rwkv6_3b", rehearse, attn_impl="pallas",
+                       dtype="bfloat16")
     n_req, prompt_len, n_dec = (4, 64, 4) if rehearse else \
         (RWKV_REQUESTS, RWKV_PROMPT, RWKV_DECODE)
     gen = torch.Generator(dev).manual_seed(SEED)
@@ -1979,27 +2059,14 @@ def rwkv_serving_phase(torch, dev, rehearse):
     prompts = torch.as_tensor(np.random.default_rng(SEED).integers(
         0, cfg.vocab_size, (n_req, prompt_len)), device=dev)
 
-    def serve(record=None):
-        cache = SV.init_cache(cfg, n_req, prompt_len + n_dec, device=dev)
-        sync(torch, dev)
-        t0 = time.perf_counter()
-        logits, cache, _ = SV.prefill(params, cfg, prompts, cache=cache)
-        sync(torch, dev)
-        t_pre = time.perf_counter() - t0
-        toks, finite, steps = [logits.argmax(-1)], \
-            bool(torch.isfinite(logits).all()), []
-        for _ in range(n_dec):
-            t0 = time.perf_counter()
-            logits, cache = SV.decode_step(params, cfg, toks[-1][:, None],
-                                           cache=cache)
-            toks.append(logits.argmax(-1))
-            sync(torch, dev)
-            steps.append(time.perf_counter() - t0)
-            finite &= bool(torch.isfinite(logits).all())
-        return t_pre, steps, torch.stack(toks, 1), finite
+    def serve():
+        return serve_steps(torch, dev, SV, params, cfg, prompts,
+                           SV.init_cache(cfg, n_req, prompt_len + n_dec,
+                                         device=dev), n_dec)
 
-    with ScanRecorder(ops) as rec:            # warm-up: cuBLAS, the kernel
-        serve()
+    with CallRecorder(ops, "rwkv6_scan", key=lambda *a: (
+            "decode" if a[0].shape[2] == 1 else "prefill")) as rec:
+        serve()                               # warm-up: cuBLAS, the kernel
     lines = []
     if dev.type == "cuda":
         cache = SV.init_cache(cfg, n_req, prompt_len + 1, device=dev)
@@ -2016,7 +2083,7 @@ def rwkv_serving_phase(torch, dev, rehearse):
             share_of="rwkv6_scan_kernel"))
     reset_peak(torch, dev)
     ops.reset_launch_counts()
-    t_pre, steps, toks, finite = serve()
+    t_pre, steps, toks, finite, _ = serve()
     launches = ops.launch_counts()
     peak = peak_bytes(torch, dev)
     check(finite, "rwkv serving: a logit is not finite")
@@ -2028,7 +2095,6 @@ def rwkv_serving_phase(torch, dev, rehearse):
         check(launches["rwkv6_scan_bhtk"] == want,
               f"rwkv6_scan_bhtk launched {launches['rwkv6_scan_bhtk']} "
               f"times, want {want} (one per layer and call)")
-    steps_ms = sorted(x * 1e3 for x in steps)
     del params
     return launches, rec.calls, lines + [
         f"rwkv serving ({cfg.name}, {cfg.n_layers} layers, d_model "
@@ -2037,8 +2103,7 @@ def rwkv_serving_phase(torch, dev, rehearse):
         f"drawn in {init_s:.3f} s): {n_req} requests x {prompt_len} "
         f"prompt tokens, prefill {t_pre * 1e3:.3f} ms = "
         f"{n_req * prompt_len / t_pre:.1f} tokens/s; {n_dec} decode steps "
-        f"of {n_req} tokens, median {steps_ms[len(steps_ms) // 2]:.3f} ms "
-        f"per step (min {steps_ms[0]:.3f}, max {steps_ms[-1]:.3f}); peak "
+        f"of {n_req} tokens, {steps_text(steps)}; peak "
         f"device memory {gib(peak)}; rwkv6_scan_bhtk launches "
         f"{launches['rwkv6_scan_bhtk']} (want {want}); tokens in the "
         f"vocab, logits finite; first request's tokens "
@@ -2412,7 +2477,8 @@ def rwkv_fp32_phase(torch, dev, rehearse):
     test's decode-vs-full tolerance)."""
     from repro_torch.models import model as M
     from repro_torch.models import serve as SV
-    cfg = rwkv_config(rehearse, attn_impl="pallas", dtype="float32")
+    cfg = model_config("rwkv6_3b", rehearse, attn_impl="pallas",
+                       dtype="float32")
     plain = dataclasses.replace(cfg, attn_impl="xla_flash")
     n_prompt, n_dec = (32, 3) if rehearse else (RWKV_FP32_PROMPT,
                                                 RWKV_FP32_DECODE)
@@ -2448,6 +2514,368 @@ def rwkv_fp32_phase(torch, dev, rehearse):
             f"path vs chunked plain path max abs err {worst:.3g} over every "
             f"step's logits; decode vs full forward over {seq.shape[1]} "
             f"tokens max abs err {d_err:.3g} (tol 2e-2)"]
+
+
+# ---------------------------------------------------------------------------
+# the attention family of the model zoo, served from a KV cache
+# ---------------------------------------------------------------------------
+
+ZOO_KERNELS = ("flash_attention_bhsd", "decode_attention_bkgd")
+
+
+def zoo_counts(ops):
+    return {k: ops.launch_counts().get(k, 0) for k in ZOO_KERNELS}
+
+
+def check_zoo_launches(rehearse, what, got, want):
+    """On the card, the zoo kernels' launch counts of one counted window
+    (CPU tensors run the plain versions and launch nothing)."""
+    if rehearse:
+        return
+    for name, n in want.items():
+        check(got[name] == n, f"{what}: {name} launched {got[name]} times, "
+              f"want {n}")
+
+
+def decode_check(torch, dev, what, rec):
+    """The recorded first call of ``ops.decode_attention`` (layer 0's, on
+    the model's cache), the kernel against its plain version on the
+    same (B, KV, S, hd) views of the cache: in the model's dtype at
+    ``decode_tol`` and on the same values in float32 at 1e-4.  Returns
+    the phase's report text."""
+    from repro_torch.kernels import decode_attention as DA
+    args = rec.first(dev)
+    check(args is not None, f"{what}: decode attention was not reached")
+    q, k, v, kv_len = args
+    B, H, hd = q.shape
+    KV = k.shape[2]
+    errs = []
+    for dt in dict.fromkeys((q.dtype, torch.float32)):
+        qg = q.to(dt).reshape(B, KV, H // KV, hd)
+        kt, vt = k.to(dt).transpose(1, 2), v.to(dt).transpose(1, 2)
+        want = DA.decode_attention_plain(qg, kt, vt, kv_len)
+        err = float((DA.decode_attention_bkgd(qg, kt, vt, kv_len).float()
+                     - want.float()).abs().max())
+        tol = decode_tol(torch, want)
+        check(err <= tol, f"{what}: decode attention on the model's cache "
+              f"differs from plain in {dt} (max abs err {err}, tol {tol})")
+        errs.append(f"{err:.3g} in {str(dt)[6:]} (tol {tol:.3g})")
+    return (f"layer 0's decode call {[B, KV, H // KV, k.shape[1], hd]} "
+            f"(kv_len {int(kv_len)}) kernel vs plain {', '.join(errs)}")
+
+
+def param_bytes(params):
+    if isinstance(params, dict):
+        return sum(param_bytes(v) for v in params.values())
+    return params.numel() * params.element_size()
+
+
+def zoo_serving_phase(torch, dev, rehearse):
+    """qwen2-0.5b at full width in bf16, ``attn_impl="pallas"``: 16
+    requests x 1024 prompt tokens into a 1056-row cache, 32 greedy decode
+    steps, after one untimed warm-up pass; a profile of one prefill and
+    one decode step.  Counts are reset just before the timed pass:
+    decode attention once per layer and step.  Layer 0's first decode
+    call of the warm-up, on the model's bf16 cache (G = 7), against the
+    plain version (``decode_check``)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models import serve as SV
+    cfg = model_config("qwen2_0p5b", rehearse, attn_impl="pallas",
+                       dtype="bfloat16")
+    n_req, prompt_len, n_dec = (2, 64, 4) if rehearse else \
+        (ZOO_REQUESTS, ZOO_PROMPT, ZOO_DECODE)
+    cap = prompt_len + n_dec
+    gen = torch.Generator(dev).manual_seed(SEED + 2)
+    t0 = time.perf_counter()
+    params = M.init_params(gen, cfg, device=dev)
+    sync(torch, dev)
+    init_s = time.perf_counter() - t0
+    prompts = torch.as_tensor(np.random.default_rng(SEED + 2).integers(
+        0, cfg.vocab_size, (n_req, prompt_len)), device=dev)
+
+    def serve():
+        return serve_steps(torch, dev, SV, params, cfg, prompts,
+                           SV.init_cache(cfg, n_req, cap, device=dev), n_dec)
+
+    with CallRecorder(ops, "decode_attention") as dec:
+        serve()                                # warm-up: cuBLAS, the kernels
+    lines = []
+    if dev.type == "cuda":
+        cache = SV.init_cache(cfg, n_req, cap, device=dev)
+        _, cache, _ = SV.prefill(params, cfg, prompts, cache=cache)
+        lines.append(profile_line(
+            torch, f"one {cfg.name} decode step", lambda: SV.decode_step(
+                params, cfg, prompts[:, -1:], cache=cache),
+            share_of="decode_attention"))
+        del cache
+        lines.append(profile_line(
+            torch, f"one {cfg.name} prefill", lambda: SV.prefill(
+                params, cfg, prompts, cache=SV.init_cache(
+                    cfg, n_req, cap, device=dev)),
+            share_of="decode_attention"))
+    reset_peak(torch, dev)
+    ops.reset_launch_counts()
+    t_pre, steps, toks, finite, _ = serve()
+    launches = zoo_counts(ops)
+    peak = peak_bytes(torch, dev)
+    check(finite, f"{cfg.name} serving: a logit is not finite")
+    check(toks.shape == (n_req, n_dec + 1) and int(toks.min()) >= 0
+          and int(toks.max()) < cfg.vocab_size,
+          f"{cfg.name} serving: generated tokens outside the vocab")
+    want = cfg.n_layers * n_dec
+    check_zoo_launches(rehearse, f"{cfg.name} serving", launches,
+                       {"decode_attention_bkgd": want})
+    dec_text = decode_check(torch, dev, f"{cfg.name} serving", dec)
+    logits_gib = n_req * prompt_len * cfg.vocab_size * 2 / 2**30
+    del params
+    return launches, lines + [
+        f"zoo serving ({cfg.name}, {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads}, hd "
+        f"{cfg.head_dim}, vocab {cfg.vocab_size}, {cfg.dtype}, "
+        f"{cfg.param_count() / 1e9:.3f} B parameters, random weights drawn "
+        f"in {init_s:.3f} s): {n_req} requests x {prompt_len} prompt tokens "
+        f"into a {cap}-row cache, prefill {t_pre * 1e3:.3f} ms = "
+        f"{n_req * prompt_len / t_pre:.1f} tokens/s; {n_dec} decode steps "
+        f"of {n_req} tokens, {steps_text(steps)}; peak device memory "
+        f"{gib(peak)} (the prefill's full bf16 logits alone "
+        f"{logits_gib:.3f} GiB); launches {launches} (decode attention "
+        f"want {want}); tokens in the vocab, logits finite; first "
+        f"request's tokens {toks[0].tolist()}; {dec_text}"]
+
+
+def decode32k_phase(torch, dev, rehearse):
+    """The zoo's decode_32k cell on qwen2-0.5b (bf16, pallas): batch 128, a
+    32768-row cache (48 GiB) filled layer by layer with bf16 draws to
+    ``len`` = DECODE_KV_LEN, then 8 ``decode_step``s.  Checks: the cache
+    tensors never move, a step adds under 0.5 GiB to the peak above cache
+    and weights, decode attention launches once per layer and step."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models import serve as SV
+    from repro_torch.models.config import shape_cell
+    cfg = model_config("qwen2_0p5b", rehearse, attn_impl="pallas",
+                       dtype="bfloat16")
+    cell = shape_cell("decode_32k")
+    B, S, kv_len = (2, 640, 600) if rehearse else \
+        (cell.global_batch, cell.seq_len, DECODE_KV_LEN)
+    n_dec = 3 if rehearse else DECODE32K_STEPS
+    gen = torch.Generator(dev).manual_seed(SEED + 3)
+    params = M.init_params(gen, cfg, device=dev)
+    cache = SV.init_cache(cfg, B, S, device=dev)
+    t0 = time.perf_counter()
+    for name in ("k", "v"):
+        for layer in cache["layers"][name]:   # (B, S, KV, hd) views
+            layer[:, :kv_len].normal_(generator=gen)
+    cache["len"].fill_(kv_len)
+    sync(torch, dev)
+    fill_s = time.perf_counter() - t0
+    ptrs = {k: a.data_ptr() for k, a in cache["layers"].items()}
+    cache_bytes = sum(a.numel() * a.element_size()
+                      for a in cache["layers"].values())
+    w_bytes = param_bytes(params)
+    tok = torch.as_tensor(np.random.default_rng(SEED + 3).integers(
+        0, cfg.vocab_size, (B, 1)), device=dev)
+    reset_peak(torch, dev)
+    base = torch.cuda.memory_allocated() if dev.type == "cuda" else None
+    ops.reset_launch_counts()
+    steps, finite = [], True
+    for _ in range(n_dec):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        logits, cache = SV.decode_step(params, cfg, tok, cache=cache)
+        tok = logits.argmax(-1)[:, None]
+        sync(torch, dev)
+        steps.append(time.perf_counter() - t0)
+        finite &= bool(torch.isfinite(logits).all())
+    launches = zoo_counts(ops)
+    added = None if base is None else \
+        torch.cuda.max_memory_allocated() - base
+    check(finite and int(tok.min()) >= 0 and int(tok.max()) < cfg.vocab_size,
+          "decode_32k: a logit is not finite or a token is outside the vocab")
+    check({k: a.data_ptr() for k, a in cache["layers"].items()} == ptrs,
+          "decode_32k: a decode step moved the cache")
+    check(int(cache["len"]) == kv_len + n_dec, "decode_32k: wrong len")
+    if added is not None:
+        check(added < DECODE32K_ADDED_LIMIT, f"decode_32k: a step added "
+              f"{gib(added)} to the peak above cache and weights (one "
+              f"layer's k is {gib(cache_bytes / 2 / cfg.n_layers)}): the "
+              f"cache was copied")
+    want = cfg.n_layers * n_dec
+    check_zoo_launches(rehearse, "decode_32k", launches,
+                       {"decode_attention_bkgd": want})
+    # the least time of the last step: the valid cache rows it reads and
+    # every weight once, at the card's memory rate
+    rows = kv_len + n_dec
+    row_bytes = cache_bytes // S
+    bnd, by = bound_ms(rows * row_bytes + w_bytes, 0)
+    lines = []
+    if dev.type == "cuda":
+        lines.append(profile_line(
+            torch, "one decode_32k step", lambda: SV.decode_step(
+                params, cfg, tok, cache=cache), share_of="decode_attention"))
+    del cache, params
+    return launches, lines + [
+        f"decode_32k ({cfg.name}, {cfg.dtype}, pallas): batch {B}, a {S}-row "
+        f"cache of {gib(cache_bytes)} filled with bf16 draws to len {kv_len} "
+        f"in {fill_s:.3f} s; {n_dec} decode steps, {steps_text(steps)}; "
+        f"bound of the last step {bnd:.3f} ms by {by} ({rows} valid rows x "
+        f"{row_bytes} B + {w_bytes / 1e9:.3f} GB of weights at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); cache pointers unchanged; "
+        f"peak added above cache and weights {gib(added)} (limit "
+        f"{gib(DECODE32K_ADDED_LIMIT)}); launches {launches} (decode "
+        f"attention want {want})"]
+
+
+def whisper_phase(torch, dev, rehearse):
+    """whisper-base at full width in bf16, pallas: 8 requests of 1500 stub
+    frame embeddings, 4 prompt tokens, 60 decode steps, after one untimed
+    warm-up pass; the encoder alone timed before the counted pass.
+    Checks: the encoder's flash attention once per encoder layer and
+    prefill, decode attention once per decoder layer and step; one
+    encoder layer's flash call and the decoder's first decode call (G =
+    1, on its bf16 cache) against their plain versions."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models import serve as SV
+    cfg = model_config("whisper_base", rehearse, attn_impl="pallas",
+                       dtype="bfloat16")
+    n_req, n_prompt, n_dec = (2, 4, 4) if rehearse else \
+        (WHISPER_REQUESTS, WHISPER_PROMPT, WHISPER_DECODE)
+    if rehearse:                    # 300 frames reach the flash dispatch
+        cfg = dataclasses.replace(cfg, enc_len=300)
+    cap = n_prompt + n_dec
+    gen = torch.Generator(dev).manual_seed(SEED + 4)
+    params = M.init_params(gen, cfg, device=dev)
+    frames = torch.randn((n_req, cfg.enc_len, cfg.d_model), generator=gen,
+                         device=dev).to(torch.bfloat16)
+    prompts = torch.as_tensor(np.random.default_rng(SEED + 4).integers(
+        0, cfg.vocab_size, (n_req, n_prompt)), device=dev)
+
+    def serve():
+        return serve_steps(torch, dev, SV, params, cfg, prompts,
+                           SV.init_cache(cfg, n_req, cap, device=dev), n_dec,
+                           frames=frames)
+
+    with CallRecorder(ops, "flash_attention") as rec, \
+            CallRecorder(ops, "decode_attention") as dec:
+        serve()                                        # warm-up
+    enc_ms = []
+    for _ in range(3):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        M.encode(params, cfg, frames)
+        sync(torch, dev)
+        enc_ms.append((time.perf_counter() - t0) * 1e3)
+    reset_peak(torch, dev)
+    ops.reset_launch_counts()
+    t_pre, steps, toks, finite, cache = serve()
+    launches = zoo_counts(ops)
+    peak = peak_bytes(torch, dev)
+    check(finite and int(toks.min()) >= 0
+          and int(toks.max()) < cfg.vocab_size,
+          "whisper: a logit is not finite or a token is outside the vocab")
+    check(tuple(cache["enc_out"].shape) == (n_req, cfg.enc_len, cfg.d_model),
+          "whisper: the encoder memory has the wrong shape")
+    want = {"flash_attention_bhsd": cfg.n_enc_layers,
+            "decode_attention_bkgd": cfg.n_layers * n_dec}
+    check_zoo_launches(rehearse, "whisper", launches, want)
+    # one encoder layer's call (layer 0 of the warm-up), kernel vs plain,
+    # in bf16 and on the same values in float32
+    enc = rec.first(dev)
+    check(enc is not None and rec.kwargs[None].get("causal") is False,
+          "whisper: the encoder did not reach ops.flash_attention "
+          "bidirectionally")
+    q, k, v = (t.transpose(1, 2).contiguous() for t in enc)
+    errs = {}
+    for dt, tol in (("bfloat16", 2e-2), ("float32", 1e-4)):
+        a, b, c = (t.to(getattr(torch, dt)) for t in (q, k, v))
+        got = FA.flash_attention_bhsd(a, b, c, causal=False)
+        errs[dt] = float((got.float() - FA.flash_attention_plain(
+            a, b, c, causal=False).float()).abs().max())
+        check(errs[dt] <= tol, f"whisper encoder layer: flash attention "
+              f"differs from plain in {dt} (max abs err {errs[dt]}, tol "
+              f"{tol})")
+    dec_text = decode_check(torch, dev, "whisper decoder", dec)
+    del params, cache, frames
+    return launches, [
+        f"zoo enc-dec ({cfg.name}, {cfg.n_enc_layers} + {cfg.n_layers} "
+        f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads of "
+        f"{cfg.head_dim}, {cfg.dtype}): {n_req} requests x {cfg.enc_len} "
+        f"frames, encode alone {' / '.join(f'{x:.3f}' for x in enc_ms)} ms "
+        f"(three calls); prefill (encode + {n_prompt} prompt tokens) "
+        f"{t_pre * 1e3:.3f} ms; {n_dec} decode steps, {steps_text(steps)}; "
+        f"peak device memory {gib(peak)}; launches {launches} (want "
+        f"{want}); tokens in the vocab, logits finite",
+        f"whisper encoder layer 0's flash call {list(q.shape)} (B, H, S, "
+        f"hd), bidirectional: kernel vs plain max abs err "
+        f"{errs['bfloat16']:.3g} in bf16 (tol 2e-2), {errs['float32']:.3g} "
+        f"on the same values in float32 (tol 1e-4); decoder {dec_text}"]
+
+
+def zoo_fp32_phase(torch, dev, rehearse):
+    """qwen2-0.5b at full width in float32 (TF32 off), pallas: 2 x 256
+    prompt tokens, 8 decode steps; each step's logits against the
+    cache-less forward over prompt + generated tokens at the same
+    position (its 264^2 scores reach the flash kernel), within 1e-3 x
+    max|logit| and with equal greedy tokens.  Layer 0's first decode
+    call on the model's cache, and the forward's first flash call,
+    against their plain versions at 1e-4."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models import serve as SV
+    cfg = model_config("qwen2_0p5b", rehearse, attn_impl="pallas",
+                       dtype="float32")
+    n_prompt, n_dec = ZOO_FP32_PROMPT, ZOO_FP32_DECODE
+    params = M.init_params(torch.Generator(dev).manual_seed(SEED + 5), cfg,
+                           device=dev)
+    prompts = torch.as_tensor(np.random.default_rng(SEED + 5).integers(
+        0, cfg.vocab_size, (2, n_prompt)), device=dev)
+    ops.reset_launch_counts()
+    with CallRecorder(ops, "decode_attention") as dec:
+        cache = SV.init_cache(cfg, 2, n_prompt + n_dec, device=dev)
+        logits, cache, _ = SV.prefill(params, cfg, prompts, cache=cache)
+        steps, toks = [logits], [logits.argmax(-1)]
+        for _ in range(n_dec):
+            logits, cache = SV.decode_step(params, cfg, toks[-1][:, None],
+                                           cache=cache)
+            steps.append(logits)
+            toks.append(logits.argmax(-1))
+    seq = torch.cat([prompts, torch.stack(toks[:-1], 1)], 1)
+    with CallRecorder(ops, "flash_attention") as fl:
+        full = M.forward(params, cfg, seq).logits[:, n_prompt - 1:]
+    launches = zoo_counts(ops)
+    err = float((torch.stack(steps, 1) - full).abs().max())
+    scale = float(full.abs().max())
+    same = bool((full.argmax(-1) == torch.stack(toks, 1)).all())
+    check(bool(torch.isfinite(full).all()), "zoo fp32: logits not finite")
+    check(err <= 1e-3 * scale and same, f"zoo fp32: decode differs from the "
+          f"full forward (max abs err {err}, tol 1e-3 x {scale}; greedy "
+          f"tokens equal: {same})")
+    check_zoo_launches(rehearse, "zoo fp32", launches,
+                       {"decode_attention_bkgd": cfg.n_layers * n_dec,
+                        "flash_attention_bhsd": cfg.n_layers})
+    flash = fl.first(dev)
+    check(flash is not None and fl.kwargs[None].get("causal") is True,
+          "zoo fp32: flash attention was not reached causally")
+    dec_text = decode_check(torch, dev, "zoo fp32", dec)
+    fq, fk, fv = (t.transpose(1, 2).contiguous() for t in flash)
+    f_err = float((FA.flash_attention_bhsd(fq, fk, fv, causal=True)
+                   - FA.flash_attention_plain(fq, fk, fv, causal=True))
+                  .abs().max())
+    check(f_err <= 1e-4, f"zoo fp32: flash attention in the forward differs "
+          f"from plain (max abs err {f_err}, tol 1e-4)")
+    del params, cache
+    return launches, [
+        f"zoo float32 ({cfg.name}, {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}): 2 prompts x {n_prompt} tokens + {n_dec} decode "
+        f"steps against the cache-less forward over {seq.shape[1]} tokens: "
+        f"max abs err {err:.3g} (tol 1e-3 x max|logit| {scale:.3g}), greedy "
+        f"tokens equal; launches {launches}; {dec_text}; the forward's "
+        f"flash call {list(fq.shape)} kernel vs plain {f_err:.3g} (tol "
+        f"1e-4)"]
 
 
 # ---------------------------------------------------------------------------
@@ -2590,6 +3018,16 @@ def main(argv=None):
         torch.cuda.empty_cache()
     for line in rwkv_fp32_phase(torch, dev, args.rehearse):
         print(line, flush=True)
+    zoo = {}
+    for name, phase in (("qwen2_serving", zoo_serving_phase),
+                        ("decode_32k", decode32k_phase),
+                        ("whisper", whisper_phase),
+                        ("qwen2_fp32", zoo_fp32_phase)):
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        zoo[name], lines = phase(torch, dev, args.rehearse)
+        for line in lines:
+            print(line, flush=True)
     if args.rehearse:
         print("rehearsal done (CPU: plain versions, no kernels)")
         return 0
@@ -2597,6 +3035,8 @@ def main(argv=None):
     for e in entries:
         e["kernel_ms"] = e["ms"]
         e["fleet_launches"] = fleet_launches[e["name"]]
+        if e["name"] in ZOO_KERNELS:
+            e["zoo_launches"] = {k: n[e["name"]] for k, n in zoo.items()}
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

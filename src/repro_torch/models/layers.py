@@ -1,18 +1,40 @@
 """The neural layers of the ported models, in plain PyTorch.
 
-What ``train.filter_train.default_trunk`` reaches is ported here (the
-RWKV-6 blocks live in ``ssm.py``): RMSNorm, multi-head attention without
-a KV cache or rope (naive full softmax, or the flash-attention kernel
-when the trunk is served with ``attn_impl="pallas"``; see ``_attend``),
-and the gated SiLU MLP.  Parameters are plain dicts of tensors in the
-JAX package's layouts (``wq`` (d, H, hd), ``wo`` (H, hd, d), ...), so
-weights carry across with a tree map.  Initializers draw from an
-explicit ``torch.Generator``.
+The JAX package's dense attention block kind and its encoder-decoder are
+ported here (the RWKV-6 blocks live in ``ssm.py``): RMSNorm and
+LayerNorm, SiLU / GELU (tanh) / ReLU, rope and sinusoidal positions, the
+masks and the two plain attentions (``naive_attention`` and the chunked
+online-softmax ``flash_attention_xla``), the attention block with its
+contiguous and ring KV caches and cross-attention, and the MLP with or
+without its gate.  Parameters are plain dicts of tensors in the JAX
+package's layouts (``wq`` (d, H, hd), ``bq`` (H, hd), ``wo`` (H, hd, d),
+...), so weights carry across with a tree map.  Initializers draw from
+an explicit ``torch.Generator``.
+
+Two things differ from the JAX package by design:
+
+- **The cache is written in place.**  ``attention_block`` writes the new
+  k / v rows (and a ring cache's positions) into the tensors it is given
+  and returns them; nothing copies the cache.  The write position stays
+  on the device (``index_copy_`` at ``len``, clamped as
+  ``lax.dynamic_update_slice`` clamps), so a decode step never waits for
+  the card.
+- **One call goes to the decode-attention kernel.**  Under
+  ``attn_impl="pallas"`` the single-token call on a contiguous cache (S
+  == 1, no ``"pos"``, no softcap, no sliding window) runs
+  ``ops.decode_attention(q[:, 0], k, v, kv_len=len + 1)``: one query at
+  position ``len`` over keys ``0..len``, the function JAX's
+  ``naive_attention`` computes there.  On one card it takes the place of
+  the JAX package's sharded ``serve_attention.sharded_decode_attention``.
+  The condition is about the function: a CPU tensor reaches the plain
+  version, and a shape the kernel does not take raises on the card.
+  Every other call follows JAX's ``_attend`` dispatch.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -25,24 +47,22 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise for features this slice of the port does not carry.  Two
-    block kinds are ported: attention + gated SiLU MLP without rope (the
-    filter's ``default_trunk``) and RWKV-6; both with RMSNorm."""
+    """Raise for features this slice of the port does not carry: the MoE
+    and Hymba hybrid block kinds and the PaliGemma prefix."""
     unsupported = {
         "block": cfg.block not in (BlockKind.ATTN, BlockKind.RWKV6),
-        "enc_dec": cfg.enc_dec, "vlm_prefix": cfg.vlm_prefix > 0,
-        "use_rope": cfg.use_rope, "layernorm": cfg.layernorm,
-        "qkv_bias": cfg.qkv_bias, "glu": not cfg.glu,
-        "activation": cfg.activation != Activation.SILU,
-        "sliding_window": cfg.sliding_window is not None,
-        "learned_pos": cfg.learned_pos, "scale_embed": cfg.scale_embed,
-        "logits_softcap": cfg.logits_softcap != 0.0}
+        "vlm_prefix": cfg.vlm_prefix > 0}
     bad = sorted(k for k, v in unsupported.items() if v)
     if bad:
-        raise NotImplementedError(f"model features not ported: {bad} (the "
-                                  f"port carries the filter's default_trunk "
-                                  f"and RWKV-6)")
+        raise NotImplementedError(f"model features not ported: {bad} "
+                                  f"({cfg.block.value}; the port carries "
+                                  f"dense attention, encoder-decoder and "
+                                  f"RWKV-6 models)")
 
+
+# --------------------------------------------------------------------------
+# dtype / init helpers
+# --------------------------------------------------------------------------
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
@@ -64,31 +84,220 @@ def dense_init(gen: torch.Generator, d_in: int, shape, dtype,
     return _normal(gen, shape, 1.0 / math.sqrt(max(d_in, 1)), dtype, device)
 
 
+def activation_fn(act: Activation):
+    return {Activation.SILU: F.silu,
+            Activation.GELU: functools.partial(F.gelu, approximate="tanh"),
+            Activation.RELU: F.relu}[act]
+
+
+# --------------------------------------------------------------------------
+# Normalisation
+# --------------------------------------------------------------------------
+
 def norm_init(cfg: ModelConfig, device=None) -> Params:
-    return {"w": torch.ones(cfg.d_model, dtype=dtype_of(cfg), device=device)}
+    p = {"w": torch.ones(cfg.d_model, dtype=dtype_of(cfg), device=device)}
+    if cfg.layernorm:
+        p["b"] = torch.zeros(cfg.d_model, dtype=dtype_of(cfg), device=device)
+    return p
 
 
 def apply_norm(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMSNorm, computed in float32."""
+    """LayerNorm where ``p`` has a bias ``b``, else RMSNorm; in float32."""
     xf = x.float()
+    if "b" in p:
+        mu = xf.mean(-1, keepdim=True)
+        var = (xf - mu).square().mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        return (y * p["w"].float() + p["b"].float()).to(x.dtype)
     y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
     return (y * p["w"].float()).to(x.dtype)
 
 
+# --------------------------------------------------------------------------
+# Rotary / sinusoidal position embeddings
+# --------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int,
+                theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos and sin of the rope angles at ``positions`` (..., S), float32,
+    shaped (..., S, 1, hd/2) to broadcast over heads.  ``forward``
+    computes them once and every layer's q and k share them."""
+    ang = positions[..., :, None].float() * rope_freqs(head_dim, theta,
+                                                       positions.device)
+    return torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S).  Rotate
+    half over the split halves, in float32, cast back."""
+    return rotate_half(x, *rope_tables(positions, x.shape[-1], theta))
+
+
+def rotate_half(x: torch.Tensor, cos: torch.Tensor,
+                sin: torch.Tensor) -> torch.Tensor:
+    """Rope by precomputed tables (``rope_tables``), in float32."""
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoid_pos(seq_len: int, d_model: int, dtype=torch.float32,
+                 device=None) -> torch.Tensor:
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d_model, 2, dtype=torch.float32,
+                       device=device)[None, :]
+    ang = pos / 10000.0 ** (dim / d_model)
+    pe = torch.zeros((seq_len, d_model), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(ang)
+    pe[:, 1::2] = torch.cos(ang)
+    return pe.to(dtype)
+
+
+# --------------------------------------------------------------------------
+# Attention: masks, the naive and the chunked (flash) plain versions
+# --------------------------------------------------------------------------
+
+def _chunk_mask(q_pos, k_pos, *, causal, sliding_window, prefix_len,
+                k_valid=None):
+    """Boolean (Sq, Sk) mask: True = attend."""
+    m = torch.ones(q_pos.shape + k_pos.shape, dtype=torch.bool,
+                   device=q_pos.device)
+    if causal:
+        c = q_pos[:, None] >= k_pos[None, :]
+        if prefix_len:
+            c = c | (k_pos[None, :] < prefix_len)      # PaliGemma prefix-LM
+        m = m & c
+    if sliding_window is not None:
+        m = m & (q_pos[:, None] - k_pos[None, :] < sliding_window)
+    if k_valid is not None:
+        m = m & k_valid[None, :]
+    return m
+
+
+def flash_attention_xla(
+    q: torch.Tensor,                # (B, Sq, H, hd)
+    k: torch.Tensor,                # (B, Sk, KV, hd)
+    v: torch.Tensor,                # (B, Sk, KV, hd)
+    *,
+    causal: bool = True,
+    chunk: int = 512,
+    n_macro: int = 8,
+    sliding_window: Optional[int] = None,
+    prefix_len: int = 0,
+    q_offset=0,
+    kv_len: Optional[torch.Tensor] = None,   # valid kv length (decode)
+    kv_pos: Optional[torch.Tensor] = None,   # explicit kv positions (ring)
+    softcap: float = 0.0,
+) -> torch.Tensor:
+    """Macro-blocked online-softmax attention, the JAX package's XLA path.
+
+    ``n_macro`` q blocks, each scanning its kv in ``chunk``-row blocks
+    with a running max, sum and accumulator (float32).  With an int
+    ``q_offset`` each block skips the kv chunks that the causal mask and
+    the sliding window leave wholly masked; with a tensor offset (a
+    cached prefill) the caller passes one macro block.  ``chunk`` shrinks
+    until it divides Sk, as in the JAX package, so both sum in the same
+    blocks."""
+    B, Sq, H, hd = q.shape
+    _, Sk, KV, _ = k.shape
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, Sq, KV, G, hd)
+
+    n_macro = max(1, min(n_macro, Sq))
+    while Sq % n_macro:
+        n_macro -= 1
+    mq = Sq // n_macro
+    chunk = min(chunk, Sk)
+    while Sk % chunk:
+        chunk -= 1
+    static_offset = q_offset if isinstance(q_offset, int) else None
+    neg = torch.full((), NEG_INF, device=q.device)
+
+    def one_macro(qi: int) -> torch.Tensor:
+        qb = qg[:, qi * mq:(qi + 1) * mq].float()             # (B,mq,KV,G,hd)
+        q_pos = q_offset + qi * mq + torch.arange(mq, device=q.device)
+        if causal and kv_len is None and static_offset is not None:
+            hi = min(Sk, ((static_offset + (qi + 1) * mq + chunk - 1)
+                          // chunk) * chunk)
+        else:
+            hi = Sk
+        lo = 0
+        if sliding_window is not None and prefix_len == 0 and \
+                static_offset is not None:
+            lo = max(0, ((static_offset + qi * mq - sliding_window)
+                         // chunk) * chunk)
+        m = torch.full((B, KV, mq, G), NEG_INF, device=q.device)
+        l = torch.zeros((B, KV, mq, G), device=q.device)
+        acc = torch.zeros((B, KV, mq, G, hd), device=q.device)
+        for c0 in range(lo, hi, chunk):
+            kc, vc = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
+            if kv_pos is not None:
+                k_pos = kv_pos[c0:c0 + chunk]
+                k_valid = k_pos >= 0
+            else:
+                k_pos = torch.arange(c0, c0 + chunk, device=q.device)
+                k_valid = None
+            s = torch.einsum("bqngd,bsnd->bnqgs", qb, kc.float()) * scale
+            if softcap:
+                s = torch.tanh(s / softcap) * softcap
+            mask = _chunk_mask(q_pos, k_pos, causal=causal,
+                               sliding_window=sliding_window,
+                               prefix_len=prefix_len, k_valid=k_valid)
+            if kv_len is not None and kv_pos is None:
+                mask = mask & (k_pos[None, :] < kv_len)
+            # s: (B, KV, mq, G, chunk); the mask broadcasts over B, KV, G
+            s = torch.where(mask[None, None, :, None, :], s, neg)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bnqgs,bsnd->bnqgd", p.to(vc.dtype).float(), vc.float())
+            m = m_new
+            del s, p
+        out = acc / torch.clamp(l, min=1e-30)[..., None]       # (B,KV,mq,G,hd)
+        return out.permute(0, 2, 1, 3, 4).reshape(B, mq, H, hd)
+
+    outs = [one_macro(i) for i in range(n_macro)]
+    out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+    return out.to(q.dtype)
+
+
 def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, sliding_window: Optional[int] = None,
+                    prefix_len: int = 0, q_offset=0, kv_len=None,
+                    kv_pos=None, softcap: float = 0.0) -> torch.Tensor:
     """Full-softmax attention as plain einsums.
 
-    q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) -> (B, Sq, H, hd)."""
+    q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) -> (B, Sq, H, hd).  Scores
+    and the softmax are float32; the probabilities are cast to ``v``'s
+    dtype before the product with ``v``."""
     B, Sq, H, hd = q.shape
     _, Sk, KV, _ = k.shape
     G = H // KV
     qg = q.reshape(B, Sq, KV, G, hd)
     s = torch.einsum("bqngd,bsnd->bnqgs", qg.float(),
                      k.float()) / math.sqrt(hd)
-    if causal:
-        mask = (torch.arange(Sq, device=q.device)[:, None]
-                >= torch.arange(Sk, device=q.device)[None, :])
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    if causal or sliding_window is not None or kv_len is not None \
+            or kv_pos is not None:       # else all True: skip the where
+        q_pos = q_offset + torch.arange(Sq, device=q.device)
+        k_pos = torch.arange(Sk, device=q.device) if kv_pos is None \
+            else kv_pos
+        k_valid = None if kv_pos is None else kv_pos >= 0
+        mask = _chunk_mask(q_pos, k_pos, causal=causal,
+                           sliding_window=sliding_window,
+                           prefix_len=prefix_len, k_valid=k_valid)
+        if kv_len is not None and kv_pos is None:
+            mask = mask & (k_pos[None, :] < kv_len)
         s = torch.where(mask[None, None, :, None, :], s,
                         torch.full((), NEG_INF, device=q.device))
     p = torch.softmax(s, dim=-1).to(v.dtype)
@@ -98,55 +307,170 @@ def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(q.dtype)
 
 
-def attn_init(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
+# --------------------------------------------------------------------------
+# Attention block (QKV proj + rope + attend + out proj), with KV cache
+# --------------------------------------------------------------------------
+
+def attn_init(gen: torch.Generator, cfg: ModelConfig, cross: bool = False,
+              device=None) -> Params:
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = dtype_of(cfg)
-    return {
+    p = {
         "wq": dense_init(gen, d, (d, H, hd), dt, device),
         "wk": dense_init(gen, d, (d, KV, hd), dt, device),
         "wv": dense_init(gen, d, (d, KV, hd), dt, device),
         "wo": dense_init(gen, H * hd, (H, hd, d), dt, device),
     }
+    if cfg.qkv_bias and not cross:
+        p["bq"] = torch.zeros((H, hd), dtype=dt, device=device)
+        p["bk"] = torch.zeros((KV, hd), dtype=dt, device=device)
+        p["bv"] = torch.zeros((KV, hd), dtype=dt, device=device)
+    return p
+
+
+def attention_block(
+    p: Params,
+    x: torch.Tensor,                     # (B, S, D)
+    cfg: ModelConfig,
+    *,
+    causal: bool = True,
+    positions: Optional[torch.Tensor] = None,
+    cache: Optional[Params] = None,      # {"k","v","len"(,"pos")}, in place
+    kv_source: Optional[torch.Tensor] = None,   # cross-attention memory
+    use_rope: Optional[bool] = None,
+    rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Returns (y, the cache with the new rows written in place and its
+    ``len`` advanced by S, or None without a cache).  ``rope`` is
+    ``rope_tables(positions, ...)`` where the caller has it (``forward``
+    computes it once for every layer); else it is computed here."""
+    B, S, D = x.shape
+    use_rope = cfg.use_rope if use_rope is None else use_rope
+    src = x if kv_source is None else kv_source
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    kk = torch.einsum("bsd,dhk->bshk", src, p["wk"])
+    vv = torch.einsum("bsd,dhk->bshk", src, p["wv"])
+    if "bq" in p:
+        q, kk, vv = q + p["bq"], kk + p["bk"], vv + p["bv"]
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    if use_rope and kv_source is None:
+        cos, sin = rope if rope is not None else \
+            rope_tables(positions, q.shape[-1], cfg.rope_theta)
+        q, kk = rotate_half(q, cos, sin), rotate_half(kk, cos, sin)
+
+    q_offset = 0
+    kv_len = None
+    kv_pos = None
+    sw = cfg.sliding_window
+    if cache is not None and kv_source is None:
+        idx = cache["len"]
+        kc, vc = cache["k"], cache["v"]
+        cap = kc.shape[1]
+        if "pos" in cache:
+            # ring buffer (sliding-window archs): capacity << max positions
+            pc = cache["pos"]
+            if S == 1:
+                slot = idx % cap
+                _dyn_update((kc, vc), (kk, vv), slot)
+                pc.index_copy_(0, slot.reshape(1).long(),
+                               positions[:1, 0].to(pc.dtype))
+            else:
+                # fresh prefill into a ring cache: keep the last `cap` tokens
+                keep = min(S, cap)
+                _dyn_update((kc, vc), (kk[:, -keep:], vv[:, -keep:]), 0)
+                pc[:keep] = positions[0, -keep:].to(pc.dtype)
+            cache = {"k": kc, "v": vc, "pos": pc, "len": idx + S}
+            kk, vv, kv_pos = kc, vc, pc
+        else:
+            _dyn_update((kc, vc), (kk, vv), idx)
+            cache = {"k": kc, "v": vc, "len": idx + S}
+            kk, vv = kc, vc
+            kv_len = cache["len"]
+        q_offset = idx
+
+    if (cfg.attn_impl == "pallas" and kv_len is not None and S == 1
+            and sw is None and cfg.logits_softcap == 0.0):
+        # one query at position len over keys 0..len: the decode kernel
+        from repro_torch.kernels import ops as kops
+        out = kops.decode_attention(q[:, 0], kk, vv, kv_len)[:, None]
+    else:
+        out = _attend(cfg, q, kk, vv, causal=causal, kv_len=kv_len,
+                      kv_pos=kv_pos,
+                      q_offset=q_offset if cache is not None else 0,
+                      sliding_window=sw)
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return y.to(x.dtype), cache
+
+
+def _dyn_update(bufs, news, idx) -> None:
+    """Write each ``new`` (B, S, ...) into its ``buf`` (B, cap, ...) at
+    row ``idx`` (an int or a device scalar), in place; the buffers share
+    one cap and the rows are computed once.  The start is clamped to
+    [0, cap - S], as ``lax.dynamic_update_slice`` clamps it, on the
+    device."""
+    S, cap, dev = news[0].shape[1], bufs[0].shape[1], bufs[0].device
+    if S > cap:
+        raise ValueError(f"cannot write {S} rows into a cache of {cap}")
+    start = torch.clamp(torch.as_tensor(idx, device=dev), 0, cap - S)
+    rows = start.reshape(()).long() + torch.arange(S, device=dev)
+    for buf, new in zip(bufs, news):
+        buf.index_copy_(1, rows, new.to(buf.dtype))
 
 
 def _attend(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
-            v: torch.Tensor, *, causal: bool) -> torch.Tensor:
-    """The JAX package's dispatch, for the calls the trunk makes (no
-    cache, no offset, no softcap):
+            v: torch.Tensor, *, causal: bool, q_offset=0, kv_len=None,
+            kv_pos=None, sliding_window: Optional[int] = None
+            ) -> torch.Tensor:
+    """The JAX package's dispatch, line for line (without its PaliGemma
+    prefix, which ``check_ported`` refuses):
 
     - ``xla_naive``, or at most 256 x 256 scores: naive attention;
-    - ``pallas``: ``ops.flash_attention`` (the kernel on the card, its
-      plain version on the CPU);
-    - anything else (``xla_flash``): naive attention.  The JAX package
-      runs its chunked ``flash_attention_xla`` there, the same function
-      blocked for memory; the port has not got it yet.
+    - ``pallas`` without a cache, offset or softcap:
+      ``ops.flash_attention`` (the kernel on the card, its plain version
+      on the CPU);
+    - everything else: ``flash_attention_xla``, with one macro block when
+      the offset is a tensor (a cached prefill).
     """
-    if cfg.attn_impl == "pallas" and q.shape[1] * k.shape[1] > 256 * 256:
-        from repro_torch.kernels import ops as kops
-        return kops.flash_attention(q, k, v, causal=causal)
-    return naive_attention(q, k, v, causal=causal)
+    kw = dict(causal=causal, sliding_window=sliding_window, kv_len=kv_len,
+              kv_pos=kv_pos)
+    if cfg.attn_impl == "xla_naive" or q.shape[1] * k.shape[1] <= 256 * 256:
+        return naive_attention(q, k, v, softcap=cfg.logits_softcap,
+                               q_offset=q_offset, **kw)
+    if cfg.attn_impl == "pallas":
+        if kv_len is None and kv_pos is None and \
+                isinstance(q_offset, int) and q_offset == 0 and \
+                cfg.logits_softcap == 0.0:
+            from repro_torch.kernels import ops as kops
+            return kops.flash_attention(q, k, v, causal=causal,
+                                        sliding_window=sliding_window)
+        # fall through for cached paths
+    n_macro = 8 if isinstance(q_offset, int) else 1
+    return flash_attention_xla(q, k, v, chunk=cfg.attn_chunk,
+                               n_macro=n_macro, q_offset=q_offset,
+                               softcap=cfg.logits_softcap, **kw)
 
 
-def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
-                    causal: bool = True) -> torch.Tensor:
-    """QKV projection + attention (``_attend``) + output projection (no
-    KV cache, no rope: the filter trunk's configuration)."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    kk = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    vv = torch.einsum("bsd,dhk->bshk", x, p["wv"])
-    out = _attend(cfg, q, kk, vv, causal=causal)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"]).to(x.dtype)
+# --------------------------------------------------------------------------
+# MLP (dense, gated or plain)
+# --------------------------------------------------------------------------
 
-
-def mlp_init(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
+def mlp_init(gen: torch.Generator, cfg: ModelConfig,
+             device=None) -> Params:
     d, f, dt = cfg.d_model, cfg.d_ff, dtype_of(cfg)
-    return {"wi": dense_init(gen, d, (d, f), dt, device),
-            "wo": dense_init(gen, f, (f, d), dt, device),
-            "wg": dense_init(gen, d, (d, f), dt, device)}
+    p = {"wi": dense_init(gen, d, (d, f), dt, device),
+         "wo": dense_init(gen, f, (f, d), dt, device)}
+    if cfg.glu:
+        p["wg"] = dense_init(gen, d, (d, f), dt, device)
+    return p
 
 
 def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Gated SiLU MLP: silu(x wg) * (x wi), then wo."""
+    """act(x wg) * (x wi) with the gate, act(x wi) without; then wo."""
+    act = activation_fn(cfg.activation)
     h = torch.einsum("bsd,df->bsf", x, p["wi"])
-    h = F.silu(torch.einsum("bsd,df->bsf", x, p["wg"])) * h
+    if "wg" in p:
+        h = act(torch.einsum("bsd,df->bsf", x, p["wg"])) * h
+    else:
+        h = act(h)
     return torch.einsum("bsf,fd->bsd", h, p["wo"]).to(x.dtype)

@@ -1,15 +1,20 @@
-"""Stacked-layer models: the filter trunk and the RWKV-6 language model.
+"""Stacked-layer models: the filter trunk, the dense attention family,
+the encoder-decoder and RWKV-6.
 
-Two block kinds are ported (``layers.check_ported``): attention + MLP, the
-filter trunk's blocks, driven from embeddings without a cache; and RWKV-6
-time-mix + channel-mix, driven from tokens with or without its recurrent
-cache.  ``run_layers`` runs stacked per-layer parameters in a Python loop
-(``lax.scan`` in JAX) and restacks the per-layer caches on the leading
-``L`` axis; ``forward`` returns the full logits, the new caches and
-length, and the activation *tap* after the first k layers — the feature
-map the paper's filter branch consumes.  Parameters keep the JAX
-package's tree (embed, final_norm, stacked layers with a leading ``L``
-axis, lm_head), so weights carry across with a tree map.
+Three block kinds are ported (``layers.check_ported``): attention + MLP
+(the filter trunk, dense GQA decoders with rope and qkv biases, and
+whisper's encoder and decoder, the decoder with cross-attention to the
+encoder memory) and RWKV-6 time-mix + channel-mix.  ``run_layers`` runs
+stacked per-layer parameters in a Python loop (``lax.scan`` in JAX).
+Attention caches are written in place, each layer into its view of the
+stacked (L, B, S, KV, hd) tensors, and the same tensors come back;
+RWKV-6 states are small and are restacked on the leading ``L`` axis.
+``forward`` returns the full logits, the new caches and length, the
+encoder memory and the activation *tap* after the first k layers — the
+feature map the paper's filter branch consumes.  Parameters keep the
+JAX package's tree (embed, final_norm, stacked layers with a leading
+``L`` axis, lm_head, pos_embed, enc_layers, enc_norm), so weights carry
+across with a tree map.
 """
 from __future__ import annotations
 
@@ -27,16 +32,28 @@ from repro_torch.optim.optimizers import tree_map
 Params = Dict[str, Any]
 
 
-def _layer_init(gen: torch.Generator, cfg: ModelConfig,
+def _layer_init(gen: torch.Generator, cfg: ModelConfig, *,
+                cross: bool = False, is_encoder: bool = False,
                 device=None) -> Params:
-    if cfg.block == BlockKind.RWKV6:
+    blk = BlockKind.ATTN if is_encoder else cfg.block
+    if blk == BlockKind.RWKV6:
         return {"ln1": L.norm_init(cfg, device),
                 "ln2": L.norm_init(cfg, device),
                 "rwkv": S.rwkv_init(gen, cfg, device)}
-    return {"ln1": L.norm_init(cfg, device),
-            "attn": L.attn_init(gen, cfg, device),
-            "ln2": L.norm_init(cfg, device),
-            "mlp": L.mlp_init(gen, cfg, device)}
+    p: Params = {"ln1": L.norm_init(cfg, device),
+                 "attn": L.attn_init(gen, cfg, device=device)}
+    if cross:
+        p["ln_x"] = L.norm_init(cfg, device)
+        p["xattn"] = L.attn_init(gen, cfg, cross=True, device=device)
+    p["ln2"] = L.norm_init(cfg, device)
+    p["mlp"] = L.mlp_init(gen, cfg, device=device)
+    return p
+
+
+def _stack_layers(gen: torch.Generator, cfg: ModelConfig, n: int,
+                  device=None, **kw) -> Params:
+    layers = [_layer_init(gen, cfg, device=device, **kw) for _ in range(n)]
+    return tree_map(lambda *xs: torch.stack(xs), *layers)
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig,
@@ -47,25 +64,36 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
     L.check_ported(cfg)
     device = resolve_device(device)
     dt = L.dtype_of(cfg)
-    layers = [_layer_init(gen, cfg, device) for _ in range(cfg.n_layers)]
+    layers = _stack_layers(gen, cfg, cfg.n_layers, device,
+                           cross=cfg.enc_dec)
     p: Params = {
         "embed": L._normal(gen, (cfg.vocab_size, cfg.d_model), 0.02, dt,
                            device),
         "final_norm": L.norm_init(cfg, device),
-        "layers": tree_map(lambda *xs: torch.stack(xs), *layers),
+        "layers": layers,
     }
-    del layers
     if not cfg.tie_embeddings:
         p["lm_head"] = L.dense_init(gen, cfg.d_model,
                                     (cfg.d_model, cfg.vocab_size), dt, device)
+    if cfg.learned_pos:
+        p["pos_embed"] = L._normal(gen, (cfg.max_seq_len, cfg.d_model), 0.02,
+                                   dt, device)
+    if cfg.enc_dec:
+        p["enc_layers"] = _stack_layers(gen, cfg, cfg.n_enc_layers, device,
+                                        is_encoder=True)
+        p["enc_norm"] = L.norm_init(cfg, device)
     return p
 
 
 def _apply_layer(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
-                 causal: bool, cache: Optional[Params]
-                 ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """One block.  Returns (x, the layer's new cache or None)."""
-    if cfg.block == BlockKind.RWKV6:
+                 causal: bool, positions, cache: Optional[Params],
+                 cache_len,
+                 enc_out: Optional[torch.Tensor], is_encoder: bool = False,
+                 rope=None) -> Tuple[torch.Tensor, Optional[Params]]:
+    """One block.  Returns (x, the layer's new cache (no 'len') or
+    None).  ``rope``: the shared rope tables of ``positions``."""
+    blk = BlockKind.ATTN if is_encoder else cfg.block
+    if blk == BlockKind.RWKV6:
         st = dict(cache) if cache is not None else None
         h, st = S.rwkv_time_mix(p["rwkv"],
                                 L.apply_norm(p["ln1"], x, cfg.norm_eps), cfg,
@@ -74,28 +102,65 @@ def _apply_layer(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         h2, st = S.rwkv_channel_mix(
             p["rwkv"], L.apply_norm(p["ln2"], x, cfg.norm_eps), state=st)
         return x + h2, st
+
     h = L.apply_norm(p["ln1"], x, cfg.norm_eps)
-    x = x + L.attention_block(p["attn"], h, cfg, causal=causal)
+    attn_cache = None
+    if cache is not None:
+        attn_cache = {"k": cache["k"], "v": cache["v"], "len": cache_len}
+        if "pos" in cache:
+            attn_cache["pos"] = cache["pos"]
+    a_out, attn_cache = L.attention_block(
+        p["attn"], h, cfg, causal=causal, positions=positions,
+        cache=attn_cache, rope=rope)
+    x = x + a_out
+    del a_out                # (B, S, d): not held through the MLP
+    new_cache = None
+    if attn_cache is not None:
+        new_cache = {k: attn_cache[k] for k in ("k", "v", "pos")
+                     if k in attn_cache}
+
+    if enc_out is not None and "xattn" in p:
+        hx = L.apply_norm(p["ln_x"], x, cfg.norm_eps)
+        x_out, _ = L.attention_block(p["xattn"], hx, cfg, causal=False,
+                                     kv_source=enc_out, use_rope=False)
+        x = x + x_out
+
     h2 = L.apply_norm(p["ln2"], x, cfg.norm_eps)
-    return x + L.apply_mlp(p["mlp"], h2, cfg), None
+    return x + L.apply_mlp(p["mlp"], h2, cfg), new_cache
+
+
+def _in_place(caches: Params) -> bool:
+    """Attention caches (k / v) are written in place; RWKV-6 states are
+    restacked."""
+    return "k" in caches
 
 
 def run_layers(stack: Params, x: torch.Tensor, cfg: ModelConfig, *,
                lo: int = 0, hi: Optional[int] = None, causal: bool = True,
-               caches: Optional[Params] = None
+               positions=None, caches: Optional[Params] = None,
+               cache_len=None,
+               enc_out: Optional[torch.Tensor] = None,
+               is_encoder: bool = False, rope=None
                ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """Run layers [lo, hi) of a stacked tree.  Returns (x, the new caches
-    of those layers stacked on ``L``, or None without caches)."""
-    hi = stack["ln1"]["w"].shape[0] if hi is None else hi
+    """Run layers [lo, hi) of a stacked tree.  Returns (x, the caches of
+    those layers stacked on ``L``, or None without caches).  Attention
+    caches come back as the same tensors (views of [lo, hi)), written in
+    place."""
+    n_total = stack["ln1"]["w"].shape[0]
+    hi = n_total if hi is None else hi
+    kw = dict(causal=causal, positions=positions, cache_len=cache_len,
+              enc_out=enc_out, is_encoder=is_encoder, rope=rope)
     new = []
     for i in range(lo, hi):
         cl = None if caches is None else tree_map(lambda a: a[i], caches)
         x, nc = _apply_layer(tree_map(lambda a: a[i], stack), x, cfg,
-                             causal=causal, cache=cl)
+                             cache=cl, **kw)
         new.append(nc)
     if caches is None:
         return x, None
-    if not new:
+    if _in_place(caches) or not new:
+        if (lo, hi) == (0, n_total):
+            return x, caches
         return x, tree_map(lambda a: a[lo:hi], caches)
     return x, tree_map(lambda *xs: torch.stack(xs), *new)
 
@@ -105,12 +170,16 @@ class ForwardOut:
     logits: Optional[torch.Tensor] = None     # (B, S, V)
     caches: Optional[Params] = None           # stacked per-layer caches
     cache_len: Optional[torch.Tensor] = None
+    enc_out: Optional[torch.Tensor] = None    # encoder memory (enc-dec)
     tap: Optional[torch.Tensor] = None        # activations after layer k
 
 
 def embed_tokens(params: Params, cfg: ModelConfig,
                  tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens]
+    x = params["embed"][tokens]
+    if cfg.scale_embed:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    return x
 
 
 def unembed(params: Params, cfg: ModelConfig, x: torch.Tensor
@@ -120,20 +189,36 @@ def unembed(params: Params, cfg: ModelConfig, x: torch.Tensor
     return torch.einsum("bsd,dv->bsv", x, params["lm_head"])
 
 
+def encode(params: Params, cfg: ModelConfig,
+           frames: torch.Tensor) -> torch.Tensor:
+    """Whisper-style encoder over precomputed (stub) frame embeddings."""
+    x = frames.to(L.dtype_of(cfg))
+    x = x + L.sinusoid_pos(frames.shape[1], cfg.d_model, x.dtype,
+                           x.device)[None]
+    x, _ = run_layers(params["enc_layers"], x, cfg, causal=False,
+                      is_encoder=True)
+    return L.apply_norm(params["enc_norm"], x, cfg.norm_eps)
+
+
 def forward(params: Params, cfg: ModelConfig,
             tokens: Optional[torch.Tensor] = None, *,
             embeds: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None,
+            enc_out: Optional[torch.Tensor] = None,
             caches: Optional[Params] = None,
             cache_len: Optional[torch.Tensor] = None,
             tap_layer: Optional[int] = None, stop_at_tap: bool = False,
             causal: bool = True) -> ForwardOut:
     """Tokens (B, S) or embeddings (B, S, d) in; full logits, the new
-    caches and length, and the tap after ``tap_layer`` layers out.
+    caches and length, the encoder memory and the tap after
+    ``tap_layer`` layers out.
 
     Prefill: caches given with ``cache_len`` 0; decode: tokens (B, 1)
-    with the caches and length of the previous call.  A tap outside
-    1..n_layers is ``None`` and the whole stack runs, as in the JAX
-    package; ``stop_at_tap`` returns right after the tap (the filter's
+    with the caches and length of the previous call.  Attention caches
+    are written in place.  An encoder-decoder takes ``frames`` (encoded
+    here) or a precomputed ``enc_out``.  A tap outside 1..n_layers is
+    ``None`` and the whole stack runs, as in the JAX package;
+    ``stop_at_tap`` returns right after the tap (the filter's
     forward)."""
     L.check_ported(cfg)
     if tokens is not None and embeds is not None:
@@ -145,26 +230,40 @@ def forward(params: Params, cfg: ModelConfig,
         x = embeds.to(L.dtype_of(cfg))
     else:
         raise ValueError("forward needs tokens or embeds")
-    if caches is not None and cfg.block != BlockKind.RWKV6:
-        raise NotImplementedError("KV caches of attention blocks are not "
-                                  "ported; the port serves RWKV-6 models")
     n_tok = x.shape[1]
+    positions = torch.arange(n_tok, device=x.device)[None, :]
+    if cache_len is not None:
+        positions = cache_len + positions
+    if cfg.learned_pos:
+        pe = params["pos_embed"]
+        x = x + pe[torch.clamp(positions[0], max=pe.shape[0] - 1)]
+    if cfg.enc_dec and enc_out is None:
+        if frames is None:
+            raise ValueError("an encoder-decoder needs frames or enc_out")
+        enc_out = encode(params, cfg, frames)
+
+    # one rope table for every layer's q and k
+    rope = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta) \
+        if cfg.use_rope else None
+    kw = dict(causal=causal, positions=positions, enc_out=enc_out,
+              cache_len=cache_len, rope=rope)
     tap = None
     if tap_layer is not None and 0 < tap_layer <= cfg.n_layers:
         x, c1 = run_layers(params["layers"], x, cfg, hi=tap_layer,
-                           causal=causal, caches=caches)
+                           caches=caches, **kw)
         tap = x
         if stop_at_tap:
-            return ForwardOut(caches=c1, tap=tap)
+            return ForwardOut(caches=c1, tap=tap, enc_out=enc_out)
         x, c2 = run_layers(params["layers"], x, cfg, lo=tap_layer,
-                           causal=causal, caches=caches)
-        new_caches = (None if caches is None else
-                      tree_map(lambda a, b: torch.cat([a, b]), c1, c2))
+                           caches=caches, **kw)
+        new_caches = caches
+        if caches is not None and not _in_place(caches):
+            new_caches = tree_map(lambda a, b: torch.cat([a, b]), c1, c2)
     else:
-        x, new_caches = run_layers(params["layers"], x, cfg, causal=causal,
-                                   caches=caches)
+        x, new_caches = run_layers(params["layers"], x, cfg, caches=caches,
+                                   **kw)
     x = L.apply_norm(params["final_norm"], x, cfg.norm_eps)
     logits = unembed(params, cfg, x)
     new_len = None if cache_len is None else cache_len + n_tok
     return ForwardOut(logits=logits, caches=new_caches, cache_len=new_len,
-                      tap=tap)
+                      enc_out=enc_out, tap=tap)

@@ -132,7 +132,7 @@ def test_tf32_split_holds_fp32_tolerance_where_one_pass_misses():
     (256, "pallas", False),          # 256 x 256 scores: naive on both
     (300, "pallas", True),
     (300, "xla_naive", False),
-    (300, "xla_flash", False),       # the port runs its naive body
+    (300, "xla_flash", False),       # both run flash_attention_xla
 ])
 def test_attend_dispatch_matches_jax(S, impl, to_flash, monkeypatch):
     cfg = TT.default_trunk(d_model=64, n_layers=1, grid=8)

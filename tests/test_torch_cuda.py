@@ -810,6 +810,92 @@ def test_rwkv_model_pallas_path_matches_plain_path(cuda_device):
 
 
 # ---------------------------------------------------------------------------
+# the attention family of the model zoo on the card
+# ---------------------------------------------------------------------------
+
+def _zoo_smoke(name, **over):
+    """A zoo smoke config at head dim 64 (a head dim both attention kernels
+    take), ``attn_impl="pallas"``, float32."""
+    from repro_torch.configs import get_smoke_config
+    return dataclasses.replace(get_smoke_config(name), head_dim=64,
+                               attn_impl="pallas", **over)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["qwen2_0p5b", "whisper_base"])
+def test_zoo_serving_on_the_card_matches_the_cpu(cuda_device, name):
+    """Prefill (260 tokens into a 264-row cache) and 4 decode steps on the
+    card against the same port on the CPU (plain versions), at 1e-4 /
+    1e-3; decode attention launches once per layer and step, the cache
+    tensors never move; in whisper's prefill (300 frames) flash attention
+    launches once per encoder layer and once per decoder layer's
+    cross-attention."""
+    from repro_torch.interop import params_from_numpy
+    from repro_torch.models import model as TM
+    from repro_torch.models import serve as TSV
+    cfg = _zoo_smoke(name, enc_len=300)
+    cpu = TM.init_params(torch.Generator().manual_seed(3), cfg, device="cpu")
+    card = params_from_numpy(_to_numpy(cpu), cuda_device)
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, cfg.vocab_size, (2, 264))
+    frames = rng.normal(0, 1, (2, cfg.enc_len, cfg.d_model)).astype(
+        np.float32) if cfg.enc_dec else None
+    out = {}
+    for dev, p in (("cpu", cpu), (cuda_device, card)):
+        t = torch.as_tensor(toks, device=dev)
+        fr = None if frames is None else torch.as_tensor(frames, device=dev)
+        cache = TSV.init_cache(cfg, 2, 264, device=dev)
+        ptrs = {k: a.data_ptr() for k, a in cache["layers"].items()}
+        before = dict(build.LAUNCHES)
+        logits, cache, _ = TSV.prefill(p, cfg, t[:, :260], cache=cache,
+                                       frames=fr)
+        flash = build.LAUNCHES["flash_attention_bhsd"] - \
+            before.get("flash_attention_bhsd", 0)
+        got = [logits]
+        for i in range(260, 264):
+            logits, cache = TSV.decode_step(p, cfg, t[:, i:i + 1],
+                                            cache=cache)
+            got.append(logits)
+        assert {k: a.data_ptr() for k, a in cache["layers"].items()} == ptrs
+        decode = build.LAUNCHES["decode_attention_bkgd"] - \
+            before.get("decode_attention_bkgd", 0)
+        out[str(dev)] = (torch.stack(got, 1).cpu(), flash, decode,
+                         {k: a.cpu() for k, a in cache["layers"].items()})
+    (want, f0, d0, c0), (have, f1, d1, c1) = out["cpu"], out["cuda"]
+    assert (f0, d0) == (0, 0)
+    # whisper: the encoder's 300^2 scores and the decoder's cross-attention
+    # (260 x 300 > 256^2 scores, no cache) reach the flash dispatch
+    assert f1 == (cfg.n_enc_layers + cfg.n_layers if cfg.enc_dec else 0)
+    assert d1 == cfg.n_layers * 4
+    torch.testing.assert_close(have, want, rtol=1e-4, atol=1e-3)
+    for k in c0:
+        torch.testing.assert_close(c1[k], c0[k], rtol=1e-4, atol=1e-3)
+
+
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    return tree.numpy()
+
+
+@pytest.mark.cuda
+def test_zoo_cacheless_forward_on_the_card_launches_flash(cuda_device):
+    """qwen2's smoke model at hd 64: the cache-less forward over 300 tokens
+    launches flash attention once per layer and agrees with the CPU."""
+    from repro_torch.interop import params_from_numpy
+    from repro_torch.models import model as TM
+    cfg = _zoo_smoke("qwen2_0p5b")
+    cpu = TM.init_params(torch.Generator().manual_seed(5), cfg, device="cpu")
+    card = params_from_numpy(_to_numpy(cpu), cuda_device)
+    toks = np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 300))
+    want = TM.forward(cpu, cfg, torch.as_tensor(toks)).logits
+    before = build.LAUNCHES["flash_attention_bhsd"]
+    got = TM.forward(card, cfg, torch.as_tensor(toks, device=cuda_device))
+    assert build.LAUNCHES["flash_attention_bhsd"] == before + cfg.n_layers
+    torch.testing.assert_close(got.logits.cpu(), want, rtol=1e-4, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
 # the aggregate half on the card
 # ---------------------------------------------------------------------------
 

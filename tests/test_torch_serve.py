@@ -10,7 +10,9 @@ and two layers carry it to ~2e-5 on logits of ~1), and 5e-3 on
 port's sequential plain version (the JAX kernel test's tolerance).
 ``greedy_generate`` gives the same tokens.  One full-width layer
 (d_model 2560, 40 heads of 64, d_ff 8960) runs at atol 1e-4.  The port's config registry equals the JAX package's,
-and bfloat16 weights carry across bit for bit.
+and bfloat16 weights carry across bit for bit (the rwkv6-3b, qwen2-0.5b
+and whisper-base trees).  The block kinds still to port (MoE, the Hymba
+hybrid, the VLM prefix) raise.
 """
 import dataclasses
 
@@ -146,9 +148,9 @@ def test_config_registry_names_and_aliases():
     assert sorted(TC.all_configs()) == sorted(RC.all_configs())
 
 
-def test_bfloat16_params_carry_across_bit_for_bit():
-    cfg = dataclasses.replace(RC.get_smoke_config("rwkv6_3b"),
-                              dtype="bfloat16")
+@pytest.mark.parametrize("name", ["rwkv6_3b", "qwen2_0p5b", "whisper_base"])
+def test_bfloat16_params_carry_across_bit_for_bit(name):
+    cfg = dataclasses.replace(RC.get_smoke_config(name), dtype="bfloat16")
     rp = to_numpy_tree(RM.init_params(jax.random.PRNGKey(6), cfg))
     tp = params_from_numpy(rp, "cpu")
     n_bf16 = 0
@@ -175,8 +177,9 @@ def test_bfloat16_params_carry_across_bit_for_bit():
 
 
 def test_other_block_kinds_raise_until_ported():
-    for name in ("qwen2_0p5b", "hymba_1p5b", "granite_moe_3b_a800m",
-                 "whisper_base"):
+    """MoE (granite, grok), the Hymba hybrid and the PaliGemma prefix."""
+    for name in ("hymba_1p5b", "granite_moe_3b_a800m", "grok_1_314b",
+                 "paligemma_3b"):
         cfg = TC.get_smoke_config(name)
         with pytest.raises(NotImplementedError):
             TM.init_params(torch.Generator().manual_seed(0), cfg,
@@ -185,15 +188,21 @@ def test_other_block_kinds_raise_until_ported():
             TSV.init_cache(cfg, 1, 8, device="cpu")
 
 
-def test_serving_entry_points_default_to_cuda():
+@pytest.mark.parametrize("name", ["rwkv6_3b", "qwen2_0p5b", "whisper_base"])
+def test_serving_entry_points_default_to_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour without a card")
-    cfg = TC.get_smoke_config("rwkv6_3b")
+    cfg = TC.get_smoke_config(name)
     with pytest.raises(RuntimeError, match="CUDA"):
         TM.init_params(torch.Generator().manual_seed(0), cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         TSV.init_cache(cfg, 1, 8)
     p = TM.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
     assert p["embed"].device.type == "cpu"
-    assert p["layers"]["rwkv"]["w0"].dtype == torch.float32
-    assert p["layers"]["rwkv"]["wr"].shape == (2, 64, 64)
+    if name == "rwkv6_3b":
+        assert p["layers"]["rwkv"]["w0"].dtype == torch.float32
+        assert p["layers"]["rwkv"]["wr"].shape == (2, 64, 64)
+    else:
+        assert p["layers"]["attn"]["wq"].shape == (2, 64, 4, 16)
+        assert TSV.init_cache(cfg, 1, 8, device="cpu")["len"].device.type \
+            == "cpu"
