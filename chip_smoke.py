@@ -169,12 +169,48 @@ Phases (any failure exits non-zero and prints no result line):
     max|logit|, greedy tokens equal; layer 0's decode call on the
     model's cache and the forward's first flash call against their plain
     versions at 1e-4.
-14. A ``kernels`` JSON line (all six kernels; flash and decode attention
-    with their ``zoo_launches`` of phases 10-13), then the device line
+14. The rest of the zoo at full width in bf16 (pallas, random weights
+    from a seeded CUDA generator), each after one untimed warm-up pass,
+    counts reset just before the timed pass: prefill tokens/s, ms per
+    step (median, min, max), a profile of one decode step and one
+    prefill (busy, idle share, launches), peak; tokens in the vocab,
+    logits finite, the cache's pointers fixed.  granite-moe-3b-a800m
+    (32 layers, d 1536, 24 heads over 8 of 64, 40 experts top-8 of d_ff
+    512, capacity 1.25): 16 x 1024 prompt tokens into 1056 rows, 32
+    steps, the dropped share of routed assignments per layer at
+    prefill, decode attention once per layer and step and its first call
+    against plain (``decode_check``).
+    grok-1-314b at full width, depth cut to 2 of 64 layers (~23 GB of
+    weights): 4 x 256 tokens, 8 steps; softcap, so no kernel runs (as in
+    JAX).  hymba-1.5b (32 layers, d 1600, 25 heads over 5, d_inner 3200,
+    N 16, window 1024): 8 x 1000 tokens (Mamba chunks of 50) into a
+    1024-row ring (cap 1048), 48 steps that wrap it; no kernel (a ring);
+    the pointers of k, v, pos, ssm and conv fixed.  paligemma-3b (18
+    layers, d 2048, 8 heads over 1 of 256, vocab 257216): 8 x (256 stub
+    patch embeddings + 64 tokens), 32 steps, decode attention at hd 256
+    once per layer and step, its first call against plain.
+15. Float32 at full width, depth cut to 4 layers (TF32 off): granite
+    (capacity factor E/K: nothing drops), hymba (2 x 1020 tokens, 8 steps
+    across the ring's wrap) and paligemma (2 x (256 + 32)); each step's
+    logits against the cache-less forward within 1e-3 x max|logit|,
+    greedy tokens equal; granite's and hymba's forwards reach flash
+    attention (hymba's with its 1024 window), one call each against
+    plain at 1e-4; granite's and paligemma's first decode call against
+    plain.
+16. Decode attention at hd 256 through ``ops.decode_attention`` on a
+    (B, S, KV, hd) cache read in place, (B, KV, G, S, hd) = (128, 1, 8,
+    32768, 256), bf16, kv_len 30000: against plain at ``decode_tol``,
+    and in float32 at 1e-4 on (8, 1, 8, 4096, 256); device ms, call,
+    back-to-back, plain, SDPA (masked, and on the kv_len slice) and the
+    bytes bound (3.93 GB at 3.35 TB/s); the ``hd256`` entry of decode
+    attention's kernel line.
+17. A ``kernels`` JSON line (all six kernels; flash and decode attention
+    with their ``zoo_launches`` of phases 10-15), then the device line
     as the last line.
 """
 import argparse
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -1975,7 +2011,7 @@ def model_config(name, rehearse, **overrides):
 
 
 def serve_steps(torch, dev, SV, params, cfg, prompts, cache, n_dec,
-                frames=None):
+                frames=None, embeds=None):
     """``prefill`` then ``n_dec`` greedy ``decode_step``s, host clock
     around each synchronised call (a step's argmax included).  Returns
     (prefill s, step s list, the (B, n_dec + 1) tokens, whether every
@@ -1983,7 +2019,7 @@ def serve_steps(torch, dev, SV, params, cfg, prompts, cache, n_dec,
     sync(torch, dev)
     t0 = time.perf_counter()
     logits, cache, _ = SV.prefill(params, cfg, prompts, cache=cache,
-                                  frames=frames)
+                                  frames=frames, embeds=embeds)
     sync(torch, dev)
     t_pre = time.perf_counter() - t0
     toks, finite, steps = [logits.argmax(-1)], \
@@ -2879,6 +2915,367 @@ def zoo_fp32_phase(torch, dev, rehearse):
 
 
 # ---------------------------------------------------------------------------
+# the rest of the zoo: MoE, the Hymba hybrid, PaliGemma's prefix-LM
+# ---------------------------------------------------------------------------
+
+# per family: the config, its full-width overrides (depth cuts), the
+# rehearsal's, and (requests, prompt tokens, decode steps) on the card and
+# on the CPU
+FAMILY_SERVING = {
+    "granite": dict(name="granite_moe_3b_a800m", seed=6, full={},
+                    size=(16, 1024, 32), small=(2, 64, 4)),
+    "grok": dict(name="grok_1_314b", seed=7, full=dict(n_layers=2),
+                 size=(4, 256, 8), small=(2, 64, 4)),
+    # 1000 = 20 Mamba chunks of 50; the 1048-row cap makes a 1024-row ring
+    # that the 48 steps wrap at step 25
+    "hymba": dict(name="hymba_1p5b", seed=8, full={},
+                  size=(8, 1000, 48), small=(2, 60, 8),
+                  rehearse=dict(sliding_window=64)),
+    # 256 stub patch embeddings before 64 prompt tokens
+    "paligemma": dict(name="paligemma_3b", seed=9, full={},
+                      size=(8, 64, 32), small=(2, 8, 4)),
+}
+# float32 at full width, depth cut to 4 layers: (prompt, decode steps)
+FAMILY_FP32 = {
+    "granite": dict(name="granite_moe_3b_a800m", seed=10, size=(256, 8),
+                    small=(256, 4)),
+    "hymba": dict(name="hymba_1p5b", seed=11, size=(1020, 8), small=(60, 8),
+                  rehearse=dict(sliding_window=64)),
+    "paligemma": dict(name="paligemma_3b", seed=12, size=(32, 8),
+                      small=(8, 4)),
+}
+FP32_LAYERS = 4
+BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores
+DECODE256 = (128, 1, 8, 32768, 256)   # (B, KV, G, S, hd): paligemma's group
+
+
+def reaches_decode(cfg):
+    """Whether JAX's dispatch (``models/layers.py``) sends a single-token
+    step to decode attention: no window (a ring cache) and no softcap."""
+    return cfg.sliding_window is None and cfg.logits_softcap == 0.0
+
+
+class MoeDrops:
+    """Wraps ``layers.apply_moe`` to record, per prefill call (S > 1), the
+    share of routed assignments that land past their expert's capacity,
+    from the router alone (softmax, top-K with ties in index order, a
+    count per expert; one routing group, as ``forward`` routes by
+    default).  Calls go through unchanged."""
+
+    def __init__(self, torch, L):
+        self.torch, self.L, self.shares = torch, L, []
+
+    def __enter__(self):
+        torch, inner = self.torch, self.L.apply_moe
+        self.inner = inner
+
+        def rec(p, x, cfg, groups=1):
+            if x.shape[1] > 1:
+                xt = x.reshape(-1, x.shape[-1])
+                probs = torch.softmax((xt @ p["router"].to(x.dtype)).float(),
+                                      -1)
+                K, E = cfg.experts_per_token, cfg.n_experts
+                eidx = torch.sort(probs, dim=-1, descending=True,
+                                  stable=True)[1][:, :K]
+                count = torch.zeros(E, device=x.device).scatter_add_(
+                    0, eidx.reshape(-1), torch.ones(eidx.numel(),
+                                                    device=x.device))
+                cap = self.L.moe_capacity(xt.shape[0], cfg)
+                self.shares.append((count - cap).clamp(min=0).sum()
+                                   / eidx.numel())
+            return inner(p, x, cfg, groups=groups)
+        self.L.apply_moe = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.L.apply_moe = self.inner
+
+    def text(self):
+        s = [float(x) for x in self.shares]
+        return (f"dropped assignments at prefill per layer "
+                f"{[round(x, 4) for x in s]} (mean {sum(s) / len(s):.4f})"
+                if s else "no MoE prefill recorded")
+
+
+def family_serving_phase(torch, dev, rehearse, key):
+    """One family at full width in bf16 (``attn_impl="pallas"``, random
+    weights from a seeded CUDA generator): prefill then greedy decode
+    steps, after one untimed warm-up pass that records layer 0's first
+    decode-attention call and (MoE) the dropped share per layer; a
+    profile of one decode step and of one prefill.  Counts are reset
+    just before the timed pass: decode attention once per layer and step
+    where JAX's dispatch reaches it (no window, no softcap), flash
+    attention never (a cached prefill runs the chunked plain path).  The
+    cache's tensors keep their pointers."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models import serve as SV
+    spec = FAMILY_SERVING[key]
+    over = dict(attn_impl="pallas", dtype="bfloat16",
+                **(spec.get("rehearse", {}) if rehearse else spec["full"]))
+    cfg = model_config(spec["name"], rehearse, **over)
+    n_req, prompt_len, n_dec = spec["small"] if rehearse else spec["size"]
+    cap = cfg.vlm_prefix + prompt_len + n_dec
+    gen = torch.Generator(dev).manual_seed(SEED + spec["seed"])
+    t0 = time.perf_counter()
+    params = M.init_params(gen, cfg, device=dev)
+    sync(torch, dev)
+    init_s = time.perf_counter() - t0
+    embeds = None if not cfg.vlm_prefix else torch.randn(
+        (n_req, cfg.vlm_prefix, cfg.d_model), generator=gen,
+        device=dev).to(torch.bfloat16)
+    prompts = torch.as_tensor(np.random.default_rng(SEED + spec["seed"])
+                              .integers(0, cfg.vocab_size,
+                                        (n_req, prompt_len)), device=dev)
+    ptrs = {}
+
+    def serve():
+        cache = SV.init_cache(cfg, n_req, cap, device=dev)
+        ptrs.clear()
+        ptrs.update({k: a.data_ptr() for k, a in cache["layers"].items()})
+        return serve_steps(torch, dev, SV, params, cfg, prompts, cache,
+                           n_dec, embeds=embeds)
+
+    with CallRecorder(ops, "decode_attention") as dec, \
+            MoeDrops(torch, L) as drops:
+        serve()                                # warm-up
+    lines = []
+    uses_decode = reaches_decode(cfg)
+    if dev.type == "cuda":
+        cache = SV.init_cache(cfg, n_req, cap, device=dev)
+        _, cache, _ = SV.prefill(params, cfg, prompts, cache=cache,
+                                 embeds=embeds)
+        lines.append(profile_line(
+            torch, f"one {cfg.name} decode step", lambda: SV.decode_step(
+                params, cfg, prompts[:, -1:], cache=cache),
+            share_of="decode_attention" if uses_decode else None))
+        del cache
+        lines.append(profile_line(
+            torch, f"one {cfg.name} prefill", lambda: SV.prefill(
+                params, cfg, prompts, embeds=embeds, cache=SV.init_cache(
+                    cfg, n_req, cap, device=dev))))
+    reset_peak(torch, dev)
+    ops.reset_launch_counts()
+    t_pre, steps, toks, finite, cache = serve()
+    launches = zoo_counts(ops)
+    peak = peak_bytes(torch, dev)
+    check(finite and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
+          f"{cfg.name}: a logit is not finite or a token is outside the "
+          f"vocab")
+    check({k: a.data_ptr() for k, a in cache["layers"].items()} == ptrs,
+          f"{cfg.name}: the cache moved ({sorted(ptrs)})")
+    check(int(cache["len"]) == cap, f"{cfg.name}: cache len "
+          f"{int(cache['len'])}, want {cap}")
+    want = {"decode_attention_bkgd": cfg.n_layers * n_dec if uses_decode
+            else 0, "flash_attention_bhsd": 0}
+    check_zoo_launches(rehearse, cfg.name, launches, want)
+    if uses_decode:
+        extra = decode_check(torch, dev, cfg.name, dec)
+    else:
+        check(not dec.calls, f"{cfg.name}: decode attention was reached "
+              f"with a window or softcap")
+        extra = ("decode attention not on this path (JAX's dispatch: "
+                 + ("a ring cache" if cfg.sliding_window else "softcap") + ")")
+    if cfg.block.value == "moe":
+        extra += "; " + drops.text()
+    shape = (f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
+             f"heads over {cfg.n_kv_heads} of {cfg.head_dim}, vocab "
+             f"{cfg.vocab_size}")
+    if cfg.block.value == "moe":
+        shape += (f", {cfg.n_experts} experts top-{cfg.experts_per_token} "
+                  f"of d_ff {cfg.d_ff}, capacity factor "
+                  f"{cfg.capacity_factor}")
+    if cfg.block.value == "hybrid":
+        shape += (f", d_inner {cfg.d_inner}, N {cfg.ssm_state}, window "
+                  f"{cfg.sliding_window} ({cache['layers']['k'].shape[2]}"
+                  f"-row ring)")
+    prompt_text = (f"({cfg.vlm_prefix} patch embeddings + {prompt_len} "
+                   f"tokens)" if cfg.vlm_prefix else f"{prompt_len} tokens")
+    n_pre = n_req * (cfg.vlm_prefix + prompt_len)
+    del params, cache, embeds
+    return launches, lines + [
+        f"zoo {key} ({cfg.name}, {shape}, {cfg.dtype}, "
+        f"{cfg.param_count() / 1e9:.3f} B parameters, random weights drawn "
+        f"in {init_s:.3f} s): {n_req} requests x {prompt_text} into a "
+        f"{cap}-row cache, prefill {t_pre * 1e3:.3f} ms = "
+        f"{n_pre / t_pre:.1f} tokens/s; {n_dec} decode steps of {n_req} "
+        f"tokens, {steps_text(steps)}; peak device memory {gib(peak)}; "
+        f"launches {launches} (want {want}); cache pointers of "
+        f"{sorted(ptrs)} fixed; tokens in the vocab, logits finite; first "
+        f"request's tokens {toks[0].tolist()}; {extra}"]
+
+
+def decode256_entry(torch, dev, timer, ktimer, rehearse):
+    """Decode attention at head dim 256 through ``ops.decode_attention`` on
+    a (B, S, KV, hd) cache read in place, paligemma's group (G 8 over one
+    kv head) at the decode_32k batch and length (kv_len 30000): the
+    kernel against its plain version (``decode_tol``), timed three ways
+    beside the plain version, SDPA (masked over all S, and on the kv_len
+    slice) and its bytes bound; then float32 on a shorter cache at
+    1e-4."""
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import ops
+    B, KV, G, S, hd = DECODE256
+    kv_len = DECODE_KV_LEN
+    if rehearse:
+        B, S, kv_len = 2, 640, 600
+    gen = torch.Generator(dev).manual_seed(SEED + 13)
+    q = torch.randn((B, KV * G, hd), generator=gen, device=dev).bfloat16()
+    k = torch.randn((B, S, KV, hd), generator=gen, device=dev).bfloat16()
+    v = torch.randn((B, S, KV, hd), generator=gen, device=dev).bfloat16()
+    length = torch.tensor([kv_len], dtype=torch.int32, device=dev)
+    ops.reset_launch_counts()
+    out = ops.decode_attention(q, k, v, length)
+    sync(torch, dev)
+    n_launch = ops.launch_counts()["decode_attention_bkgd"]
+    check(rehearse or n_launch == 1, f"hd 256: ops.decode_attention "
+          f"launched {n_launch} kernels")
+    qg = q.reshape(B, KV, G, hd)
+    kv_, vv_ = k.transpose(1, 2), v.transpose(1, 2)
+    want = DA.decode_attention_plain(qg, kv_, vv_, kv_len)
+    err = float((out.reshape(qg.shape).float() - want.float()).abs().max())
+    tol = decode_tol(torch, want)
+    check(err <= tol, f"decode attention at hd 256 differs from plain "
+          f"(max abs err {err}, tol {tol})")
+    del out, want
+    g32 = torch.Generator(dev).manual_seed(SEED + 14)
+    a, b, c = (torch.randn(shape, generator=g32, device=dev) for shape in
+               ((8, KV, G, hd), (8, KV, 4096, hd), (8, KV, 4096, hd)))
+    err32 = float((DA.decode_attention_bkgd(a, b, c, 3001)
+                   - DA.decode_attention_plain(a, b, c, 3001)).abs().max())
+    check(err32 <= 1e-4, f"decode attention at hd 256 in float32 differs "
+          f"from plain (max abs err {err32}, tol 1e-4)")
+    del a, b, c
+    kt, vt = kv_.contiguous(), vv_.contiguous()
+    mask = (torch.arange(S, device=dev) < kv_len)[None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    n_bytes = 2 * B * KV * kv_len * hd * 2 + 2 * B * KV * G * hd * 2
+    bnd, by = bound_ms(n_bytes, 4 * B * KV * G * kv_len * hd, BF16_FLOPS)
+    sliced = ktimer(lambda: sdpa(qg, kt[:, :, :kv_len], vt[:, :, :kv_len]))
+    entry = {
+        "shape": [B, KV, G, S, hd], "kv_len": kv_len,
+        "dtype": "torch.bfloat16", "max_abs_err": err,
+        "max_abs_err_float32": err32,
+        "tolerance": f"{tol:.3g} in bf16 (four bf16 steps of the largest "
+                     f"output), 1e-4 in float32 on (8, 1, 8, 4096, 256)",
+        **ktimer(lambda: DA.decode_attention_bkgd(qg, kv_, vv_, length),
+                 "decode_attention_mma"),
+        "plain_ms": timer(lambda: DA.decode_attention_plain(qg, kt, vt,
+                                                            kv_len)),
+        "bound_ms": bnd, "bound_by": by, "bound_bytes": n_bytes,
+        **library_entry(ktimer(lambda: sdpa(qg, kt, vt, attn_mask=mask))),
+        "library_note": "SDPA with a boolean kv_len mask over all S rows",
+        "library_sliced_ms": sliced["ms"],
+        "library_sliced_call_ms": sliced["call_ms"]}
+    del q, k, v, qg, kv_, vv_, kt, vt
+    return entry, [
+        f"decode_attention_bkgd at hd 256 {entry['shape']} bf16, kv_len "
+        f"{kv_len}, the (B, S, KV, hd) cache read in place: device "
+        f"{entry['ms']} ms (call {entry['call_ms']} ms, back-to-back "
+        f"{entry['b2b_ms']} ms; plain {entry['plain_ms']} ms; SDPA masked "
+        f"device {entry['library_ms']} ms, on the kv_len slice "
+        f"{entry['library_sliced_ms']} ms; bound {bnd:.4f} ms by {by}: "
+        f"{n_bytes / 1e9:.3f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s); "
+        f"max abs err {err:.3g} (tol {tol:.3g}), float32 {err32:.3g} (tol "
+        f"1e-4)"]
+
+
+def family_fp32_phase(torch, dev, rehearse, key):
+    """One family at full width in float32 (TF32 off), depth cut to 4
+    layers, pallas: 2 prompts, prefill then 8 greedy decode steps; each
+    step's logits against the cache-less forward over prompt + generated
+    tokens at the same position within 1e-3 x max|logit|, greedy tokens
+    equal.  Granite routes with capacity factor E/K (nothing drops, so
+    decode and the forward route alike).  Where the forward reaches flash
+    attention (no prefix, more than 256^2 scores) its first call, and
+    where decode reaches decode attention layer 0's first call, against
+    their plain versions at 1e-4."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models import serve as SV
+    spec = FAMILY_FP32[key]
+    over = dict(attn_impl="pallas", dtype="float32",
+                **(spec.get("rehearse", {}) if rehearse
+                   else dict(n_layers=FP32_LAYERS)))
+    cfg = model_config(spec["name"], rehearse, **over)
+    if cfg.block.value == "moe":
+        cfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.n_experts / cfg.experts_per_token)
+    n_prompt, n_dec = spec["small"] if rehearse else spec["size"]
+    gen = torch.Generator(dev).manual_seed(SEED + spec["seed"])
+    params = M.init_params(gen, cfg, device=dev)
+    embeds = None if not cfg.vlm_prefix else torch.randn(
+        (2, cfg.vlm_prefix, cfg.d_model), generator=gen, device=dev)
+    prompts = torch.as_tensor(np.random.default_rng(SEED + spec["seed"])
+                              .integers(0, cfg.vocab_size, (2, n_prompt)),
+                              device=dev)
+    n_pre = cfg.vlm_prefix + n_prompt
+    ops.reset_launch_counts()
+    with CallRecorder(ops, "decode_attention") as dec:
+        cache = SV.init_cache(cfg, 2, n_pre + n_dec, device=dev)
+        logits, cache, _ = SV.prefill(params, cfg, prompts, cache=cache,
+                                      embeds=embeds)
+        steps, toks = [logits], [logits.argmax(-1)]
+        for _ in range(n_dec):
+            logits, cache = SV.decode_step(params, cfg, toks[-1][:, None],
+                                           cache=cache)
+            steps.append(logits)
+            toks.append(logits.argmax(-1))
+    seq = torch.cat([prompts, torch.stack(toks[:-1], 1)], 1)
+    with CallRecorder(ops, "flash_attention") as fl:
+        full = M.forward(params, cfg, seq, embeds=embeds).logits[
+            :, n_pre - 1:]
+    launches = zoo_counts(ops)
+    err = float((torch.stack(steps, 1) - full).abs().max())
+    scale = float(full.abs().max())
+    same = bool((full.argmax(-1) == torch.stack(toks, 1)).all())
+    check(bool(torch.isfinite(full).all()), f"{cfg.name} fp32: logits not "
+          f"finite")
+    check(err <= 1e-3 * scale and same, f"{cfg.name} fp32: decode differs "
+          f"from the full forward (max abs err {err}, tol 1e-3 x {scale}; "
+          f"greedy tokens equal: {same})")
+    uses_decode = reaches_decode(cfg)
+    n_all = n_pre + n_dec
+    uses_flash = not cfg.vlm_prefix and cfg.logits_softcap == 0.0 \
+        and n_all * n_all > 256 * 256
+    check_zoo_launches(rehearse, f"{cfg.name} fp32", launches, {
+        "decode_attention_bkgd": cfg.n_layers * n_dec if uses_decode else 0,
+        "flash_attention_bhsd": cfg.n_layers if uses_flash else 0})
+    texts = []
+    if uses_decode:
+        texts.append(decode_check(torch, dev, f"{cfg.name} fp32", dec))
+    if uses_flash:
+        flash = fl.first(dev)
+        kw = fl.kwargs[None]
+        check(flash is not None and kw.get("causal") is True,
+              f"{cfg.name} fp32: flash attention was not reached causally")
+        fq, fk, fv = (t.transpose(1, 2).contiguous() for t in flash)
+        sw = kw.get("sliding_window")
+        f_err = float((FA.flash_attention_bhsd(fq, fk, fv, causal=True,
+                                               sliding_window=sw)
+                       - FA.flash_attention_plain(fq, fk, fv, causal=True,
+                                                  sliding_window=sw))
+                      .abs().max())
+        check(f_err <= 1e-4, f"{cfg.name} fp32: flash attention in the "
+              f"forward differs from plain (max abs err {f_err}, tol 1e-4)")
+        texts.append(f"the forward's flash call {list(fq.shape)} (window "
+                     f"{sw}) kernel vs plain {f_err:.3g} (tol 1e-4)")
+    del params, cache, full
+    return launches, [
+        f"zoo float32 {key} ({cfg.name}, {cfg.n_layers} of "
+        f"{model_config(spec['name'], rehearse).n_layers} layers at full "
+        f"width, d_model {cfg.d_model}): 2 prompts x "
+        + (f"({cfg.vlm_prefix} + {n_prompt})" if cfg.vlm_prefix
+           else f"{n_prompt}")
+        + f" tokens + {n_dec} decode steps against the cache-less forward "
+        f"over {n_all} positions: max abs err {err:.3g} (tol 1e-3 x "
+        f"max|logit| {scale:.3g}), greedy tokens equal; launches "
+        f"{launches}" + "".join(f"; {t}" for t in texts)]
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3019,15 +3416,27 @@ def main(argv=None):
     for line in rwkv_fp32_phase(torch, dev, args.rehearse):
         print(line, flush=True)
     zoo = {}
-    for name, phase in (("qwen2_serving", zoo_serving_phase),
-                        ("decode_32k", decode32k_phase),
-                        ("whisper", whisper_phase),
-                        ("qwen2_fp32", zoo_fp32_phase)):
+    phases = [("qwen2_serving", zoo_serving_phase),
+              ("decode_32k", decode32k_phase),
+              ("whisper", whisper_phase),
+              ("qwen2_fp32", zoo_fp32_phase)]
+    phases += [(f"{k}_serving", functools.partial(family_serving_phase,
+                                                  key=k))
+               for k in FAMILY_SERVING]
+    phases += [(f"{k}_fp32", functools.partial(family_fp32_phase, key=k))
+               for k in FAMILY_FP32]
+    for name, phase in phases:
         if dev.type == "cuda":
             torch.cuda.empty_cache()
         zoo[name], lines = phase(torch, dev, args.rehearse)
         for line in lines:
             print(line, flush=True)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    decode["hd256"], lines = decode256_entry(torch, dev, timer, ktimer,
+                                             args.rehearse)
+    for line in lines:
+        print(line, flush=True)
     if args.rehearse:
         print("rehearsal done (CPU: plain versions, no kernels)")
         return 0

@@ -11,7 +11,7 @@
 // the last dimension contiguous, so both the (B, KV, S, hd) layout and the
 // model's (B, S, KV, hd) cache launch without a copy; rows 16-byte
 // aligned.  kv_len an int32 on the device, 1 <= kv_len <= S; G <= 16,
-// hd in {64, 128}.  o (B, KV, G, hd) in q's type.
+// hd in {64, 128, 256}.  o (B, KV, G, hd) in q's type.
 //
 // Arithmetic (the TPU kernel's): scores q k^T * scale in fp32, keys at
 // kv_len or later score NEG_INF = -0.7 * FLT_MAX, online softmax with the
@@ -47,14 +47,24 @@
 //     reside per SM, ~147 KB in flight; at hd 128 two.  Rows at kv_len or
 //     later are zero-filled, never read, and a warp whose 16 keys all lie
 //     past kv_len skips the tile;
+//   - hd 256 (paligemma, G = 8 over one kv head): the ring is 3 x 2 x 64
+//     rows of 528 B = 198 KB, so one block resides per SM with 135 KB in
+//     flight, which is still far above what hides the memory latency.  The
+//     accumulator is 16 rows x 256 columns, 128 fp32 registers a thread;
+//     holding q's 16 A fragments too (64 more) would crowd the 255-register
+//     limit, so at hd 256 q is staged once in 8.25 KB of shared memory
+//     after the ring (padded rows: the fragment loads hit 32 distinct
+//     banks) and its fragments are read per k-step;
 //   - rows are padded by 16 bytes in shared memory so the eight rows of an
 //     ldmatrix fall in distinct banks;
 //   - the four warps' (m, l, acc) are merged through shared memory at the
 //     end, in a fixed order (no float atomics: a repeated call is
 //     bit-identical);
 //   - float32 keeps the SIMT body of the first port (one key per lane,
-//     fp32 FMAs, two cp.async stages): it is held at 1e-4 and is not the
-//     timed case; it takes the same strides and the same split plan.
+//     fp32 FMAs, two cp.async stages; one stage at hd 256, where two
+//     stages of 64 fp32 rows would need 266 KB): it is held at 1e-4 and is
+//     not the timed case; it takes the same strides and the same split
+//     plan.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -205,9 +215,14 @@ struct MmaGeo {
   static constexpr int kRowBytes = HD * 2 + 16;   // padded row
   static constexpr int kTileBytes = kTile * kRowBytes;
   static constexpr int kChunks = HD * 2 / 16;     // 16-byte chunks per row
-  static constexpr size_t kSmem = (size_t)kMmaStages * 2 * kTileBytes;
-  static_assert((size_t)kMmaWarps * kMaxRows * (HD + 2) * 4 <= kSmem,
+  static constexpr size_t kRing = (size_t)kMmaStages * 2 * kTileBytes;
+  // q's A fragments: in registers up to hd 128, else staged after the ring
+  static constexpr bool kQInSmem = HD > 128;
+  static constexpr size_t kSmem =
+      kRing + (kQInSmem ? (size_t)kMaxRows * kRowBytes : 0);
+  static_assert((size_t)kMmaWarps * kMaxRows * (HD + 2) * 4 <= kRing,
                 "the warps' merge scratch must fit in the ring");
+  static_assert(kSmem <= 232448, "dynamic shared memory above 227 KB");
 };
 
 // grid (nsplit, KV, B), 128 threads.  part: (B, KV, nsplit, G * (HD + 2))
@@ -251,15 +266,28 @@ decode_attention_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const long long krow = kss * 2, vrow = vss * 2;     // bytes per key
   const int n_tiles = (sp.hi - sp.lo + kTile - 1) / kTile;
 
-  // q as the A operand of every k-step, rows >= G zero
-  unsigned qa[KS][4];
-  {
-    const bf16* qb = q + bn * G * HD;
+  // q as the A operand of every k-step, rows >= G zero: in registers, or
+  // (hd 256) staged in shared memory and read per k-step
+  constexpr int QK = Geo::kQInSmem ? 1 : KS;
+  unsigned qa[QK][4];
+  const bf16* qb = q + bn * G * HD;
+  unsigned char* qs = smem + Geo::kRing;
+  if constexpr (Geo::kQInSmem) {
+    // 4-byte words: q needs no more alignment than the register path's
+    for (int i = tid; i < kMaxRows * HD / 2; i += kThreads) {
+      const int row = i / (HD / 2);
+      const int c = i % (HD / 2);
+      reinterpret_cast<unsigned*>(qs + row * Geo::kRowBytes)[c] =
+          row < G ? reinterpret_cast<const unsigned*>(qb + row * HD)[c]
+                  : 0u;
+    }
+    __syncthreads();
+  } else {
     const unsigned* r0 = reinterpret_cast<const unsigned*>(qb + gr * HD);
     const unsigned* r1 =
         reinterpret_cast<const unsigned*>(qb + (gr + 8) * HD);
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
+    for (int kk = 0; kk < QK; ++kk) {
       const int c = (kk * 16 + 2 * tq) / 2;
       qa[kk][0] = gr < G ? r0[c] : 0u;
       qa[kk][1] = gr + 8 < G ? r1[c] : 0u;
@@ -267,6 +295,10 @@ decode_attention_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       qa[kk][3] = gr + 8 < G ? r1[c + 4] : 0u;
     }
   }
+  const unsigned* q0 =
+      reinterpret_cast<const unsigned*>(qs + gr * Geo::kRowBytes);
+  const unsigned* q1 =
+      reinterpret_cast<const unsigned*>(qs + (gr + 8) * Geo::kRowBytes);
 
   auto load_tile = [&](int stage, int t0) {
     unsigned char* kd = smem + stage * 2 * Geo::kTileBytes;
@@ -329,8 +361,15 @@ decode_attention_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int kk = 0; kk < KS; ++kk) {
       unsigned bk[4];
       ldsm_x4(bk, kd + k_off + kk * 32);
-      mma_bf16(s[0], qa[kk], bk[0], bk[1]);
-      mma_bf16(s[1], qa[kk], bk[2], bk[3]);
+      if constexpr (Geo::kQInSmem) {
+        const int c = kk * 8 + tq;
+        const unsigned a[4] = {q0[c], q1[c], q0[c + 4], q1[c + 4]};
+        mma_bf16(s[0], a, bk[0], bk[1]);
+        mma_bf16(s[1], a, bk[2], bk[3]);
+      } else {
+        mma_bf16(s[0], qa[kk], bk[0], bk[1]);
+        mma_bf16(s[1], qa[kk], bk[2], bk[3]);
+      }
     }
     // mask, scale, online softmax; rows gr (e = 0, 1) and gr + 8 (e = 2, 3)
 #pragma unroll
@@ -427,12 +466,13 @@ struct SimtGeo {
   static constexpr int kRowBytes = HD * 4 + 16;   // padded row
   static constexpr int kTileBytes = kTile * kRowBytes;
   static constexpr int kChunks = HD * 4 / 16;
+  static constexpr int kStages = HD > 128 ? 1 : 2;   // K and V per stage
 };
 
 template <int HD, int GB>
 constexpr size_t simt_smem() {
   return (size_t)GB * HD * 4 + (size_t)kSimtWarps * GB * 32 * 4 +
-         (size_t)4 * SimtGeo<HD>::kTileBytes;
+         (size_t)2 * SimtGeo<HD>::kStages * SimtGeo<HD>::kTileBytes;
 }
 
 template <int HD, int GB>
@@ -506,7 +546,7 @@ decode_attention_simt(const float* __restrict__ q,
   cp_async_commit();
   for (int it = 0; it < n_tiles; ++it) {
     const int t0 = lo + it * kTile;
-    if (it + 1 < n_tiles) {
+    if (Geo::kStages == 2 && it + 1 < n_tiles) {
       load_tile((it + 1) & 1, t0 + kTile);
       cp_async_commit();
       cp_async_wait<1>();
@@ -515,7 +555,8 @@ decode_attention_simt(const float* __restrict__ q,
     }
     __syncthreads();
     if (t0 + w * 32 < hi) {                    // warp-uniform skip
-      const char* kd = kvbuf + (it & 1) * 2 * Geo::kTileBytes;
+      const char* kd =
+          kvbuf + (Geo::kStages == 2 ? it & 1 : 0) * 2 * Geo::kTileBytes;
       const char* vd = kd + Geo::kTileBytes;
       // scores of this lane's key for all GB rows
       const float* krow =
@@ -574,6 +615,10 @@ decode_attention_simt(const float* __restrict__ q,
       __syncwarp();
     }
     __syncthreads();                           // this stage is consumed
+    if (Geo::kStages == 1 && it + 1 < n_tiles) {
+      load_tile(0, t0 + kTile);
+      cp_async_commit();
+    }
   }
 
   // merge the warps' states through shared memory (the tiles are free)
@@ -642,6 +687,7 @@ template <typename F>
 int with_mma(int hd, F&& f) {
   if (hd == 64) return f(decode_attention_mma<64>, MmaGeo<64>::kSmem, 128);
   if (hd == 128) return f(decode_attention_mma<128>, MmaGeo<128>::kSmem, 128);
+  if (hd == 256) return f(decode_attention_mma<256>, MmaGeo<256>::kSmem, 128);
   return (int)cudaErrorInvalidValue;
 }
 template <int HD, typename F>
@@ -654,6 +700,7 @@ template <typename F>
 int with_simt(int hd, int G, F&& f) {
   if (hd == 64) return with_simt_g<64>(G, f);
   if (hd == 128) return with_simt_g<128>(G, f);
+  if (hd == 256) return with_simt_g<256>(G, f);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -695,8 +742,11 @@ struct Launch {
     if (a.hd == 64)
       decode_attention_merge<T, 64><<<grid, 128, 0, a.stream>>>(
           a.part, (T*)a.o, a.kv_len, a.KV, a.G, a.S, a.nsplit);
-    else
+    else if (a.hd == 128)
       decode_attention_merge<T, 128><<<grid, 128, 0, a.stream>>>(
+          a.part, (T*)a.o, a.kv_len, a.KV, a.G, a.S, a.nsplit);
+    else
+      decode_attention_merge<T, 256><<<grid, 128, 0, a.stream>>>(
           a.part, (T*)a.o, a.kv_len, a.KV, a.G, a.S, a.nsplit);
     return (int)cudaGetLastError();
   }
@@ -718,7 +768,7 @@ extern "C" int decode_attention_blocks_per_sm(int hd, int dtype, int G,
 // one type: dtype 0 = float32, 1 = bfloat16.  kv_len: one int32 on the
 // device.  The valid keys are cut into nsplit splits of whole 64-key tiles
 // (split_span); part: (B, KV, nsplit, G * (hd + 2)) float32 scratch when
-// nsplit > 1.  G in 1..16, hd in {64, 128}.
+// nsplit > 1.  G in 1..16, hd in {64, 128, 256}.
 // Returns cudaGetLastError() of the launches.
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, const void* kv_len, void* o,

@@ -3,8 +3,8 @@
 ``decode_attention_bkgd`` takes q (B, KV, G, hd), the G query heads of
 each kv head, and k, v (B, KV, S, hd), with ``kv_len`` an int or a
 one-element integer tensor in 1..S; keys at ``kv_len`` or later are
-masked.  On a CUDA tensor it launches ``csrc/decode_attention.cu`` (hd 64
-or 128, G up to 16, float32 or bfloat16, any S: the kernel masks the
+masked.  On a CUDA tensor it launches ``csrc/decode_attention.cu`` (hd 64,
+128 or 256, G up to 16, float32 or bfloat16, any S: the kernel masks the
 ragged edge itself); on a CPU tensor it runs ``decode_attention_plain``,
 the full-softmax ``ref.decode_attention_ref``; any other device raises.
 k and v are read in place through their strides, so a transposed view of
@@ -23,7 +23,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 16
 TILE = 64                 # keys per tile of the kernel (kTile in the source)
 MAX_SPLITS = 64

@@ -1,17 +1,19 @@
 """The neural layers of the ported models, in plain PyTorch.
 
-The JAX package's dense attention block kind and its encoder-decoder are
-ported here (the RWKV-6 blocks live in ``ssm.py``): RMSNorm and
-LayerNorm, SiLU / GELU (tanh) / ReLU, rope and sinusoidal positions, the
-masks and the two plain attentions (``naive_attention`` and the chunked
+The JAX package's ``models/layers.py`` (the RWKV-6 and Mamba blocks live
+in ``ssm.py``): RMSNorm and LayerNorm, SiLU / GELU (tanh) / ReLU, rope
+and sinusoidal positions, the masks (with the PaliGemma prefix-LM) and
+the two plain attentions (``naive_attention`` and the chunked
 online-softmax ``flash_attention_xla``), the attention block with its
-contiguous and ring KV caches and cross-attention, and the MLP with or
-without its gate.  Parameters are plain dicts of tensors in the JAX
-package's layouts (``wq`` (d, H, hd), ``bq`` (H, hd), ``wo`` (H, hd, d),
-...), so weights carry across with a tree map.  Initializers draw from
-an explicit ``torch.Generator``.
+contiguous and ring KV caches and cross-attention, the MLP with or
+without its gate, and the mixture-of-experts block (sort-based capacity
+routing per token group, the Switch aux loss).  Parameters are plain
+dicts of tensors in the JAX package's layouts (``wq`` (d, H, hd), ``bq``
+(H, hd), ``wo`` (H, hd, d), the experts' ``wi`` (E, d, f), ...), so
+weights carry across with a tree map.  Initializers draw from an
+explicit ``torch.Generator``.
 
-Two things differ from the JAX package by design:
+Three things differ from the JAX package by design:
 
 - **The cache is written in place.**  ``attention_block`` writes the new
   k / v rows (and a ring cache's positions) into the tensors it is given
@@ -29,6 +31,13 @@ Two things differ from the JAX package by design:
   The condition is about the function: a CPU tensor reaches the plain
   version, and a shape the kernel does not take raises on the card.
   Every other call follows JAX's ``_attend`` dispatch.
+- **The MoE combine sums each token's slots in order.**  JAX adds the
+  expert outputs into the tokens with a scatter-add; on the card an
+  ``index_add_`` would accumulate in no fixed order.  ``apply_moe``
+  instead sums each token's (at most K) kept slots in buffer order from
+  zero, in the activation dtype: the order the CPU scatter takes, and
+  the same bits on every run.  Routing uses fixed-shape ops only, so no
+  layer waits for the card.
 """
 from __future__ import annotations
 
@@ -39,25 +48,11 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.config import Activation, BlockKind, ModelConfig
+from repro_torch.models.config import Activation, ModelConfig
 
 Params = Dict[str, Any]
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise for features this slice of the port does not carry: the MoE
-    and Hymba hybrid block kinds and the PaliGemma prefix."""
-    unsupported = {
-        "block": cfg.block not in (BlockKind.ATTN, BlockKind.RWKV6),
-        "vlm_prefix": cfg.vlm_prefix > 0}
-    bad = sorted(k for k, v in unsupported.items() if v)
-    if bad:
-        raise NotImplementedError(f"model features not ported: {bad} "
-                                  f"({cfg.block.value}; the port carries "
-                                  f"dense attention, encoder-decoder and "
-                                  f"RWKV-6 models)")
 
 
 # --------------------------------------------------------------------------
@@ -339,11 +334,14 @@ def attention_block(
     kv_source: Optional[torch.Tensor] = None,   # cross-attention memory
     use_rope: Optional[bool] = None,
     rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    prefix_len: int = 0,
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Returns (y, the cache with the new rows written in place and its
     ``len`` advanced by S, or None without a cache).  ``rope`` is
     ``rope_tables(positions, ...)`` where the caller has it (``forward``
-    computes it once for every layer); else it is computed here."""
+    computes it once for every layer); else it is computed here.  The
+    first ``prefix_len`` positions are seen by every query (PaliGemma's
+    prefix-LM)."""
     B, S, D = x.shape
     use_rope = cfg.use_rope if use_rope is None else use_rope
     src = x if kv_source is None else kv_source
@@ -398,7 +396,7 @@ def attention_block(
         out = _attend(cfg, q, kk, vv, causal=causal, kv_len=kv_len,
                       kv_pos=kv_pos,
                       q_offset=q_offset if cache is not None else 0,
-                      sliding_window=sw)
+                      sliding_window=sw, prefix_len=prefix_len)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     return y.to(x.dtype), cache
 
@@ -420,27 +418,26 @@ def _dyn_update(bufs, news, idx) -> None:
 
 def _attend(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
             v: torch.Tensor, *, causal: bool, q_offset=0, kv_len=None,
-            kv_pos=None, sliding_window: Optional[int] = None
-            ) -> torch.Tensor:
-    """The JAX package's dispatch, line for line (without its PaliGemma
-    prefix, which ``check_ported`` refuses):
+            kv_pos=None, sliding_window: Optional[int] = None,
+            prefix_len: int = 0) -> torch.Tensor:
+    """The JAX package's dispatch, line for line:
 
     - ``xla_naive``, or at most 256 x 256 scores: naive attention;
-    - ``pallas`` without a cache, offset or softcap:
+    - ``pallas`` without a cache, offset, prefix or softcap:
       ``ops.flash_attention`` (the kernel on the card, its plain version
       on the CPU);
     - everything else: ``flash_attention_xla``, with one macro block when
       the offset is a tensor (a cached prefill).
     """
     kw = dict(causal=causal, sliding_window=sliding_window, kv_len=kv_len,
-              kv_pos=kv_pos)
+              kv_pos=kv_pos, prefix_len=prefix_len)
     if cfg.attn_impl == "xla_naive" or q.shape[1] * k.shape[1] <= 256 * 256:
         return naive_attention(q, k, v, softcap=cfg.logits_softcap,
                                q_offset=q_offset, **kw)
     if cfg.attn_impl == "pallas":
         if kv_len is None and kv_pos is None and \
                 isinstance(q_offset, int) and q_offset == 0 and \
-                cfg.logits_softcap == 0.0:
+                prefix_len == 0 and cfg.logits_softcap == 0.0:
             from repro_torch.kernels import ops as kops
             return kops.flash_attention(q, k, v, causal=causal,
                                         sliding_window=sliding_window)
@@ -474,3 +471,115 @@ def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     else:
         h = act(h)
     return torch.einsum("bsf,fd->bsd", h, p["wo"]).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Mixture-of-Experts (sort/gather capacity routing, grouped for locality)
+# --------------------------------------------------------------------------
+
+def moe_init(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
+    """The router in float32, the experts' ``wi`` / ``wo`` (/ ``wg``)
+    (E, d, f) / (E, f, d) in the model's dtype, drawn in the JAX
+    package's key order."""
+    d, f, E, dt = cfg.d_model, cfg.d_ff, cfg.n_experts, dtype_of(cfg)
+    p = {"router": dense_init(gen, d, (d, E), torch.float32, device),
+         "wi": dense_init(gen, d, (E, d, f), dt, device),
+         "wo": dense_init(gen, f, (E, f, d), dt, device)}
+    if cfg.glu:
+        p["wg"] = dense_init(gen, d, (E, d, f), dt, device)
+    return p
+
+
+def moe_capacity(tokens: int, cfg: ModelConfig) -> int:
+    """Slots per expert of a group of ``tokens``: ceil(tokens K / E x
+    capacity_factor), at least K, at most ``tokens`` (as in JAX)."""
+    E, K = cfg.n_experts, cfg.experts_per_token
+    capacity = max(int(math.ceil(tokens * K / E * cfg.capacity_factor)), K)
+    return min(capacity, tokens)
+
+
+def _route_groups(p: Params, xt: torch.Tensor, router_logits: torch.Tensor,
+                  cfg: ModelConfig, capacity: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Route token groups side by side (``jax.vmap(_route_group)`` in JAX).
+    xt: (G, T, D); router_logits: (G, T, E).  Returns (out (G, T, D), the
+    Switch aux loss per group (G,))."""
+    Gp, T, D = xt.shape
+    E, K = cfg.n_experts, cfg.experts_per_token
+    dev = xt.device
+    probs = torch.softmax(router_logits.float(), dim=-1)          # (G,T,E)
+    # lax.top_k: descending, equal values in index order (bf16 router
+    # logits tie often; torch.topk orders ties arbitrarily)
+    gate, eidx = (t[..., :K] for t in torch.sort(
+        probs, dim=-1, descending=True, stable=True))             # (G,T,K)
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+
+    # ---- sort-based dispatch into per-expert capacity buffers ----------
+    flat_e = eidx.reshape(Gp, T * K)
+    flat_t = torch.arange(T, device=dev).repeat_interleave(K)
+    se, order = torch.sort(flat_e, dim=-1, stable=True)
+    st = flat_t[order]
+    sg = gate.reshape(Gp, T * K).gather(1, order)
+    # position within expert: rank among equal expert ids
+    pos = torch.arange(T * K, device=dev) - torch.searchsorted(
+        se, se, side="left")
+    keep = pos < capacity
+    slot = torch.where(keep, se * capacity + pos, E * capacity)  # overflow
+    n_slots = E * capacity
+    buf_tok = torch.full((Gp, n_slots + 1), T, dtype=torch.long,
+                         device=dev).scatter_(1, slot,
+                                              torch.where(keep, st, T))
+    buf_gate = torch.zeros((Gp, n_slots + 1), device=dev).scatter_(
+        1, slot, torch.where(keep, sg, 0.0))[:, :n_slots]
+    buf_tok = buf_tok[:, :n_slots]
+
+    xe = xt.gather(1, torch.clamp(buf_tok, max=T - 1)[..., None]
+                   .expand(-1, -1, D))
+    xe = torch.where((buf_tok < T)[..., None], xe, 0).reshape(
+        Gp, E, capacity, D)
+    act = activation_fn(cfg.activation)
+    h = torch.matmul(xe, p["wi"])                                 # (G,E,c,f)
+    if "wg" in p:
+        h = act(torch.matmul(xe, p["wg"])) * h
+    else:
+        h = act(h)
+    oe = torch.matmul(h, p["wo"]).reshape(Gp, n_slots, D)
+    oe = oe * buf_gate[..., None].to(oe.dtype)
+    # combine in the activation dtype, each token's kept slots summed from
+    # zero in buffer order (the CPU scatter-add's order), the overflow
+    # slot reading a zero row; no atomics, so a repeated call is
+    # bit-identical
+    oe = torch.cat([oe.to(xt.dtype), xt.new_zeros((Gp, 1, D))], dim=1)
+    slot_of = torch.empty_like(slot).scatter_(1, order, slot)
+    token_slots = torch.sort(slot_of.reshape(Gp, T, K), dim=-1).values
+    out = xt.new_zeros((Gp, T, D))
+    for j in range(K):
+        out = out + oe.gather(1, token_slots[..., j, None].expand(-1, -1, D))
+
+    # load-balance aux loss (Switch): E * mean(frac_tokens * mean_prob);
+    # the count per expert is a scatter_add_ of ones (bincount would wait
+    # for the card to size its output)
+    ones = torch.ones_like(flat_e, dtype=torch.float32)
+    assign = torch.zeros((Gp, E), device=dev).scatter_add_(
+        1, flat_e, ones) / (T * K)
+    return out, E * (assign * probs.mean(1)).sum(-1)
+
+
+def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig,
+              groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Grouped sort-based MoE. x: (B, S, D) -> (out, aux_loss).
+
+    Tokens are split into ``groups`` routing groups (the largest divisor
+    of B S not above ``groups``); each group routes its tokens to
+    ``moe_capacity`` slots per expert, and assignments past an expert's
+    capacity are dropped."""
+    B, S, D = x.shape
+    T = B * S
+    groups = max(1, min(groups, T))
+    while T % groups:
+        groups -= 1
+    tg = T // groups
+    xt = x.reshape(groups, tg, D)
+    logits = torch.einsum("gtd,de->gte", xt, p["router"].to(x.dtype))
+    out, aux = _route_groups(p, xt, logits, cfg, moe_capacity(tg, cfg))
+    return out.reshape(B, S, D), aux.mean()

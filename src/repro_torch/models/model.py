@@ -1,20 +1,24 @@
-"""Stacked-layer models: the filter trunk, the dense attention family,
-the encoder-decoder and RWKV-6.
+"""Stacked-layer models: the filter trunk and every block kind of the
+zoo.
 
-Three block kinds are ported (``layers.check_ported``): attention + MLP
-(the filter trunk, dense GQA decoders with rope and qkv biases, and
-whisper's encoder and decoder, the decoder with cross-attention to the
-encoder memory) and RWKV-6 time-mix + channel-mix.  ``run_layers`` runs
-stacked per-layer parameters in a Python loop (``lax.scan`` in JAX).
+Four block kinds, as in the JAX package: attention + MLP (the filter
+trunk, dense GQA decoders with rope and qkv biases, PaliGemma's
+prefix-LM, and whisper's encoder and decoder, the decoder with
+cross-attention to the encoder memory), attention + mixture-of-experts
+(granite, grok), Hymba's hybrid (attention and Mamba side by side on the
+same normed input, averaged, then the MLP) and RWKV-6 time-mix +
+channel-mix.  ``run_layers`` runs stacked per-layer parameters in a
+Python loop (``lax.scan`` in JAX) and sums the layers' MoE aux losses.
 Attention caches are written in place, each layer into its view of the
-stacked (L, B, S, KV, hd) tensors, and the same tensors come back;
-RWKV-6 states are small and are restacked on the leading ``L`` axis.
-``forward`` returns the full logits, the new caches and length, the
-encoder memory and the activation *tap* after the first k layers — the
-feature map the paper's filter branch consumes.  Parameters keep the
-JAX package's tree (embed, final_norm, stacked layers with a leading
-``L`` axis, lm_head, pos_embed, enc_layers, enc_norm), so weights carry
-across with a tree map.
+stacked (L, B, S, KV, hd) tensors, and so are a hybrid layer's Mamba
+states; the same tensors come back.  RWKV-6 states are small and are
+restacked on the leading ``L`` axis.  ``forward`` returns the full
+logits, the new caches and length, the encoder memory, the aux loss and
+the activation *tap* after the first k layers — the feature map the
+paper's filter branch consumes.  Parameters keep the JAX package's tree
+(embed, final_norm, stacked layers with a leading ``L`` axis, lm_head,
+pos_embed, enc_layers, enc_norm), so weights carry across with a tree
+map.
 """
 from __future__ import annotations
 
@@ -42,11 +46,16 @@ def _layer_init(gen: torch.Generator, cfg: ModelConfig, *,
                 "rwkv": S.rwkv_init(gen, cfg, device)}
     p: Params = {"ln1": L.norm_init(cfg, device),
                  "attn": L.attn_init(gen, cfg, device=device)}
+    if blk == BlockKind.HYBRID:
+        p["mamba"] = S.mamba_init(gen, cfg, device)
     if cross:
         p["ln_x"] = L.norm_init(cfg, device)
         p["xattn"] = L.attn_init(gen, cfg, cross=True, device=device)
     p["ln2"] = L.norm_init(cfg, device)
-    p["mlp"] = L.mlp_init(gen, cfg, device=device)
+    if blk == BlockKind.MOE:
+        p["moe"] = L.moe_init(gen, cfg, device)
+    else:
+        p["mlp"] = L.mlp_init(gen, cfg, device=device)
     return p
 
 
@@ -61,7 +70,6 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
     """Random weights drawn on the generator's device (a CUDA generator
     draws a full-width model in a fraction of a second), placed on
     ``device`` (default CUDA)."""
-    L.check_ported(cfg)
     device = resolve_device(device)
     dt = L.dtype_of(cfg)
     layers = _stack_layers(gen, cfg, cfg.n_layers, device,
@@ -89,9 +97,14 @@ def _apply_layer(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                  causal: bool, positions, cache: Optional[Params],
                  cache_len,
                  enc_out: Optional[torch.Tensor], is_encoder: bool = False,
-                 rope=None) -> Tuple[torch.Tensor, Optional[Params]]:
-    """One block.  Returns (x, the layer's new cache (no 'len') or
-    None).  ``rope``: the shared rope tables of ``positions``."""
+                 rope=None, prefix_len: int = 0, moe_groups: int = 1
+                 ) -> Tuple[torch.Tensor, Optional[Params],
+                            Optional[torch.Tensor]]:
+    """One block.  Returns (x, the layer's new cache (no 'len') or None,
+    the MoE aux loss or None).  ``rope``: the shared rope tables of
+    ``positions``.  A hybrid layer's new Mamba states are copied into
+    the cache's ``ssm`` / ``conv`` tensors (views of the stacked cache),
+    as the attention rows are."""
     blk = BlockKind.ATTN if is_encoder else cfg.block
     if blk == BlockKind.RWKV6:
         st = dict(cache) if cache is not None else None
@@ -101,7 +114,7 @@ def _apply_layer(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         x = x + h
         h2, st = S.rwkv_channel_mix(
             p["rwkv"], L.apply_norm(p["ln2"], x, cfg.norm_eps), state=st)
-        return x + h2, st
+        return x + h2, st, None
 
     h = L.apply_norm(p["ln1"], x, cfg.norm_eps)
     attn_cache = None
@@ -111,13 +124,21 @@ def _apply_layer(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
             attn_cache["pos"] = cache["pos"]
     a_out, attn_cache = L.attention_block(
         p["attn"], h, cfg, causal=causal, positions=positions,
-        cache=attn_cache, rope=rope)
-    x = x + a_out
-    del a_out                # (B, S, d): not held through the MLP
+        cache=attn_cache, rope=rope, prefix_len=prefix_len)
     new_cache = None
     if attn_cache is not None:
         new_cache = {k: attn_cache[k] for k in ("k", "v", "pos")
                      if k in attn_cache}
+    if blk == BlockKind.HYBRID:
+        m_state = None if cache is None else \
+            {"ssm": cache["ssm"], "conv": cache["conv"]}
+        m_out, m_state = S.mamba_block(p["mamba"], h, cfg, state=m_state)
+        a_out = 0.5 * (a_out + m_out)
+        if m_state is not None:
+            for k in ("ssm", "conv"):
+                new_cache[k] = cache[k].copy_(m_state[k])
+    x = x + a_out
+    del a_out                # (B, S, d): not held through the MLP
 
     if enc_out is not None and "xattn" in p:
         hx = L.apply_norm(p["ln_x"], x, cfg.norm_eps)
@@ -126,12 +147,15 @@ def _apply_layer(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         x = x + x_out
 
     h2 = L.apply_norm(p["ln2"], x, cfg.norm_eps)
-    return x + L.apply_mlp(p["mlp"], h2, cfg), new_cache
+    if blk == BlockKind.MOE:
+        m_out, aux = L.apply_moe(p["moe"], h2, cfg, groups=moe_groups)
+        return x + m_out, new_cache, aux
+    return x + L.apply_mlp(p["mlp"], h2, cfg), new_cache, None
 
 
 def _in_place(caches: Params) -> bool:
-    """Attention caches (k / v) are written in place; RWKV-6 states are
-    restacked."""
+    """Attention caches (k / v, and a hybrid's Mamba states) are written
+    in place; RWKV-6 states are restacked."""
     return "k" in caches
 
 
@@ -140,29 +164,35 @@ def run_layers(stack: Params, x: torch.Tensor, cfg: ModelConfig, *,
                positions=None, caches: Optional[Params] = None,
                cache_len=None,
                enc_out: Optional[torch.Tensor] = None,
-               is_encoder: bool = False, rope=None
-               ) -> Tuple[torch.Tensor, Optional[Params]]:
+               is_encoder: bool = False, rope=None, prefix_len: int = 0,
+               moe_groups: int = 1
+               ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
     """Run layers [lo, hi) of a stacked tree.  Returns (x, the caches of
-    those layers stacked on ``L``, or None without caches).  Attention
+    those layers stacked on ``L``, or None without caches, the sum of
+    the layers' MoE aux losses (float32, 0 without MoE)).  Attention
     caches come back as the same tensors (views of [lo, hi)), written in
     place."""
     n_total = stack["ln1"]["w"].shape[0]
     hi = n_total if hi is None else hi
     kw = dict(causal=causal, positions=positions, cache_len=cache_len,
-              enc_out=enc_out, is_encoder=is_encoder, rope=rope)
+              enc_out=enc_out, is_encoder=is_encoder, rope=rope,
+              prefix_len=prefix_len, moe_groups=moe_groups)
     new = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(lo, hi):
         cl = None if caches is None else tree_map(lambda a: a[i], caches)
-        x, nc = _apply_layer(tree_map(lambda a: a[i], stack), x, cfg,
-                             cache=cl, **kw)
+        x, nc, layer_aux = _apply_layer(tree_map(lambda a: a[i], stack), x,
+                                        cfg, cache=cl, **kw)
+        if layer_aux is not None:
+            aux = aux + layer_aux
         new.append(nc)
     if caches is None:
-        return x, None
+        return x, None, aux
     if _in_place(caches) or not new:
         if (lo, hi) == (0, n_total):
-            return x, caches
-        return x, tree_map(lambda a: a[lo:hi], caches)
-    return x, tree_map(lambda *xs: torch.stack(xs), *new)
+            return x, caches, aux
+        return x, tree_map(lambda a: a[lo:hi], caches), aux
+    return x, tree_map(lambda *xs: torch.stack(xs), *new), aux
 
 
 @dataclasses.dataclass
@@ -171,6 +201,7 @@ class ForwardOut:
     caches: Optional[Params] = None           # stacked per-layer caches
     cache_len: Optional[torch.Tensor] = None
     enc_out: Optional[torch.Tensor] = None    # encoder memory (enc-dec)
+    aux: Optional[torch.Tensor] = None        # MoE load-balance loss
     tap: Optional[torch.Tensor] = None        # activations after layer k
 
 
@@ -195,8 +226,8 @@ def encode(params: Params, cfg: ModelConfig,
     x = frames.to(L.dtype_of(cfg))
     x = x + L.sinusoid_pos(frames.shape[1], cfg.d_model, x.dtype,
                            x.device)[None]
-    x, _ = run_layers(params["enc_layers"], x, cfg, causal=False,
-                      is_encoder=True)
+    x, _, _ = run_layers(params["enc_layers"], x, cfg, causal=False,
+                         is_encoder=True)
     return L.apply_norm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -208,24 +239,27 @@ def forward(params: Params, cfg: ModelConfig,
             caches: Optional[Params] = None,
             cache_len: Optional[torch.Tensor] = None,
             tap_layer: Optional[int] = None, stop_at_tap: bool = False,
-            causal: bool = True) -> ForwardOut:
-    """Tokens (B, S) or embeddings (B, S, d) in; full logits, the new
-    caches and length, the encoder memory and the tap after
-    ``tap_layer`` layers out.
+            causal: bool = True, moe_groups: int = 1) -> ForwardOut:
+    """Tokens (B, S) and / or embeddings (B, P, d) in; full logits, the
+    new caches and length, the encoder memory, the MoE aux loss and the
+    tap after ``tap_layer`` layers out.
 
-    Prefill: caches given with ``cache_len`` 0; decode: tokens (B, 1)
-    with the caches and length of the previous call.  Attention caches
-    are written in place.  An encoder-decoder takes ``frames`` (encoded
-    here) or a precomputed ``enc_out``.  A tap outside 1..n_layers is
-    ``None`` and the whole stack runs, as in the JAX package;
-    ``stop_at_tap`` returns right after the tap (the filter's
-    forward)."""
-    L.check_ported(cfg)
-    if tokens is not None and embeds is not None:
-        raise NotImplementedError("prefix embeddings before tokens (the "
-                                  "VLM path) are not ported")
+    With both, the embeddings (PaliGemma's patch embeddings) go before
+    the tokens and every query sees them (a prefix-LM, ``prefix_len`` =
+    P); embeddings alone are the input (the filter trunk).  Prefill:
+    caches given with ``cache_len`` 0; decode: tokens (B, 1) with the
+    caches and length of the previous call.  Caches are written in
+    place.  An encoder-decoder takes ``frames`` (encoded here) or a
+    precomputed ``enc_out``.  ``moe_groups``: the MoE routing groups.
+    A tap outside 1..n_layers is ``None`` and the whole stack runs, as
+    in the JAX package; ``stop_at_tap`` returns right after the tap (the
+    filter's forward)."""
+    prefix_len = 0
     if tokens is not None:
         x = embed_tokens(params, cfg, tokens)
+        if embeds is not None:                        # paligemma prefix
+            x = torch.cat([embeds.to(x.dtype), x], dim=1)
+            prefix_len = embeds.shape[1]
     elif embeds is not None:
         x = embeds.to(L.dtype_of(cfg))
     else:
@@ -246,24 +280,26 @@ def forward(params: Params, cfg: ModelConfig,
     rope = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta) \
         if cfg.use_rope else None
     kw = dict(causal=causal, positions=positions, enc_out=enc_out,
-              cache_len=cache_len, rope=rope)
+              cache_len=cache_len, rope=rope, prefix_len=prefix_len,
+              moe_groups=moe_groups)
     tap = None
     if tap_layer is not None and 0 < tap_layer <= cfg.n_layers:
-        x, c1 = run_layers(params["layers"], x, cfg, hi=tap_layer,
-                           caches=caches, **kw)
+        x, c1, aux = run_layers(params["layers"], x, cfg, hi=tap_layer,
+                                caches=caches, **kw)
         tap = x
         if stop_at_tap:
-            return ForwardOut(caches=c1, tap=tap, enc_out=enc_out)
-        x, c2 = run_layers(params["layers"], x, cfg, lo=tap_layer,
-                           caches=caches, **kw)
+            return ForwardOut(caches=c1, aux=aux, tap=tap, enc_out=enc_out)
+        x, c2, aux2 = run_layers(params["layers"], x, cfg, lo=tap_layer,
+                                 caches=caches, **kw)
+        aux = aux + aux2
         new_caches = caches
         if caches is not None and not _in_place(caches):
             new_caches = tree_map(lambda a, b: torch.cat([a, b]), c1, c2)
     else:
-        x, new_caches = run_layers(params["layers"], x, cfg, caches=caches,
-                                   **kw)
+        x, new_caches, aux = run_layers(params["layers"], x, cfg,
+                                        caches=caches, **kw)
     x = L.apply_norm(params["final_norm"], x, cfg.norm_eps)
     logits = unembed(params, cfg, x)
     new_len = None if cache_len is None else cache_len + n_tok
     return ForwardOut(logits=logits, caches=new_caches, cache_len=new_len,
-                      enc_out=enc_out, tap=tap)
+                      enc_out=enc_out, aux=aux, tap=tap)

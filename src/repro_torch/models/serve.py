@@ -8,18 +8,20 @@ follows the block kind:
   sliding-window models allocate ``min(S_max, window)`` rows and a
   ``pos`` (L, rows) of each slot's position, -1 when empty (a ring
   buffer);
+- hybrid (Hymba): the attention k / v (a ring at its window) and the
+  Mamba states, ``ssm`` (B, d_inner, N) in float32 and ``conv`` (B,
+  conv width - 1, d_inner) in the model's dtype;
 - enc-dec: the decoder's k / v and the (fixed) encoder memory
   ``enc_out`` (B, enc_len, d);
 - rwkv6: the WKV state (B, H, K, K) in float32 and the two token-shift
   states (B, D).
 
-**Attention caches are written in place**: ``prefill`` and
-``decode_step`` write the new rows into the k / v tensors of the cache
-they are given and return them (with a new ``len``), so the cache a call
-was given is spent.  Nothing copies it, and ``len`` never leaves the
-device.  The Mamba states of the Hymba hybrid are not ported.
-``cache_axes`` (sharding metadata) has no counterpart: one card holds
-the whole cache.
+**Attention and Mamba caches are written in place**: ``prefill`` and
+``decode_step`` write the new rows and states into the tensors of the
+cache they are given and return them (with a new ``len``), so the cache
+a call was given is spent.  Nothing copies it, and ``len`` never leaves
+the device.  ``cache_axes`` (sharding metadata) has no counterpart: one
+card holds the whole cache.
 """
 from __future__ import annotations
 
@@ -51,6 +53,9 @@ def _layer_cache_spec(cfg: ModelConfig, batch: int, max_len: int
          "v": ((batch, kv_len, KV, hd), dt, 0)}
     if kv_len < max_len:           # ring buffer: track per-slot positions
         c["pos"] = ((kv_len,), torch.int32, -1)
+    if cfg.block == BlockKind.HYBRID:
+        c.update({k: (tuple(a.shape), a.dtype, 0) for k, a in
+                  S.mamba_state_init(cfg, batch, device="meta").items()})
     return c
 
 
@@ -60,7 +65,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     scalar (, 'enc_out')}, on ``device`` (default CUDA), each leaf
     allocated stacked, once.  An RWKV-6 cache does not grow with the
     sequence, so ``max_len`` changes nothing there."""
-    L.check_ported(cfg)
     dev = resolve_device(device)
     cache: Params = {
         "layers": {k: torch.full((cfg.n_layers,) + shape, fill, dtype=dt,
@@ -75,15 +79,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            cache: Params, frames: Optional[torch.Tensor] = None,
+            cache: Params, embeds: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None,
             tap_layer: Optional[int] = None
             ) -> Tuple[torch.Tensor, Params, Any]:
-    """Process a full prompt, filling the cache.  An encoder-decoder
-    encodes ``frames`` here (else it reads the cache's ``enc_out``).
-    Returns (last_logits, cache, tap)."""
+    """Process a full prompt, filling the cache.  A VLM's ``embeds`` (B,
+    P, d) go before the tokens as a bidirectional prefix; an
+    encoder-decoder encodes ``frames`` here (else it reads the cache's
+    ``enc_out``).  Returns (last_logits, cache, tap)."""
     enc_out = cache.get("enc_out") if cfg.enc_dec and frames is None \
         else None
-    out = M.forward(params, cfg, tokens, frames=frames, enc_out=enc_out,
+    out = M.forward(params, cfg, tokens, embeds=embeds, frames=frames,
+                    enc_out=enc_out,
                     caches=cache["layers"], cache_len=cache["len"],
                     tap_layer=tap_layer)
     new_cache = {"layers": out.caches, "len": out.cache_len}

@@ -1,13 +1,18 @@
-"""RWKV-6 ("Finch") time-mix and channel-mix, in plain PyTorch.
+"""RWKV-6 ("Finch") and Mamba (S6), in plain PyTorch.
 
-The JAX package's ``models/ssm.py`` RWKV-6 half: parameters in the same
-tree and layouts (``mu`` (5, d), square mixing matrices (d, d), the decay
-LoRA ``wa`` (d, 32) / ``wb`` (32, d), float32 ``w0`` and ``u``), so
-weights carry across with a tree map.  The WKV recurrence runs either as
-``rwkv_chunk_scan`` (the JAX package's chunked formulation, what
-``attn_impl != "pallas"`` runs) or through ``ops.rwkv6_scan`` (the CUDA
-kernel on the card, its sequential plain version on the CPU).  Mamba is
-not ported.
+The JAX package's ``models/ssm.py``: parameters in the same trees and
+layouts (RWKV-6: ``mu`` (5, d), square mixing matrices (d, d), the decay
+LoRA ``wa`` (d, 32) / ``wb`` (32, d), float32 ``w0`` and ``u``; Mamba:
+``in_proj`` (d, 2 d_inner), ``conv_w`` (width, d_inner), float32
+``dt_bias``, ``A_log`` and ``D_skip``), so weights carry across with a
+tree map.  The WKV recurrence runs either as ``rwkv_chunk_scan`` (the
+JAX package's chunked formulation, what ``attn_impl != "pallas"`` runs)
+or through ``ops.rwkv6_scan`` (the CUDA kernel on the card, its
+sequential plain version on the CPU).  Mamba's selective scan has no
+Pallas kernel in the JAX package and stays plain torch here:
+``mamba_scan`` runs the JAX package's chunks, an inclusive scan inside
+each (log2(chunk) doubling steps in place of ``lax.associative_scan``)
+and a Python loop over the chunks (``lax.scan``).
 """
 from __future__ import annotations
 
@@ -180,4 +185,137 @@ def rwkv_state_init(cfg: ModelConfig, batch: int, device=None) -> Params:
                                 device=device),
         "shift_cm": torch.zeros((batch, cfg.d_model), dtype=dt,
                                 device=device),
+    }
+
+
+# ==========================================================================
+# Mamba (S6) — used by the Hymba hybrid block
+# ==========================================================================
+
+def mamba_init(gen: torch.Generator, cfg: ModelConfig, device=None
+               ) -> Params:
+    """Drawn in the JAX package's key order: in_proj, conv_w, x_proj,
+    dt_proj, out_proj."""
+    d, di, N = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    dtr = max(16, d // 16)
+    dt = dtype_of(cfg)
+    in_proj = dense_init(gen, d, (d, 2 * di), dt, device)
+    conv_w = _conv_init(gen, cfg.ssm_conv, di, dt, device)
+    x_proj = dense_init(gen, di, (di, dtr + 2 * N), dt, device)
+    dt_proj = dense_init(gen, dtr, (dtr, di), dt, device)
+    out_proj = dense_init(gen, di, (di, d), dt, device)
+    a = torch.arange(1, N + 1, dtype=torch.float32, device=device)
+    return {
+        "in_proj": in_proj,
+        "conv_w": conv_w,
+        "conv_b": torch.zeros(di, dtype=dt, device=device),
+        "x_proj": x_proj,
+        "dt_proj": dt_proj,
+        "dt_bias": torch.full((di,), -4.0, dtype=torch.float32,
+                              device=device),    # softplus -> small dt
+        "A_log": torch.log(a.repeat(di, 1)),
+        "D_skip": torch.ones(di, dtype=torch.float32, device=device),
+        "out_proj": out_proj,
+    }
+
+
+def _conv_init(gen: torch.Generator, width: int, di: int, dt,
+               device=None) -> torch.Tensor:
+    x = torch.randn((width, di), generator=gen, dtype=torch.float32,
+                    device=gen.device) / math.sqrt(width)
+    return x.to(device=device, dtype=dt)
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 state: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Depthwise causal conv via K shifted adds. x: (B, S, di), w: (K, di);
+    ``state``: the previous (B, K - 1, di) inputs, zeros when None.
+    Returns (out, the last K - 1 inputs)."""
+    Kw = w.shape[0]
+    pad = torch.zeros_like(x[:, :Kw - 1]) if state is None \
+        else state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)
+    out = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(Kw))
+    new_state = xp[:, -(Kw - 1):] if Kw > 1 else None
+    return out + b, new_state
+
+
+def mamba_scan(a: torch.Tensor, b: torch.Tensor, C: torch.Tensor,
+               h0: torch.Tensor, chunk: int = 64
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked scan. a, b: (B, T, di, N); C: (B, T, N); h0: (B, di, N).
+
+    h_t = a_t * h_{t-1} + b_t ;  y_t = sum_N h_t * C_t.  The chunk is the
+    JAX package's (``min(chunk, T)``, lowered until it divides T), so a
+    prime T runs chunks of one.  Inside a chunk, an inclusive scan of
+    (a, b) under (al, bl) . (ar, br) = (al ar, bl ar + br): each doubling
+    step combines every element with the one ``shift`` before it, written
+    into the other of two buffers (no concatenation).  Returns
+    (y (B, T, di), h_T)."""
+    B, T, di, N = a.shape
+    chunk = min(chunk, T)
+    while T % chunk:
+        chunk -= 1
+    bufs = None
+    if chunk > 1:
+        bufs = [(torch.empty_like(a[:, :chunk]), torch.empty_like(
+            b[:, :chunk])) for _ in range(2)]
+    h, ys = h0, []
+    for c0 in range(0, T, chunk):
+        acum, bcum = a[:, c0:c0 + chunk], b[:, c0:c0 + chunk]
+        shift, i = 1, 0
+        while shift < chunk:
+            da, db = bufs[i]
+            da[:, :shift] = acum[:, :shift]
+            db[:, :shift] = bcum[:, :shift]
+            torch.mul(acum[:, :-shift], acum[:, shift:], out=da[:, shift:])
+            torch.addcmul(bcum[:, shift:], bcum[:, :-shift],
+                          acum[:, shift:], out=db[:, shift:])
+            acum, bcum, shift, i = da, db, shift * 2, 1 - i
+        hs = torch.addcmul(bcum, acum, h[:, None])           # (B,c,di,N)
+        ys.append(torch.einsum("bcdn,bcn->bcd", hs, C[:, c0:c0 + chunk]))
+        h = hs[:, -1]
+    return torch.cat(ys, dim=1), h
+
+
+def mamba_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                state: Optional[Params] = None
+                ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Selective SSM. x: (B, S, D) -> (out (B, S, D), the new {"ssm",
+    "conv"} state, or None without a state)."""
+    B, S, D = x.shape
+    di, N = cfg.d_inner, cfg.ssm_state
+    dtr = p["dt_proj"].shape[0]
+    xz = torch.einsum("bsd,de->bse", x, p["in_proj"])
+    xi, z = xz.chunk(2, dim=-1)
+    xi, new_conv = _causal_conv(xi, p["conv_w"], p["conv_b"],
+                                None if state is None else state["conv"])
+    xi = F.silu(xi)
+
+    proj = torch.einsum("bsd,de->bse", xi, p["x_proj"])
+    dt_lo, Bm, Cm = torch.split(proj, [dtr, N, N], dim=-1)
+    dt = F.softplus(torch.einsum("bsr,rd->bsd", dt_lo, p["dt_proj"]).float()
+                    + p["dt_bias"])                       # (B,S,di)
+    A = -torch.exp(p["A_log"])                            # (di,N)
+    a = torch.exp(dt[..., None] * A)                      # (B,S,di,N)
+    b = (dt * xi.float())[..., None] * Bm.float()[..., None, :]
+
+    h0 = state["ssm"] if state is not None else \
+        torch.zeros((B, di, N), dtype=torch.float32, device=x.device)
+    y, h = mamba_scan(a, b, Cm.float(), h0)
+    del a, b
+    y = y + p["D_skip"] * xi.float()
+    y = (y * F.silu(z.float())).to(x.dtype)
+    out = torch.einsum("bsd,de->bse", y, p["out_proj"])
+    new_state = None if state is None else {"ssm": h, "conv": new_conv}
+    return out.to(x.dtype), new_state
+
+
+def mamba_state_init(cfg: ModelConfig, batch: int, device=None) -> Params:
+    return {
+        "ssm": torch.zeros((batch, cfg.d_inner, cfg.ssm_state),
+                           dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, cfg.ssm_conv - 1, cfg.d_inner),
+                            dtype=dtype_of(cfg), device=device),
     }

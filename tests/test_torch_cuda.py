@@ -692,7 +692,15 @@ DECODE_SWEEP = (
        for klen in (1, 64, 65, 20000, 4097)]
     # every group size the A operand pads, and hd 128 in bf16 at S >= 8192
     + [(2, 2, G, 1000, 999, 64, "bfloat16") for G in (1, 2, 7, 8, 16)]
-    + [(1, 2, G, 8192, 8000, 128, "bfloat16") for G in (7, 16)])
+    + [(1, 2, G, 8192, 8000, 128, "bfloat16") for G in (7, 16)]
+    # hd 256 (paligemma's G 8 over one kv head, and G 1): ragged kv_len
+    # and S no 64-key tile divides, both types, a long cache in many
+    # splits, and the widest group
+    + [(2, 1, G, 300, 177, 256, dt) for G in (1, 8)
+       for dt in ("float32", "bfloat16")]
+    + [(1, 1, 8, 20000, 12345, 256, "bfloat16"),
+       (2, 2, 16, 1000, 999, 256, "float32"),
+       (2, 2, 16, 1000, 999, 256, "bfloat16")])
 
 
 def _decode_tol(want):
@@ -736,7 +744,9 @@ def test_decode_attention_kernel_matches_plain(cuda_device, case):
 @pytest.mark.parametrize("case", [(4, 2, 7, 4096, 3000, 64, "bfloat16"),
                                   (1, 2, 7, 20000, 4097, 64, "bfloat16"),
                                   (2, 2, 16, 8192, 8191, 128, "bfloat16"),
-                                  (2, 2, 7, 1000, 999, 64, "float32")],
+                                  (2, 2, 7, 1000, 999, 64, "float32"),
+                                  (4, 1, 8, 4096, 3000, 256, "bfloat16"),
+                                  (2, 1, 8, 1000, 777, 256, "float32")],
                          ids=str)
 def test_decode_attention_reads_the_model_cache_in_place(cuda_device, case):
     """The model's (B, S, KV, hd) cache through ``ops.decode_attention``:
@@ -771,6 +781,19 @@ def test_decode_attention_reads_the_model_cache_in_place(cuda_device, case):
     scratch = got.numel() * got.element_size() + (
         B * KV * nsplit * G * (hd + 2) * 4 if nsplit > 1 else 0)
     assert added <= scratch + 4096                    # no copy of k or v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 96, 512])
+def test_decode_attention_refuses_other_head_dims(cuda_device, hd):
+    """Head dims 64, 128 and 256 launch; any other raises (no fallback)."""
+    q = torch.zeros((1, 1, 4, hd), device=cuda_device, dtype=torch.bfloat16)
+    k = torch.zeros((1, 1, 64, hd), device=cuda_device, dtype=torch.bfloat16)
+    before = build.LAUNCHES["decode_attention_bkgd"]
+    with pytest.raises(ValueError, match="head_dim"):
+        DA.decode_attention_bkgd(q, k, k, 10)
+    assert build.LAUNCHES["decode_attention_bkgd"] == before
+    assert DA.HEAD_DIMS == (64, 128, 256)
 
 
 @pytest.mark.cuda
@@ -822,14 +845,17 @@ def _zoo_smoke(name, **over):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["qwen2_0p5b", "whisper_base"])
+@pytest.mark.parametrize("name", ["qwen2_0p5b", "whisper_base",
+                                  "granite_moe_3b_a800m"])
 def test_zoo_serving_on_the_card_matches_the_cpu(cuda_device, name):
     """Prefill (260 tokens into a 264-row cache) and 4 decode steps on the
     card against the same port on the CPU (plain versions), at 1e-4 /
     1e-3; decode attention launches once per layer and step, the cache
     tensors never move; in whisper's prefill (300 frames) flash attention
     launches once per encoder layer and once per decoder layer's
-    cross-attention."""
+    cross-attention.  Granite's MoE routes at its capacity factor 1.25
+    (float32 router logits: no ties), so both devices drop the same
+    assignments."""
     from repro_torch.interop import params_from_numpy
     from repro_torch.models import model as TM
     from repro_torch.models import serve as TSV

@@ -11,8 +11,8 @@ port's sequential plain version (the JAX kernel test's tolerance).
 ``greedy_generate`` gives the same tokens.  One full-width layer
 (d_model 2560, 40 heads of 64, d_ff 8960) runs at atol 1e-4.  The port's config registry equals the JAX package's,
 and bfloat16 weights carry across bit for bit (the rwkv6-3b, qwen2-0.5b
-and whisper-base trees).  The block kinds still to port (MoE, the Hymba
-hybrid, the VLM prefix) raise.
+and whisper-base trees).  Every zoo family's serving entry points default
+to CUDA and build on the CPU when asked.
 """
 import dataclasses
 
@@ -176,19 +176,9 @@ def test_bfloat16_params_carry_across_bit_for_bit(name):
     assert n_bf16 > 10
 
 
-def test_other_block_kinds_raise_until_ported():
-    """MoE (granite, grok), the Hymba hybrid and the PaliGemma prefix."""
-    for name in ("hymba_1p5b", "granite_moe_3b_a800m", "grok_1_314b",
-                 "paligemma_3b"):
-        cfg = TC.get_smoke_config(name)
-        with pytest.raises(NotImplementedError):
-            TM.init_params(torch.Generator().manual_seed(0), cfg,
-                           device="cpu")
-        with pytest.raises(NotImplementedError):
-            TSV.init_cache(cfg, 1, 8, device="cpu")
-
-
-@pytest.mark.parametrize("name", ["rwkv6_3b", "qwen2_0p5b", "whisper_base"])
+@pytest.mark.parametrize("name", ["rwkv6_3b", "qwen2_0p5b", "whisper_base",
+                                  "granite_moe_3b_a800m", "grok_1_314b",
+                                  "hymba_1p5b", "paligemma_3b"])
 def test_serving_entry_points_default_to_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour without a card")
@@ -206,3 +196,10 @@ def test_serving_entry_points_default_to_cuda(name):
         assert p["layers"]["attn"]["wq"].shape == (2, 64, 4, 16)
         assert TSV.init_cache(cfg, 1, 8, device="cpu")["len"].device.type \
             == "cpu"
+    if cfg.block.value == "moe":
+        assert p["layers"]["moe"]["router"].dtype == torch.float32
+        assert p["layers"]["moe"]["wi"].shape == (2, cfg.n_experts, 64, 128)
+    if cfg.block.value == "hybrid":
+        assert p["layers"]["mamba"]["A_log"].shape == (2, 128, 8)
+        assert TSV.init_cache(cfg, 1, 8, device="cpu")["layers"]["ssm"] \
+            .shape == (2, 1, 128, 8)
