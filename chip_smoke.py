@@ -204,9 +204,30 @@ Phases (any failure exits non-zero and prints no result line):
     back-to-back, plain, SDPA (masked, and on the kv_len slice) and the
     bytes bound (3.93 GB at 3.35 TB/s); the ``hd256`` entry of decode
     attention's kernel line.
-17. A ``kernels`` JSON line (all six kernels; flash and decode attention
-    with their ``zoo_launches`` of phases 10-15), then the device line
-    as the last line.
+17. The zoo's training: qwen2-0.5b at published widths (bf16 parameters,
+    float32 AdamW moments, remat none, ``xla_flash``) through
+    ``repro_torch.launch.train.main``: 16 steps of 4 x 1024 tokens with
+    checkpoints every 8 (steps 0 and 8), then a resume to 24 that starts
+    at step 9; each loss finite, the first within 1.0 of ln 151936; ms
+    per step (median of steps 2+), tokens/s, peak; one step under
+    torch.profiler; an async save's host time beside a step.  An exact
+    resume (3 steps, ``save``, 2 steps from memory and 2 from
+    ``restore(device="cuda")``: losses within 1e-3 relative, the largest
+    parameter difference).  One 4 x 512 batch memorised in 30 AdamW
+    steps at lr 1e-3 (last loss under 0.7 x the first), saved, restored
+    into ``attn_impl="pallas"`` and served (4 x 256 prompt tokens into a
+    512-row cache, 32 greedy steps): decode attention 24 x 32 times
+    (counts reset just before, read just after), tokens in the vocab,
+    logits finite, the share of greedy tokens equal to the memorised
+    next tokens beside the initial weights'.  One 1 x 4096 step under
+    remat none, full and selective: losses within 1e-3 relative, the
+    peak under full below none's.  hymba-1.5b at published widths, 4 of
+    32 layers, its selective remat: 3 steps of 2 x 512 tokens, losses and
+    gradient norms finite.  ``repro_torch.launch.serve.main`` at its
+    defaults: the answers on the survivors are the oracle's.
+18. A ``kernels`` JSON line (all six kernels; flash and decode attention
+    with their ``zoo_launches`` of phases 10-15 and 17), then the device
+    line as the last line.
 """
 import argparse
 import dataclasses
@@ -3277,6 +3298,378 @@ def family_fp32_phase(torch, dev, rehearse, key):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# the zoo's training (phase 17)
+# ---------------------------------------------------------------------------
+
+# qwen2-0.5b through the launcher: --batch, --seq, --steps, the resumed
+# run's --steps, --ckpt-every
+ZOO_TRAIN = dict(batch=4, seq=1024, steps=16, resume_to=24, every=8)
+ZOO_TRAIN_SMALL = dict(batch=2, seq=64, steps=16, resume_to=24, every=8)
+# memorise one batch, then serve it: prompt rows into a 2 x prompt cache
+MEMO = dict(batch=4, seq=512, steps=30, lr=1e-3, prompt=256, decode=32)
+MEMO_SMALL = dict(batch=4, seq=32, steps=30, lr=3e-3, prompt=16, decode=8)
+REMAT_SEQ, REMAT_SEQ_SMALL = 4096, 256    # train_4k's sequence length
+HYMBA_TRAIN = dict(layers=4, batch=2, seq=512, steps=3)
+HYMBA_TRAIN_SMALL = dict(layers=2, batch=2, seq=64, steps=3)
+
+
+def token_batch(torch, dev, cfg, B, S, seed):
+    """One batch of ``TokenStream`` (tokens and labels) on ``dev``."""
+    from repro_torch.data.pipeline import TokenStream
+    b = next(iter(TokenStream(cfg.vocab_size, B, S, seed=seed)))
+    return {k: torch.as_tensor(np.ascontiguousarray(v), device=dev)
+            for k, v in b.items()}
+
+
+def median_ms(seconds):
+    ms = sorted(x * 1e3 for x in seconds)
+    return ms[len(ms) // 2]
+
+
+def rel_diff(a, b):
+    return abs(a - b) / max(abs(a), 1e-30)
+
+
+def launcher_runs(torch, dev, cfg, z, root, rehearse):
+    """``repro_torch.launch.train.main`` twice: ``z["steps"]`` steps with
+    checkpoints every ``z["every"]``, then a resume to ``z["resume_to"]``.
+    The launcher installs a SIGTERM handler (preemption); the process's
+    own is put back.  Returns (first run, resumed run, peak bytes of the
+    first, checkpoint steps after each)."""
+    import signal
+    from repro_torch.checkpoint import manager as CKPT
+    from repro_torch.launch import train as LT
+    ck = os.path.join(root, "launcher")
+    argv = ["--arch", "qwen2_0p5b", "--batch", str(z["batch"]),
+            "--seq", str(z["seq"]), "--ckpt-dir", ck,
+            "--ckpt-every", str(z["every"]), "--log-every", "4",
+            "--device", dev.type] + (["--smoke"] if rehearse else [])
+    old = signal.getsignal(signal.SIGTERM)
+    try:
+        reset_peak(torch, dev)
+        run = LT.main(argv + ["--steps", str(z["steps"])])
+        peak = peak_bytes(torch, dev)
+        saved = CKPT.all_steps(ck)
+        resumed = LT.main(argv + ["--steps", str(z["resume_to"])])
+        saved2 = CKPT.all_steps(ck)
+    finally:
+        signal.signal(signal.SIGTERM, old)
+    losses = run.losses + resumed.losses
+    check(all(math.isfinite(x) for x in losses + run.grad_norms
+              + resumed.grad_norms), f"{cfg.name} launcher: a loss or "
+          f"gradient norm is not finite ({losses})")
+    check(abs(run.losses[0] - math.log(cfg.vocab_size)) < 1.0,
+          f"{cfg.name} launcher: first loss {run.losses[0]} is not within "
+          f"1.0 of ln {cfg.vocab_size}")
+    every = z["every"]
+    want = list(range(0, z["steps"], every))
+    check(saved == want, f"{cfg.name} launcher: checkpoints {saved}, "
+          f"want {want}")
+    check(resumed.start == want[-1] + 1 and len(resumed.losses)
+          == z["resume_to"] - resumed.start, f"{cfg.name} launcher: the "
+          f"resume started at {resumed.start} and ran "
+          f"{len(resumed.losses)} steps")
+    want2 = list(range(0, z["resume_to"], every))[-3:]
+    check(saved2 == want2, f"{cfg.name} launcher: checkpoints after the "
+          f"resume {saved2}, want {want2} (keep 3)")
+    return run, resumed, peak, (saved, saved2)
+
+
+def exact_resume(torch, dev, cfg, step_fn, opt, batch, root):
+    """3 steps, ``save``, then 2 steps from memory and 2 from ``restore``
+    on the same batch.  Returns (losses a, losses b, the largest
+    parameter difference, whether the parameters are equal bit for
+    bit)."""
+    from repro_torch.checkpoint import manager as CKPT
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.train import step as TS
+    gen = torch.Generator(dev).manual_seed(SEED + 21)
+    state = TS.init_state(gen, cfg, opt, device=dev)
+    for _ in range(3):
+        state, _ = step_fn(state, batch)
+    ckd = os.path.join(root, "resume")
+    CKPT.save(ckd, state, 3)
+    runs = []
+    b, step = CKPT.restore(ckd, TS.init_state(gen, cfg, opt, device="meta"),
+                           device=dev)
+    check(step == 3 and int(b["step"]) == 3, f"restored step {step}, "
+          f"state step {int(b['step'])}")
+    for st in (state, b):
+        losses = []
+        for _ in range(2):
+            st, m = step_fn(st, batch)
+            losses.append(float(m["loss"]))
+        runs.append((st, losses))
+    del state, b
+    (a, la), (b, lb) = runs
+    pa, pb = tree_leaves(a["params"]), tree_leaves(b["params"])
+    dmax = max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(pa, pb))
+    equal = all(torch.equal(x, y) for x, y in zip(pa, pb))
+    worst = max(rel_diff(x, y) for x, y in zip(la, lb))
+    check(worst < 1e-3, f"{cfg.name} resume: losses from memory {la} and "
+          f"from the checkpoint {lb} differ by {worst:.3g} relative")
+    return la, lb, dmax, equal
+
+
+def memorise_and_serve(torch, dev, cfg, m, root, rehearse):
+    """``m["steps"]`` AdamW steps on one batch; ``save``, ``restore`` the
+    params into ``attn_impl="pallas"``; prefill each row's first
+    ``m["prompt"]`` tokens into a 2 x prompt cache and take
+    ``m["decode"]`` greedy steps, counts reset just before and read just
+    after.  The share of greedy tokens equal to the memorised next tokens
+    beside the same under the initial weights.  Returns (launches,
+    text)."""
+    from repro_torch.checkpoint import manager as CKPT
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models import serve as SV
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as TS
+    opt = adamw(m["lr"])
+    step_fn = TS.build_train_step(cfg, opt)
+    seed = SEED + 22
+    state = TS.init_state(torch.Generator(dev).manual_seed(seed), cfg, opt,
+                          device=dev)
+    batch = token_batch(torch, dev, cfg, m["batch"], m["seq"], seed)
+    losses, t0 = [], time.perf_counter()
+    for _ in range(m["steps"]):
+        state, mt = step_fn(state, batch)
+        losses.append(float(mt["loss"]))
+    train_s = time.perf_counter() - t0
+    check(all(math.isfinite(x) for x in losses) and losses[-1]
+          < 0.7 * losses[0], f"{cfg.name} memorise: losses {losses[0]:.4f}"
+          f" -> {losses[-1]:.4f}, want under 0.7 x the first")
+    ckm = os.path.join(root, "memorised")
+    CKPT.save(ckm, state, m["steps"])
+    del state
+    scfg = dataclasses.replace(cfg, attn_impl="pallas")
+    params = CKPT.restore(ckm, TS.init_state(
+        torch.Generator(dev).manual_seed(seed), cfg, opt, device="meta"),
+        device=dev)[0]["params"]
+    B, P, n_dec = m["batch"], m["prompt"], m["decode"]
+    prompts = batch["tokens"][:, :P]
+    want = batch["tokens"][:, P:P + n_dec + 1]
+
+    def serve(p):
+        return serve_steps(torch, dev, SV, p, scfg, prompts,
+                           SV.init_cache(scfg, B, 2 * P, device=dev), n_dec)
+
+    serve(params)                                # warm-up
+    ops.reset_launch_counts()
+    _, steps, toks, finite, _ = serve(params)
+    launches = zoo_counts(ops)
+    check(finite and int(toks.min()) >= 0
+          and int(toks.max()) < cfg.vocab_size, f"{cfg.name} trained "
+          f"serving: a logit is not finite or a token is outside the vocab")
+    check_zoo_launches(rehearse, f"{cfg.name} trained serving", launches,
+                       {"decode_attention_bkgd": cfg.n_layers * n_dec,
+                        "flash_attention_bhsd": 0})
+    hit = float((toks == want).float().mean())
+    init = M.init_params(torch.Generator(dev).manual_seed(seed), scfg,
+                         device=dev)
+    hit0 = float((serve(init)[2] == want).float().mean())
+    del params, init
+    return launches, (
+        f"memorised one {B} x {m['seq']} batch: {m['steps']} AdamW steps "
+        f"at lr {m['lr']} (constant, clip 1.0) in {train_s:.3f} s, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} ({losses[-1] / losses[0]:.3f}"
+        f" of the first; every 10th: "
+        f"{[round(x, 4) for x in losses[::10]]}); saved, restored into "
+        f"attn_impl=pallas and served: {B} x {P} prompt tokens into a "
+        f"{2 * P}-row cache, {n_dec} greedy steps, {steps_text(steps)}; "
+        f"launches {launches} (decode attention want "
+        f"{cfg.n_layers * n_dec}); greedy tokens equal to the memorised "
+        f"next tokens: {hit:.4f} (initial weights {hit0:.4f})")
+
+
+def remat_check(torch, dev, cfg, S, opt):
+    """One 1 x S step under ``remat`` none, full and selective on the same
+    state and batch: losses within 1e-3 relative, and on the card the
+    peak under full below the peak under none.  Returns the text."""
+    from repro_torch.train import step as TS
+    state = TS.init_state(torch.Generator(dev).manual_seed(SEED + 23), cfg,
+                          opt, device=dev)
+    batch = token_batch(torch, dev, cfg, 1, S, SEED + 23)
+    res = {}
+    for remat in ("none", "full", "selective"):
+        fn = TS.build_train_step(dataclasses.replace(cfg, remat=remat), opt)
+        reset_peak(torch, dev)
+        t0 = time.perf_counter()
+        new, mt = fn(state, batch)
+        loss = float(mt["loss"])
+        res[remat] = (loss, peak_bytes(torch, dev),
+                      time.perf_counter() - t0)
+        del new
+    for remat in ("full", "selective"):
+        check(rel_diff(res["none"][0], res[remat][0]) < 1e-3,
+              f"{cfg.name} remat {remat}: loss {res[remat][0]} against "
+              f"{res['none'][0]} without remat")
+    if dev.type == "cuda":
+        check(res["full"][1] < res["none"][1], f"{cfg.name}: the peak under "
+              f"remat full {gib(res['full'][1])} is not below none's "
+              f"{gib(res['none'][1])}")
+    del state
+    return (f"remat at 1 x {S} tokens, one step each on the same state: " +
+            "; ".join(f"{k}: loss {v[0]:.6f}, peak {gib(v[1])}, "
+                      f"{v[2] * 1e3:.1f} ms (host, first call)"
+                      for k, v in res.items()))
+
+
+def hymba_training(torch, dev, rehearse):
+    """hymba-1.5b at published widths, depth cut, its published
+    ``remat="selective"``: a few AdamW steps on one batch; losses and
+    gradient norms finite.  Returns the text."""
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as TS
+    h = HYMBA_TRAIN_SMALL if rehearse else HYMBA_TRAIN
+    cfg = model_config("hymba_1p5b", rehearse, n_layers=h["layers"])
+    check(cfg.remat == "selective", f"{cfg.name}: remat {cfg.remat}")
+    opt = adamw(3e-4, weight_decay=0.01)
+    state = TS.init_state(torch.Generator(dev).manual_seed(SEED + 24), cfg,
+                          opt, device=dev)
+    batch = token_batch(torch, dev, cfg, h["batch"], h["seq"], SEED + 24)
+    step_fn = TS.build_train_step(cfg, opt)
+    reset_peak(torch, dev)
+    losses, norms, secs = [], [], []
+    for _ in range(h["steps"]):
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        secs.append(time.perf_counter() - t0)
+    peak = peak_bytes(torch, dev)
+    check(all(math.isfinite(x) for x in losses + norms), f"{cfg.name} "
+          f"training: losses {losses}, gradient norms {norms}")
+    del state
+    return (f"hymba training ({cfg.name}, {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, d_inner {cfg.d_inner}, N {cfg.ssm_state}, "
+            f"remat {cfg.remat}, {cfg.dtype}): {h['steps']} steps of "
+            f"{h['batch']} x {h['seq']} tokens, losses "
+            f"{[round(x, 4) for x in losses]}, gradient norms "
+            f"{[round(x, 4) for x in norms]}, ms per step "
+            f"{[round(x * 1e3, 1) for x in secs]} (the first includes "
+            f"warm-up), peak {gib(peak)}")
+
+
+def serve_cli(rehearse):
+    """``repro_torch.launch.serve.main`` at its defaults (the card); the
+    answers must be the oracle's on the survivors and false elsewhere."""
+    from repro_torch.launch import serve as LS
+    res = LS.main(["--device", "cpu", "--frames", "256", "--train-steps",
+                   "20"] if rehearse else [])
+    check(np.array_equal(res["answers"], res["truth"] & res["survived"]),
+          "launch.serve: answers differ from the oracle's on survivors")
+    return (f"launch.serve at its defaults: {res['frames_processed']} "
+            f"frames at {res['fps']:.1f} frames/s, dropped {res['dropped']}"
+            f", selectivity {res['selectivity']:.4f}, oracle calls "
+            f"{res['oracle_calls']}, recall {res['recall']:.4f}, filter "
+            f"{res['filter_ms']:.4f} ms/frame, speedup {res['speedup']:.2f}x"
+            f"; answers equal the oracle's on the survivors")
+
+
+def zoo_training_phase(torch, dev, rehearse):
+    """qwen2-0.5b trained at published widths (bf16 parameters, float32
+    AdamW moments, ``remat="none"``, ``attn_impl="xla_flash"``) through
+    ``repro_torch.launch.train``, checkpointed and resumed; an exact
+    resume; a memorised batch served through decode attention from the
+    restored checkpoint; remat at 1 x 4096; hymba-1.5b trained at 4
+    layers; the paper's CLI.  Returns (decode-attention launches of the
+    trained serving, lines)."""
+    import shutil
+    from repro_torch.checkpoint import manager as CKPT
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as TS
+    t_phase = time.perf_counter()
+    cfg = model_config("qwen2_0p5b", rehearse)
+    check(rehearse or (cfg.remat, cfg.attn_impl, cfg.dtype)
+          == ("none", "xla_flash", "bfloat16"), f"{cfg.name}: published "
+          f"remat / attn_impl / dtype are {cfg.remat} / {cfg.attn_impl} / "
+          f"{cfg.dtype}")
+    z = ZOO_TRAIN_SMALL if rehearse else ZOO_TRAIN
+    root = os.path.join(HERE, "build", "train_phase")
+    shutil.rmtree(root, ignore_errors=True)
+    lines = []
+    try:
+        run, resumed, peak, saved = launcher_runs(torch, dev, cfg, z, root,
+                                                  rehearse)
+        shutil.rmtree(os.path.join(root, "launcher"))
+        med = median_ms(run.step_s[2:])
+        n_tok = z["batch"] * z["seq"]
+        lines.append(
+            f"zoo training ({cfg.name}, {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads}, "
+            f"vocab {cfg.vocab_size}, {cfg.dtype} parameters, float32 AdamW "
+            f"moments, remat {cfg.remat}, {cfg.attn_impl}) through "
+            f"repro_torch.launch.train: {z['steps']} steps of {z['batch']} x "
+            f"{z['seq']} tokens, losses {run.losses[0]:.4f} -> "
+            f"{run.losses[-1]:.4f} (ln V = {math.log(cfg.vocab_size):.4f}), "
+            f"median {med:.3f} ms per step over steps 2+ (min "
+            f"{min(run.step_s[2:]) * 1e3:.3f}, max "
+            f"{max(run.step_s[2:]) * 1e3:.3f}) = {n_tok / med * 1e3:.1f} "
+            f"tokens/s; peak {gib(peak)}; checkpoints {saved[0]}, resumed "
+            f"at step {resumed.start} to {z['resume_to']} (losses "
+            f"{resumed.losses[0]:.4f} -> {resumed.losses[-1]:.4f}, median "
+            f"{median_ms(resumed.step_s[1:]):.3f} ms), checkpoints "
+            f"{saved[1]}")
+
+        opt = adamw(3e-4, weight_decay=0.01)
+        step_fn = TS.build_train_step(cfg, opt)
+        batch = token_batch(torch, dev, cfg, z["batch"], z["seq"], SEED + 20)
+        state = TS.init_state(torch.Generator(dev).manual_seed(SEED + 20),
+                              cfg, opt, device=dev)
+        state, _ = step_fn(state, batch)             # warm-up
+        if dev.type == "cuda":
+            lines.append(profile_line(
+                torch, f"one {cfg.name} train step ({z['batch']} x "
+                f"{z['seq']})", lambda: step_fn(state, batch)))
+        saves = []
+        for i in range(2):            # the second reuses pinned host memory
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            th = CKPT.save_async(os.path.join(root, "async"), state, i)
+            snap_s = time.perf_counter() - t0
+            th.join()
+            saves.append((snap_s, time.perf_counter() - t0))
+        nbytes = param_bytes(state)
+        del state
+        shutil.rmtree(os.path.join(root, "async"))
+        lines.append(
+            f"async save of the {nbytes / 2**30:.3f} GiB train state, "
+            f"twice: " + ", ".join(
+                f"{a * 1e3:.1f} ms on the training thread (the snapshot's "
+                f"copies enqueued) and {b:.3f} s until written"
+                for a, b in saves) + f"; a step takes {med:.3f} ms")
+
+        la, lb, dmax, equal = exact_resume(torch, dev, cfg, step_fn, opt,
+                                           batch, root)
+        shutil.rmtree(os.path.join(root, "resume"))
+        lines.append(
+            f"exact resume ({z['batch']} x {z['seq']}): 3 steps, save, then "
+            f"2 steps from memory {[round(x, 6) for x in la]} and 2 from "
+            f"restore(device={dev.type}) {[round(x, 6) for x in lb]}; "
+            f"largest parameter difference {dmax:.3g} ("
+            + ("equal bit for bit" if equal else
+               "not bit for bit: the embedding gradient sums with atomics")
+            + ")")
+
+        m = MEMO_SMALL if rehearse else MEMO
+        launches, text = memorise_and_serve(torch, dev, cfg, m, root,
+                                            rehearse)
+        lines.append(text)
+        lines.append(remat_check(torch, dev, cfg, REMAT_SEQ_SMALL if rehearse
+                                 else REMAT_SEQ, opt))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    lines.append(hymba_training(torch, dev, rehearse))
+    lines.append(serve_cli(rehearse))
+    lines.append(f"training phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches, lines
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse", action="store_true",
@@ -3435,6 +3828,12 @@ def main(argv=None):
         torch.cuda.empty_cache()
     decode["hd256"], lines = decode256_entry(torch, dev, timer, ktimer,
                                              args.rehearse)
+    for line in lines:
+        print(line, flush=True)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    zoo["qwen2_train_serve"], lines = zoo_training_phase(torch, dev,
+                                                         args.rehearse)
     for line in lines:
         print(line, flush=True)
     if args.rehearse:

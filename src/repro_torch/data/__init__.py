@@ -1,3 +1,3 @@
-from repro_torch.data import synthetic
+from repro_torch.data import pipeline, synthetic
 
-__all__ = ["synthetic"]
+__all__ = ["pipeline", "synthetic"]

@@ -33,3 +33,11 @@ def params_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
         return torch.as_tensor(a, device=dev)
 
     return conv(tree)
+
+
+def state_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
+    """A JAX train state ({"params", "opt", "step"}: parameters, optimizer
+    moments and the int32 step, leaves as numpy arrays) -> the port's
+    train state on ``device`` (default CUDA), leaf dtypes kept, so both
+    packages can start from one state."""
+    return params_from_numpy(tree, device)

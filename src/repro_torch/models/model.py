@@ -23,6 +23,7 @@ map.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -153,6 +154,42 @@ def _apply_layer(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     return x + L.apply_mlp(p["mlp"], h2, cfg), new_cache, None
 
 
+_SAVED_BY_SELECTIVE = ("aten.mm.default", "aten.addmm.default")
+
+
+def _selective_policy(ctx, op, *args, **kwargs):
+    """``remat="selective"``: keep the outputs of matrix products without
+    batch dimensions, recompute everything else (JAX's
+    ``dots_with_no_batch_dims_saveable``).  ``torch.einsum`` lowers a
+    product with no batch dimension, such as ``bsd,de->bse``, to a
+    ``bmm`` with a batch of one, and attention's ``bqngd,bsnd->bnqgs``
+    to a ``bmm`` over B·KV; so a ``bmm`` of batch one is kept too (also
+    attention's at B = KV = 1, which JAX would recompute)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    name = str(op)
+    if name in _SAVED_BY_SELECTIVE or (
+            name == "aten.bmm.default" and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(fn, cfg: ModelConfig):
+    """``jax.checkpoint`` of JAX's ``_remat_wrap``: ``"full"`` saves only
+    the layer's inputs and recomputes the rest in the backward pass;
+    ``"selective"`` also keeps the products that ``_selective_policy``
+    names."""
+    from torch.utils import checkpoint as C
+    if cfg.remat == "full":
+        return lambda *a, **kw: C.checkpoint(fn, *a, use_reentrant=False,
+                                             **kw)
+    if cfg.remat == "selective":
+        ctx = functools.partial(C.create_selective_checkpoint_contexts,
+                                _selective_policy)
+        return lambda *a, **kw: C.checkpoint(fn, *a, use_reentrant=False,
+                                             context_fn=ctx, **kw)
+    return fn
+
+
 def _in_place(caches: Params) -> bool:
     """Attention caches (k / v, and a hybrid's Mamba states) are written
     in place; RWKV-6 states are restacked."""
@@ -171,18 +208,22 @@ def run_layers(stack: Params, x: torch.Tensor, cfg: ModelConfig, *,
     those layers stacked on ``L``, or None without caches, the sum of
     the layers' MoE aux losses (float32, 0 without MoE)).  Attention
     caches come back as the same tensors (views of [lo, hi)), written in
-    place."""
+    place.  Under autograd without caches (training) each layer runs
+    under ``cfg.remat``; serving never does."""
     n_total = stack["ln1"]["w"].shape[0]
     hi = n_total if hi is None else hi
     kw = dict(causal=causal, positions=positions, cache_len=cache_len,
               enc_out=enc_out, is_encoder=is_encoder, rope=rope,
               prefix_len=prefix_len, moe_groups=moe_groups)
+    layer = _apply_layer
+    if caches is None and torch.is_grad_enabled():
+        layer = _remat_wrap(_apply_layer, cfg)
     new = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(lo, hi):
         cl = None if caches is None else tree_map(lambda a: a[i], caches)
-        x, nc, layer_aux = _apply_layer(tree_map(lambda a: a[i], stack), x,
-                                        cfg, cache=cl, **kw)
+        x, nc, layer_aux = layer(tree_map(lambda a: a[i], stack), x, cfg,
+                                 cache=cl, **kw)
         if layer_aux is not None:
             aux = aux + layer_aux
         new.append(nc)

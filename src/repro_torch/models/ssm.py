@@ -251,14 +251,18 @@ def mamba_scan(a: torch.Tensor, b: torch.Tensor, C: torch.Tensor,
     prime T runs chunks of one.  Inside a chunk, an inclusive scan of
     (a, b) under (al, bl) . (ar, br) = (al ar, bl ar + br): each doubling
     step combines every element with the one ``shift`` before it, written
-    into the other of two buffers (no concatenation).  Returns
-    (y (B, T, di), h_T)."""
+    into the other of two buffers (no concatenation).  Where an input
+    needs a gradient (training), each step is the same arithmetic built
+    out of place by concatenation, which autograd can differentiate.
+    Returns (y (B, T, di), h_T)."""
     B, T, di, N = a.shape
     chunk = min(chunk, T)
     while T % chunk:
         chunk -= 1
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (a, b, C, h0))
     bufs = None
-    if chunk > 1:
+    if chunk > 1 and not grad:
         bufs = [(torch.empty_like(a[:, :chunk]), torch.empty_like(
             b[:, :chunk])) for _ in range(2)]
     h, ys = h0, []
@@ -266,6 +270,15 @@ def mamba_scan(a: torch.Tensor, b: torch.Tensor, C: torch.Tensor,
         acum, bcum = a[:, c0:c0 + chunk], b[:, c0:c0 + chunk]
         shift, i = 1, 0
         while shift < chunk:
+            if grad:
+                acum, bcum = (
+                    torch.cat([acum[:, :shift],
+                               acum[:, :-shift] * acum[:, shift:]], 1),
+                    torch.cat([bcum[:, :shift], torch.addcmul(
+                        bcum[:, shift:], bcum[:, :-shift],
+                        acum[:, shift:])], 1))
+                shift *= 2
+                continue
             da, db = bufs[i]
             da[:, :shift] = acum[:, :shift]
             db[:, :shift] = bcum[:, :shift]

@@ -1,3 +1,3 @@
-from repro_torch.train import filter_train
+from repro_torch.train import filter_train, losses, step
 
-__all__ = ["filter_train"]
+__all__ = ["filter_train", "losses", "step"]

@@ -1147,3 +1147,90 @@ def test_group_engine_copies_host_outputs_on_a_side_stream(cuda_device):
             want = QueryPlan(queries).evaluate(fetch(c, np.arange(lo,
                                                                   lo + 32)))
             np.testing.assert_array_equal(ans[c.position], want.numpy())
+
+
+# ---------------------------------------------------------------------------
+# the zoo's training on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["qwen2_0p5b", "hymba_1p5b"])
+def test_train_step_on_the_card_matches_the_cpu(cuda_device, name):
+    """Two AdamW steps of a smoke config (float32, hymba's under its
+    published remat="selective") on the card against the port on the CPU
+    from the same state and batch: loss, gradient norm and parameters at
+    1e-4 / 1e-3."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.interop import state_from_numpy
+    from repro_torch.optim import adamw
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.train import step as TS
+    cfg = get_smoke_config(name)
+    opt = adamw(1e-3, eps=1e-4)
+    cpu = TS.init_state(torch.Generator().manual_seed(7), cfg, opt,
+                        device="cpu")
+    card = state_from_numpy(_to_numpy(cpu), cuda_device)
+    toks = np.random.default_rng(8).integers(0, cfg.vocab_size, (2, 33))
+    step_fn = TS.build_train_step(cfg, opt)
+    out = {}
+    for dev, st in (("cpu", cpu), ("cuda", card)):
+        batch = {"tokens": torch.as_tensor(toks[:, :-1], device=dev),
+                 "labels": torch.as_tensor(toks[:, 1:], device=dev)}
+        ms = []
+        for _ in range(2):
+            st, m = step_fn(st, batch)
+            ms.append((float(m["loss"]), float(m["grad_norm"])))
+        assert st["params"]["embed"].device.type == dev
+        out[dev] = (ms, [t.cpu() for t in tree_leaves(st["params"])])
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_loader_copies_from_pinned_memory_in_order(cuda_device):
+    """DeviceLoader on the card: batches arrive in order, equal to the
+    host arrays, on the card; a step that reads each batch at once (on
+    the current stream) sees the whole copy."""
+    from repro_torch.data.pipeline import DeviceLoader, TokenStream
+    stream = TokenStream(50000, 8, 4096, seed=3)
+    want = [b for _, b in zip(range(6), iter(stream))]
+    with DeviceLoader(iter(stream), device=cuda_device, prefetch=3) as ld:
+        for w, b in zip(want, ld):
+            assert b["tokens"].device.type == "cuda"
+            assert b["tokens"].dtype == torch.int32
+            s = (b["tokens"].long() * 3 + b["labels"].long()).sum()
+            assert int(s) == int((w["tokens"].astype(np.int64) * 3
+                                  + w["labels"]).sum())
+            np.testing.assert_array_equal(b["labels"].cpu().numpy(),
+                                          w["labels"])
+
+
+@pytest.mark.cuda
+def test_checkpoint_restores_onto_the_card(cuda_device, tmp_path):
+    """A state saved from the CPU (bf16 and float32 leaves) restores onto
+    the card bit for bit; a card state saved asynchronously restores as
+    it was when ``save_async`` was called."""
+    from repro_torch.checkpoint import manager as CKPT
+    g = torch.Generator().manual_seed(9)
+    st = {"w": torch.randn((64, 32), generator=g).to(torch.bfloat16),
+          "m": torch.randn((64, 32), generator=g),
+          "step": torch.tensor(5, dtype=torch.int32)}
+    tmpl = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+            for k, v in st.items()}
+    CKPT.save(str(tmp_path / "a"), st, step=5)
+    got, step = CKPT.restore(str(tmp_path / "a"), tmpl)     # default: card
+    assert step == 5
+    for k in st:
+        assert got[k].device.type == "cuda" and got[k].dtype == st[k].dtype
+        assert torch.equal(got[k].cpu(), st[k])
+    # the async snapshot is taken at the call: a later in-place write on
+    # the stream does not reach the file
+    want = {k: v.clone() for k, v in got.items()}
+    t = CKPT.save_async(str(tmp_path / "b"), got, step=6)
+    got["m"].mul_(2.0)
+    t.join(timeout=60)
+    assert not t.is_alive()
+    again, _ = CKPT.restore(str(tmp_path / "b"), tmpl, device=cuda_device)
+    for k in st:
+        assert torch.equal(again[k], want[k])

@@ -1,6 +1,7 @@
 """The port stands alone: importing every ``repro_torch`` module pulls in
-neither jax nor the JAX package, and its entry points do not fall back
-to the CPU when no card is present.
+neither jax, nor the JAX package, nor msgpack (the reference's
+checkpoint format; the card's machine has none), and its entry points
+do not fall back to the CPU when no card is present.
 
 The import check runs in a fresh interpreter, because this test process
 already imported jax (tests/conftest.py).
@@ -23,7 +24,7 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for n in names:
     importlib.import_module(n)
 bad = sorted(k for k in sys.modules
-             if k.split(".")[0] in ("jax", "jaxlib", "repro"))
+             if k.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack"))
 print(len(names))
 print(",".join(bad))
 print(",".join(names))
@@ -40,7 +41,9 @@ def test_port_imports_neither_jax_nor_reference_package():
     assert bad == "", f"repro_torch imported {bad}"
     # the walk reaches every subpackage, the fleet engine's too
     for mod in ("repro_torch.core.temporal", "repro_torch.distributed",
-                "repro_torch.distributed.multistream"):
+                "repro_torch.distributed.multistream",
+                "repro_torch.checkpoint.manager", "repro_torch.launch.train",
+                "repro_torch.launch.serve"):
         assert mod in names.split(","), names
 
 
