@@ -226,8 +226,36 @@ Phases (any failure exits non-zero and prints no result line):
     gradient norms finite.  ``repro_torch.launch.serve.main`` at its
     defaults: the answers on the survivors are the oracle's.
 18. A ``kernels`` JSON line (all six kernels; flash and decode attention
-    with their ``zoo_launches`` of phases 10-15 and 17), then the device
-    line as the last line.
+    with their ``zoo_launches`` of phases 10-15, 17 and 19), then the
+    device line as the last line.
+19. (Run before the lines of 18.)  The launch analyses: five steps, each
+    analysed on meta by ``repro_torch.launch.dryrun.analyse`` (its own
+    random-weight arguments, nothing allocated) and then run once on the
+    card at published widths with the same shapes, after
+    ``reset_peak_memory_stats``: (a) qwen2-0.5b decode_32k as configured
+    (``xla_flash``; 1 GiB of weights and a 48 GiB cache whose ``len``
+    says 32767 rows are filled), (b) the same under ``pallas`` (decode
+    attention, 24 calls a step), (c) rwkv6-3b and (d) hymba-1.5b at
+    long_500k (batch 1), (e) qwen2-0.5b's train step at 4 x 1024 with
+    remat none (train_4k's 256 x 4096 cut to the training phase's own
+    step).  Checks: the predicted peak (arguments and every live
+    storage) within 10% of ``max_memory_allocated`` above what was
+    allocated before the arguments (the plain versions stand in for the
+    kernels on meta, so (b)'s prediction holds the plain decode
+    attention's float32 copies, which the kernel never makes); the
+    analysed dot FLOPs within 2% of ``torch.profiler(with_flops=True)``'s
+    ``mm`` / ``bmm`` / ``addmm`` / ``baddbmm`` total on the cells without
+    a kernel; the plain-version calls counted on meta equal to the
+    launches; the outputs finite and of their shape.  Printed: the step's
+    median ms beside the H100 roofline's max(compute, memory) and their
+    ratio.  Then the gradient tree of one qwen2-0.5b step at 4 x 1024
+    (494 M parameters) through ``distributed.compression``: per leaf
+    ``|decompress - g|`` at most ``scale / 2`` (and 127 float32 ulps of
+    a step) and the new error equal to ``g - decompress`` bit for bit;
+    ``allreduce_compressed`` over a one-rank NCCL group from a
+    ``file://`` store (within ``scale / 2``; ``op_cost`` counting two
+    all-reduces a leaf); the reference's 50-step constant-gradient case
+    at 1e-3; compress and all-reduce ms beside the gradient pass.
 """
 import argparse
 import dataclasses
@@ -3670,6 +3698,316 @@ def zoo_training_phase(torch, dev, rehearse):
     return launches, lines
 
 
+# ---------------------------------------------------------------------------
+# the launch analyses against steps on the card (phase 19)
+# ---------------------------------------------------------------------------
+
+LAUNCH_PEAK_RTOL = 0.10        # predicted peak against the measured one
+LAUNCH_DOT_RTOL = 0.02         # analysed dot FLOPs against the profiler's
+LAUNCH_STEPS = 5               # timed steps of a serving cell (median)
+LAUNCH_TRAIN_STEPS = 3         # timed steps of the train cell
+# train_4k (256 x 4096) cut to the training phase's own step
+LAUNCH_TRAIN = dict(batch=4, seq=1024)
+LAUNCH_TRAIN_SMALL = dict(batch=2, seq=64)
+PROFILED_DOTS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")
+COMPRESS_STEPS = 50            # the reference's constant-gradient case
+
+
+def launch_cells(rehearse):
+    """(label, arch, cell, config overrides, what the cell runs); on the
+    CPU the smoke configs, decode_32k cut to 4 x 512 rows."""
+    from repro_torch.models.config import ShapeCell, shape_cell
+    d32 = (ShapeCell("decode_32k", 512, 4, "decode") if rehearse
+           else shape_cell("decode_32k"))
+    t = LAUNCH_TRAIN_SMALL if rehearse else LAUNCH_TRAIN
+    train = ShapeCell("train_4k", t["seq"], t["batch"], "train")
+    return [("a", "qwen2_0p5b", d32, {}, "as configured (xla_flash)"),
+            ("b", "qwen2_0p5b", d32, {"attn_impl": "pallas"},
+             "decode attention"),
+            ("c", "rwkv6_3b", shape_cell("long_500k"), {}, "RWKV-6 decode"),
+            ("d", "hymba_1p5b", shape_cell("long_500k"), {},
+             "hybrid decode"),
+            ("e", "qwen2_0p5b", train, {"remat": "none"},
+             f"train_4k cut from 256 x 4096 to {t['batch']} x {t['seq']}")]
+
+
+def card_args(torch, dev, cfg, cell, opt, seed):
+    """The step's arguments on ``dev`` at the cell's shapes: random
+    weights (or a train state), tokens in the vocabulary, stub
+    embeddings in the model's dtype, and for a decode cell an empty cache
+    whose ``len`` says seq_len - 1 rows are filled (the last row is
+    written)."""
+    from repro_torch.launch import specs as SPECS
+    from repro_torch.models import model as M
+    from repro_torch.models import serve as SV
+    from repro_torch.train import step as TS
+    gen = torch.Generator(dev).manual_seed(seed)
+    first = (TS.init_state(gen, cfg, opt, device=dev) if cell.kind == "train"
+             else M.init_params(gen, cfg, device=dev))
+    inputs = {}
+    for k, spec in SPECS.input_specs(cfg, cell).items():
+        if k == "cache":
+            inputs[k] = SV.init_cache(cfg, cell.global_batch, cell.seq_len,
+                                      device=dev)
+            if cell.kind == "decode":
+                inputs[k]["len"].fill_(cell.seq_len - 1)
+        elif spec.dtype == torch.int32:
+            inputs[k] = torch.randint(0, cfg.vocab_size, spec.shape,
+                                      generator=gen, device=dev,
+                                      dtype=torch.int32)
+        else:
+            inputs[k] = torch.randn(spec.shape, generator=gen, device=dev,
+                                    dtype=spec.dtype)
+    return first, inputs
+
+
+def profiled_dot_flops(torch, fn):
+    """FLOPs of the matrix products of one call of ``fn``, as
+    torch.profiler(with_flops=True) counts them."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True, with_flops=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return float(sum(e.flops for e in prof.key_averages()
+                     if e.key in PROFILED_DOTS))
+
+
+def launch_cell(torch, dev, label, arch, cell, overrides, what, rehearse,
+                gpu):
+    """One cell: ``dryrun.analyse`` on meta, then the same step on the
+    card: predicted against measured peak, the step's ms beside the
+    roofline, dot FLOPs against the profiler's (xla_flash cells), the
+    plain-version calls against the launches.  Returns (launches, text)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun as D
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as TS
+    cfg = model_config(arch, rehearse, **overrides)
+    t0 = time.perf_counter()
+    pred = D.analyse(cfg, cell)
+    analyse_s = time.perf_counter() - t0
+    roof = D.roofline(pred, cfg, cell)
+    bound_ms = max(roof["compute_s"], roof["memory_s"]) * 1e3
+
+    base = torch.cuda.memory_allocated() if dev.type == "cuda" else None
+    opt = adamw(1e-4, weight_decay=0.1) if cell.kind == "train" else None
+    first, inputs = card_args(torch, dev, cfg, cell, opt, SEED + 30)
+    step = TS.step_for_cell(cfg, cell, opt)
+    reset_peak(torch, dev)
+    ops.reset_launch_counts()
+    out = step(first, inputs)
+    sync(torch, dev)
+    launches = {k: n for k, n in ops.launch_counts().items() if n}
+    measured = peak_bytes(torch, dev)
+    if measured is not None:
+        measured -= base
+    head = out[1]["loss"] if cell.kind == "train" else out[0]
+    want = (() if cell.kind == "train"
+            else (cell.global_batch, cfg.vocab_size))
+    check(tuple(head.shape) == want and bool(torch.isfinite(head).all()),
+          f"({label}) {arch} {cell.name}: output {tuple(head.shape)} is not "
+          f"finite of shape {want}")
+    del out, head
+    times = []
+    for _ in range(LAUNCH_TRAIN_STEPS if cell.kind == "train"
+                   else LAUNCH_STEPS):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        out = step(first, inputs)
+        sync(torch, dev)
+        times.append(time.perf_counter() - t0)
+        del out
+    ms = median_ms(times)
+    text = (f"launch analysis ({label}) {arch} {cell.name} ({what}; "
+            f"{cell.global_batch} x {cell.seq_len}, {cfg.dtype}, "
+            f"{cfg.attn_impl}, remat {cfg.remat}): analysed on meta in "
+            f"{analyse_s:.1f} s; peak predicted "
+            f"{pred['peak_bytes'] / 2**30:.3f} GiB (arguments "
+            f"{pred['argument_bytes'] / 2**30:.3f})")
+    if measured is not None:
+        gap = pred["peak_bytes"] / measured - 1
+        text += f", measured {gib(measured)} ({gap:+.4f})"
+        check(abs(gap) <= LAUNCH_PEAK_RTOL,
+              f"({label}) {arch}: predicted peak {pred['peak_bytes']} B is "
+              f"not within {LAUNCH_PEAK_RTOL} of the measured {measured} B")
+    text += (f"; step median {ms:.3f} ms (min {min(times) * 1e3:.3f}, max "
+             f"{max(times) * 1e3:.3f}) beside the roofline's "
+             f"{bound_ms:.3f} ms ({roof['bottleneck']}; compute "
+             f"{roof['compute_s'] * 1e3:.3f}, memory "
+             f"{roof['memory_s'] * 1e3:.3f}, unfused ceiling "
+             f"{roof['memory_s_unfused_ceiling'] * 1e3:.3f}): ratio "
+             f"{ms / bound_ms:.2f}")
+    dots = sum(pred["dot_flops"].values())
+    if dev.type == "cuda" and not pred["kernel_calls"]:
+        prof = profiled_dot_flops(torch, lambda: step(first, inputs))
+        gap = dots / max(prof, 1.0) - 1
+        by_dtype = ", ".join(f"{k} {v:.6g}"
+                             for k, v in pred["dot_flops"].items())
+        text += (f"; dot FLOPs analysed {dots:.6g} ({by_dtype}), profiler "
+                 f"{prof:.6g} ({gap:+.5f})")
+        check(abs(gap) <= LAUNCH_DOT_RTOL,
+              f"({label}) {arch}: analysed dot FLOPs {dots} not within "
+              f"{LAUNCH_DOT_RTOL} of the profiler's {prof}")
+    else:
+        text += f"; dot FLOPs analysed {dots:.6g}"
+    text += (f"; plain-version calls {pred['kernel_calls']}, launches "
+             f"{launches} [{gpu}]")
+    if dev.type == "cuda":
+        check(pred["kernel_calls"] == launches,
+              f"({label}) {arch}: the analysis counted "
+              f"{pred['kernel_calls']} kernel calls, the card launched "
+              f"{launches}")
+    del first, inputs
+    return launches, text
+
+
+def loss_and_grads(torch, cfg, params, batch):
+    """The train step's loss (its aux included) and its gradients."""
+    from repro_torch.models import model as M
+    from repro_torch.train import losses as LS
+    from repro_torch.train import step as TS
+
+    def loss_fn(p, b):
+        out = M.forward(p, cfg, b["tokens"])
+        loss, _ = LS.softmax_cross_entropy(out.logits, b["labels"])
+        return loss + 0.01 * out.aux, (loss, out.aux)
+    (total, _), grads = TS.value_and_grad(loss_fn, params, batch)
+    return total, grads
+
+
+def compression_check(torch, dev, rehearse, gpu):
+    """Error-feedback int8 compression of one training step's gradient
+    tree on the card, the all-reduce over a one-rank NCCL group (gloo on
+    the CPU) and the reference's constant-gradient case.  Returns the
+    report lines."""
+    import torch.distributed as dist
+    from repro_torch.distributed import compression as C
+    from repro_torch.launch import op_cost as OC
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizers import tree_leaves
+    cfg = model_config("qwen2_0p5b", rehearse)
+    t = LAUNCH_TRAIN_SMALL if rehearse else LAUNCH_TRAIN
+    params = M.init_params(torch.Generator(dev).manual_seed(SEED + 31), cfg,
+                           device=dev)
+    batch = token_batch(torch, dev, cfg, t["batch"], t["seq"], SEED + 31)
+    loss_and_grads(torch, cfg, params, batch)            # warm-up
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    total, grads = loss_and_grads(torch, cfg, params, batch)
+    sync(torch, dev)
+    grad_ms = (time.perf_counter() - t0) * 1e3
+    check(bool(torch.isfinite(total)), "compression: the loss is not finite")
+    del params
+    leaves = tree_leaves(grads)
+    n = sum(g.numel() for g in leaves)
+    err = C.init_error_state(grads)
+    C.compress(grads, err)                                # warm-up
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    q, scales, new_err = C.compress(grads, err)
+    sync(torch, dev)
+    compress_ms = (time.perf_counter() - t0) * 1e3
+    deq = C.decompress(q, scales)
+    worst, exact = 0.0, True
+    for g, d, s, e in zip(leaves, tree_leaves(deq), tree_leaves(scales),
+                          tree_leaves(new_err)):
+        worst = max(worst, float((d - g.float()).abs().max() / s))
+        exact &= torch.equal(e, g.float() - d)
+    # round((g + e) / scale) is within half a step; float32 products and
+    # quotients add at most 127 ulps of a step
+    check(worst <= 0.5 + 127 * 2.0 ** -23,
+          f"compression: |decompress - g| reaches {worst} x scale")
+    check(exact, "compression: the new error is not g - decompress exactly")
+    q_bytes = sum(x.numel() for x in tree_leaves(q))
+    lines = [f"compression of one qwen2-0.5b gradient tree ({t['batch']} x "
+             f"{t['seq']} tokens, {len(leaves)} leaves, {n} parameters): "
+             f"{q_bytes / 2**30:.3f} GiB of int8 against {4 * n / 2**30:.3f} "
+             f"GiB of float32; max |decompress - g| = {worst:.6f} x scale; "
+             f"new error == g - decompress bit for bit; compress "
+             f"{compress_ms:.3f} ms beside the step's gradient pass "
+             f"{grad_ms:.3f} ms [{gpu}]"]
+    del q, deq, new_err
+
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    check(backend != "nccl" or dist.is_nccl_available(),
+          "torch.distributed has no NCCL")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    store = os.path.join(HERE, "build", "launch_phase_store")
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    if os.path.exists(store):
+        os.remove(store)
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            world_size=1, rank=0)
+    try:
+        with OC.OpCost() as cost:
+            mean, _ = C.allreduce_compressed(grads, err)
+        sync(torch, dev)
+        summary = OC.summarize(cost.collectives)
+        check(summary["total"]["count"] == 2 * len(leaves),
+              f"compression: op_cost counted {summary['total']['count']} "
+              f"all-reduces for {len(leaves)} leaves, want two per leaf")
+        worst_ar = max(float((m - g.float()).abs().max() / s) for m, g, s in
+                       zip(tree_leaves(mean), leaves, tree_leaves(scales)))
+        check(worst_ar <= 0.5 + 127 * 2.0 ** -23,
+              f"compression: the all-reduced mean is {worst_ar} x scale off")
+        del mean
+        t0 = time.perf_counter()
+        mean, _ = C.allreduce_compressed(grads, err)
+        sync(torch, dev)
+        ar_ms = (time.perf_counter() - t0) * 1e3
+        del mean
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):       # a FileStore removes it itself
+            os.remove(store)
+    lines.append(
+        f"allreduce_compressed over a one-rank {backend} group: "
+        f"{summary['total']['count']:.0f} all-reduces counted by op_cost "
+        f"(2 per leaf, {summary['total']['operand_bytes'] / 2**30:.3f} GiB "
+        f"of operands), the mean within {worst_ar:.6f} x scale of g; "
+        f"{ar_ms:.3f} ms (compress included) beside a gradient pass of "
+        f"{grad_ms:.3f} ms")
+    del grads, err
+
+    g = {"w": torch.tensor([0.301, -0.7003, 0.11], device=dev)}
+    e = C.init_error_state(g)
+    acc = torch.zeros(3, device=dev)
+    for _ in range(COMPRESS_STEPS):
+        q, s, e = C.compress(g, e)
+        acc += C.decompress(q, s)["w"]
+    off = float((acc / COMPRESS_STEPS - g["w"]).abs().max())
+    check(off <= 1e-3, f"compression: {COMPRESS_STEPS} constant-gradient "
+          f"steps are {off} off the gradient")
+    lines.append(f"error feedback, {COMPRESS_STEPS} steps of a constant "
+                 f"gradient: mean {off:.3g} off (at most 1e-3)")
+    return lines
+
+
+def launch_phase(torch, dev, rehearse, gpu):
+    """Phase 19: each cell of ``launch_cells`` analysed on meta and run on
+    the card, then gradient compression.  Returns (decode attention's
+    launches at (b), lines)."""
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    lines, zoo_b = [], None
+    for label, arch, cell, overrides, what in launch_cells(rehearse):
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        launches, text = launch_cell(torch, dev, label, arch, cell,
+                                     overrides, what, rehearse, gpu)
+        lines.append(text)
+        if label == "b":
+            zoo_b = {k: launches.get(k, 0) for k in ZOO_KERNELS}
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    lines += compression_check(torch, dev, rehearse, gpu)
+    ops.reset_launch_counts()
+    lines.append(f"launch phase: {time.perf_counter() - t_phase:.1f} s")
+    return zoo_b, lines
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse", action="store_true",
@@ -3834,6 +4172,11 @@ def main(argv=None):
         torch.cuda.empty_cache()
     zoo["qwen2_train_serve"], lines = zoo_training_phase(torch, dev,
                                                          args.rehearse)
+    for line in lines:
+        print(line, flush=True)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    zoo["launch_b"], lines = launch_phase(torch, dev, args.rehearse, gpu)
     for line in lines:
         print(line, flush=True)
     if args.rehearse:

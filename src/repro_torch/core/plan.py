@@ -797,6 +797,11 @@ class StagedQueryPlan:
         self.last_report: Optional[StageReport] = None
         self._pending = None
 
+    @property
+    def step_cache_max(self) -> int:
+        """Capacity of the (possibly shared) step cache."""
+        return self.step_cache.capacity
+
     # -- step signatures --------------------------------------------------
 
     def _stage_sig(self, si: int) -> str:
@@ -1271,3 +1276,9 @@ class StagedQueryPlan:
                            for s in self._stage_slots(si)]}
                 for si in self.order]
 
+
+def plan_queries(queries: Sequence[Q.Predicate], *,
+                 tau: float = 0.2,
+                 leaf_table: Optional[CanonicalLeafTable] = None,
+                 prev: Optional[QueryPlan] = None) -> QueryPlan:
+    return QueryPlan(queries, tau=tau, leaf_table=leaf_table, prev=prev)

@@ -37,6 +37,10 @@ LAUNCHES: Dict[str, int] = {"spatial_stats_bgc": 0,
                             "rwkv6_scan_bhtk": 0,
                             "decode_attention_bkgd": 0}
 
+# devices whose tensors go to a kernel's plain version: the CPU, and
+# ``meta`` (shapes only: the launch analyses run the plain versions there)
+PLAIN_DEVICES = ("cpu", "meta")
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

@@ -3,8 +3,8 @@
 Because GAP and the FC are linear, ``counts = relu(mean_cells(CAM) + b)``,
 so one pass over the features computes the CAM and derives the counts
 from its column sums.  ``cam_head_bgd`` launches ``csrc/cam_head.cu`` on
-a CUDA tensor and runs ``cam_head_plain`` on a CPU tensor; any other
-device raises.
+a CUDA tensor and runs ``cam_head_plain`` on a CPU or ``meta`` tensor;
+any other device raises.
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ def cam_head_bgd(feat: torch.Tensor, w: torch.Tensor, b: torch.Tensor
         raise ValueError(f"cam_head: shapes {tuple(feat.shape)}, "
                          f"{tuple(w.shape)}, {tuple(b.shape)} do not match "
                          f"(B, P, D), (D, C), (C,)")
-    if feat.device.type == "cpu":
+    if feat.device.type in build.PLAIN_DEVICES:
         return cam_head_plain(feat, w, b)
     if feat.device.type != "cuda":
         raise ValueError(f"unsupported device {feat.device}")

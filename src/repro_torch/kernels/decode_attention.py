@@ -5,8 +5,9 @@ each kv head, and k, v (B, KV, S, hd), with ``kv_len`` an int or a
 one-element integer tensor in 1..S; keys at ``kv_len`` or later are
 masked.  On a CUDA tensor it launches ``csrc/decode_attention.cu`` (hd 64,
 128 or 256, G up to 16, float32 or bfloat16, any S: the kernel masks the
-ragged edge itself); on a CPU tensor it runs ``decode_attention_plain``,
-the full-softmax ``ref.decode_attention_ref``; any other device raises.
+ragged edge itself); on a CPU or ``meta`` tensor it runs
+``decode_attention_plain``, the full-softmax ``ref.decode_attention_ref``;
+any other device raises.
 k and v are read in place through their strides, so a transposed view of
 the model's (B, S, KV, hd) cache launches without a copy.  A ``kv_len``
 tensor stays on the device: the kernel reads it there and cuts the valid
@@ -114,7 +115,7 @@ def decode_attention_bkgd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     S = k.shape[2]
     if not isinstance(kv_len, torch.Tensor) and not 1 <= int(kv_len) <= S:
         raise ValueError(f"decode_attention: kv_len {kv_len} not in 1..{S}")
-    if q.device.type == "cpu":
+    if q.device.type in build.PLAIN_DEVICES:
         return decode_attention_plain(q, k, v, kv_len)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")

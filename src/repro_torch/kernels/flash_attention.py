@@ -5,10 +5,11 @@ version.
 (query head h reads kv head ``h // (H // KV)``), with ``causal`` and
 ``sliding_window`` masks, in float32 or bfloat16.  On a CUDA tensor it
 launches ``csrc/flash_attention.cu`` (hd 32, 64 or 128; any Sq and Sk,
-the kernel masks the ragged edge itself); on a CPU tensor it runs
-``flash_attention_plain``, the full-softmax ``ref.flash_attention_ref``;
-any other device raises.  The JAX package's kernel has no gradient, and
-neither has this one: inputs that require grad raise.
+the kernel masks the ragged edge itself); on a CPU or ``meta`` tensor it
+runs ``flash_attention_plain``, the full-softmax
+``ref.flash_attention_ref``; any other device raises.  The JAX package's
+kernel has no gradient, and neither has this one: inputs that require
+grad raise.
 """
 from __future__ import annotations
 
@@ -56,7 +57,7 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          ) -> torch.Tensor:
     """q: (B, H, Sq, hd); k, v: (B, KV, Sk, hd) -> (B, H, Sq, hd)."""
     _check(q, k, v, sliding_window)
-    if q.device.type == "cpu":
+    if q.device.type in build.PLAIN_DEVICES:
         return flash_attention_plain(q, k, v, causal=causal,
                                      sliding_window=sliding_window)
     if q.device.type != "cuda":

@@ -7,7 +7,7 @@ model's dtype); lw, u and s0 are float32, as the RWKV time-mix passes
 them.  On a CUDA tensor it launches ``csrc/rwkv6_scan.cu`` (K in 16, 32,
 64 or 128; any T >= 1 and V >= 1; r, k, v and lw read in place
 through their strides, with 16-byte aligned rows; u and s0
-contiguous); on a CPU tensor it runs
+contiguous); on a CPU or ``meta`` tensor it runs
 ``rwkv6_scan_plain``, the sequential ``ref.rwkv6_scan_ref``; any other
 device raises.  The JAX package's kernel has no gradient, and neither
 has this one: inputs that require grad raise.
@@ -80,7 +80,7 @@ def rwkv6_scan_bhtk(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     is host time."""
     _check(r, k, v, lw, u, s0)
     dev = r.device
-    if dev.type == "cpu":
+    if dev.type in build.PLAIN_DEVICES:
         return rwkv6_scan_plain(r, k, v, lw, u, s0)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")

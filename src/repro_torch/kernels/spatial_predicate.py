@@ -10,8 +10,8 @@ pairwise relation the query language supports, so one reduction of the
 (R,) row list, any order, duplicates allowed) launch the kernel of
 ``csrc/spatial_stats.cu`` on a CUDA tensor and run their plain versions
 (``spatial_stats_plain`` / ``spatial_stats_rows_plain``, the projection
-reduction of ``ref.spatial_stats_proj``) on a CPU tensor; any other
-device raises.  The kernel is bit-exact with the plain version.
+reduction of ``ref.spatial_stats_proj``) on a CPU or ``meta`` tensor;
+any other device raises.  The kernel is bit-exact with the plain version.
 
 Both take ``classes``, a (C',) integer tensor: the result is that of the
 grid ``grid[..., classes]``, and on the card the kernel reads those
@@ -135,8 +135,8 @@ def _load():
     return _LIB
 
 
-def _check_cpu(t: torch.Tensor) -> None:
-    if not t.is_cpu:
+def _check_plain(t: torch.Tensor) -> None:
+    if t.device.type not in build.PLAIN_DEVICES:
         raise ValueError(f"unsupported device {t.device}")
 
 
@@ -172,7 +172,7 @@ def spatial_stats_bgc(grid_logits: torch.Tensor, *, tau: float = 0.2,
     ``classes`` (all C when None)."""
     if grid_logits.is_cuda:
         return _launch(grid_logits, None, classes, tau)
-    _check_cpu(grid_logits)
+    _check_plain(grid_logits)
     return spatial_stats_plain(grid_logits, tau, classes=classes)
 
 
@@ -186,7 +186,7 @@ def spatial_stats_rows_bgc(grid_logits: torch.Tensor, rows: torch.Tensor, *,
     (R, g, g, C) tensor is never built."""
     if grid_logits.is_cuda:
         return _launch(grid_logits, rows, classes, tau)
-    _check_cpu(grid_logits)
+    _check_plain(grid_logits)
     return spatial_stats_rows_plain(grid_logits, rows, tau, classes=classes)
 
 

@@ -66,7 +66,10 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 def _normal(gen: torch.Generator, shape, scale: float, dtype,
             device=None) -> torch.Tensor:
     """Normal init drawn on the generator's device, then moved, so one
-    seed gives the same weights on every device."""
+    seed gives the same weights on every device.  On ``meta`` (shapes
+    only) nothing is drawn and the generator does not advance."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device=device)
     x = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
                     device=gen.device) * scale
     return x.to(device=device, dtype=dtype)

@@ -77,9 +77,11 @@ def test_flash_attention_refusals_on_cpu():
         FA.flash_attention_bhsd(q.detach(), k, v, sliding_window=0)
     with pytest.raises(ValueError, match="H % KV"):
         FA.flash_attention_bhsd(q.detach(), k[:, :3], v[:, :3])
-    with pytest.raises(ValueError, match="device"):
-        FA.flash_attention_bhsd(*(torch.empty((1, 2, 8, 32), device="meta")
-                                  for _ in range(3)))
+    # a meta tensor (shapes only, as the launch analyses run a step) goes
+    # to the plain version, like a CPU one, and raises nothing
+    out = FA.flash_attention_bhsd(*(torch.empty((1, 2, 8, 32), device="meta")
+                                    for _ in range(3)))
+    assert out.device.type == "meta" and out.shape == (1, 2, 8, 32)
 
 
 def _tf32(x):

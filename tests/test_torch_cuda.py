@@ -1234,3 +1234,99 @@ def test_checkpoint_restores_onto_the_card(cuda_device, tmp_path):
     again, _ = CKPT.restore(str(tmp_path / "b"), tmpl, device=cuda_device)
     for k in st:
         assert torch.equal(again[k], want[k])
+
+
+# ---------------------------------------------------------------------------
+# the launch analyses and gradient compression on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kind,attn", [
+    ("qwen2_0p5b", "train", "xla_flash"), ("qwen2_0p5b", "decode", "pallas"),
+    ("hymba_1p5b", "prefill", "xla_flash")])
+def test_analysed_peak_matches_the_card(cuda_device, name, kind, attn):
+    """``dryrun.analyse`` on meta against the same step on the card (the
+    published widths at 2 layers, 2 x 256 tokens or a 256-row cache): the
+    peak within 10% of ``max_memory_allocated`` above what was allocated
+    before the step's arguments (cuBLAS's workspace made beforehand), the
+    plain-version calls equal to the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import model as M
+    from repro_torch.models import serve as SV
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as TS
+    cfg = get_config(name, n_layers=2, attn_impl=attn)
+    cell = ShapeCell("x", 256, 2, kind)
+    pred = D.analyse(cfg, cell)
+    for dt in (torch.bfloat16, torch.float32):      # cuBLAS workspaces
+        x = torch.ones((64, 64), device=cuda_device, dtype=dt)
+        (x @ x).sum().item()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    opt = adamw(1e-4) if kind == "train" else None
+    first = (TS.init_state(gen, cfg, opt, device=cuda_device)
+             if kind == "train" else M.init_params(gen, cfg,
+                                                   device=cuda_device))
+    S = 1 if kind == "decode" else 256
+    toks = torch.randint(0, cfg.vocab_size, (2, S), generator=gen,
+                         device=cuda_device, dtype=torch.int32)
+    batch = {"tokens": toks}
+    if kind == "train":
+        batch["labels"] = toks
+    else:
+        batch["cache"] = SV.init_cache(cfg, 2, 256, device=cuda_device)
+        if kind == "decode":
+            batch["cache"]["len"].fill_(255)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    TS.step_for_cell(cfg, cell, opt)(first, batch)
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - base
+    assert abs(pred["peak_bytes"] / measured - 1) <= 0.10, \
+        (pred["peak_bytes"], measured)
+    assert pred["kernel_calls"] == {k: n for k, n in
+                                    ops.launch_counts().items() if n}
+
+
+@pytest.mark.cuda
+def test_compression_over_a_one_rank_nccl_group(cuda_device, tmp_path):
+    """``allreduce_compressed`` over NCCL: the mean within scale / 2 of
+    each leaf (a strided one included), two all-reduces a leaf counted by
+    ``op_cost``, the new error g - decompress bit for bit."""
+    import os
+    import torch.distributed as dist
+    from repro_torch.distributed import compression as C
+    from repro_torch.launch import op_cost as OC
+    g = torch.Generator(cuda_device).manual_seed(1)
+    grads = {"a": torch.randn((300, 70), generator=g, device=cuda_device,
+                              dtype=torch.bfloat16),
+             "b": {"c": torch.randn((40, 9), generator=g,
+                                    device=cuda_device).t()}}
+    err = C.init_error_state(grads)
+    q, s, new = C.compress(grads, err)
+    deq = C.decompress(q, s)
+    for k in (("a",), ("b", "c")):
+        gk, dk, ek, sk = (t[k[0]] if len(k) == 1 else t[k[0]][k[1]]
+                          for t in (grads, deq, new, s))
+        assert torch.equal(ek, gk.float() - dk)
+        assert float((dk - gk.float()).abs().max()) <= float(sk) * (
+            0.5 + 127 * 2.0 ** -23)
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        with OC.OpCost() as cost:
+            mean, _ = C.allreduce_compressed(grads, err)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    assert OC.summarize(cost.collectives)["all-reduce"]["count"] == 4
+    for k, sk in (("a", s["a"]), ("c", s["b"]["c"])):
+        m = mean[k] if k == "a" else mean["b"]["c"]
+        gk = grads[k] if k == "a" else grads["b"]["c"]
+        assert float((m - gk.float()).abs().max()) <= float(sk) * (
+            0.5 + 127 * 2.0 ** -23)

@@ -6,6 +6,8 @@ are held bit-exact (integer extrema and counts in float32), the CAM head
 at 1e-4.  The CUDA kernels themselves are held against their plain
 versions on the card by tests/test_torch_cuda.py.
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -345,19 +347,29 @@ def test_decode_attention_cache_strides_refuse_what_the_kernel_cannot_read():
         DA.cache_strides(k[..., 1:].transpose(1, 2)[..., :60])  # misaligned
 
 
-def test_cpu_dispatch_never_launches_and_other_devices_raise():
+def test_cpu_dispatch_never_launches_and_other_devices_raise(monkeypatch):
+    """CPU and ``meta`` tensors go to the plain versions, counted by
+    ``ops.plain_counts`` and never launched; a device that takes neither
+    the plain version nor the kernel raises (``meta`` made such a device
+    by taking it out of ``build.PLAIN_DEVICES``: no other device type can
+    be made on a CPU-only build)."""
     build.reset_launches()
-    gl = torch.as_tensor(_occupancy_grid(0))
-    ops.spatial_stats_inline(gl)
-    ops.spatial_stats_rows_inline(gl, torch.tensor([1, 0]))
-    ops.cam_head(torch.zeros(2, 4, 4, 8), torch.zeros(8, 3), torch.zeros(3))
-    ops.flash_attention(torch.zeros(1, 8, 2, 32), torch.zeros(1, 8, 2, 32),
-                        torch.zeros(1, 8, 2, 32))
-    ops.decode_attention(torch.zeros(1, 4, 64), torch.zeros(1, 8, 2, 64),
-                         torch.zeros(1, 8, 2, 64), 3)
-    ops.rwkv6_scan(*(torch.zeros(1, 2, 3, 16) for _ in range(4)),
-                   torch.zeros(2, 16), torch.zeros(1, 2, 16, 16))
+    ops.reset_plain_counts()
+    for dev in ("cpu", "meta"):
+        gl = torch.as_tensor(_occupancy_grid(0)).to(dev)
+        z = functools.partial(torch.zeros, device=dev)
+        ops.spatial_stats_inline(gl)
+        ops.spatial_stats_rows_inline(gl, torch.tensor([1, 0], device=dev))
+        ops.cam_head(z(2, 4, 4, 8), z(8, 3), z(3))
+        ops.flash_attention(z(1, 8, 2, 32), z(1, 8, 2, 32), z(1, 8, 2, 32))
+        out = ops.decode_attention(z(1, 4, 64), z(1, 8, 2, 64),
+                                   z(1, 8, 2, 64), 3)
+        assert out.device.type == dev and out.shape == (1, 4, 64)
+        ops.rwkv6_scan(*(z(1, 2, 3, 16) for _ in range(4)), z(2, 16),
+                       z(1, 2, 16, 16))
     assert ops.launch_counts() == {k: 0 for k in build.LAUNCHES}
+    assert ops.plain_counts() == {k: 2 for k in build.LAUNCHES}
+    monkeypatch.setattr(build, "PLAIN_DEVICES", ("cpu",))
     meta = torch.empty((2, 4, 4, 3), device="meta")
     with pytest.raises(ValueError):
         SP.spatial_stats_bgc(meta)
@@ -365,3 +377,11 @@ def test_cpu_dispatch_never_launches_and_other_devices_raise():
         CH.cam_head_bgd(torch.empty((2, 16, 8), device="meta"),
                         torch.empty((8, 3), device="meta"),
                         torch.empty((3,), device="meta"))
+    m = functools.partial(torch.empty, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        ops.decode_attention(m(1, 4, 64), m(1, 8, 2, 64), m(1, 8, 2, 64), 3)
+    with pytest.raises(ValueError, match="device"):
+        ops.flash_attention(m(1, 8, 2, 32), m(1, 8, 2, 32), m(1, 8, 2, 32))
+    with pytest.raises(ValueError, match="device"):
+        ops.rwkv6_scan(*(m(1, 2, 3, 16) for _ in range(4)), m(2, 16),
+                       m(1, 2, 16, 16))

@@ -247,3 +247,48 @@ def test_region_rect_past_grid_edge_identical():
     for q_r, q_t in zip(rq, tq):
         np.testing.assert_array_equal(TQ.eval_filters(q_t, to).numpy(),
                                       np.asarray(RQ.eval_filters(q_r, ro)))
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_plan_queries_leaves_and_order_identical(seed):
+    """``plan_queries`` against the reference's: the same slot leaves in
+    the same order, the same signature and masks, and ``prev=`` reusing
+    the earlier plan's leaf table."""
+    from repro.core.plan import plan_queries as r_plan_queries
+    from repro_torch.core.plan import plan_queries as t_plan_queries
+    rq, tq = _queries(20 + seed, n=6)
+    rp = r_plan_queries(rq[:4], tau=0.25)
+    tp = t_plan_queries(tq[:4], tau=0.25)
+    assert [repr(to_port(k)) if k is not None else None
+            for k in rp.slot_keys] == [repr(k) if k is not None else None
+                                       for k in tp.slot_keys]
+    assert rp.plan_sig == tp.plan_sig
+    rng = np.random.default_rng(seed)
+    ro, to = outputs_pair(*_outputs(rng))
+    np.testing.assert_array_equal(tp.evaluate(to).numpy(),
+                                  np.asarray(rp.evaluate(ro)))
+    rp2 = r_plan_queries(rq[2:], prev=rp)
+    tp2 = t_plan_queries(tq[2:], prev=tp)
+    assert tp2.leaf_table is tp.leaf_table
+    assert rp.leaf_table.snapshot() == tp.leaf_table.snapshot()
+    assert rp2.plan_sig == tp2.plan_sig
+    np.testing.assert_array_equal(tp2.evaluate(to).numpy(),
+                                  np.asarray(rp2.evaluate(ro)))
+
+
+def test_step_cache_max_of_shared_cache_identical():
+    """``StagedQueryPlan.step_cache_max``: the capacity of the step cache
+    it was given (shared by two plans) or of its own default one."""
+    from repro.core.stepcache import StepCache as RSC
+    from repro_torch.core.stepcache import StepCache as TSC
+    rq, tq = _queries(30, n=4)
+    rsc, tsc = RSC(capacity=5), TSC(capacity=5)
+    rs = [RPlan(rq[i:i + 2]).build_staged(None, step_cache=rsc)
+          for i in (0, 2)]
+    ts = [TPlan(tq[i:i + 2]).build_staged(None, step_cache=tsc)
+          for i in (0, 2)]
+    assert [s.step_cache_max for s in ts] == \
+        [s.step_cache_max for s in rs] == [5, 5]
+    assert ts[0].step_cache is ts[1].step_cache is tsc
+    assert TPlan(tq).build_staged(None).step_cache_max == \
+        RPlan(rq).build_staged(None).step_cache_max

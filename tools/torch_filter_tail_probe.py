@@ -3,9 +3,9 @@ batch draw.
 
 Trains the OD filter of tests/test_system.py (JACKSON-like scene, head_dim
 48, layer 2, 140 steps x 32 over 768 frames) with the port's training
-step on the CPU, for seeds 0-10, in one of five modes, and prints the
-held-out ``cf_acc_1`` (256 frames, dynamics seed 99) as one JSON line a
-seed:
+step on the CPU, for a range of seeds (0-10 by default), in one of five
+modes, and prints the held-out ``cf_acc_1`` (256 frames, dynamics seed
+99) as one JSON line a seed:
 
     ref   the JAX package's own ``train_filter``
     port  the port's ``train_filter`` (its init, its batch draw)
@@ -14,9 +14,11 @@ seed:
     c     the JAX package's init and batch indices
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/torch_filter_tail_probe.py a
+    ... tools/torch_filter_tail_probe.py port --first 0 --seeds 50  # 0-49
 
-Needs both packages (jax and torch); a mode takes about 5 minutes on one
-CPU core.
+Needs both packages (jax and torch); a seed takes about 25 s on one CPU
+core.  ``--first`` and ``--seeds`` cut a range into pieces that run in
+parallel processes.
 """
 import argparse
 import json
@@ -94,11 +96,14 @@ def train_port(seed: int, init: str, draw: str) -> TT.TrainedFilter:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("mode", choices=["ref", *MODES])
-    ap.add_argument("--seeds", type=int, default=11)
+    ap.add_argument("--first", type=int, default=0,
+                    help="the first seed of the range")
+    ap.add_argument("--seeds", type=int, default=11,
+                    help="how many seeds, from --first on")
     ap.add_argument("--threads", type=int, default=1)
     args = ap.parse_args(argv)
     torch.set_num_threads(args.threads)
-    for seed in range(args.seeds):
+    for seed in range(args.first, args.first + args.seeds):
         t0 = time.perf_counter()
         if args.mode == "ref":
             tf = RT.train_filter(JACKSON_LIKE, _spec(RBranch), steps=STEPS,

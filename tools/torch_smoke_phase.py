@@ -1,12 +1,14 @@
-"""Run ``chip_smoke.py``'s training phase alone, in a fresh process.
+"""Run one late phase of ``chip_smoke.py`` alone, in a fresh process.
 
-    python3 tools/torch_train_phase.py              # on a CUDA card
-    python3 tools/torch_train_phase.py --rehearse   # tiny, on the CPU
+    python3 tools/torch_smoke_phase.py train             # on a CUDA card
+    python3 tools/torch_smoke_phase.py launch --rehearse # tiny, on the CPU
 
-Builds the kernels (decode attention serves the trained checkpoint),
-then runs ``zoo_training_phase`` and prints its lines after the card's
-name and power limit: the same checks and numbers as the smoke's phase
-17, without the phases that run before it in the smoke's process.
+``train`` is the smoke's phase 17 (``zoo_training_phase``), ``launch``
+its phase 19 (``launch_phase``: the launch analyses against steps on
+the card, and gradient compression).  Builds the kernels (decode
+attention runs in both), then runs the phase and prints its lines after
+the card's name and power limit: the same checks and numbers as in the
+smoke, without the phases that run before it in the smoke's process.
 Exits non-zero if a check fails.
 """
 from __future__ import annotations
@@ -23,24 +25,28 @@ sys.path.insert(0, os.path.join(HERE, "..", "src"))
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("phase", choices=["train", "launch"])
     ap.add_argument("--rehearse", action="store_true")
     args = ap.parse_args(argv)
     import torch
 
     import chip_smoke as cs
     if args.rehearse:
-        dev = torch.device("cpu")
+        dev, gpu = torch.device("cpu"), "CPU rehearsal"
     else:
         cs.check(torch.cuda.is_available(), "torch finds no CUDA device")
-        dev = torch.device("cuda")
-        print(cs.gpu_line(), flush=True)
+        dev, gpu = torch.device("cuda"), cs.gpu_line()
+        print(gpu, flush=True)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         from repro_torch.kernels import build
         t0 = time.perf_counter()
         build.build_all()
         print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
-    launches, lines = cs.zoo_training_phase(torch, dev, args.rehearse)
+    if args.phase == "train":
+        launches, lines = cs.zoo_training_phase(torch, dev, args.rehearse)
+    else:
+        launches, lines = cs.launch_phase(torch, dev, args.rehearse, gpu)
     for line in lines:
         print(line, flush=True)
     print(f"launches {launches}", flush=True)
