@@ -256,6 +256,27 @@ Phases (any failure exits non-zero and prints no result line):
     ``file://`` store (within ``scale / 2``; ``op_cost`` counting two
     all-reduces a leaf); the reference's 50-step constant-gradient case
     at 1e-3; compress and all-reduce ms beside the gradient pass.
+20. (Run after 19, before the lines of 18.)  The mesh path.  (a) A
+    one-rank NCCL group from a ``file://`` store under ``build/``, the
+    (1, 1) host mesh: qwen2-0.5b's decode_32k in bf16 (batch 128, the
+    48 GiB cache filled to 30000 rows) and in float32 (batch 8), placed
+    by ``jit_step_for_cell``'s plan as DTensors in place (pointers
+    unchanged), 8 steps under ``ctx.decode_shard`` (no kernel launched:
+    JAX's routing), then the one-card decode from the same cache state
+    (``xla_flash``): float32 logits at ``decode_tol``'s 1e-4, bf16 at
+    ``mesh_tol`` (``MESH_BF16_TOL``, 0.25, set from the gaps measured
+    between whole-model bf16 decodes); the train step at 4 x 1024
+    through the plan against ``step_for_cell`` from the same state (AdamW
+    at 1e-2: loss at 1e-4 relative, moments within 1e-4 of each leaf's
+    largest, parameters within 2^-8 |p| + 1e-3 of the rate where the
+    step can be read); ms per step of both, peaks.  (b) Four processes of this script
+    (``--mesh-worker``) on the one card over gloo: the decode at (1, 4)
+    with the cache split on sequence and the rest replicated (each rank
+    builds its 8192-row slice; bf16 batch 32, float32 batch 8) against
+    (a)'s logits; the pipeline, qwen2-0.5b's 24 layers as 4 stages of 6
+    over 4 microbatches of 4 x 1024 bf16, against ``run_layers``; the
+    collectives gloo carried.  A rank that exits non-zero, or (b) past
+    120 s, fails the smoke.
 """
 import argparse
 import dataclasses
@@ -4008,15 +4029,526 @@ def launch_phase(torch, dev, rehearse, gpu):
     return zoo_b, lines
 
 
+# ---------------------------------------------------------------------------
+# the mesh path: the sharding plan, the decode shard, the pipeline (phase 20)
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = 8                 # decode steps of (a) and (b)
+MESH_WORLD = 4                 # (b): ranks sharing the one card over gloo
+MESH_F32_BATCH = 8             # the float32 decode's batch (6 GiB cache)
+MESH_DTYPES = ("bfloat16", "float32")
+MESH_B_LIMIT_S = 120           # (b)'s ranks, from start to exit
+MESH_PIPE = dict(micro=4, batch=4, seq=1024)
+MESH_PIPE_SMALL = dict(micro=4, batch=2, seq=16)
+MESH_TRAIN_STEPS = 3           # timed steps of each train step
+MESH_TRAIN_LR = 1e-2           # AdamW's rate there: a step moves bf16 weights
+# whole-model bf16 decode logits, sharded vs unsharded: 1.6 x the largest
+# gap measured at decode_32k between the port's own one-card decodes
+# (``xla_flash`` vs the decode kernel, 0.1323-0.1494) and between the
+# sharded and the unsharded decode (0.1348-0.1592), NVIDIA H100 80GB
+# HBM3 at 700 W (phase 20); float32 holds the precision, 1e-4
+MESH_BF16_TOL = 0.25
+# (b)'s layout: the cache split on sequence, everything else replicated;
+# gloo carries only broadcast and all_reduce on CUDA tensors, and this is
+# the layout whose only collectives are the decode shard's all_reduces
+SEQ_ONLY = {"cache_seq": "model"}
+
+
+def mesh_store(name):
+    d = os.path.join(HERE, "build", "mesh_phase")
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, name)
+    if os.path.exists(path):
+        os.remove(path)
+    return path
+
+
+def mesh_decode_cfg(rehearse, dtype):
+    """(config, batch, cache rows, valid rows) of (a)'s decode in ``dtype``:
+    qwen2-0.5b's decode_32k as configured (``xla_flash``), batch 128 in
+    bf16 (the 48 GiB cache), ``MESH_F32_BATCH`` in float32; its smoke
+    config on the CPU."""
+    from repro_torch.models.config import shape_cell
+    cfg = model_config("qwen2_0p5b", rehearse, dtype=dtype)
+    if rehearse:
+        return cfg, (8 if dtype == "bfloat16" else 4), 64, 50
+    c = shape_cell("decode_32k")
+    B = c.global_batch if dtype == "bfloat16" else MESH_F32_BATCH
+    return cfg, B, c.seq_len, DECODE_KV_LEN
+
+
+def mesh_batch_b(B, dtype):
+    """(b)'s batch: bf16 cut by the ranks (128 -> 32), float32 whole."""
+    return B // MESH_WORLD if dtype == "bfloat16" else B
+
+
+def fill_rows(torch, dev, bufs, kv_len, block, b0, r0, seed):
+    """Fill the valid rows (< ``kv_len``) of local cache chunks ``bufs``
+    ({name: (L, b, s, KV, hd)} holding global batch rows b0.. and
+    sequence rows r0..) with bf16 normal draws made ``block`` batch rows
+    at a time from seeded generators, so that any chunk of the same cache
+    holds the same values."""
+    for n, name in enumerate(sorted(bufs)):
+        buf = bufs[name]
+        L, b, s = buf.shape[:3]
+        hi = min(r0 + s, kv_len)
+        if hi <= r0:
+            continue
+        tmp = torch.empty((block, kv_len) + tuple(buf.shape[3:]),
+                          dtype=buf.dtype, device=dev)
+        for layer in range(L):
+            for j in range(b0 // block, (b0 + b - 1) // block + 1):
+                g = torch.Generator(dev).manual_seed(
+                    SEED + 7919 * (n * L + layer) + j)
+                tmp.normal_(generator=g)
+                lo_b, hi_b = max(b0, j * block), min(b0 + b, (j + 1) * block)
+                buf[layer, lo_b - b0:hi_b - b0, :hi - r0] = \
+                    tmp[lo_b - j * block:hi_b - j * block, r0:hi]
+        del tmp
+
+
+def mesh_tokens(cfg, B):
+    return np.random.default_rng(SEED + 20).integers(
+        0, cfg.vocab_size, (B, MESH_STEPS))
+
+
+def mesh_tol(torch, want):
+    """A step's tolerance: ``decode_tol`` in float32; in bf16 at least
+    ``MESH_BF16_TOL``: a whole bf16 model's logits move by bf16
+    roundings layer after layer, beyond the one-call ``decode_tol``."""
+    tol = decode_tol(torch, want)
+    return max(tol, MESH_BF16_TOL) if want.dtype == torch.bfloat16 else tol
+
+
+def plain_decodes(torch, dev, SV, params, cfg, cache, toks):
+    """``MESH_STEPS`` unsharded decode steps from ``cache``'s state (its
+    ``len`` is never advanced in place); returns (logits, step seconds)."""
+    out, times = [], []
+    for i in range(MESH_STEPS):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        lg, cache = SV.decode_step(params, cfg, toks[:, i:i + 1],
+                                   cache=cache)
+        sync(torch, dev)
+        times.append(time.perf_counter() - t0)
+        out.append(lg)
+    return out, times
+
+
+def mesh_decode_a(torch, dev, rehearse, mesh, gpu, dtype):
+    """(a) decode in ``dtype``: ``MESH_STEPS`` steps under
+    ``ctx.decode_shard`` on the plan's DTensors at world 1, then the
+    unsharded decode from the same cache state as configured
+    (``xla_flash``), held at ``mesh_tol``.  Returns (the sharded logits
+    of (b)'s rows per step on the host, lines)."""
+    from repro_torch.distributed import ctx
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models import serve as SV
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.train import step as TS
+    cfg, B, S, kv_len = mesh_decode_cfg(rehearse, dtype)
+    bb = mesh_batch_b(B, dtype)
+    params = M.init_params(torch.Generator(dev).manual_seed(SEED + 20), cfg,
+                           device=dev)
+    cache = SV.init_cache(cfg, B, S, device=dev)
+    t0 = time.perf_counter()
+    fill_rows(torch, dev, cache["layers"], kv_len, bb, 0, 0, SEED + 21)
+    cache["len"].fill_(kv_len)
+    sync(torch, dev)
+    fill_s = time.perf_counter() - t0
+    toks = torch.as_tensor(mesh_tokens(cfg, B), device=dev)
+    cell = ShapeCell("decode_32k", S, B, "decode")
+    _, plan = TS.jit_step_for_cell(cfg, cell, mesh)
+    dp = plan.place(params, plan.param_shardings)
+    dcache = plan.place_inputs({"cache": cache})["cache"]
+    check(all(dcache["layers"][k].to_local().data_ptr() ==
+              cache["layers"][k].data_ptr() for k in ("k", "v")),
+          "mesh (a): placing the cache on the (1, 1) mesh copied it")
+    cache_bytes = sum(a.numel() * a.element_size()
+                      for a in cache["layers"].values())
+    reset_peak(torch, dev)
+    base = torch.cuda.memory_allocated() if dev.type == "cuda" else None
+    ops.reset_launch_counts()
+    got, sharded = [], []
+    with plan.sharder(), ctx.decode_shard(mesh):
+        for i in range(MESH_STEPS):
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            lg, dcache = SV.decode_step(dp, cfg, plan.place_inputs(
+                {"tokens": toks[:, i:i + 1]})["tokens"], cache=dcache)
+            lg = lg.full_tensor()
+            sync(torch, dev)
+            sharded.append(time.perf_counter() - t0)
+            got.append(lg)
+    peak = None if base is None else torch.cuda.max_memory_allocated() - base
+    launched = zoo_counts(ops)
+    check(sum(launched.values()) == 0, f"mesh (a): the sharded decode "
+          f"launched {launched} (JAX's routing: the shard path, no kernel)")
+    check(int(dcache["len"].full_tensor()) == kv_len + MESH_STEPS,
+          "mesh (a): the sharded decode's len")
+    del dcache
+    want, plain = plain_decodes(torch, dev, SV, params, cfg, cache, toks)
+    check(int(cache["len"]) == kv_len, "mesh (a): the plain len moved")
+    errs, tols = [], []
+    for i in range(MESH_STEPS):
+        errs.append(float((got[i].float() - want[i].float()).abs().max()))
+        tols.append(mesh_tol(torch, want[i]))
+        check(bool(torch.isfinite(got[i]).all()) and errs[-1] <= tols[-1],
+              f"mesh (a) {dtype}: decode step {i} sharded vs unsharded: "
+              f"max abs err {errs[-1]} (tol {tols[-1]})")
+    first = [g[:bb].float().cpu() for g in got]
+    del params, got, want, cache
+    text = (f"mesh (a) decode, {dtype}: {cfg.name} decode_32k "
+            f"({cfg.attn_impl}) over a one-rank "
+            f"{'NCCL' if dev.type == 'cuda' else 'gloo'} group, mesh (1, 1): "
+            f"batch {B}, a {S}-row cache of {gib(cache_bytes)} filled to "
+            f"{kv_len} rows in {fill_s:.3f} s, placed as DTensors in place "
+            f"(pointers unchanged); {MESH_STEPS} steps under "
+            f"ctx.decode_shard {steps_text(sharded)} (first "
+            f"{sharded[0] * 1e3:.3f}), peak added above cache and weights "
+            f"{gib(peak)}, decode attention launched {launched}; the "
+            f"unsharded decode ({cfg.attn_impl}) from the same cache state "
+            f"{steps_text(plain)}")
+    text += (f"; sharded vs unsharded max abs err {min(errs):.4g}-"
+             f"{max(errs):.4g} against tol {min(tols):.4g}-{max(tols):.4g} "
+             f"(``mesh_tol``) [{gpu}]")
+    return first, [text]
+
+
+def mesh_train_a(torch, dev, rehearse, mesh, gpu):
+    """(a) train: qwen2-0.5b's AdamW step at 4 x 1024 through the plan at
+    world 1 against ``step_for_cell`` from the same state: the loss at
+    1e-4 relative, both moments (float32) within 1e-4 of each leaf's
+    largest, and the new parameters within one bf16 rounding (2^-8 |p|)
+    plus 1e-3 of the rate where the step can be read: the gradient at
+    least 1e-2 of its leaf's largest (else a gradient near AdamW's eps
+    makes the step's size a rounding) and |p| at most 64 x the rate (one
+    rounding then under a quarter of the rate), where the plain step
+    must have moved each weight by a quarter of the rate; ms per step of
+    both."""
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.optim import adamw
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.train import step as TS
+    t = LAUNCH_TRAIN_SMALL if rehearse else LAUNCH_TRAIN
+    cfg = model_config("qwen2_0p5b", rehearse, remat="none")
+    cell = ShapeCell("train_4k", t["seq"], t["batch"], "train")
+    lr = MESH_TRAIN_LR
+    opt = adamw(lr, weight_decay=0.1)
+    state = TS.init_state(torch.Generator(dev).manual_seed(SEED + 22), cfg,
+                          opt, device=dev)
+    batch = token_batch(torch, dev, cfg, t["batch"], t["seq"], SEED + 22)
+    plain_fn = TS.step_for_cell(cfg, cell, opt)
+    step, plan = TS.jit_step_for_cell(cfg, cell, mesh, opt)
+
+    def timed(fn):
+        out, times = None, []
+        for _ in range(1 + MESH_TRAIN_STEPS):
+            del out
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            out = fn(state, batch)
+            float(out[1]["loss"])
+            sync(torch, dev)
+            times.append(time.perf_counter() - t0)
+        return out, times
+
+    (want, wm), plain_s = timed(plain_fn)
+    reset_peak(torch, dev)
+    (got, gm), plan_s = timed(step)
+    peak = peak_bytes(torch, dev)
+    lw, lg = float(wm["loss"]), float(gm["loss"])
+    check(math.isfinite(lg) and abs(lg - lw) <= 1e-4 * abs(lw),
+          f"mesh (a) train: loss {lg} through the plan, {lw} plain")
+    worst_m, where = 0.0, None
+    for k in ("m", "v"):
+        for i, (a, b) in enumerate(zip(tree_leaves(got["opt"][k]),
+                                       tree_leaves(want["opt"][k]))):
+            d = float((a.full_tensor() - b).abs().max())
+            d /= max(float(b.abs().max()), 1e-30)
+            if d > worst_m:
+                worst_m, where = d, f"{k} of leaf {i} {tuple(b.shape)}"
+    check(worst_m <= 1e-4, f"mesh (a) train: the moment {where} is "
+          f"{worst_m} of its largest off the plain step's (limit 1e-4)")
+    worst, worst_over, held, total, moved = 0.0, -1.0, 0, 0, math.inf
+    for a, b, p0, m in zip(tree_leaves(got["params"]),
+                           tree_leaves(want["params"]),
+                           tree_leaves(state["params"]),
+                           tree_leaves(want["opt"]["m"])):
+        g = m.abs()
+        keep = (g >= 1e-2 * g.max()) & (p0.float().abs() <= 64 * lr)
+        d = (a.full_tensor().float() - b.float()).abs()
+        worst = max(worst, float(d.max()))
+        held, total = held + int(keep.sum()), total + keep.numel()
+        if keep.any():
+            moved = min(moved, float((b.float() - p0.float()).abs()[keep]
+                                     .min()))
+            worst_over = max(worst_over, float(
+                (d - 2.0 ** -8 * b.float().abs() - 1e-3 * lr)[keep].max()))
+    check(held >= total // 10 and moved >= 0.25 * lr,
+          f"mesh (a) train: the step read on {held} of {total} weights, "
+          f"the plain step moving them at least {moved} (rate {lr})")
+    check(worst_over <= 0, f"mesh (a) train: a parameter is off the plain "
+          f"step's by 2^-8 x |p| + 1e-3 x the rate + {worst_over}")
+    n_leaves = len(tree_leaves(got["params"]))
+    placements = sorted({str(p.placements) for p in
+                         tree_leaves(got["params"])})
+    del got, want, state
+    ms = median_ms(plan_s[1:])
+    ms_plain = median_ms(plain_s[1:])
+    return [f"mesh (a) train: {cfg.name} {t['batch']} x {t['seq']} "
+            f"({cfg.dtype}, {cfg.attn_impl}, remat none) through "
+            f"jit_step_for_cell on the (1, 1) mesh, AdamW at {lr}: loss "
+            f"{lg:.6f} against {lw:.6f} plain, moments within {worst_m:.3g} "
+            f"of their leaves' largest, largest parameter difference "
+            f"{worst:.3g} over {n_leaves} leaves, the step read on {held} of "
+            f"{total} weights (each moved at least {moved:.3g} by the plain "
+            f"step) (placed {placements}); step median "
+            f"{ms:.3f} ms (first {plan_s[0] * 1e3:.3f}, min "
+            f"{min(plan_s[1:]) * 1e3:.3f}, max {max(plan_s[1:]) * 1e3:.3f}) "
+            f"against step_for_cell's {ms_plain:.3f} ms (first "
+            f"{plain_s[0] * 1e3:.3f}): DTensor adds {ms - ms_plain:.3f} ms a "
+            f"step; peak {gib(peak)} [{gpu}]"]
+
+
+def mesh_worker(rank, store, rehearse):
+    """One of (b)'s ranks: a gloo group of ``MESH_WORLD`` processes on the
+    one card (the CPU in rehearsal).  The sequence-sharded decode at (1, 4)
+    against (a)'s logits, then the pipeline against ``run_layers``.
+    Writes its numbers as JSON beside the store; returns 0."""
+    sys.path.insert(0, SRC)
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import ctx
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.pipeline import make_pipelined_forward
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import serve as SV
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.train import step as TS
+    t_start = time.perf_counter()
+    if rehearse:
+        dev = torch.device("cpu")
+    else:
+        torch.cuda.set_device(0)
+        dev = torch.device("cuda", 0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=MESH_WORLD)
+    carried = {}
+    inner = dist.all_reduce
+
+    def counted(t, *a, **kw):           # which collectives gloo carries
+        op = str(kw.get("op", "SUM")).split(".")[-1]
+        key = f"all_reduce {op} {t.device.type} {str(t.dtype)[6:]}"
+        carried[key] = carried.get(key, 0) + 1
+        return inner(t, *a, **kw)
+    dist.all_reduce = counted
+    out = {"rank": rank}
+    try:
+        want_all = torch.load(os.path.join(os.path.dirname(store), "a.pt"))
+        mesh = make_mesh((1, MESH_WORLD), ("data", "model"), device=dev)
+        rules = {k: SEQ_ONLY.get(k) for k in SH.DEFAULT_RULES}
+        for dtype in MESH_DTYPES:
+            cfg, B, S, kv_len = mesh_decode_cfg(rehearse, dtype)
+            bb = mesh_batch_b(B, dtype)
+            _, plan = TS.jit_step_for_cell(
+                cfg, ShapeCell("decode_32k_b", S, bb, "decode"), mesh,
+                rules=rules)
+            params = M.init_params(
+                torch.Generator(dev).manual_seed(SEED + 20), cfg, device=dev)
+            dp = plan.place(params, plan.param_shardings)
+            s_local = S // MESH_WORLD
+            local = SV.init_cache(cfg, bb, s_local, device=dev)
+            fill_rows(torch, dev, local["layers"], kv_len, bb, 0,
+                      rank * s_local, SEED + 21)
+            local["len"].fill_(kv_len)
+            dcache = SH.map_axes(
+                lambda spec, t: SH.from_local(t, mesh, spec),
+                plan.input_shardings["cache"], local)
+            want = want_all[dtype]
+            toks = torch.as_tensor(mesh_tokens(cfg, B)[:bb], device=dev)
+            errs, tols, steps = [], [], []
+            carried.clear()
+            with plan.sharder(), ctx.decode_shard(mesh):
+                for i in range(MESH_STEPS):
+                    sync(torch, dev)
+                    t0 = time.perf_counter()
+                    lg, dcache = SV.decode_step(dp, cfg, plan.place_inputs(
+                        {"tokens": toks[:, i:i + 1]})["tokens"],
+                        cache=dcache)
+                    lg = lg.to_local()
+                    sync(torch, dev)
+                    steps.append(time.perf_counter() - t0)
+                    w = want[i].to(dev)
+                    errs.append(float((lg.float() - w).abs().max()))
+                    tols.append(mesh_tol(torch, w.to(lg.dtype)))
+                    check(bool(torch.isfinite(lg).all())
+                          and errs[-1] <= tols[-1],
+                          f"mesh (b) rank {rank} {dtype}: decode step {i} "
+                          f"logits {errs[-1]} off (a)'s (tol {tols[-1]})")
+            out[dtype] = dict(errs=errs, tols=tols, steps=steps,
+                              carried=dict(carried), rows=s_local, batch=bb,
+                              cache_gib=sum(
+                                  t.numel() * t.element_size()
+                                  for t in local["layers"].values()) / 2**30)
+            del dp, dcache, local, params
+
+        p = MESH_PIPE_SMALL if rehearse else MESH_PIPE
+        pcfg = model_config("qwen2_0p5b", rehearse, dtype="bfloat16")
+        if rehearse:                  # 4 stages of one layer
+            pcfg = dataclasses.replace(pcfg, n_layers=MESH_WORLD)
+        pmesh = make_mesh((MESH_WORLD,), ("pod",), device=dev)
+        pp = M.init_params(torch.Generator(dev).manual_seed(SEED + 23), pcfg,
+                           device=dev)
+        x = torch.randn((p["micro"], p["batch"], p["seq"], pcfg.d_model),
+                        generator=torch.Generator(dev).manual_seed(SEED + 24),
+                        device=dev, dtype=torch.bfloat16)
+        fn = make_pipelined_forward(pcfg, pmesh, pipe_axis="pod",
+                                    n_micro=p["micro"])
+        carried.clear()
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        outs = fn(pp["layers"], x)
+        sync(torch, dev)
+        pipe_s = time.perf_counter() - t0
+        pipe_carried = dict(carried)
+        with torch.no_grad():
+            ref = torch.stack([M.run_layers(pp["layers"], x[m], pcfg)[0]
+                               for m in range(p["micro"])])
+        err = float((outs.float() - ref.float()).abs().max())
+        tol = decode_tol(torch, ref)
+        check(err <= tol, f"mesh (b) rank {rank}: the pipeline is {err} off "
+              f"run_layers (tol {tol})")
+        host = x.is_cuda and dist.get_backend(pmesh.get_group("pod")) == "gloo"
+        out["pipe"] = dict(err=err, tol=tol, s=pipe_s, carried=pipe_carried,
+                           layers=pcfg.n_layers, host=host, **p)
+        out["seconds"] = time.perf_counter() - t_start
+        with open(os.path.join(os.path.dirname(store), f"rank{rank}.json"),
+                  "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def mesh_ranks(torch, rehearse, gpu):
+    """(b): ``MESH_WORLD`` processes of this script on the one card over
+    gloo (``mesh_worker``).  Any rank that exits non-zero, or a phase
+    over ``MESH_B_LIMIT_S``, fails the smoke; every process is stopped."""
+    store = mesh_store("store_b")
+    d = os.path.dirname(store)
+    for r in range(MESH_WORLD):
+        if os.path.exists(os.path.join(d, f"rank{r}.json")):
+            os.remove(os.path.join(d, f"rank{r}.json"))
+    cmd = [sys.executable, os.path.abspath(__file__), "--mesh-worker"]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd + [str(r), store] +
+                              (["--rehearse"] if rehearse else []),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(MESH_WORLD)]
+    outs = []
+    try:
+        for p in procs:
+            left = MESH_B_LIMIT_S - (time.perf_counter() - t0)
+            outs.append(p.communicate(timeout=max(left, 1))[0])
+    except subprocess.TimeoutExpired:
+        raise SmokeError(f"mesh (b): the ranks did not finish within "
+                         f"{MESH_B_LIMIT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"mesh (b): rank {r} exited "
+              f"{p.returncode}:\n{o[-3000:]}")
+    res = []
+    for r in range(MESH_WORLD):
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    lines = []
+    for dtype in MESH_DTYPES:
+        dec = [x[dtype] for x in res]
+        errs = [e for x in dec for e in x["errs"]]
+        tols = [t for x in dec for t in x["tols"]]
+        steps = [s for x in dec for s in x["steps"][1:]]
+        lines.append(
+            f"mesh (b) decode, {dtype}: {MESH_WORLD} processes on the one "
+            f"card over gloo, mesh (1, {MESH_WORLD}) (cache split on "
+            f"sequence, the rest replicated): batch {dec[0]['batch']}, "
+            f"{dec[0]['rows']} cache rows and {dec[0]['cache_gib']:.3f} GiB "
+            f"a rank; {MESH_STEPS} steps, every rank's logits against (a)'s "
+            f"world-1 logits: max abs err {min(errs):.4g}-{max(errs):.4g}, "
+            f"tol {min(tols):.4g}-{max(tols):.4g}; steps 2+ "
+            f"{steps_text(steps)} over the ranks; gloo carried "
+            f"{dec[0]['carried']} (rank 0) [{gpu}]")
+    pipe = [x["pipe"] for x in res]
+    pl = pipe[0]
+    return lines + [
+        f"mesh (b) pipeline: {pl['layers']} layers as {MESH_WORLD} stages of "
+        f"{pl['layers'] // MESH_WORLD}, {pl['micro']} microbatches of "
+        f"{pl['batch']} x {pl['seq']} bf16: within {max(x['err'] for x in pipe):.3g} "
+        f"of run_layers (tol {pl['tol']:.3g}) on every rank; "
+        f"{max(x['s'] for x in pipe):.3f} s; gloo carried {pl['carried']}, "
+        f"the activations {'through pinned host buffers' if pl['host'] else 'as they are'}"
+        f" (batch_isend_irecv of CPU tensors); the ranks {wall:.1f} s from "
+        f"start to exit (limit {MESH_B_LIMIT_S})"]
+
+
+def mesh_phase(torch, dev, rehearse, gpu):
+    """Phase 20: (a) the mesh path at world 1 (NCCL on the card, gloo on
+    the CPU), mesh (1, 1): qwen2-0.5b's decode_32k under ``decode_shard``
+    and its train step through the plan, each against the one-card path;
+    (b) four ranks on the one card over gloo.  Returns its lines."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+    t_phase = time.perf_counter()
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    init_distributed(dev, init_file=mesh_store("store_a"), rank=0,
+                     world_size=1)
+    try:
+        check(dist.get_backend() == ("nccl" if dev.type == "cuda"
+                                     else "gloo"),
+              f"mesh (a): backend {dist.get_backend()}")
+        mesh = make_host_mesh(dev)
+        first, lines = {}, []
+        for dtype in MESH_DTYPES:
+            first[dtype], more = mesh_decode_a(torch, dev, rehearse, mesh,
+                                               gpu, dtype)
+            lines += more
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        torch.save(first, mesh_store("a.pt"))
+        lines += mesh_train_a(torch, dev, rehearse, mesh, gpu)
+    finally:
+        dist.destroy_process_group()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    lines += mesh_ranks(torch, rehearse, gpu)
+    lines.append(f"mesh phase: {time.perf_counter() - t_phase:.1f} s")
+    return lines
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse", action="store_true",
                     help="run every phase on the CPU at a tiny size (plain "
                          "versions instead of kernels, no result line)")
+    ap.add_argument("--mesh-worker", nargs=2, metavar=("RANK", "STORE"),
+                    help="run one rank of phase 20 (b) (started by the "
+                         "smoke itself)")
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         raise SmokeError(f"no src/repro_torch beside {__file__}: run from "
                          f"a checkout of the repository")
+    if args.mesh_worker:
+        return mesh_worker(int(args.mesh_worker[0]), args.mesh_worker[1],
+                           args.rehearse)
     sys.path.insert(0, SRC)
     import torch
     from repro_torch.data.synthetic import VideoStream, collect
@@ -4178,6 +4710,10 @@ def main(argv=None):
         torch.cuda.empty_cache()
     zoo["launch_b"], lines = launch_phase(torch, dev, args.rehearse, gpu)
     for line in lines:
+        print(line, flush=True)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    for line in mesh_phase(torch, dev, args.rehearse, gpu):
         print(line, flush=True)
     if args.rehearse:
         print("rehearsal done (CPU: plain versions, no kernels)")

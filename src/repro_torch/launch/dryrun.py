@@ -16,8 +16,10 @@ card are the kernels' launches.
     python -m repro_torch.launch.dryrun --all --out results/dryrun_torch
 
 The reference's ``--mesh``, ``--rules`` and ``--decode-shardmap`` have no
-counterpart: one card has no mesh, no sharding rules and no
-sequence-sharded decode.  A large cell takes minutes of host time.
+counterpart yet: the mesh modules exist (``launch/mesh.py``,
+``distributed/``, ``train/step.make_plan``), and the dry-run over a
+mesh (per-rank peak and collectives from the plan's specs) is queued
+(ROADMAP).  A large cell takes minutes of host time.
 """
 from __future__ import annotations
 

@@ -7,8 +7,10 @@ steps run on them as they are (``launch/dryrun.py``).  Modality
 frontends are stubs, as in the reference: audio and vision inputs arrive
 as precomputed frame / patch embeddings at d_model width.
 
-``input_shardings`` has no counterpart: it maps these specs onto a
-device mesh, and one card holds every input whole.
+``input_shardings`` maps these inputs onto a device mesh: the cache by
+``serve.cache_axes``, every other input split on its batch.  It returns
+specs (``distributed/sharding.py``), which ``ShardPlan.place`` turns
+into DTensors.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import layers as L
 from repro_torch.models import serve as SV
 from repro_torch.models.config import ModelConfig, ShapeCell
@@ -62,3 +65,18 @@ def input_specs(cfg: ModelConfig, cell: ShapeCell) -> Dict[str, Any]:
         return b
     return {"tokens": _spec((cell.global_batch, 1), torch.int32),
             "cache": cache}
+
+
+def input_shardings(cfg: ModelConfig, cell: ShapeCell, mesh,
+                    rules=None) -> Dict[str, Any]:
+    """Specs matching the ``input_specs`` structure."""
+    rules = rules or SH.DEFAULT_RULES
+    specs = input_specs(cfg, cell)
+    out: Dict[str, Any] = {}
+    for k, v in specs.items():
+        if k == "cache":
+            out[k] = SH.tree_specs(SV.cache_axes(cfg), v, mesh, rules)
+        else:
+            out[k] = SH.spec_for(("batch",) + (None,) * (v.dim() - 1),
+                                 v.shape, mesh, rules)
+    return out

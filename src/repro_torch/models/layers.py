@@ -26,11 +26,13 @@ Three things differ from the JAX package by design:
   == 1, no ``"pos"``, no softcap, no sliding window) runs
   ``ops.decode_attention(q[:, 0], k, v, kv_len=len + 1)``: one query at
   position ``len`` over keys ``0..len``, the function JAX's
-  ``naive_attention`` computes there.  On one card it takes the place of
-  the JAX package's sharded ``serve_attention.sharded_decode_attention``.
-  The condition is about the function: a CPU tensor reaches the plain
-  version, and a shape the kernel does not take raises on the card.
-  Every other call follows JAX's ``_attend`` dispatch.
+  ``naive_attention`` computes there.  Under ``ctx.decode_shard`` (a
+  mesh) JAX's routing holds instead: the call goes to
+  ``distributed.serve_attention.sharded_decode_attention``, not to the
+  kernel.  The condition is about the function: a CPU tensor reaches the
+  plain version, and a shape the kernel does not take raises on the
+  card.  Every other call follows JAX's ``_attend`` dispatch.
+
 - **The MoE combine sums each token's slots in order.**  JAX adds the
   expert outputs into the tokens with a scatter-add; on the card an
   ``index_add_`` would accumulate in no fixed order.  ``apply_moe``
@@ -38,6 +40,17 @@ Three things differ from the JAX package by design:
   zero, in the activation dtype: the order the CPU scatter takes, and
   the same bits on every run.  Routing uses fixed-shape ops only, so no
   layer waits for the card.
+
+Under a sharding plan (``train/step.py``'s ``ShardPlan``) parameters,
+activations and caches are DTensors: ``ctx.constrain`` lays activations
+out split on the batch around each layer, after the embedding and on
+the MoE token groups, as JAX does.  Attention without a cache runs on
+each rank's chunk of the batch and of the heads (``local_call``), the
+heads kept split where the split falls on whole KV groups; with a cache
+q / k / v are constrained to the batch split only where DTensor cannot
+view the heads' split as (KV, G).  Cache writes and the kernels'
+wrappers also run on each rank's local chunk (``_dyn_update``,
+``local_call``).
 """
 from __future__ import annotations
 
@@ -48,6 +61,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import ctx
 from repro_torch.models.config import Activation, ModelConfig
 
 Params = Dict[str, Any]
@@ -97,6 +111,13 @@ def norm_init(cfg: ModelConfig, device=None) -> Params:
     if cfg.layernorm:
         p["b"] = torch.zeros(cfg.d_model, dtype=dtype_of(cfg), device=device)
     return p
+
+
+def norm_axes(cfg: ModelConfig) -> Params:
+    a = {"w": ("embed",)}
+    if cfg.layernorm:
+        a["b"] = ("embed",)
+    return a
 
 
 def apply_norm(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -326,6 +347,20 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig, cross: bool = False,
     return p
 
 
+def attn_axes(cfg: ModelConfig, cross: bool = False) -> Params:
+    a = {
+        "wq": ("embed", "heads", "head_dim"),
+        "wk": ("embed", "kv_heads", "head_dim"),
+        "wv": ("embed", "kv_heads", "head_dim"),
+        "wo": ("heads", "head_dim", "embed"),
+    }
+    if cfg.qkv_bias and not cross:
+        a["bq"] = ("heads", "head_dim")
+        a["bk"] = ("kv_heads", "head_dim")
+        a["bv"] = ("kv_heads", "head_dim")
+    return a
+
+
 def attention_block(
     p: Params,
     x: torch.Tensor,                     # (B, S, D)
@@ -360,11 +395,32 @@ def attention_block(
             rope_tables(positions, q.shape[-1], cfg.rope_theta)
         q, kk = rotate_half(q, cos, sin), rotate_half(kk, cos, sin)
 
+    cached = cache is not None and kv_source is None
+    if cached and _heads_split_past_groups(q, kk.shape[2]):
+        # DTensor cannot view heads split over more ranks than there are
+        # KV groups as (KV, G): split on the batch, heads whole
+        q, kk, vv = (ctx.constrain(t, "attn") for t in (q, kk, vv))
     q_offset = 0
     kv_len = None
     kv_pos = None
     sw = cfg.sliding_window
-    if cache is not None and kv_source is None:
+    ds = ctx.get_decode_shard()
+    if (ds is not None and cache is not None and kv_source is None and
+            S == 1 and "pos" not in cache and
+            cache["k"].shape[1] % ds["mesh"].size(
+                list(ds["mesh"].mesh_dim_names).index(ds["seq_axis"]))
+            == 0):
+        # serving over a mesh: shard-local cache write + the softmax
+        # combine across the seq axis (JAX's routing: not the kernel)
+        from repro_torch.distributed.serve_attention import \
+            sharded_decode_attention
+        idx = cache["len"]
+        out, kc, vc = sharded_decode_attention(
+            q, kk, vv, cache["k"], cache["v"], idx, **ds)
+        cache = {"k": kc, "v": vc, "len": idx + 1}
+        y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+        return y.to(x.dtype), cache
+    if cached:
         idx = cache["len"]
         kc, vc = cache["k"], cache["v"]
         cap = kc.shape[1]
@@ -394,12 +450,19 @@ def attention_block(
             and sw is None and cfg.logits_softcap == 0.0):
         # one query at position len over keys 0..len: the decode kernel
         from repro_torch.kernels import ops as kops
-        out = kops.decode_attention(q[:, 0], kk, vv, kv_len)[:, None]
+        out = local_call(lambda a, b, c, n: kops.decode_attention(
+            a[:, 0], b, c, n)[:, None], q, kk, vv, kv_len)
+    elif not cached:
+        # each (batch row, head) attends on its own: under a sharding
+        # plan every rank runs its chunk of both, with no collective
+        out = local_call(functools.partial(
+            _attend, cfg, causal=causal, sliding_window=sw,
+            prefix_len=prefix_len), q, kk, vv,
+            layout=_qkv_layout(q, kk.shape[2]))
     else:
         out = _attend(cfg, q, kk, vv, causal=causal, kv_len=kv_len,
-                      kv_pos=kv_pos,
-                      q_offset=q_offset if cache is not None else 0,
-                      sliding_window=sw, prefix_len=prefix_len)
+                      kv_pos=kv_pos, q_offset=q_offset, sliding_window=sw,
+                      prefix_len=prefix_len)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     return y.to(x.dtype), cache
 
@@ -409,14 +472,104 @@ def _dyn_update(bufs, news, idx) -> None:
     row ``idx`` (an int or a device scalar), in place; the buffers share
     one cap and the rows are computed once.  The start is clamped to
     [0, cap - S], as ``lax.dynamic_update_slice`` clamps it, on the
-    device."""
+    device.  DTensor buffers (a cache placed by the sharding plan) are
+    written rank by rank into their local chunks: DTensor has no rule
+    for ``index_copy_``."""
     S, cap, dev = news[0].shape[1], bufs[0].shape[1], bufs[0].device
     if S > cap:
         raise ValueError(f"cannot write {S} rows into a cache of {cap}")
+    if _is_dtensor(bufs[0]):
+        _dyn_update_sharded(bufs, news, idx)
+        return
     start = torch.clamp(torch.as_tensor(idx, device=dev), 0, cap - S)
     rows = start.reshape(()).long() + torch.arange(S, device=dev)
     for buf, new in zip(bufs, news):
         buf.index_copy_(1, rows, new.to(buf.dtype))
+
+
+_is_dtensor = ctx.is_dtensor
+
+
+def _head_ranks(q) -> int:
+    """The number of ranks DTensor ``q`` (B, S, H, hd) splits heads over."""
+    from torch.distributed.tensor import Shard
+    n = 1
+    for i, pl in enumerate(q.placements):
+        if isinstance(pl, Shard) and pl.dim == 2:
+            n *= q.device_mesh.size(i)
+    return n
+
+
+def _heads_split_past_groups(q, n_kv: int) -> bool:
+    """Whether ``q`` is a DTensor whose heads are split over a number of
+    ranks that does not divide ``n_kv``, the KV groups."""
+    return _is_dtensor(q) and n_kv % _head_ranks(q) != 0
+
+
+def _qkv_layout(q, n_kv: int):
+    """Placements under which attention's q, k and v (B, S, heads, hd)
+    run on each rank's chunk (``local_call``): q's split of the batch,
+    and of the heads where it falls on whole KV groups (each rank then
+    holds its heads' own k / v heads); replicated otherwise.  None for
+    a plain ``q``."""
+    if not _is_dtensor(q):
+        return None
+    from torch.distributed.tensor import Replicate, Shard
+    heads = n_kv % _head_ranks(q) == 0
+    return tuple(p if p == Shard(0) or (heads and p == Shard(2))
+                 else Replicate() for p in q.placements)
+
+
+def _dyn_update_sharded(bufs, news, idx) -> None:
+    """``_dyn_update`` of DTensor buffers: the new rows laid out as the
+    buffer is but whole along the sequence, and each rank keeps the rows
+    that fall in its sequence chunk (``serve_attention.write_rows``)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.distributed.serve_attention import write_rows
+    from repro_torch.distributed.sharding import local_offset
+    buf = bufs[0]
+    S, cap = news[0].shape[1], buf.shape[1]
+    pl = tuple(Replicate() if p == Shard(1) else p for p in buf.placements)
+    news_l = [n.redistribute(buf.device_mesh, pl).to_local()
+              if _is_dtensor(n) else n for n in news]
+    idx_l = idx.to_local() if _is_dtensor(idx) else idx
+    start = torch.clamp(torch.as_tensor(idx_l, device=news_l[0].device),
+                        0, cap - S)
+    write_rows([b.to_local() for b in bufs], news_l,
+               start - local_offset(buf, 1))
+
+
+def local_call(fn, *args, layout=None):
+    """``fn(*args)`` for a kernel wrapper, which takes plain tensors.
+    DTensor arguments are first laid out by ``layout`` (placements; by
+    default split on the batch as the first's batch is split, and
+    replicated otherwise), ``fn`` runs on each rank's chunk, and the
+    output comes back as a DTensor of that layout (DTensor has no rule
+    for a custom kernel).  Plain arguments pass straight through."""
+    if not _is_dtensor(args[0]):
+        return fn(*args)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = args[0].device_mesh
+    pl = layout or tuple(p if p == Shard(0) else Replicate()
+                         for p in args[0].placements)
+    local = [_ContiguousGrad.apply(a.redistribute(
+        mesh, pl if a.ndim else (Replicate(),) * mesh.ndim).to_local())
+        if _is_dtensor(a) else a for a in args]
+    return DTensor.from_local(fn(*local), mesh, pl, run_check=False)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose gradient is made contiguous: the gradient of
+    a chunk's input goes back into DTensor ops that view it, and a view
+    of a permuted chunk fails."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
 
 
 def _attend(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
@@ -442,8 +595,9 @@ def _attend(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
                 isinstance(q_offset, int) and q_offset == 0 and \
                 prefix_len == 0 and cfg.logits_softcap == 0.0:
             from repro_torch.kernels import ops as kops
-            return kops.flash_attention(q, k, v, causal=causal,
-                                        sliding_window=sliding_window)
+            return local_call(functools.partial(
+                kops.flash_attention, causal=causal,
+                sliding_window=sliding_window), q, k, v)
         # fall through for cached paths
     n_macro = 8 if isinstance(q_offset, int) else 1
     return flash_attention_xla(q, k, v, chunk=cfg.attn_chunk,
@@ -463,6 +617,13 @@ def mlp_init(gen: torch.Generator, cfg: ModelConfig,
     if cfg.glu:
         p["wg"] = dense_init(gen, d, (d, f), dt, device)
     return p
+
+
+def mlp_axes(cfg: ModelConfig) -> Params:
+    a = {"wi": ("embed", "mlp"), "wo": ("mlp", "embed")}
+    if cfg.glu:
+        a["wg"] = ("embed", "mlp")
+    return a
 
 
 def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -491,6 +652,17 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
     if cfg.glu:
         p["wg"] = dense_init(gen, d, (E, d, f), dt, device)
     return p
+
+
+def moe_axes(cfg: ModelConfig) -> Params:
+    # expert weight d_model gets its own logical axis ("expert_embed"),
+    # FSDP-sharded by default; overriding it to None replicates it
+    a = {"router": ("embed", "experts_router"),
+         "wi": ("experts", "expert_embed", "mlp"),
+         "wo": ("experts", "mlp", "expert_embed")}
+    if cfg.glu:
+        a["wg"] = ("experts", "expert_embed", "mlp")
+    return a
 
 
 def moe_capacity(tokens: int, cfg: ModelConfig) -> int:
@@ -582,7 +754,7 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig,
     while T % groups:
         groups -= 1
     tg = T // groups
-    xt = x.reshape(groups, tg, D)
+    xt = ctx.constrain(x.reshape(groups, tg, D))
     logits = torch.einsum("gtd,de->gte", xt, p["router"].to(x.dtype))
     out, aux = _route_groups(p, xt, logits, cfg, moe_capacity(tg, cfg))
     return out.reshape(B, S, D), aux.mean()

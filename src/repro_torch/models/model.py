@@ -29,6 +29,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import ctx
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.config import BlockKind, ModelConfig
@@ -92,6 +93,54 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
                                         is_encoder=True)
         p["enc_norm"] = L.norm_init(cfg, device)
     return p
+
+
+def _layer_axes(cfg: ModelConfig, *, cross: bool = False,
+                is_encoder: bool = False) -> Params:
+    """Logical axes of one layer, leaf for leaf with ``_layer_init``."""
+    blk = BlockKind.ATTN if is_encoder else cfg.block
+    if blk == BlockKind.RWKV6:
+        return {"ln1": L.norm_axes(cfg), "ln2": L.norm_axes(cfg),
+                "rwkv": S.rwkv_axes(cfg)}
+    a: Params = {"ln1": L.norm_axes(cfg), "attn": L.attn_axes(cfg)}
+    if blk == BlockKind.HYBRID:
+        a["mamba"] = S.mamba_axes(cfg)
+    if cross:
+        a["ln_x"] = L.norm_axes(cfg)
+        a["xattn"] = L.attn_axes(cfg, cross=True)
+    a["ln2"] = L.norm_axes(cfg)
+    if blk == BlockKind.MOE:
+        a["moe"] = L.moe_axes(cfg)
+    else:
+        a["mlp"] = L.mlp_axes(cfg)
+    return a
+
+
+def _bcast_axes(tree: Params, extra: Tuple) -> Params:
+    """Prefix every axes tuple of ``tree`` with ``extra`` (the stacked
+    layers' leading axis)."""
+    if isinstance(tree, tuple):
+        return extra + tree
+    return {k: _bcast_axes(v, extra) for k, v in tree.items()}
+
+
+def param_axes(cfg: ModelConfig) -> Params:
+    """Logical axes mirroring ``init_params``, for the sharding plan."""
+    a: Params = {
+        "embed": ("vocab", "embed"),
+        "final_norm": L.norm_axes(cfg),
+        "layers": _bcast_axes(_layer_axes(cfg, cross=cfg.enc_dec),
+                              ("layers",)),
+    }
+    if not cfg.tie_embeddings:
+        a["lm_head"] = ("embed", "vocab")
+    if cfg.learned_pos:
+        a["pos_embed"] = (None, "embed")
+    if cfg.enc_dec:
+        a["enc_layers"] = _bcast_axes(_layer_axes(cfg, is_encoder=True),
+                                      ("layers",))
+        a["enc_norm"] = L.norm_axes(cfg)
+    return a
 
 
 def _apply_layer(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -222,8 +271,9 @@ def run_layers(stack: Params, x: torch.Tensor, cfg: ModelConfig, *,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(lo, hi):
         cl = None if caches is None else tree_map(lambda a: a[i], caches)
-        x, nc, layer_aux = layer(tree_map(lambda a: a[i], stack), x, cfg,
-                                 cache=cl, **kw)
+        x, nc, layer_aux = layer(tree_map(lambda a: a[i], stack),
+                                 ctx.constrain(x), cfg, cache=cl, **kw)
+        x = ctx.constrain(x)
         if layer_aux is not None:
             aux = aux + layer_aux
         new.append(nc)
@@ -305,6 +355,7 @@ def forward(params: Params, cfg: ModelConfig,
         x = embeds.to(L.dtype_of(cfg))
     else:
         raise ValueError("forward needs tokens or embeds")
+    x = ctx.constrain(x)
     n_tok = x.shape[1]
     positions = torch.arange(n_tok, device=x.device)[None, :]
     if cache_len is not None:

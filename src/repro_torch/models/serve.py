@@ -20,8 +20,8 @@ follows the block kind:
 ``decode_step`` write the new rows and states into the tensors of the
 cache they are given and return them (with a new ``len``), so the cache
 a call was given is spent.  Nothing copies it, and ``len`` never leaves
-the device.  ``cache_axes`` (sharding metadata) has no counterpart: one
-card holds the whole cache.
+the device.  ``cache_axes`` gives the logical axes of the cache's tree
+for the sharding plan (``train/step.make_plan``).
 """
 from __future__ import annotations
 
@@ -76,6 +76,27 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         cache["enc_out"] = torch.zeros((batch, cfg.enc_len, cfg.d_model),
                                        dtype=L.dtype_of(cfg), device=dev)
     return cache
+
+
+def cache_axes(cfg: ModelConfig) -> Params:
+    """Logical axes mirroring ``init_cache``, for the sharding plan."""
+    ax: Params = {}
+    if cfg.block in (BlockKind.ATTN, BlockKind.MOE, BlockKind.HYBRID):
+        ax["k"] = ("layers", "cache_batch", "cache_seq", "cache_kv", None)
+        ax["v"] = ("layers", "cache_batch", "cache_seq", "cache_kv", None)
+        if cfg.sliding_window is not None:
+            ax["pos"] = ("layers", None)
+    if cfg.block == BlockKind.HYBRID:
+        ax["ssm"] = ("layers", "cache_batch", "inner", None)
+        ax["conv"] = ("layers", "cache_batch", None, "inner")
+    if cfg.block == BlockKind.RWKV6:
+        ax["wkv"] = ("layers", "cache_batch", None, None, None)
+        ax["shift_tm"] = ("layers", "cache_batch", "embed")
+        ax["shift_cm"] = ("layers", "cache_batch", "embed")
+    cache_ax: Params = {"layers": ax, "len": ()}
+    if cfg.enc_dec:
+        cache_ax["enc_out"] = ("cache_batch", None, "embed")
+    return cache_ax
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,

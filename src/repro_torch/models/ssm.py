@@ -63,6 +63,19 @@ def rwkv_init(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
     }
 
 
+def rwkv_axes(cfg: ModelConfig) -> Params:
+    dd = ("embed", "heads_d")      # square mixing mats: shard output dim
+    return {
+        "mu": (None, "embed"), "wr": dd, "wk": dd, "wv": dd, "wg": dd,
+        "w0": ("embed",), "wa": ("embed", None), "wb": (None, "embed"),
+        "u": ("embed",), "wo": ("heads_d", "embed"),
+        "ln_w": ("embed",), "ln_b": ("embed",),
+        "mu_ck": ("embed",), "mu_cr": ("embed",),
+        "wck": ("embed", "mlp"), "wcv": ("mlp", "embed"),
+        "wcr": ("embed", "heads_d"),
+    }
+
+
 def _token_shift(x: torch.Tensor, prev: Optional[torch.Tensor]
                  ) -> torch.Tensor:
     """xx[t] = x[t-1]; position 0 takes ``prev`` (decode state) or zeros."""
@@ -216,6 +229,16 @@ def mamba_init(gen: torch.Generator, cfg: ModelConfig, device=None
         "A_log": torch.log(a.repeat(di, 1)),
         "D_skip": torch.ones(di, dtype=torch.float32, device=device),
         "out_proj": out_proj,
+    }
+
+
+def mamba_axes(cfg: ModelConfig) -> Params:
+    return {
+        "in_proj": ("embed", "inner2"), "conv_w": (None, "inner"),
+        "conv_b": ("inner",), "x_proj": ("inner", None),
+        "dt_proj": (None, "inner"), "dt_bias": ("inner",),
+        "A_log": ("inner", None), "D_skip": ("inner",),
+        "out_proj": ("inner", "embed"),
     }
 
 

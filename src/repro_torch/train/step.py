@@ -10,20 +10,47 @@ in float32 and cast back to each parameter's dtype.  Gradients come from
 ``torch.autograd.grad`` over the parameter leaves; layers run under
 ``cfg.remat`` (``models/model.run_layers``).
 
-``step_for_cell`` is the one-card counterpart of ``jit_step_for_cell``:
-no mesh, one MoE routing group.  The reference's sharding plan
-(``ShardPlan``, ``make_plan``, ``state_axes``: logical axes and
-NamedShardings for a mesh, donation) is not applicable on one card and
-has no counterpart here; steps return new trees and the caller drops the
-old ones.
+``step_for_cell`` runs a cell's step on one card with no mesh: one MoE
+routing group, plain tensors.  ``jit_step_for_cell`` runs it over a
+``DeviceMesh`` (``launch/mesh.py``) through a ``ShardPlan``: the state
+(or the parameters), the inputs and the cache become DTensors placed by
+their logical axes (``state_axes``, ``specs.input_shardings``,
+``distributed/sharding.py``), MoE routing groups follow the batch's
+split, and the step runs under ``plan.sharder()``.  There is no
+``jax.jit``: the name is the reference's, and the step runs eagerly.
+Steps return new trees and the caller drops the old ones (JAX donates
+them).
+
+Under the plan, three things that JAX's partitioner does silently are
+explicit here:
+
+- **plain tensors meeting DTensors** (positions, rope tables, masks,
+  constants the model makes) are taken as replicated:
+  ``plan.sharder()`` enters DTensor's ``implicit_replication``;
+- **gradients** come back from autograd as DTensors of their own
+  placement (``Partial`` sums under a batch split); ``value_and_grad``
+  redistributes each to its parameter's placements before clipping and
+  AdamW, so the moments and the new parameters keep the plan's layout;
+- **ops DTensor has no rule for** are run on each rank's local chunk:
+  the cache writes (``index_copy_``; ``layers._dyn_update``), the
+  kernels' wrappers (``layers.local_call``) and the sequence-sharded
+  decode attention (``distributed/serve_attention.py``).
+
+This slice executes the dense attention family sharded; the other
+families' plans hold their specs leaf for leaf (ROADMAP).
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import ctx
+from repro_torch.distributed import sharding as SH
+from repro_torch.launch import specs as SPECS
 from repro_torch.models import model as M
 from repro_torch.models import serve as SV
 from repro_torch.models.config import ModelConfig, ShapeCell
@@ -44,6 +71,22 @@ def init_state(gen: torch.Generator, cfg: ModelConfig, opt: Optimizer,
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+def state_axes(cfg: ModelConfig, opt_state_like: Params) -> Params:
+    """Logical axes for a train state: moments shard like their params."""
+    pax = M.param_axes(cfg)
+    return {"params": pax, "opt": {k: pax for k in opt_state_like},
+            "step": ()}
+
+
+def _as_param(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient laid out as its parameter is (a ``Partial``
+    sum is reduced); a plain one as it is."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(g, DTensor):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def value_and_grad(loss_fn: Callable, params: Params, batch: Params
                    ) -> Tuple[Tuple[torch.Tensor, Any], Params]:
     """``jax.value_and_grad(loss_fn, has_aux=True)`` for a ``loss_fn``
@@ -54,7 +97,7 @@ def value_and_grad(loss_fn: Callable, params: Params, batch: Params
     leaves = tree_leaves(p)
     total, aux = loss_fn(p, batch)
     grads = torch.autograd.grad(total, leaves, allow_unused=True)
-    by_id = {id(x): torch.zeros_like(x) if g is None else g
+    by_id = {id(x): torch.zeros_like(x) if g is None else _as_param(g, x)
              for x, g in zip(leaves, grads)}
     return ((total.detach(), tuple(a.detach() for a in aux)),
             tree_map(lambda x: by_id[id(x)], p))
@@ -147,3 +190,133 @@ def step_for_cell(cfg: ModelConfig, cell: ShapeCell,
     if cell.kind == "prefill":
         return build_prefill_step(cfg)
     return build_decode_step(cfg)
+
+
+# --------------------------------------------------------------------------
+# Sharding plan over a device mesh
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ShardPlan:
+    """Specs (``distributed/sharding.py``) for a cell's step on a mesh:
+    the parameters, the state (train) and the inputs, beside their
+    meta-device stand-ins; ``moe_groups`` routing groups."""
+    mesh: Any
+    rules: Dict[str, Any]
+    param_shardings: Any
+    state_shardings: Any
+    input_shardings: Any
+    abstract_state: Any
+    abstract_inputs: Any
+    moe_groups: int
+
+    def sharder(self):
+        """A context: activations laid out by the batch rule at every
+        ``ctx.constrain`` (replicated where the batch does not divide),
+        and plain tensors that meet DTensors taken as replicated."""
+        from torch.distributed.tensor import DTensor
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        ma = SH.mesh_axes(self.mesh)
+
+        def fn(x, kind):
+            if not isinstance(x, DTensor) or x.ndim < 2:
+                return x
+            ax = SH._resolve_axis(self.rules["batch"], x.shape[0], ma)
+            spec = (ax,) if ax is not None else ()
+            return x.redistribute(self.mesh, SH.placements(spec, self.mesh))
+
+        @contextlib.contextmanager
+        def both():
+            with ctx.activation_sharder(fn), implicit_replication():
+                yield
+        return both()
+
+    def place(self, tree: Any, specs: Any) -> Any:
+        """DTensors of ``tree`` placed by ``specs``: a whole tensor that
+        every rank holds alike is split locally (``sharding.distribute``);
+        a DTensor passes as it is."""
+        from torch.distributed.tensor import DTensor
+
+        def one(spec, t):
+            return t if isinstance(t, DTensor) else \
+                SH.distribute(t, self.mesh, spec)
+        return SH.map_axes(one, specs, tree)
+
+    def place_inputs(self, inputs: Params) -> Params:
+        return self.place(inputs, {k: self.input_shardings[k]
+                                   for k in inputs})
+
+
+def make_plan(cfg: ModelConfig, cell: ShapeCell, mesh,
+              opt: Optional[Optimizer] = None, rules=None) -> ShardPlan:
+    rules = dict(rules or SH.DEFAULT_RULES)
+    abstract_inputs = SPECS.input_specs(cfg, cell)
+    in_sh = SPECS.input_shardings(cfg, cell, mesh, rules)
+
+    gen = torch.Generator()
+    if cell.kind == "train":
+        if opt is None:
+            raise ValueError("a train cell needs an optimizer")
+        abstract_state = init_state(gen, cfg, opt, device="meta")
+        sax = state_axes(cfg, abstract_state["opt"])
+    else:
+        abstract_state = M.init_params(gen, cfg, device="meta")
+        sax = M.param_axes(cfg)
+    st_sh = SH.tree_specs(sax, abstract_state, mesh, rules)
+    p_sh = st_sh["params"] if cell.kind == "train" else st_sh
+
+    # MoE routing groups align with however the batch is actually split,
+    # so sort / dispatch stays shard-local
+    ma = SH.mesh_axes(mesh)
+    bax = SH._resolve_axis(rules["batch"], cell.global_batch, ma)
+    moe_groups = 1
+    if bax is not None:
+        for a in ((bax,) if isinstance(bax, str) else bax):
+            moe_groups *= ma[a]
+
+    return ShardPlan(mesh=mesh, rules=rules, param_shardings=p_sh,
+                     state_shardings=st_sh, input_shardings=in_sh,
+                     abstract_state=abstract_state,
+                     abstract_inputs=abstract_inputs, moe_groups=moe_groups)
+
+
+def jit_step_for_cell(cfg: ModelConfig, cell: ShapeCell, mesh,
+                      opt: Optional[Optimizer] = None, rules=None,
+                      **step_kw) -> Tuple[Callable, ShardPlan]:
+    """Returns (step, plan).  ``step(state, batch)`` for a train cell ->
+    (new state, metrics); ``step(params, batch)`` for prefill / decode ->
+    (logits (B, V), cache).  Leaves may be DTensors placed by the plan
+    or whole tensors that every rank holds alike, which the step places
+    first.  Outputs are DTensors (logits split on the batch, the cache
+    as placed and written in place); a train step's metrics are whole
+    (replicated) tensors."""
+    plan = make_plan(cfg, cell, mesh, opt, rules)
+    if cell.kind == "train":
+        fn = build_train_step(cfg, opt, moe_groups=plan.moe_groups,
+                              **step_kw)
+
+        def train_step(state, batch):
+            state = plan.place(state, plan.state_shardings)
+            batch = plan.place_inputs(batch)
+            with plan.sharder():
+                new, metrics = fn(state, batch)
+            return new, {k: v.full_tensor() if hasattr(v, "full_tensor")
+                         else v for k, v in metrics.items()}
+        return train_step, plan
+
+    fn = (build_prefill_step(cfg) if cell.kind == "prefill"
+          else build_decode_step(cfg))
+    out_spec = SH.spec_for(("batch", None),
+                           (cell.global_batch, cfg.vocab_size), mesh,
+                           plan.rules)
+
+    def serve_step(params, batch):
+        params = plan.place(params, plan.param_shardings)
+        batch = plan.place_inputs(batch)
+        with plan.sharder():
+            logits, cache = fn(params, batch)
+            logits = logits.redistribute(
+                plan.mesh, SH.placements(out_spec, plan.mesh))
+        return logits, cache
+    return serve_step, plan

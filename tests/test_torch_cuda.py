@@ -1330,3 +1330,119 @@ def test_compression_over_a_one_rank_nccl_group(cuda_device, tmp_path):
         gk = grads[k] if k == "a" else grads["b"]["c"]
         assert float((m - gk.float()).abs().max()) <= float(sk) * (
             0.5 + 127 * 2.0 ** -23)
+
+
+@pytest.fixture
+def nccl_world1(cuda_device, tmp_path):
+    """A (1, 1) ("data", "model") mesh over a one-rank NCCL group."""
+    import os
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as LM
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    LM.init_distributed(init_file=str(tmp_path / "store"), rank=0,
+                        world_size=1)
+    try:
+        yield LM.make_host_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attn", ["xla_flash", "pallas"])
+def test_sharded_decode_equals_the_plain_decode(nccl_world1, attn):
+    """At world 1 over NCCL: prefill and three decode steps of qwen2-0.5b's
+    smoke config (at head dim 64, which the decode kernel takes) under
+    ``ctx.decode_shard`` on the plan's DTensor cache equal the plain
+    decode (``pallas``: the decode kernel) at 1e-4, the cache rows at
+    1e-5, and the cache is written in place."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import ctx
+    from repro_torch.models import model as M
+    from repro_torch.models import serve as SV
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.train import step as TS
+    dev = torch.device("cuda")
+    mesh = nccl_world1
+    cfg = dataclasses.replace(get_smoke_config("qwen2_0p5b"), head_dim=64,
+                              attn_impl=attn)
+    params = M.init_params(torch.Generator(dev).manual_seed(0), cfg,
+                           device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (4, 20), device=dev,
+                         generator=torch.Generator(dev).manual_seed(1))
+    cache = SV.init_cache(cfg, 4, 64, device=dev)
+    _, cache, _ = SV.prefill(params, cfg, toks[:, :16], cache=cache)
+    want = []
+    for i in range(3):
+        lg, cache = SV.decode_step(params, cfg, toks[:, 16 + i:17 + i],
+                                   cache=cache)
+        want.append(lg)
+    _, plan = TS.jit_step_for_cell(cfg, ShapeCell("d", 64, 4, "decode"),
+                                   mesh)
+    dp = plan.place(params, plan.param_shardings)
+    dcache = plan.place_inputs({"cache": SV.init_cache(cfg, 4, 64,
+                                                       device=dev)})["cache"]
+    ptr = dcache["layers"]["k"].to_local().data_ptr()
+    ops.reset_launch_counts()
+    with plan.sharder(), ctx.decode_shard(mesh):
+        _, dcache, _ = SV.prefill(dp, cfg, plan.place(toks[:, :16],
+                                                      ("data",)),
+                                  cache=dcache)
+        for i in range(3):
+            lg, dcache = SV.decode_step(dp, cfg, plan.place(
+                toks[:, 16 + i:17 + i], ("data",)), cache=dcache)
+            assert float((lg.full_tensor() - want[i]).abs().max()) <= 1e-4
+    assert ops.launch_counts()["decode_attention_bkgd"] == 0
+    assert dcache["layers"]["k"].to_local().data_ptr() == ptr
+    assert float((dcache["layers"]["k"].full_tensor()
+                  - cache["layers"]["k"]).abs().max()) <= 1e-5
+    assert int(dcache["len"].full_tensor()) == 19
+
+
+@pytest.mark.cuda
+def test_planned_train_step_equals_the_plain_step(nccl_world1):
+    """At world 1 over NCCL: two of ``jit_step_for_cell``'s AdamW steps
+    (weight decay 0.1) of qwen2-0.5b's smoke config against
+    ``step_for_cell``'s from the same state: the losses at 1e-4, both
+    moments within 1e-4 of each leaf's largest, and the parameters
+    within 1e-3 of the rate where each step's gradient is at least 1e-2
+    of its leaf's largest (elsewhere a gradient near AdamW's eps makes
+    the step's size a rounding), which the steps moved by more than
+    1e-2 of the rate."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.optim import adamw
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.train import step as TS
+    dev = torch.device("cuda")
+    cfg = get_smoke_config("qwen2_0p5b")
+    lr = 1e-3
+    opt = adamw(lr, weight_decay=0.1)
+    cell = ShapeCell("t", 32, 4, "train")
+    state = TS.init_state(torch.Generator(dev).manual_seed(0), cfg, opt,
+                          device=dev)
+    plain = TS.step_for_cell(cfg, cell, opt)
+    step, plan = TS.jit_step_for_cell(cfg, cell, nccl_world1, opt)
+    want = got = state
+    for i in range(2):
+        g = torch.Generator(dev).manual_seed(1 + i)
+        batch = {k: torch.randint(0, cfg.vocab_size, (4, 32), device=dev,
+                                  generator=g, dtype=torch.int32)
+                 for k in ("tokens", "labels")}
+        want, wm = plain(want, batch)
+        got, gm = step(got, batch)
+        assert abs(float(gm["loss"]) - float(wm["loss"])) <= 1e-4
+        if i == 0:
+            m_first = tree_leaves(want["opt"]["m"])
+    for k in ("m", "v"):
+        for a, b in zip(tree_leaves(got["opt"][k]),
+                        tree_leaves(want["opt"][k])):
+            assert float((a.full_tensor() - b).abs().max()) <= \
+                1e-4 * float(b.abs().max())
+    for a, b, p0, m1, m2 in zip(
+            tree_leaves(got["params"]), tree_leaves(want["params"]),
+            tree_leaves(state["params"]), m_first,
+            tree_leaves(want["opt"]["m"])):
+        g1, g2 = m1.abs(), (m2 - 0.9 * m1).abs()
+        keep = (g1 >= 1e-2 * g1.max()) & (g2 >= 1e-2 * g2.max())
+        assert float((b - p0).abs()[keep].min()) > 1e-2 * lr
+        assert float((a.full_tensor() - b).abs()[keep].max()) <= 1e-3 * lr

@@ -42,6 +42,12 @@ def test_port_imports_neither_jax_nor_reference_package():
     # the walk reaches every subpackage, the fleet engine's too
     for mod in ("repro_torch.core.temporal", "repro_torch.distributed",
                 "repro_torch.distributed.multistream",
+                "repro_torch.distributed.sharding",
+                "repro_torch.distributed.ctx",
+                "repro_torch.distributed.serve_attention",
+                "repro_torch.distributed.pipeline",
+                "repro_torch.launch.mesh", "repro_torch.launch.specs",
+                "repro_torch.train.step",
                 "repro_torch.checkpoint.manager", "repro_torch.launch.train",
                 "repro_torch.launch.serve"):
         assert mod in names.split(","), names
@@ -70,3 +76,39 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
     out = TT.filter_forward(p, trunk, spec, embeds, use_kernel=True,
                             device="cpu")
     assert out.counts.device.type == "cpu"
+
+
+def test_mesh_entry_points_default_to_cuda(tmp_path):
+    """The mesh modules start NCCL on the card unless the CPU is asked
+    for; on the CPU a one-rank gloo group gives the (1, 1) host mesh,
+    and the production meshes refuse a group of another size."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a card")
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import mesh as LM
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LM.init_distributed()
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LM.make_production_mesh()
+    LM.init_distributed("cpu", init_file=str(tmp_path / "store"), rank=0,
+                        world_size=1)
+    try:
+        assert dist.get_backend() == "gloo"
+        with pytest.raises(RuntimeError, match="CUDA"):
+            LM.make_host_mesh()
+        m = LM.make_host_mesh("cpu")
+        assert m.mesh_dim_names == ("data", "model")
+        assert tuple(m.shape) == (1, 1) and m.device_type == "cpu"
+        assert SH.stream_mesh(device="cpu").mesh_dim_names == ("stream",)
+        with pytest.raises(ValueError, match="devices"):
+            SH.stream_mesh(2, device="cpu")
+        with pytest.raises(RuntimeError, match="256 ranks"):
+            LM.make_production_mesh(device="cpu")
+        with pytest.raises(RuntimeError, match="512 ranks"):
+            LM.make_production_mesh(multi_pod=True, device="cpu")
+        with pytest.raises(ValueError, match="needs 4 ranks"):
+            LM.make_mesh((2, 2), ("data", "model"), device="cpu")
+    finally:
+        dist.destroy_process_group()
