@@ -226,8 +226,9 @@ Phases (any failure exits non-zero and prints no result line):
     gradient norms finite.  ``repro_torch.launch.serve.main`` at its
     defaults: the answers on the survivors are the oracle's.
 18. A ``kernels`` JSON line (all six kernels; flash and decode attention
-    with their ``zoo_launches`` of phases 10-15, 17 and 19), then the
-    device line as the last line.
+    with their ``zoo_launches`` of phases 10-15, 17 and 19; each with its
+    ``families_launches`` of phase 21 (a)), then the device line as the
+    last line.
 19. (Run before the lines of 18.)  The launch analyses: five steps, each
     analysed on meta by ``repro_torch.launch.dryrun.analyse`` (its own
     random-weight arguments, nothing allocated) and then run once on the
@@ -277,6 +278,30 @@ Phases (any failure exits non-zero and prints no result line):
     over 4 microbatches of 4 x 1024 bf16, against ``run_layers``; the
     collectives gloo carried.  A rank that exits non-zero, or (b) past
     120 s, fails the smoke.
+21. (Run after 20, before the lines of 18.)  Every family's steps over a
+    mesh.  (a) A one-rank NCCL group, the (1, 1) mesh: a prefill and 4
+    decode steps through ``jit_step_for_cell`` (``pallas``) in bf16 at
+    full width and depth (grok-1-314b at 2 of 64 layers) of
+    granite-moe-3b-a800m, grok-1-314b, rwkv6-3b, hymba-1.5b (a 1,022-token
+    prompt whose steps wrap its 1,024-row ring), whisper-base and
+    paligemma-3b against the unsharded calls at ``mesh_tol``, step ms and
+    peak, the WKV scan, decode attention and (whisper) flash attention
+    launched through the plan; then the five families other than grok at
+    full width, 2 layers, float32: two unsharded AdamW train steps (the
+    (2, 2) plan's two routing groups) and a prefill + 2 decode steps,
+    through the plan at world 1 within 1e-4.  (b) Four processes of this
+    script (``--families-worker``) on the one card over gloo, the (2, 2)
+    mesh, DTensor's functional collectives run as blocking gloo calls on
+    host copies (``blocking_collectives``): each family's prefill and 2
+    decode steps (``pallas``, the kernels on each rank's chunk) against
+    (a)'s logits at 1e-4, its 2 train steps' losses at 1e-4 and the first
+    gradient norm at 1e-4 of its size, each call's peak.  (c) Beside (b),
+    one process (``--families-dryrun``) runs ``launch.dryrun.analyse`` on
+    the same calls over a fake group of 4: each rank's predicted peak
+    within 15% of (b)'s measured one less cuBLAS's workspace; and
+    qwen2-0.5b's and qwen2-72b's decode_32k on the (16, 16) mesh of 256
+    fake ranks with their per-rank argument GiB.  A process that exits
+    non-zero, or (b) past 300 s, fails the smoke.
 """
 import argparse
 import dataclasses
@@ -4534,6 +4559,660 @@ def mesh_phase(torch, dev, rehearse, gpu):
     return lines
 
 
+# ---------------------------------------------------------------------------
+# every family's steps over a mesh, and the dry-run's per-rank peaks
+# (phase 21)
+# ---------------------------------------------------------------------------
+
+FAM_WORLD = 4                  # (b): ranks sharing the one card over gloo
+FAM_B_LIMIT_S = 300            # (b)'s ranks, from start to exit
+FAM_STEPS = 4                  # (a)'s decode steps
+FAM_B_STEPS = 2                # (b)'s decode steps and train steps
+FAM_LR = 1e-3                  # AdamW's rate in (b)'s train steps
+FAM_PEAK_TOL = 0.15            # (c): predicted against measured peaks
+# (a): serving at full width and depth in bf16 (grok-1-314b at 2 of 64
+# layers, as phase 14 serves it) through the plan at world 1: (batch,
+# prompt tokens, cache rows); hymba's prompt and four steps pass its
+# 1,024-row window (the 1,048-row cell makes a ring of 1,024 rows, which
+# step 3 wraps); paligemma's rows hold its 256 patch embeddings too
+FAM_A = {
+    "granite": dict(name="granite_moe_3b_a800m", over={}, size=(4, 256, 264),
+                    small=(2, 24, 32)),
+    "grok": dict(name="grok_1_314b", over=dict(n_layers=2),
+                 size=(4, 128, 136), small=(2, 24, 32)),
+    "rwkv": dict(name="rwkv6_3b", over={}, size=(4, 256, 264),
+                 small=(2, 24, 32)),
+    "hymba": dict(name="hymba_1p5b", over={}, size=(4, 1022, 1048),
+                  small=(2, 15, 32), rehearse=dict(sliding_window=16)),
+    "whisper": dict(name="whisper_base", over={}, size=(4, 64, 72),
+                    small=(2, 24, 32)),
+    "paligemma": dict(name="paligemma_3b", over={}, size=(4, 64, 328),
+                      small=(2, 8, 32)),
+}
+# the kernels each family's serving must launch on the card
+FAM_KERNELS = {"rwkv": ("rwkv6_scan_bhtk",),
+               "granite": ("decode_attention_bkgd",),
+               "paligemma": ("decode_attention_bkgd",),
+               "whisper": ("flash_attention_bhsd", "decode_attention_bkgd")}
+# (b): five families at full width, 2 layers, float32, on the (2, 2)
+# mesh: the train steps' batch x sequence, and each serving cell's
+# prompt and cache rows (hymba's cache a ring at its window; paligemma's
+# rows hold 256 patch embeddings and the prompt)
+FAM_B = ("granite", "rwkv", "hymba", "whisper", "paligemma")
+FAM_B_TRAIN = (4, 64)
+FAM_B_SERVE = {"hymba": (1023, 1048), "paligemma": (30, 288)}
+FAM_B_SERVE_SMALL = {"hymba": (1023, 1048), "paligemma": (14, 32)}
+FAM_B_DEFAULT = (30, 32)
+FAM_MOE_GROUPS = 2             # the (2, 2) plan's routing groups (data)
+
+
+def fam_cfg(key, rehearse, **over):
+    """(a)'s config of ``key``: full width and depth (its depth cut),
+    smoke on the CPU."""
+    spec = FAM_A[key]
+    o = dict(spec["over"])
+    if rehearse:
+        o = dict(spec.get("rehearse", {}))
+    o.update(over)
+    return model_config(spec["name"], rehearse, **o)
+
+
+def fam_b_cfgs(key, rehearse):
+    """(b)'s configs of ``key``: full width, 2 layers, float32; the train
+    steps under ``xla_flash`` (no kernel has a backward), serving under
+    ``pallas``."""
+    o = dict(dtype="float32", n_layers=2)
+    name = FAM_A[key]["name"]
+    return (model_config(name, rehearse, attn_impl="xla_flash", **o),
+            model_config(name, rehearse, attn_impl="pallas", **o))
+
+
+def fam_b_serve(key, rehearse):
+    return (FAM_B_SERVE_SMALL if rehearse else FAM_B_SERVE).get(
+        key, FAM_B_DEFAULT)
+
+
+def fam_inputs(torch, dev, cfg, B, P, seed, labels=False):
+    """A step's inputs from ``seed``: int32 tokens (B, P) (and labels),
+    the VLM's stub patch embeddings (``specs.batch_inputs``: S // 2 of a
+    train cell, all ``vlm_prefix`` before a prompt), an encoder-decoder's
+    frames (B, enc_len, d)."""
+    import torch as _t
+    g = _t.Generator(dev).manual_seed(seed)
+    dt = getattr(_t, cfg.dtype)
+    out = {}
+    if cfg.vlm_prefix:
+        p = min(cfg.vlm_prefix, P // 2) if labels else cfg.vlm_prefix
+        P = P - p if labels else P
+        out["embeds"] = _t.randn((B, p, cfg.d_model), generator=g,
+                                 device=dev).to(dt)
+    if cfg.enc_dec:
+        out["frames"] = _t.randn((B, cfg.enc_len, cfg.d_model), generator=g,
+                                 device=dev).to(dt)
+    out["tokens"] = _t.randint(0, cfg.vocab_size, (B, P), generator=g,
+                               device=dev, dtype=_t.int32)
+    if labels:
+        out["labels"] = _t.randint(0, cfg.vocab_size, (B, P), generator=g,
+                                   device=dev, dtype=_t.int32)
+    return out
+
+
+def fam_tokens(torch, dev, cfg, B, n, seed):
+    g = torch.Generator(dev).manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (B, n), generator=g, device=dev,
+                         dtype=torch.int32)
+
+
+def whole(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def fam_serve(torch, dev, cfg, params, inputs, rows, toks, steps=None):
+    """A prefill and one decode step per column of ``toks``, through the
+    plan's ``steps`` (prefill, decode) or the unsharded serving calls.
+    Returns (the logits of each call, whole, float32, its seconds)."""
+    from repro_torch.models import serve as SV
+    B = inputs["tokens"].shape[0]
+    cache = SV.init_cache(cfg, B, rows, device=dev)
+    out, secs = [], []
+    for i in range(1 + toks.shape[1]):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        if i == 0 and steps is None:
+            lg, cache, _ = SV.prefill(params, cfg, inputs["tokens"],
+                                      cache=cache,
+                                      embeds=inputs.get("embeds"),
+                                      frames=inputs.get("frames"))
+        elif i == 0:
+            lg, cache = steps[0](params, dict(inputs, cache=cache))
+        elif steps is None:
+            lg, cache = SV.decode_step(params, cfg, toks[:, i - 1:i],
+                                       cache=cache)
+        else:
+            lg, cache = steps[1](params, {"tokens": toks[:, i - 1:i],
+                                         "cache": cache})
+        lg = whole(lg).float()
+        sync(torch, dev)
+        secs.append(time.perf_counter() - t0)
+        out.append(lg)
+    return out, secs
+
+
+def fam_serving_a(torch, dev, rehearse, mesh, key, gpu):
+    """(a) serving: a prefill and ``FAM_STEPS`` decode steps of ``key``
+    in bf16 through ``jit_step_for_cell`` on the (1, 1) mesh, against the
+    unsharded calls on the same weights and inputs (``mesh_tol``); step
+    ms, peak, launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.train import step as TS
+    cfg = fam_cfg(key, rehearse, attn_impl="pallas")
+    B, P, R = FAM_A[key]["small" if rehearse else "size"]
+    seed = SEED + 40 + list(FAM_A).index(key)
+    params = M.init_params(torch.Generator(dev).manual_seed(seed), cfg,
+                           device=dev)
+    inputs = fam_inputs(torch, dev, cfg, B, P, seed)
+    toks = fam_tokens(torch, dev, cfg, B, FAM_STEPS, seed)
+    steps = tuple(TS.jit_step_for_cell(cfg, ShapeCell(k, R, B, k), mesh)[0]
+                  for k in ("prefill", "decode"))
+    reset_peak(torch, dev)
+    ops.reset_launch_counts()
+    got, secs = fam_serve(torch, dev, cfg, params, inputs, R, toks, steps)
+    launched = {k: n for k, n in ops.launch_counts().items() if n}
+    peak = peak_bytes(torch, dev)
+    want, plain = fam_serve(torch, dev, cfg, params, inputs, R, toks)
+    errs, tols = [], []
+    for i, (g, w) in enumerate(zip(got, want)):
+        errs.append(float((g - w).abs().max()))
+        tols.append(mesh_tol(torch, w.to(getattr(torch, cfg.dtype))))
+        check(bool(torch.isfinite(g).all()) and errs[-1] <= tols[-1],
+              f"families (a) {key}: call {i} through the plan is "
+              f"{errs[-1]} off the unsharded one (tol {tols[-1]})")
+    if not rehearse:
+        for name in FAM_KERNELS.get(key, ()):
+            check(launched.get(name, 0) > 0, f"families (a) {key}: {name} "
+                  f"was not launched through the plan ({launched})")
+    n_par = sum(t.numel() for t in tree_leaves(params))
+    del params, got, want, steps
+    return launched, (
+        f"families (a) {key}: {cfg.name} ({cfg.n_layers} layers, "
+        f"{n_par / 1e9:.3f} B parameters, {cfg.dtype}, {cfg.attn_impl}) "
+        f"through jit_step_for_cell on the (1, 1) mesh: batch {B}, prompt "
+        f"{P} into a {R}-row cache; prefill {secs[0] * 1e3:.3f} ms, "
+        f"{FAM_STEPS} decode steps {steps_text(secs[1:])}; unsharded "
+        f"prefill {plain[0] * 1e3:.3f} ms, decode {steps_text(plain[1:])}; "
+        f"logits max abs err {min(errs):.4g}-{max(errs):.4g} (tol "
+        f"{min(tols):.4g}); peak {gib(peak)}; launches {launched} [{gpu}]")
+
+
+def fam_train_batches(torch, dev, cfg, seed):
+    B, S = FAM_B_TRAIN
+    return [fam_inputs(torch, dev, cfg, B, S, seed + i, labels=True)
+            for i in range(FAM_B_STEPS)]
+
+
+def fam_reference_a(torch, dev, rehearse, mesh, key, gpu):
+    """(a) float32, 2 layers: ``key``'s unsharded train steps (with the
+    (2, 2) plan's routing groups) and serving calls, (b)'s references;
+    and its serving through the plan at world 1 against them at 1e-4.
+    Returns ((b)'s references on the host, lines)."""
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as TS
+    tcfg, scfg = fam_b_cfgs(key, rehearse)
+    seed = SEED + 50 + FAM_B.index(key)
+    params = M.init_params(torch.Generator(dev).manual_seed(seed), tcfg,
+                           device=dev)
+    opt = adamw(FAM_LR, weight_decay=0.1)
+    step = TS.build_train_step(tcfg, opt, moe_groups=FAM_MOE_GROUPS)
+    state = {"params": params, "opt": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    ref = {"loss": [], "aux": [], "grad_norm": []}
+    for batch in fam_train_batches(torch, dev, tcfg, seed):
+        state, met = step(state, batch)
+        for k in ref:
+            ref[k].append(float(met[k]))
+    del state
+    P, R = fam_b_serve(key, rehearse)
+    B = FAM_B_TRAIN[0]
+    inputs = fam_inputs(torch, dev, scfg, B, P, seed)
+    toks = fam_tokens(torch, dev, scfg, B, FAM_B_STEPS, seed)
+    want, _ = fam_serve(torch, dev, scfg, params, inputs, R, toks)
+    steps = tuple(TS.jit_step_for_cell(scfg, ShapeCell(k, R, B, k), mesh)[0]
+                  for k in ("prefill", "decode"))
+    got, _ = fam_serve(torch, dev, scfg, params, inputs, R, toks, steps)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    check(err <= 1e-4, f"families (a) {key} float32: the plan's logits at "
+          f"world 1 are {err} off the unsharded ones (tol 1e-4)")
+    ref["logits"] = [w.cpu() for w in want]
+    del params, got, want, steps
+    return ref, [f"families (a) {key} float32 ({scfg.n_layers} layers, full "
+                 f"width): prefill + {FAM_B_STEPS} decode steps through the "
+                 f"plan at world 1 within {err:.3g} of the unsharded calls "
+                 f"(tol 1e-4); unsharded train losses "
+                 f"{[round(x, 6) for x in ref['loss']]}, gradient norms "
+                 f"{[round(x, 5) for x in ref['grad_norm']]} (routing groups "
+                 f"{FAM_MOE_GROUPS}) [{gpu}]"]
+
+
+def blocking_collectives():
+    """A dispatch mode that runs DTensor's functional collectives
+    (``_c10d_functional.*``) as the blocking ``torch.distributed`` calls,
+    with ``wait_tensor`` the identity.  torch 2.11's functional
+    collectives over gloo crash on CUDA tensors in ``wait_tensor``
+    (a segmentation fault on the H100), while gloo's blocking
+    all_gather / reduce_scatter / all_to_all / all_reduce carry them; so
+    (b)'s ranks, which share one card over gloo, run DTensor under it.
+    DTensor ops are declined (they come back as local ops)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+    ops = {"sum": dist.ReduceOp.SUM, "avg": dist.ReduceOp.SUM,
+           "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN,
+           "product": dist.ReduceOp.PRODUCT}
+
+    # each collective on host copies (gloo's own CUDA forms stage through
+    # the host too)
+    def gather(x, n, name):
+        out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
+                          dtype=x.dtype)
+        dist.all_gather_into_tensor(out, x.cpu().contiguous(),
+                                    group=_resolve_process_group(name))
+        return out.to(x.device)
+
+    def scatter(x, op, n, name):
+        out = torch.empty((x.shape[0] // n,) + tuple(x.shape[1:]),
+                          dtype=x.dtype)
+        dist.reduce_scatter_tensor(out, x.cpu().contiguous(), op=ops[op],
+                                   group=_resolve_process_group(name))
+        out = out.to(x.device)
+        return out / n if op == "avg" else out
+
+    def reduce(x, op, name):
+        out = x.cpu().clone()
+        g = _resolve_process_group(name)
+        dist.all_reduce(out, op=ops[op], group=g)
+        out = out.to(x.device)
+        return out / g.size() if op == "avg" else out
+
+    def to_all(x, out_sizes, in_sizes, name):
+        g = _resolve_process_group(name)
+        shape = (sum(out_sizes),) if out_sizes else (x.shape[0],)
+        out = torch.empty(shape + tuple(x.shape[1:]), dtype=x.dtype)
+        dist.all_to_all_single(out, x.cpu().contiguous(), out_sizes or None,
+                               in_sizes or None, group=g)
+        return out.to(x.device)
+
+    impls = {"all_gather_into_tensor": gather,
+             "reduce_scatter_tensor": scatter, "all_reduce": reduce,
+             "all_to_all_single": to_all,
+             "wait_tensor": lambda x: x}
+
+    class Blocking(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
+            name = func._schema.name.split("::")[-1]
+            if func.namespace == "_c10d_functional" and name in impls:
+                out = impls[name](*args, **(kwargs or {}))
+            else:
+                check(func.namespace != "_c10d_functional" or "wrap" in name,
+                      f"families (b): no blocking form of {name}")
+                out = func(*args, **(kwargs or {}))
+            return out
+    return Blocking()
+
+
+def fam_worker(rank, store, rehearse):
+    """One of (b)'s ranks: a gloo group of ``FAM_WORLD`` processes on the
+    one card (the CPU in rehearsal), the (2, 2) mesh.  Per family of
+    ``FAM_B``: a prefill and ``FAM_B_STEPS`` decode steps (``pallas``)
+    and ``FAM_B_STEPS`` AdamW train steps (``xla_flash``) through
+    ``jit_step_for_cell``, logits and metrics against (a)'s unsharded
+    ones, each call's peak device memory (all the rank holds: the
+    arguments and what the step makes).  Writes its numbers as JSON
+    beside the store; returns 0."""
+    sys.path.insert(0, SRC)
+    import logging
+    import torch
+    import torch.distributed as dist
+    logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as TS
+    t_start = time.perf_counter()
+    if rehearse:
+        dev = torch.device("cpu")
+    else:
+        torch.cuda.set_device(0)
+        dev = torch.device("cuda", 0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=FAM_WORLD)
+    d = os.path.dirname(store)
+    out = {"rank": rank}
+
+    def note(what):                 # shown only where a rank fails
+        if dev.type == "cuda":
+            print(f"rank {rank} {what}: allocated "
+                  f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB, peak "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB",
+                  flush=True)
+    try:
+        want_all = torch.load(os.path.join(d, "fam_a.pt"))
+        mesh = make_mesh((2, 2), ("data", "model"), device=dev)
+        mode = blocking_collectives()
+        # cuBLAS takes its workspaces from the caching allocator at its
+        # first products and holds them: no tensor a step makes, so the
+        # dry-run does not count them; measured once, left out of (c)
+        base = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+        x = torch.ones((64, 64), device=dev)
+        y = torch.addmm(x, x, x) + torch.bmm(x[None], x[None])[0] + x @ x
+        del x, y
+        sync(torch, dev)
+        out["blas_workspace"] = (torch.cuda.memory_allocated() - base
+                                 if dev.type == "cuda" else 0)
+        for key in FAM_B:
+            tcfg, scfg = fam_b_cfgs(key, rehearse)
+            want = want_all[key]
+            seed = SEED + 50 + FAM_B.index(key)
+            rec, P, R = {}, *fam_b_serve(key, rehearse)
+            B, S = FAM_B_TRAIN
+            params = M.init_params(torch.Generator(dev).manual_seed(seed),
+                                   tcfg, device=dev)
+            opt = adamw(FAM_LR, weight_decay=0.1)
+            step, plan = TS.jit_step_for_cell(
+                tcfg, ShapeCell("train", S, B, "train"), mesh, opt)
+            note(f"{key} drawn")
+            placed = plan.place(params, plan.param_shardings)
+            del params
+            note(f"{key} placed")
+            inputs = fam_inputs(torch, dev, scfg, B, P, seed)
+            toks = fam_tokens(torch, dev, scfg, B, FAM_B_STEPS, seed)
+            steps = tuple(TS.jit_step_for_cell(
+                scfg, ShapeCell(k, R, B, k), mesh)[0]
+                for k in ("prefill", "decode"))
+            from repro_torch.models import serve as SV
+            cache = SV.init_cache(scfg, B, R, device=dev)
+            ops.reset_launch_counts()
+            errs, secs, peaks = [], [], []
+            with mode:
+                for i in range(1 + FAM_B_STEPS):
+                    if dev.type == "cuda":
+                        torch.cuda.empty_cache()
+                    reset_peak(torch, dev)
+                    t0 = time.perf_counter()
+                    if i == 0:
+                        lg, cache = steps[0](placed, dict(inputs, cache=cache))
+                    else:
+                        lg, cache = steps[1](placed, {
+                            "tokens": toks[:, i - 1:i], "cache": cache})
+                    sync(torch, dev)
+                    secs.append(time.perf_counter() - t0)
+                    peaks.append(peak_bytes(torch, dev))
+                    note(f"{key} serving call {i}")
+                    lg = whole(lg).float()
+                    errs.append(float((lg.cpu() - want["logits"][i])
+                                      .abs().max()))
+                    check(bool(torch.isfinite(lg).all()) and errs[-1] <= 1e-4,
+                          f"families (b) rank {rank} {key}: call {i}'s "
+                          f"logits are {errs[-1]} off (a)'s (tol 1e-4)")
+                    del lg
+            rec["launched"] = {k: n for k, n in ops.launch_counts().items()
+                               if n}
+            rec.update(serve_err=max(errs), serve_s=secs, serve_peaks=peaks,
+                       cache_rows=R, prompt=P)
+            del cache, steps
+            state = {"params": placed, "opt": opt.init(placed),
+                     "step": torch.zeros((), dtype=torch.int32, device=dev)}
+            del placed
+            tsecs, tpeaks, metrics = [], [], []
+            with mode:
+                for batch in fam_train_batches(torch, dev, tcfg, seed):
+                    if dev.type == "cuda":
+                        torch.cuda.empty_cache()
+                    reset_peak(torch, dev)
+                    t0 = time.perf_counter()
+                    state, met = step(state, batch)
+                    loss = float(met["loss"])
+                    tsecs.append(time.perf_counter() - t0)
+                    tpeaks.append(peak_bytes(torch, dev))
+                    note(f"{key} train step")
+                    metrics.append({k: float(v) for k, v in met.items()})
+                    del batch
+            # the losses (and MoE aux losses) of both steps at 1e-4; the
+            # first step's gradient norm, from the same parameters, at
+            # 1e-4 of its size (the second's starts from parameters that
+            # AdamW's eps moved by a rounding wherever a gradient is tiny)
+            for i, m in enumerate(metrics):
+                for k in ("loss", "aux", "grad_norm")[:3 - i]:
+                    w = want[k][i]
+                    tol = 1e-4 * max(1.0, abs(w)) if k == "grad_norm" \
+                        else 1e-4
+                    check(math.isfinite(m[k]) and abs(m[k] - w) <= tol,
+                          f"families (b) rank {rank} {key}: train step {i}'s "
+                          f"{k} {m[k]} against (a)'s {w} (tol {tol})")
+            rec.update(train=metrics, train_s=tsecs, train_peaks=tpeaks)
+            out[key] = rec
+            del state
+            if dev.type == "cuda":
+                rec["left_allocated"] = torch.cuda.memory_allocated()
+        out["seconds"] = time.perf_counter() - t_start
+        with open(os.path.join(d, f"fam{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def fam_dryrun(path, rehearse):
+    """(c), in a process of its own (the fake process group): the mesh
+    dry-run of (b)'s calls at (2, 2), each rank 0's predicted peak; then
+    qwen2-0.5b's and qwen2-72b's decode_32k on the (16, 16) mesh of 256
+    ranks (``launch.dryrun.run_cell``).  Writes JSON to ``path``."""
+    sys.path.insert(0, SRC)
+    import logging
+    import torch
+    logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch import specs as SPECS
+    from repro_torch.models.config import ShapeCell
+    meta = torch.device("meta")
+    MESH.init_fake(FAM_WORLD)
+    mesh = MESH.make_mesh((2, 2), ("data", "model"))
+    out = {"torch": torch.__version__}
+    for key in FAM_B:
+        tcfg, scfg = fam_b_cfgs(key, rehearse)
+        B, S = FAM_B_TRAIN
+        P, R = fam_b_serve(key, rehearse)
+        t0 = time.perf_counter()
+        train = D.analyse(tcfg, ShapeCell("train", S, B, "train"), mesh)
+        cache = SPECS.input_specs(scfg, ShapeCell("d", R, B, "decode"))
+        pre = {k: v.to(meta) for k, v in fam_inputs(
+            torch, torch.device("cpu"), scfg, B, P, 0).items()}
+        prefill = D.analyse(scfg, ShapeCell("prefill", R, B, "prefill"),
+                            mesh, inputs=dict(pre, cache=cache["cache"]))
+        decode = D.analyse(scfg, ShapeCell("decode", R, B, "decode"), mesh)
+        out[key] = {"train": train["peak_bytes"],
+                    "prefill": prefill["peak_bytes"],
+                    "decode": decode["peak_bytes"],
+                    "kernel_calls": prefill["kernel_calls"],
+                    "s": time.perf_counter() - t0}
+    for arch in ("qwen2_0p5b", "qwen2_72b"):
+        t0 = time.perf_counter()
+        rec = D.run_cell(arch, "decode_32k", mesh="single")
+        out[arch] = {"status": rec["status"],
+                     "argument_gib": rec["memory"]["argument_bytes"] / 2**30,
+                     "peak_gib": rec["memory"]["peak_bytes"] / 2**30,
+                     "fits_hbm": rec["memory"]["fits_hbm"],
+                     "collectives": rec["collectives"]["total"]["count"],
+                     "s": time.perf_counter() - t0}
+    with open(path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def dev_cuda(res):
+    return res[0].get("blas_workspace", 0) > 0
+
+
+def fam_ranks(torch, rehearse, gpu, refs):
+    """(b) and (c) side by side: ``FAM_WORLD`` processes of this script
+    on the one card over gloo (``fam_worker``) and one dry-run process
+    (``fam_dryrun``).  Any that exits non-zero, or (b) past
+    ``FAM_B_LIMIT_S``, fails the smoke; every process is stopped."""
+    store = mesh_store("store_fam")
+    d = os.path.dirname(store)
+    for r in range(FAM_WORLD):
+        if os.path.exists(os.path.join(d, f"fam{r}.json")):
+            os.remove(os.path.join(d, f"fam{r}.json"))
+    dry = os.path.join(d, "fam_dryrun.json")
+    extra = ["--rehearse"] if rehearse else []
+    me = [sys.executable, os.path.abspath(__file__)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(me + ["--families-worker", str(r), store] +
+                              extra, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(FAM_WORLD)]
+    procs.append(subprocess.Popen(me + ["--families-dryrun", dry] + extra,
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            left = FAM_B_LIMIT_S - (time.perf_counter() - t0)
+            outs.append(p.communicate(timeout=max(left, 1))[0])
+    except subprocess.TimeoutExpired:
+        raise SmokeError(f"families (b): the ranks did not finish within "
+                         f"{FAM_B_LIMIT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    bad = [f"{f'rank {r}' if r < FAM_WORLD else 'the dry-run'} exited "
+           f"{p.returncode}:\n" + "\n".join(
+               [x for x in o.splitlines() if x.startswith(f"rank {r} ")][-8:])
+           + f"\n{o[-1500:]}"
+           for r, (p, o) in enumerate(zip(procs, outs)) if p.returncode]
+    check(not bad, "families (b)/(c): " + "\n".join(bad))
+    res = []
+    for r in range(FAM_WORLD):
+        with open(os.path.join(d, f"fam{r}.json")) as f:
+            res.append(json.load(f))
+    with open(dry) as f:
+        pred = json.load(f)
+    lines, worst = [], 0.0
+    for key in FAM_B:
+        recs = [x[key] for x in res]
+        r0 = recs[0]
+        launched = r0["launched"]
+        if not rehearse:
+            for name in FAM_KERNELS.get(key, ()):
+                check(all(x["launched"].get(name, 0) > 0 for x in recs),
+                      f"families (b) {key}: {name} was not launched on "
+                      f"every rank's chunk ({[x['launched'] for x in recs]})")
+        cmp = []
+        for what, got in (("prefill", [x["serve_peaks"][0] for x in recs]),
+                          ("decode", [x["serve_peaks"][1] for x in recs]),
+                          ("train", [x["train_peaks"][0] for x in recs])):
+            want = pred[key][what]
+            if got[0] is None:
+                cmp.append(f"{what} predicted {gib(want)}")
+                continue
+            got = [g - x["blas_workspace"] for g, x in zip(got, res)]
+            off = max(abs(g - want) / g for g in got)
+            worst = max(worst, off)
+            cmp.append(f"{what} predicted {gib(want)} measured "
+                       f"{gib(min(got))}-{gib(max(got))} less the workspace "
+                       f"({off:.1%} off)")
+            check(off <= FAM_PEAK_TOL, f"families (c) {key}: the dry-run's "
+                  f"{what} peak {want} is {off:.1%} off the ranks' "
+                  f"{got} (limit {FAM_PEAK_TOL:.0%})")
+        tr = r0["train"]
+        lines.append(
+            f"families (b) {key}: {FAM_WORLD} processes on the one card over "
+            f"gloo, mesh (2, 2), 2 layers at full width in float32: "
+            f"prefill of {r0['prompt']} into {r0['cache_rows']} rows + "
+            f"{FAM_B_STEPS} decode steps (pallas) within "
+            f"{max(x['serve_err'] for x in recs):.3g} of (a)'s unsharded "
+            f"logits (tol 1e-4), {FAM_B_STEPS} train steps {FAM_B_TRAIN} "
+            f"(xla_flash, AdamW {FAM_LR}) losses "
+            f"{[round(m['loss'], 6) for m in tr]} (a)'s "
+            f"{[round(x, 6) for x in refs[key]['loss']]}, grad norms "
+            f"{[round(m['grad_norm'], 5) for m in tr]} (a)'s "
+            f"{[round(x, 5) for x in refs[key]['grad_norm']]}; rank 0 prefill {r0['serve_s'][0] * 1e3:.1f} ms, decode "
+            f"{[round(x * 1e3, 1) for x in r0['serve_s'][1:]]} ms, train "
+            f"{[round(x * 1e3, 1) for x in r0['train_s']]} ms; launches on "
+            f"rank 0's chunk {launched}; (c) per-rank peaks: "
+            f"{'; '.join(cmp)} [{gpu}]")
+    for arch in ("qwen2_0p5b", "qwen2_72b"):
+        q = pred[arch]
+        check(q["status"] == "ok", f"families (c): {arch} decode_32k on "
+              f"(16, 16): {q['status']}")
+        lines.append(
+            f"families (c) {arch} decode_32k on the (16, 16) mesh of 256 "
+            f"fake ranks (torch {pred['torch']}): {q['argument_gib']:.4f} "
+            f"GiB of arguments a rank, peak {q['peak_gib']:.4f} GiB (fits "
+            f"80 GiB: {q['fits_hbm']}), {q['collectives']} collectives, "
+            f"analysed in {q['s']:.1f} s")
+    lines.append(f"families (b)/(c): the ranks and the dry-run {wall:.1f} s "
+                 f"from start to exit (limit {FAM_B_LIMIT_S}); worst peak "
+                 f"gap {worst:.1%} (measured peaks less cuBLAS's workspace, "
+                 f"{gib(res[0]['blas_workspace'] if dev_cuda(res) else None)}"
+                 f" a rank); rank 0 {res[0]['seconds']:.1f} s")
+    return lines
+
+
+def families_phase(torch, dev, rehearse, gpu):
+    """Phase 21: (a) each family's serving through the plan at world 1
+    (NCCL on the card, gloo on the CPU), mesh (1, 1), in bf16 at full
+    depth and in float32 at 2 layers, against the unsharded calls; (b)
+    four ranks on the one card over gloo at (2, 2); (c) the mesh dry-run
+    beside (b).  Prints (a)'s lines as they come; returns (the launches
+    of (a)'s bf16 serving, the lines of (b) and (c))."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+    t_phase = time.perf_counter()
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    init_distributed(dev, init_file=mesh_store("store_fam_a"), rank=0,
+                     world_size=1)
+    lines, launches, refs = [], {}, {}
+    try:
+        mesh = make_host_mesh(dev)
+        for key in FAM_A:
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            got, line = fam_serving_a(torch, dev, rehearse, mesh, key, gpu)
+            for k, n in got.items():
+                launches[k] = launches.get(k, 0) + n
+            print(line, flush=True)
+        for key in FAM_B:
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            refs[key], more = fam_reference_a(torch, dev, rehearse, mesh, key,
+                                              gpu)
+            print(*more, sep="\n", flush=True)
+        torch.save(refs, mesh_store("fam_a.pt"))
+    finally:
+        dist.destroy_process_group()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    lines += fam_ranks(torch, rehearse, gpu, refs)
+    lines.append(f"families phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches, lines
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse", action="store_true",
@@ -4542,6 +5221,12 @@ def main(argv=None):
     ap.add_argument("--mesh-worker", nargs=2, metavar=("RANK", "STORE"),
                     help="run one rank of phase 20 (b) (started by the "
                          "smoke itself)")
+    ap.add_argument("--families-worker", nargs=2, metavar=("RANK", "STORE"),
+                    help="run one rank of phase 21 (b) (started by the "
+                         "smoke itself)")
+    ap.add_argument("--families-dryrun", metavar="OUT",
+                    help="run phase 21 (c)'s mesh dry-run (started by the "
+                         "smoke itself)")
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         raise SmokeError(f"no src/repro_torch beside {__file__}: run from "
@@ -4549,6 +5234,11 @@ def main(argv=None):
     if args.mesh_worker:
         return mesh_worker(int(args.mesh_worker[0]), args.mesh_worker[1],
                            args.rehearse)
+    if args.families_worker:
+        return fam_worker(int(args.families_worker[0]),
+                          args.families_worker[1], args.rehearse)
+    if args.families_dryrun:
+        return fam_dryrun(args.families_dryrun, args.rehearse)
     sys.path.insert(0, SRC)
     import torch
     from repro_torch.data.synthetic import VideoStream, collect
@@ -4715,6 +5405,11 @@ def main(argv=None):
         torch.cuda.empty_cache()
     for line in mesh_phase(torch, dev, args.rehearse, gpu):
         print(line, flush=True)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    fam_launches, lines = families_phase(torch, dev, args.rehearse, gpu)
+    for line in lines:
+        print(line, flush=True)
     if args.rehearse:
         print("rehearsal done (CPU: plain versions, no kernels)")
         return 0
@@ -4722,6 +5417,7 @@ def main(argv=None):
     for e in entries:
         e["kernel_ms"] = e["ms"]
         e["fleet_launches"] = fleet_launches[e["name"]]
+        e["families_launches"] = fam_launches.get(e["name"], 0)
         if e["name"] in ZOO_KERNELS:
             e["zoo_launches"] = {k: n[e["name"]] for k, n in zoo.items()}
     print(json.dumps({"kernels": entries}), flush=True)

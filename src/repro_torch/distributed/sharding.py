@@ -126,8 +126,12 @@ def spec_for(logical: Sequence[Union[str, None]], shape: Sequence[int],
 
 
 def _is_axes_leaf(x) -> bool:
-    return isinstance(x, tuple) and all(isinstance(e, (str, type(None)))
-                                        for e in x)
+    """A logical-axes tuple, or a spec (whose entries may be tuples of
+    mesh axes, as ("pod", "data") for the batch)."""
+    return isinstance(x, tuple) and all(
+        isinstance(e, (str, type(None))) or (
+            isinstance(e, tuple) and all(isinstance(a, str) for a in e))
+        for e in x)
 
 
 def map_axes(fn, axes_tree: Any, *trees: Any) -> Any:

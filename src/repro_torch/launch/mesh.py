@@ -7,7 +7,8 @@ Multi-pod:   (2, 16, 16) axes ("pod", "data", "model") = 512 ranks.
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` built with
 ``init_device_mesh`` over the process group that exists, so
 ``init_distributed`` (or ``torchrun``'s environment and
-``init_process_group``) comes first.  Meshes are ``"cuda"`` by default;
+``init_process_group``) comes first, or ``init_fake`` for a dry run of
+the production meshes in one process.  Meshes are ``"cuda"`` by default;
 the CPU is used only when the caller asks for it (``device="cpu"``).
 Defined as functions, never module-level constants, so importing this
 module touches no process group.
@@ -49,7 +50,32 @@ def init_distributed(device: DeviceLike = None,
         dist.init_process_group(backend, init_method="env://")
 
 
+def init_fake(world: int) -> None:
+    """Start torch's fake process group of ``world`` ranks in this one
+    process, as rank 0 (``launch.dryrun``'s meshes: a (16, 16) or (2, 16,
+    16) mesh on ``meta`` tensors, no card and no other process).  Its
+    collectives move nothing; the tensors they would fill are shapes.
+    A fake group of another size is replaced; a real group is refused."""
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError("a real process group exists; the fake one "
+                               "is for dry runs in a process of their own")
+        if dist.get_world_size() == world:
+            return
+        dist.destroy_process_group()
+    # private to torch's tests, and shipped with every build since 2.1
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+
+
 def _device_type(device: DeviceLike) -> str:
+    """The mesh's device type: CUDA by default.  Over the fake group (a
+    dry run) CUDA needs no card: the mesh models the card's collectives
+    (DTensor moves a split from one dimension to another with an
+    all-to-all there, and with a whole all-gather on a CPU mesh)."""
+    if dist.is_initialized() and dist.get_backend() == "fake":
+        return torch.device("cuda" if device is None else device).type
     return resolve_device(device).type
 
 
@@ -80,7 +106,8 @@ def make_production_mesh(*, multi_pod: bool = False,
         raise RuntimeError(
             f"the {'multi' if multi_pod else 'single'}-pod mesh {shape} "
             f"needs {n} ranks and the process group has {world}; run "
-            f"launch.dryrun for these meshes, or --mesh host")
+            f"launch.dryrun --mesh for these meshes (init_fake), or "
+            f"--mesh host")
     return make_mesh(shape, axes, device)
 
 

@@ -31,10 +31,23 @@ The counts follow the reference's definitions:
   convolutions, gathers, scatters, indexing, ``slice_scatter``, sort,
   and a ``copy_`` into a storage of ``cache``: the fused estimate;
 - ``collectives``: each ``c10d.*`` / ``_c10d_functional.*`` collective
-  as a ``Collective(op, bytes, group_size)`` with the reference's ring
-  wire model and ``summarize``; on one card the list is empty unless the
-  step itself calls ``torch.distributed``.  ``ops`` counts every aten op
-  by name (the reference's ``count_op`` over HLO text).
+  as a ``Collective(op, bytes, group_size, axis)`` with the reference's
+  ring wire model and ``summarize``; on one card the list is empty
+  unless the step itself calls ``torch.distributed``.  ``axis`` names
+  the mesh dimension whose group it runs over (``OpCost(mesh=)``).
+  ``ops`` counts every aten op by name (the reference's ``count_op``
+  over HLO text).
+
+**Per rank under a sharding plan.**  A step whose tensors are DTensors
+(``train/step.jit_step_for_cell``, on a mesh of torch's fake process
+group in ``launch.dryrun``) is counted as one rank runs it: the mode
+declines each DTensor op (``NotImplemented``), DTensor runs it on the
+rank's local chunks, and those local ops and the collectives that
+redistribute them come through the mode and are counted.  So FLOPs and
+bytes are the rank's own, and so are the memory counts: a DTensor
+argument or output is its local tensor.  Work that DTensor replicates
+is counted on every rank.  The shape inference DTensor runs on fake
+tensors is not counted.
 
 Memory is tracked in the same pass by the storages' lifetimes (this
 module's own tracker, not ``MemTracker``): the arguments' storages are
@@ -47,13 +60,17 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import sys
 import weakref
 from collections import Counter, defaultdict
 from typing import Any, Dict, Iterable, List
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
+
+from repro_torch.distributed.ctx import is_dtensor
 
 # aten op (its name without the in-place "_") -> the reference primitives
 # of ``jaxpr_cost.CHEAP_ELEMENTWISE`` it stands for; each costs one FLOP
@@ -116,6 +133,11 @@ BIASED_DOTS = {"addmm", "baddbmm", "addbmm"}
 # views that the schema does not mark as aliasing
 VIEW_LIKE = {"_unsafe_view"}
 
+# functional-collective ops whose result is their input's tensor on a
+# device; on ``meta`` they return a new tensor, which takes the input's
+# place in the live bytes rather than adding to them
+ALIASING = {"_wrap_tensor_autograd", "wait_tensor"}
+
 # c10d / _c10d_functional op -> the HLO collective name of the reference
 COLLECTIVE_NAMES = {
     "allreduce": "all-reduce", "all_reduce": "all-reduce",
@@ -142,6 +164,7 @@ class Collective:
     op: str
     bytes: float
     group_size: int
+    axis: str = ""
 
     @property
     def wire_bytes(self) -> float:
@@ -158,12 +181,14 @@ class Collective:
         return w
 
 
-def summarize(colls: List[Collective]) -> Dict[str, Dict[str, float]]:
-    """Per op: count, operand bytes and wire bytes, and their total."""
+def summarize(colls: List[Collective], by_axis: bool = False
+              ) -> Dict[str, Dict[str, float]]:
+    """Per op (``by_axis``: per op and mesh axis, keyed "op over axis"):
+    count, operand bytes and wire bytes, and their total."""
     agg: Dict[str, Dict[str, float]] = defaultdict(
         lambda: {"count": 0, "operand_bytes": 0.0, "wire_bytes": 0.0})
     for c in colls:
-        a = agg[c.op]
+        a = agg[f"{c.op} over {c.axis or '?'}" if by_axis else c.op]
         a["count"] += 1
         a["operand_bytes"] += c.bytes
         a["wire_bytes"] += c.wire_bytes
@@ -175,7 +200,15 @@ def summarize(colls: List[Collective]) -> Dict[str, Dict[str, float]]:
 
 
 def tensors(x) -> List[torch.Tensor]:
-    return [t for t in tree_leaves(x) if isinstance(t, torch.Tensor)]
+    """The tensors of a tree, a DTensor as its local tensor."""
+    return [t._local_tensor if is_dtensor(t) else t for t in tree_leaves(x)
+            if isinstance(t, torch.Tensor)]
+
+
+def _declined(types) -> bool:
+    """Whether an op is a DTensor op (run on local chunks instead)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and any(issubclass(t, mod.DTensor) for t in types)
 
 
 def _nbytes(t: torch.Tensor) -> float:
@@ -191,16 +224,24 @@ def storage_bytes(ts: Iterable[torch.Tensor]) -> int:
     return sum(seen.values())
 
 
-def _group_size(func, args) -> int:
+def _group(func, args):
+    """The process group a collective runs over, or None."""
     import torch.distributed as dist
     for a in args:
         if isinstance(a, torch.ScriptObject):
-            return dist.ProcessGroup.unbox(a).size()
+            return dist.ProcessGroup.unbox(a)
     if func.namespace == "_c10d_functional":
         from torch.distributed.distributed_c10d import _resolve_process_group
         name = next(a for a in reversed(args) if isinstance(a, str))
-        return _resolve_process_group(name).size()
-    return 1
+        return _resolve_process_group(name)
+    return None
+
+
+def mesh_groups(mesh) -> Dict[str, str]:
+    """{process group name: mesh dimension name} of a ``DeviceMesh``."""
+    if mesh is None:
+        return {}
+    return {mesh.get_group(n).group_name: n for n in mesh.mesh_dim_names}
 
 
 class OpCost(TorchDispatchMode):
@@ -208,10 +249,13 @@ class OpCost(TorchDispatchMode):
 
     ``arguments``: the tensors live before the step (state, inputs,
     cache), counted into ``argument_bytes`` and the live bytes;
-    ``cache``: the tensors a ``copy_`` into counts as heavy."""
+    ``cache``: the tensors a ``copy_`` into counts as heavy; ``mesh``:
+    the ``DeviceMesh`` whose dimensions name the collectives' axes."""
 
-    def __init__(self, arguments: Any = None, cache: Any = None):
+    def __init__(self, arguments: Any = None, cache: Any = None,
+                 mesh: Any = None):
         super().__init__()
+        self._axes = mesh_groups(mesh)
         self.flops = 0.0
         self.dot_flops: Dict[str, float] = defaultdict(float)
         self.bytes = 0.0
@@ -253,8 +297,12 @@ class OpCost(TorchDispatchMode):
     # -- ops ------------------------------------------------------------
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if _declined(types):
+            return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if any(isinstance(t, FakeTensor) for t in tree_leaves((args, out))):
+            return out                      # DTensor's shape inference
         name = func._schema.name.split("::")[-1]
         self.ops[name] += 1
         in_place = name.endswith("_")
@@ -264,13 +312,26 @@ class OpCost(TorchDispatchMode):
             if op is not None:              # result bytes, as in HLO
                 size = sum(_nbytes(t) for t in tensors(out)
                            or tensors(args))
-                self.collectives.append(
-                    Collective(op, size, _group_size(func, args)))
+                g = _group(func, args)
+                self.collectives.append(Collective(
+                    op, size, 1 if g is None else g.size(),
+                    "" if g is None else self._axes.get(g.group_name, "")))
         if not (func.is_view or base in VIEW_LIKE):
             self._count(base, in_place, args, kwargs, out)
+        if base in ALIASING:
+            for a, b in zip(tensors(args), tensors(out)):
+                self._replace(a, b)
         for t in tensors(out):
             self._track(t)
         return out
+
+    def _replace(self, old: torch.Tensor, new: torch.Tensor) -> None:
+        """``new`` stands for ``old``: the bytes of ``old`` leave the live
+        count when ``new`` has a storage of its own."""
+        a, b = old.untyped_storage()._cdata, new.untyped_storage()._cdata
+        if a != b and a in self._live and b not in self._live:
+            self._live.pop(a)
+            self.live_bytes -= old.untyped_storage().nbytes()
 
     def _count(self, base: str, in_place: bool, args, kwargs, out) -> None:
         ins = tensors((args, kwargs))
@@ -317,6 +378,8 @@ class OpCost(TorchDispatchMode):
                 "argument_bytes": self.argument_bytes,
                 "peak_bytes": self.peak_bytes,
                 "collectives": summarize(self.collectives),
+                "collectives_by_axis": summarize(self.collectives,
+                                                 by_axis=True),
                 "ops": dict(self.ops)}
 
 
@@ -337,10 +400,11 @@ def _conv_flops(base: str, args, out) -> float:
     return f
 
 
-def count(fn, *args, cache: Any = None) -> "tuple[Any, OpCost]":
+def count(fn, *args, cache: Any = None, mesh: Any = None
+          ) -> "tuple[Any, OpCost]":
     """Run ``fn(*args)`` under an ``OpCost`` whose arguments are
     ``args``; returns (its result, the cost)."""
-    cost = OpCost(args, cache=cache)
+    cost = OpCost(args, cache=cache, mesh=mesh)
     with cost:
         out = fn(*args)
     return out, cost

@@ -44,13 +44,18 @@ Three things differ from the JAX package by design:
 Under a sharding plan (``train/step.py``'s ``ShardPlan``) parameters,
 activations and caches are DTensors: ``ctx.constrain`` lays activations
 out split on the batch around each layer, after the embedding and on
-the MoE token groups, as JAX does.  Attention without a cache runs on
-each rank's chunk of the batch and of the heads (``local_call``), the
-heads kept split where the split falls on whole KV groups; with a cache
-q / k / v are constrained to the batch split only where DTensor cannot
-view the heads' split as (KV, G).  Cache writes and the kernels'
-wrappers also run on each rank's local chunk (``_dyn_update``,
-``local_call``).
+the MoE token groups, as JAX does.  The products with weights are laid
+out as JAX's partitioner lays them out (``product``: FSDP gathers, each
+rank its batch rows and whole heads; contracted splits as partial
+sums), and so is the embedding lookup (``lookup``: each rank its slice
+of the vocabulary).  Attention, with or without a cache, runs on each
+rank's chunk of the batch and of the heads (``local_call``), the heads
+kept split where the split falls on whole KV groups; with a cache q /
+k / v are constrained to the batch split only where DTensor cannot view
+the heads' split as (KV, G).  MoE routing and its combine run on each
+rank's token groups, the experts' MLPs on each rank's experts.  Cache
+writes (a ring's positions too) and the kernels' wrappers also run on
+each rank's local chunk (``_dyn_update``, ``local_call``).
 """
 from __future__ import annotations
 
@@ -383,9 +388,8 @@ def attention_block(
     B, S, D = x.shape
     use_rope = cfg.use_rope if use_rope is None else use_rope
     src = x if kv_source is None else kv_source
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    kk = torch.einsum("bsd,dhk->bshk", src, p["wk"])
-    vv = torch.einsum("bsd,dhk->bshk", src, p["wv"])
+    q, kk, vv = (product("bsd,dhk->bshk", a, p[w], {1: 2, 2: 3})
+                 for a, w in ((x, "wq"), (src, "wk"), (src, "wv")))
     if "bq" in p:
         q, kk, vv = q + p["bq"], kk + p["bk"], vv + p["bv"]
     if positions is None:
@@ -418,7 +422,7 @@ def attention_block(
         out, kc, vc = sharded_decode_attention(
             q, kk, vv, cache["k"], cache["v"], idx, **ds)
         cache = {"k": kc, "v": vc, "len": idx + 1}
-        y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+        y = product("bshk,hkd->bsd", out, p["wo"], {2: 2}, (2, 0))
         return y.to(x.dtype), cache
     if cached:
         idx = cache["len"]
@@ -427,16 +431,17 @@ def attention_block(
         if "pos" in cache:
             # ring buffer (sliding-window archs): capacity << max positions
             pc = cache["pos"]
+            pl, pos_l = _whole_local(pc), _whole_local(positions)
             if S == 1:
                 slot = idx % cap
                 _dyn_update((kc, vc), (kk, vv), slot)
-                pc.index_copy_(0, slot.reshape(1).long(),
-                               positions[:1, 0].to(pc.dtype))
+                pl.index_copy_(0, _whole_local(slot).reshape(1).long(),
+                               pos_l[:1, 0].to(pc.dtype))
             else:
                 # fresh prefill into a ring cache: keep the last `cap` tokens
                 keep = min(S, cap)
                 _dyn_update((kc, vc), (kk[:, -keep:], vv[:, -keep:]), 0)
-                pc[:keep] = positions[0, -keep:].to(pc.dtype)
+                pl[:keep] = pos_l[0, -keep:].to(pc.dtype)
             cache = {"k": kc, "v": vc, "pos": pc, "len": idx + S}
             kk, vv, kv_pos = kc, vc, pc
         else:
@@ -460,11 +465,72 @@ def attention_block(
             prefix_len=prefix_len), q, kk, vv,
             layout=_qkv_layout(q, kk.shape[2]))
     else:
-        out = _attend(cfg, q, kk, vv, causal=causal, kv_len=kv_len,
-                      kv_pos=kv_pos, q_offset=q_offset, sliding_window=sw,
-                      prefix_len=prefix_len)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+        # each (batch row, head) attends on its own over the cache, which
+        # a sharding plan splits on the sequence: every rank runs its
+        # chunk of batch rows and heads over the whole cache rows
+        def cached(q, k, v, kv_len, kv_pos, q_offset):
+            return _attend(cfg, q, k, v, causal=causal, kv_len=kv_len,
+                           kv_pos=kv_pos, q_offset=q_offset,
+                           sliding_window=sw, prefix_len=prefix_len)
+        out = local_call(cached, q, kk, vv, kv_len, kv_pos, q_offset,
+                         layout=_qkv_layout(q, kk.shape[2]),
+                         layouts=(None,) * 4 + (_replicated(q), None))
+    y = product("bshk,hkd->bsd", out, p["wo"], {2: 2}, (2, 0))
     return y.to(x.dtype), cache
+
+
+def product(eq: str, x: torch.Tensor, w: torch.Tensor, out_dims,
+             contract=None) -> torch.Tensor:
+    """``einsum(eq, x, w)`` of activations x (B, S, ...) and a weight.
+
+    Under a sharding plan it is laid out as JAX's partitioner lays it
+    out: each rank multiplies its own batch rows, the weight gathered on
+    that axis (FSDP); x's split of a contracted dimension ``contract`` =
+    (x's dim, w's dim) stays, the weight split alike (x is sliced where
+    it is whole and the weight split), and the ranks' products are
+    partial sums; the weight's other splits stay (weight dimension j to
+    output dimension ``out_dims[j]``); anything else is gathered.  The
+    rules split a dimension only where the ranks divide it, so each rank
+    holds whole heads: 2 KV heads are whole on every one of 16 model
+    ranks.  DTensor's own einsum may instead split the flattened heads x
+    head_dim, which its view back to (heads, hd) refuses, or keep a split
+    that makes a rank compute twice its share."""
+    if not _is_dtensor(x):
+        return torch.einsum(eq, x, w)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = x.device_mesh
+    x_pl, w_pl, o_pl, xg_pl, wg_pl = [], [], [], [], []
+    for xp, wp in zip(x.placements, w.placements):
+        if xp == Shard(0):                   # batch rows: each rank its own
+            x_pl.append(xp)
+            w_pl.append(Replicate())
+            o_pl.append(xp)
+            xg_pl.append(xp)
+            wg_pl.append(Partial())
+        elif contract and (xp == Shard(contract[0]) or (
+                xp == Replicate() and wp == Shard(contract[1]))):
+            # the contracted dimension split alike: partial sums
+            x_pl.append(Shard(contract[0]))
+            w_pl.append(Shard(contract[1]))
+            o_pl.append(Partial())
+            xg_pl.append(Shard(contract[0]))
+            wg_pl.append(Shard(contract[1]))
+        elif isinstance(wp, Shard) and wp.dim in out_dims:   # its outputs
+            x_pl.append(Replicate())
+            w_pl.append(wp)
+            o_pl.append(Shard(out_dims[wp.dim]))
+            xg_pl.append(Partial())
+            wg_pl.append(wp)
+        else:
+            x_pl.append(Replicate())
+            w_pl.append(Replicate())
+            o_pl.append(Replicate())
+            xg_pl.append(Replicate())
+            wg_pl.append(Replicate())
+    xl = x.redistribute(mesh, x_pl).to_local(grad_placements=xg_pl)
+    wl = w.redistribute(mesh, w_pl).to_local(grad_placements=wg_pl)
+    return DTensor.from_local(torch.einsum(eq, xl, wl), mesh, o_pl,
+                              run_check=False)
 
 
 def _dyn_update(bufs, news, idx) -> None:
@@ -488,6 +554,28 @@ def _dyn_update(bufs, news, idx) -> None:
 
 
 _is_dtensor = ctx.is_dtensor
+
+
+def _replicated(t):
+    """Whole placements on ``t``'s mesh (None for a plain ``t``)."""
+    if not _is_dtensor(t):
+        return None
+    from torch.distributed.tensor import Replicate
+    return (Replicate(),) * t.device_mesh.ndim
+
+
+def _whole_local(t):
+    """A tensor every rank holds whole: a replicated DTensor's local
+    tensor (written in place, a write is each rank's), else ``t``.  The
+    ring cache's ``pos`` (its axes are ("layers", None)) and the
+    positions are replicated under every rule table."""
+    if not _is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+    if any(p != Replicate() for p in t.placements):
+        raise ValueError(f"expected a replicated DTensor, got "
+                         f"{t.placements}")
+    return t.to_local()
 
 
 def _head_ranks(q) -> int:
@@ -539,23 +627,100 @@ def _dyn_update_sharded(bufs, news, idx) -> None:
                start - local_offset(buf, 1))
 
 
-def local_call(fn, *args, layout=None):
-    """``fn(*args)`` for a kernel wrapper, which takes plain tensors.
-    DTensor arguments are first laid out by ``layout`` (placements; by
-    default split on the batch as the first's batch is split, and
-    replicated otherwise), ``fn`` runs on each rank's chunk, and the
-    output comes back as a DTensor of that layout (DTensor has no rule
-    for a custom kernel).  Plain arguments pass straight through."""
+def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``: rows of an embedding table (V, d).  Under a
+    sharding plan the table's d_model split is gathered (FSDP) and its
+    vocabulary split stays: each rank looks its batch rows' ids up in
+    its own slice of the vocabulary, zeros where an id lies outside it,
+    and the ranks' rows sum (JAX's partitioner lays the gather out so;
+    DTensor's own backward of the indexing fails on torch 2.11)."""
+    if not _is_dtensor(table):
+        return table[ids]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = table.device_mesh
+    t_pl, i_pl, o_pl, tg_pl = [], [], [], []
+    lo, n = 0, table.shape[0]
+    for i, (tp, ip) in enumerate(zip(table.placements, ids.placements)):
+        if ip == Shard(0):                   # batch rows: each rank its own
+            t_pl.append(Replicate())
+            i_pl.append(ip)
+            o_pl.append(ip)
+            tg_pl.append(Partial())
+        elif tp == Shard(0):                 # a slice of the vocabulary
+            t_pl.append(tp)
+            i_pl.append(Replicate())
+            o_pl.append(Partial())
+            tg_pl.append(tp)
+            n //= mesh.size(i)
+            lo = lo * mesh.size(i) + mesh.get_coordinate()[i]
+        else:
+            t_pl.append(Replicate())
+            i_pl.append(Replicate())
+            o_pl.append(Replicate())
+            tg_pl.append(Replicate())
+    tl = table.redistribute(mesh, t_pl).to_local(grad_placements=tg_pl)
+    il = ids.redistribute(mesh, i_pl).to_local()
+    if n == table.shape[0]:
+        return DTensor.from_local(tl[il], mesh, o_pl, run_check=False)
+    lo *= n
+    inside = (il >= lo) & (il < lo + n)
+    rows = tl[torch.where(inside, il - lo, 0)]
+    rows = torch.where(inside[..., None], rows, rows.new_zeros(()))
+    return DTensor.from_local(rows, mesh, o_pl, run_check=False)
+
+
+def like(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """``new`` laid out as ``old`` is where ``old`` is a DTensor (a new
+    cache or state leaf kept in the cache's placement)."""
+    if _is_dtensor(old):
+        return new.redistribute(old.device_mesh, old.placements)
+    return new
+
+
+def local_call(fn, *args, layout=None, layouts=None, out_layouts=None):
+    """``fn(*args)`` for a kernel wrapper or a routine DTensor has no
+    rules for, which takes plain tensors.  DTensor arguments are first
+    laid out by ``layout`` (placements; by default split on the batch as
+    the first's batch is split, and replicated otherwise; ``layouts``
+    gives an argument's own where it is not None), ``fn`` runs on each
+    rank's chunk, and each tensor it returns comes back as a DTensor of
+    ``layout`` (``out_layouts``: one each; DTensor has no rule for a
+    custom kernel).  Plain arguments pass straight through."""
     if not _is_dtensor(args[0]):
         return fn(*args)
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     mesh = args[0].device_mesh
     pl = layout or tuple(p if p == Shard(0) else Replicate()
                          for p in args[0].placements)
-    local = [_ContiguousGrad.apply(a.redistribute(
-        mesh, pl if a.ndim else (Replicate(),) * mesh.ndim).to_local())
-        if _is_dtensor(a) else a for a in args]
-    return DTensor.from_local(fn(*local), mesh, pl, run_check=False)
+    lays = [None if not _is_dtensor(a) else lay or (
+        pl if a.ndim else (Replicate(),) * mesh.ndim)
+        for a, lay in zip(args, layouts or (None,) * len(args))]
+    # a mesh axis that splits any argument splits the work: an argument
+    # whole on it gets a partial gradient on each rank, summed over them
+    split = {i for lay in lays if lay for i, p in enumerate(lay)
+             if isinstance(p, Shard)}
+    local = [a if lay is None else _ContiguousGrad.apply(
+        summed(a).redistribute(mesh, lay).to_local(grad_placements=tuple(
+            Partial() if i in split and p == Replicate() else p
+            for i, p in enumerate(lay))))
+        for a, lay in zip(args, lays)]
+    out = fn(*local)
+    if isinstance(out, tuple):
+        outs = out_layouts or (pl,) * len(out)
+        return tuple(DTensor.from_local(o, mesh, lay, run_check=False)
+                     for o, lay in zip(out, outs))
+    return DTensor.from_local(out, mesh, pl, run_check=False)
+
+
+def summed(t):
+    """A DTensor's partial sums reduced (made whole) before it is laid
+    out otherwise: torch 2.11's DTensor cannot take a gradient back from
+    a split to a partial placement."""
+    if not _is_dtensor(t) or not any(p.is_partial() for p in t.placements):
+        return t
+    from torch.distributed.tensor import Replicate
+    return t.redistribute(t.device_mesh, tuple(
+        Replicate() if p.is_partial() else p for p in t.placements))
 
 
 class _ContiguousGrad(torch.autograd.Function):
@@ -629,12 +794,12 @@ def mlp_axes(cfg: ModelConfig) -> Params:
 def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """act(x wg) * (x wi) with the gate, act(x wi) without; then wo."""
     act = activation_fn(cfg.activation)
-    h = torch.einsum("bsd,df->bsf", x, p["wi"])
+    h = product("bsd,df->bsf", x, p["wi"], {1: 2})
     if "wg" in p:
-        h = act(torch.einsum("bsd,df->bsf", x, p["wg"])) * h
+        h = act(product("bsd,df->bsf", x, p["wg"], {1: 2})) * h
     else:
         h = act(h)
-    return torch.einsum("bsf,fd->bsd", h, p["wo"]).to(x.dtype)
+    return product("bsf,fd->bsd", h, p["wo"], {1: 2}, (2, 0)).to(x.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -673,12 +838,14 @@ def moe_capacity(tokens: int, cfg: ModelConfig) -> int:
     return min(capacity, tokens)
 
 
-def _route_groups(p: Params, xt: torch.Tensor, router_logits: torch.Tensor,
-                  cfg: ModelConfig, capacity: int
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Route token groups side by side (``jax.vmap(_route_group)`` in JAX).
-    xt: (G, T, D); router_logits: (G, T, E).  Returns (out (G, T, D), the
-    Switch aux loss per group (G,))."""
+def _dispatch(xt: torch.Tensor, router_logits: torch.Tensor,
+              cfg: ModelConfig, capacity: int):
+    """Route token groups side by side (``jax.vmap(_route_group)`` in
+    JAX) into per-expert capacity buffers.  xt: (G, T, D); router_logits:
+    (G, T, E).  Returns (xe (G, E, capacity, D), the buffers' gates
+    (G, E capacity), each token's slots (G, T, K) in buffer order, the
+    overflow slot E capacity for a dropped one, the Switch aux loss per
+    group (G,))."""
     Gp, T, D = xt.shape
     E, K = cfg.n_experts, cfg.experts_per_token
     dev = xt.device
@@ -712,24 +879,8 @@ def _route_groups(p: Params, xt: torch.Tensor, router_logits: torch.Tensor,
                    .expand(-1, -1, D))
     xe = torch.where((buf_tok < T)[..., None], xe, 0).reshape(
         Gp, E, capacity, D)
-    act = activation_fn(cfg.activation)
-    h = torch.matmul(xe, p["wi"])                                 # (G,E,c,f)
-    if "wg" in p:
-        h = act(torch.matmul(xe, p["wg"])) * h
-    else:
-        h = act(h)
-    oe = torch.matmul(h, p["wo"]).reshape(Gp, n_slots, D)
-    oe = oe * buf_gate[..., None].to(oe.dtype)
-    # combine in the activation dtype, each token's kept slots summed from
-    # zero in buffer order (the CPU scatter-add's order), the overflow
-    # slot reading a zero row; no atomics, so a repeated call is
-    # bit-identical
-    oe = torch.cat([oe.to(xt.dtype), xt.new_zeros((Gp, 1, D))], dim=1)
     slot_of = torch.empty_like(slot).scatter_(1, order, slot)
     token_slots = torch.sort(slot_of.reshape(Gp, T, K), dim=-1).values
-    out = xt.new_zeros((Gp, T, D))
-    for j in range(K):
-        out = out + oe.gather(1, token_slots[..., j, None].expand(-1, -1, D))
 
     # load-balance aux loss (Switch): E * mean(frac_tokens * mean_prob);
     # the count per expert is a scatter_add_ of ones (bincount would wait
@@ -737,7 +888,73 @@ def _route_groups(p: Params, xt: torch.Tensor, router_logits: torch.Tensor,
     ones = torch.ones_like(flat_e, dtype=torch.float32)
     assign = torch.zeros((Gp, E), device=dev).scatter_add_(
         1, flat_e, ones) / (T * K)
-    return out, E * (assign * probs.mean(1)).sum(-1)
+    return xe, buf_gate, token_slots, E * (assign * probs.mean(1)).sum(-1)
+
+
+def _expert_mlp(p: Params, xe: torch.Tensor, cfg: ModelConfig
+                ) -> torch.Tensor:
+    """Each expert's MLP on its capacity buffers: (G, E, c, D) ->
+    (G, E, c, D)."""
+    act = activation_fn(cfg.activation)
+    h = torch.matmul(xe, p["wi"])                                 # (G,E,c,f)
+    if "wg" in p:
+        h = act(torch.matmul(xe, p["wg"])) * h
+    else:
+        h = act(h)
+    return torch.matmul(h, p["wo"])
+
+
+def _expert_products(p: Params, xe: torch.Tensor, cfg: ModelConfig
+                     ) -> torch.Tensor:
+    """``_expert_mlp`` under a sharding plan: on each mesh axis that
+    splits the token groups the weights are gathered; on an axis that
+    splits the experts (``moe_axes``) each rank runs its own experts on
+    its slice of the buffers; elsewhere both are whole.  The weights'
+    ``expert_embed`` / ``mlp`` splits are gathered (FSDP).  Returns the
+    outputs laid out as the groups are (whole over the experts)."""
+    if not _is_dtensor(xe):
+        return _expert_mlp(p, xe, cfg)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = xe.device_mesh
+    wpl = p["wi"].placements
+    x_pl, w_pl, g_pl = [], [], []
+    for i, xp in enumerate(xe.placements):
+        if xp == Shard(0):                  # groups: each rank its own
+            x_pl.append(xp)
+            w_pl.append(Replicate())
+            g_pl.append(Partial())          # a weight's gradient sums them
+        elif wpl[i] == Shard(0) and mesh.size(i) > 1:     # experts
+            x_pl.append(Shard(1))
+            w_pl.append(Shard(0))
+            g_pl.append(Shard(0))
+        else:
+            x_pl.append(Replicate())
+            w_pl.append(Replicate())
+            g_pl.append(Replicate())
+    w = {k: p[k].redistribute(mesh, w_pl).to_local(grad_placements=g_pl)
+         for k in ("wi", "wg", "wo") if k in p}
+    oe = _expert_mlp(w, xe.redistribute(mesh, x_pl).to_local(), cfg)
+    whole = tuple(pl if pl == Shard(0) else Replicate() for pl in x_pl)
+    return DTensor.from_local(oe, mesh, x_pl, run_check=False
+                              ).redistribute(mesh, whole)
+
+
+def _combine(oe: torch.Tensor, buf_gate: torch.Tensor,
+             token_slots: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Each token's gated expert outputs: oe (G, E, c, D) -> (G, T, D)."""
+    Gp, E, c, D = oe.shape
+    oe = oe.reshape(Gp, E * c, D) * buf_gate[..., None].to(oe.dtype)
+    # combine in the activation dtype, each token's kept slots summed from
+    # zero in buffer order (the CPU scatter-add's order), the overflow
+    # slot reading a zero row; no atomics, so a repeated call is
+    # bit-identical
+    oe = torch.cat([oe.to(dtype), oe.new_zeros((Gp, 1, D), dtype=dtype)],
+                   dim=1)
+    T, K = token_slots.shape[1:]
+    out = oe.new_zeros((Gp, T, D))
+    for j in range(K):
+        out = out + oe.gather(1, token_slots[..., j, None].expand(-1, -1, D))
+    return out
 
 
 def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -756,5 +973,10 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig,
     tg = T // groups
     xt = ctx.constrain(x.reshape(groups, tg, D))
     logits = torch.einsum("gtd,de->gte", xt, p["router"].to(x.dtype))
-    out, aux = _route_groups(p, xt, logits, cfg, moe_capacity(tg, cfg))
+    # the routing and the combine run on each rank's own token groups
+    xe, buf_gate, token_slots, aux = local_call(functools.partial(
+        _dispatch, cfg=cfg, capacity=moe_capacity(tg, cfg)), xt, logits)
+    oe = _expert_products(p, xe, cfg)
+    out = local_call(functools.partial(_combine, dtype=xt.dtype), oe,
+                     buf_gate, token_slots)
     return out.reshape(B, S, D), aux.mean()

@@ -186,7 +186,7 @@ def _apply_layer(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         a_out = 0.5 * (a_out + m_out)
         if m_state is not None:
             for k in ("ssm", "conv"):
-                new_cache[k] = cache[k].copy_(m_state[k])
+                new_cache[k] = cache[k].copy_(L.like(m_state[k], cache[k]))
     x = x + a_out
     del a_out                # (B, S, d): not held through the MLP
 
@@ -298,7 +298,7 @@ class ForwardOut:
 
 def embed_tokens(params: Params, cfg: ModelConfig,
                  tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"][tokens]
+    x = L.lookup(params["embed"], tokens)
     if cfg.scale_embed:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x
@@ -307,8 +307,8 @@ def embed_tokens(params: Params, cfg: ModelConfig,
 def unembed(params: Params, cfg: ModelConfig, x: torch.Tensor
             ) -> torch.Tensor:
     if cfg.tie_embeddings:
-        return torch.einsum("bsd,vd->bsv", x, params["embed"])
-    return torch.einsum("bsd,dv->bsv", x, params["lm_head"])
+        return L.product("bsd,vd->bsv", x, params["embed"], {0: 2})
+    return L.product("bsd,dv->bsv", x, params["lm_head"], {1: 2})
 
 
 def encode(params: Params, cfg: ModelConfig,

@@ -12,7 +12,10 @@ sequential plain version on the CPU).  Mamba's selective scan has no
 Pallas kernel in the JAX package and stays plain torch here:
 ``mamba_scan`` runs the JAX package's chunks, an inclusive scan inside
 each (log2(chunk) doubling steps in place of ``lax.associative_scan``)
-and a Python loop over the chunks (``lax.scan``).
+and a Python loop over the chunks (``lax.scan``).  Under a sharding plan
+both scans run on each rank's chunk (``layers.local_call``): the WKV
+scan on its batch rows and heads, the Mamba scan on its batch rows and
+its slice of d_inner; the recurrent states keep the cache's placement.
 """
 from __future__ import annotations
 
@@ -23,7 +26,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import dense_init, dtype_of
+from repro_torch.distributed.ctx import is_dtensor
+from repro_torch.models.layers import (dense_init, dtype_of, like,
+                                      local_call, product, summed)
 
 Params = Dict[str, Any]
 
@@ -85,8 +90,8 @@ def _token_shift(x: torch.Tensor, prev: Optional[torch.Tensor]
 
 def _rwkv_decay(p: Params, xw: torch.Tensor) -> torch.Tensor:
     """Data-dependent per-channel log-decay, clamped to [-DECAY_CLAMP, ~0)."""
-    lora = torch.einsum("bsd,dr->bsr", xw, p["wa"])
-    lora = torch.einsum("bsr,rd->bsd", torch.tanh(lora), p["wb"])
+    lora = product("bsd,dr->bsr", xw, p["wa"], {1: 2})
+    lora = product("bsr,rd->bsd", torch.tanh(lora), p["wb"], {1: 2})
     raw = p["w0"].float() + lora.float()
     lw = -torch.exp(torch.clamp(raw, -20.0, math.log(DECAY_CLAMP)))
     return torch.clamp(lw, -DECAY_CLAMP, -1e-6)
@@ -137,23 +142,37 @@ def rwkv_time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig,
     B, S, D = x.shape
     H, K = cfg.n_rwkv_heads, cfg.rwkv_head_dim
     xx = _token_shift(x, None if state is None else state["shift_tm"])
-    mix = x[:, None] + (xx - x)[:, None] * p["mu"][None, :, None, :]
-    xr, xk, xv, xw, xg = mix.unbind(1)                   # (B, S, D) each
-    r = torch.einsum("bsd,de->bse", xr, p["wr"]).reshape(B, S, H, K)
-    k = torch.einsum("bsd,de->bse", xk, p["wk"]).reshape(B, S, H, K)
-    v = torch.einsum("bsd,de->bse", xv, p["wv"]).reshape(B, S, H, K)
-    g = F.silu(torch.einsum("bsd,de->bse", xg, p["wg"]))
-    lw = _rwkv_decay(p, xw).reshape(B, S, H, K)
-    u = p["u"].reshape(H, K)
+    # the five token-shift mixes one by one (the same arithmetic as one
+    # (B, 5, S, D) tensor, which DTensor may split on its mix axis)
+    dx = xx - x
+    xr, xk, xv, xw, xg = (x + dx * p["mu"][i] for i in range(5))
+    r, k, v, g = (product("bsd,de->bse", a, p[w], {1: 2})
+                  for a, w in ((xr, "wr"), (xk, "wk"), (xv, "wv"),
+                               (xg, "wg")))
+    r, k, v, lw = (_split_heads(a, H, K)
+                   for a in (r, k, v, _rwkv_decay(p, xw)))
+    g = F.silu(g)
+    u = _split_heads(p["u"], H, K)
 
-    S0 = (state["wkv"] if state is not None else
-          torch.zeros((B, H, K, K), dtype=torch.float32, device=x.device))
     rt, kt, vt, wt = (a.transpose(1, 2) for a in (r, k, v, lw))
     if use_kernel:
         from repro_torch.kernels import ops as kops
-        out, S_new = kops.rwkv6_scan(rt, kt, vt, wt, u, S0)
+        scan = kops.rwkv6_scan
     else:
-        out, S_new = rwkv_chunk_scan(rt, kt, vt, wt, u, S0)
+        scan = rwkv_chunk_scan
+
+    def wkv(r, k, v, w, u, S0=None):
+        if S0 is None:
+            S0 = torch.zeros(r.shape[:2] + (K, K), dtype=torch.float32,
+                             device=r.device)
+        return scan(r, k, v, w, u, S0)
+
+    # under a sharding plan each rank scans its batch rows and heads
+    lay = _scan_layout(rt, H)
+    out, S_new = local_call(
+        wkv, rt, kt, vt, wt, u,
+        *(() if state is None else (state["wkv"],)), layout=lay,
+        layouts=(None,) * 4 + (_heads_only(lay), None))
     out = out.transpose(1, 2)                            # (B, S, H, K)
 
     # per-head group norm (population variance), then gate and project
@@ -161,15 +180,53 @@ def rwkv_time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig,
     var = out.var(-1, keepdim=True, correction=0)
     out = ((out - mu_) * torch.rsqrt(var + 64e-5)).reshape(B, S, D)
     out = out * p["ln_w"].to(out.dtype) + p["ln_b"].to(out.dtype)
-    out = (out * g).to(x.dtype)
-    out = torch.einsum("bsd,de->bse", out, p["wo"])
+    # the gate laid out as the heads are (whole where their split misses
+    # whole heads: a gradient split there could not be viewed as heads)
+    out = (out * like(g, out)).to(x.dtype)
+    out = product("bsd,de->bse", out, p["wo"], {1: 2}, (2, 0))
 
     new_state = None
     if state is not None:
         new_state = dict(state)
-        new_state["wkv"] = S_new
-        new_state["shift_tm"] = x[:, -1]
+        new_state["wkv"] = like(S_new, state["wkv"])
+        new_state["shift_tm"] = like(x[:, -1], state["shift_tm"])
     return out.to(x.dtype), new_state
+
+
+def _split_heads(t: torch.Tensor, H: int, K: int) -> torch.Tensor:
+    """(..., H K) -> (..., H, K).  Under a sharding plan a split of the
+    last dimension that does not fall on whole heads (rwkv6-3b's 40
+    heads over 16 model ranks) is gathered first: DTensor cannot view
+    it as heads."""
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate, Shard
+        last = Shard(t.ndim - 1)
+        pl = tuple(Replicate() if p in (last, Shard(-1)) and
+                   H % t.device_mesh.size(i) else p
+                   for i, p in enumerate(t.placements))
+        if pl != tuple(t.placements):
+            t = t.redistribute(t.device_mesh, pl)
+    return t.reshape(t.shape[:-1] + (H, K))
+
+
+def _scan_layout(r, n_heads: int):
+    """Placements of the WKV scan's (B, H, T, K) inputs under a sharding
+    plan: r's split of the batch, and of the heads where the ranks
+    divide them; replicated otherwise.  None for a plain ``r``."""
+    if not is_dtensor(r):
+        return None
+    from torch.distributed.tensor import Replicate, Shard
+    return tuple(p if p == Shard(0) or (
+        p == Shard(1) and n_heads % r.device_mesh.size(i) == 0)
+        else Replicate() for i, p in enumerate(r.placements))
+
+
+def _heads_only(lay):
+    """The bonus ``u`` (H, K) laid out as the scan's heads."""
+    if lay is None:
+        return None
+    from torch.distributed.tensor import Replicate, Shard
+    return tuple(Shard(0) if p == Shard(1) else Replicate() for p in lay)
 
 
 def rwkv_channel_mix(p: Params, x: torch.Tensor,
@@ -178,13 +235,14 @@ def rwkv_channel_mix(p: Params, x: torch.Tensor,
     xx = _token_shift(x, None if state is None else state["shift_cm"])
     xk = x + (xx - x) * p["mu_ck"]
     xr = x + (xx - x) * p["mu_cr"]
-    kk = torch.square(torch.relu(torch.einsum("bsd,df->bsf", xk, p["wck"])))
-    out = torch.sigmoid(torch.einsum("bsd,de->bse", xr, p["wcr"])) * \
-        torch.einsum("bsf,fd->bsd", kk, p["wcv"])
+    kk = torch.square(torch.relu(product("bsd,df->bsf", xk, p["wck"],
+                                         {1: 2})))
+    out = torch.sigmoid(product("bsd,de->bse", xr, p["wcr"], {1: 2})) * \
+        product("bsf,fd->bsd", kk, p["wcv"], {1: 2}, (2, 0))
     new_state = None
     if state is not None:
         new_state = dict(state)
-        new_state["shift_cm"] = x[:, -1]
+        new_state["shift_cm"] = like(x[:, -1], state["shift_cm"])
     return out.to(x.dtype), new_state
 
 
@@ -323,29 +381,67 @@ def mamba_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
     B, S, D = x.shape
     di, N = cfg.d_inner, cfg.ssm_state
     dtr = p["dt_proj"].shape[0]
-    xz = torch.einsum("bsd,de->bse", x, p["in_proj"])
+    xz = product("bsd,de->bse", x, p["in_proj"], {1: 2})
     xi, z = xz.chunk(2, dim=-1)
     xi, new_conv = _causal_conv(xi, p["conv_w"], p["conv_b"],
                                 None if state is None else state["conv"])
     xi = F.silu(xi)
 
-    proj = torch.einsum("bsd,de->bse", xi, p["x_proj"])
+    # the small (dt_rank + 2N) projection whole on every rank where
+    # d_inner is split: its partial sums reduced
+    proj = summed(product("bsd,de->bse", xi, p["x_proj"], {}, (2, 0)))
     dt_lo, Bm, Cm = torch.split(proj, [dtr, N, N], dim=-1)
-    dt = F.softplus(torch.einsum("bsr,rd->bsd", dt_lo, p["dt_proj"]).float()
-                    + p["dt_bias"])                       # (B,S,di)
+    dt = F.softplus(product("bsr,rd->bsd", dt_lo, p["dt_proj"], {1: 2})
+                    .float() + p["dt_bias"])              # (B,S,di)
     A = -torch.exp(p["A_log"])                            # (di,N)
     a = torch.exp(dt[..., None] * A)                      # (B,S,di,N)
     b = (dt * xi.float())[..., None] * Bm.float()[..., None, :]
 
-    h0 = state["ssm"] if state is not None else \
-        torch.zeros((B, di, N), dtype=torch.float32, device=x.device)
-    y, h = mamba_scan(a, b, Cm.float(), h0)
+    def scan(a, b, C, h0=None):
+        if h0 is None:
+            h0 = torch.zeros((a.shape[0],) + a.shape[2:], dtype=torch.float32,
+                             device=a.device)
+        return mamba_scan(a, b, C, h0)
+
+    # under a sharding plan each rank scans its batch rows and its slice
+    # of d_inner (``mamba_axes``' "inner")
+    lay = _inner_layout(a, p["conv_b"])
+    st = None if lay is None else _dims(lay, {2: 1})
+    y, h = local_call(scan, a, b, Cm.float(),
+                      *(() if state is None else (state["ssm"],)),
+                      layout=lay, layouts=(None, None, _dims(lay, {}), st),
+                      out_layouts=(lay, st))
     del a, b
     y = y + p["D_skip"] * xi.float()
     y = (y * F.silu(z.float())).to(x.dtype)
-    out = torch.einsum("bsd,de->bse", y, p["out_proj"])
+    out = product("bsd,de->bse", y, p["out_proj"], {1: 2}, (2, 0))
     new_state = None if state is None else {"ssm": h, "conv": new_conv}
     return out.to(x.dtype), new_state
+
+
+def _inner_layout(a, conv_b):
+    """Placements of the Mamba scan's (B, T, d_inner, N) inputs under a
+    sharding plan: a's split of the batch, and d_inner split as the
+    parameters' "inner" axis is; replicated otherwise.  None for a plain
+    ``a``."""
+    if not is_dtensor(a):
+        return None
+    from torch.distributed.tensor import Replicate, Shard
+    inner = conv_b.placements if is_dtensor(conv_b) else ()
+    return tuple(Shard(0) if p == Shard(0) else
+                 Shard(2) if i < len(inner) and inner[i] == Shard(0)
+                 else Replicate() for i, p in enumerate(a.placements))
+
+
+def _dims(lay, moves):
+    """``lay`` with the split of dimension d moved to ``moves[d]``
+    (dropped where d is not in ``moves``; the batch's stays)."""
+    if lay is None:
+        return None
+    from torch.distributed.tensor import Replicate, Shard
+    return tuple(p if p == Shard(0) else
+                 Shard(moves[p.dim]) if isinstance(p, Shard) and p.dim in moves
+                 else Replicate() for p in lay)
 
 
 def mamba_state_init(cfg: ModelConfig, batch: int, device=None) -> Params:

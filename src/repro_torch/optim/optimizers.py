@@ -58,13 +58,19 @@ def _schedule(lr) -> Schedule:
         lambda step: torch.tensor(lr, dtype=torch.float32))
 
 
+def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
+    """A float32 moment of zeros shaped and placed as ``p`` (a DTensor's
+    moment is a DTensor of the same placements, each rank its chunk)."""
+    return torch.zeros_like(p, dtype=torch.float32,
+                            memory_format=torch.contiguous_format)
+
+
 def adamw(lr, *, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
           weight_decay: float = 0.0) -> Optimizer:
     sched = _schedule(lr)
 
     def init(params):
-        zeros = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                               device=p.device), params)
+        zeros = tree_map(_zeros_f32, params)
         return {"m": zeros, "v": tree_map(torch.clone, zeros)}
 
     def update(grads, state, params, step):
@@ -94,8 +100,7 @@ def sgd_momentum(lr, *, momentum: float = 0.9,
     sched = _schedule(lr)
 
     def init(params):
-        return {"mom": tree_map(lambda p: torch.zeros(
-            p.shape, dtype=torch.float32, device=p.device), params)}
+        return {"mom": tree_map(_zeros_f32, params)}
 
     def update(grads, state, params, step):
         g = _to_f32(grads)

@@ -33,11 +33,16 @@ explicit here:
   AdamW, so the moments and the new parameters keep the plan's layout;
 - **ops DTensor has no rule for** are run on each rank's local chunk:
   the cache writes (``index_copy_``; ``layers._dyn_update``), the
-  kernels' wrappers (``layers.local_call``) and the sequence-sharded
-  decode attention (``distributed/serve_attention.py``).
+  kernels' wrappers, attention, MoE routing and the WKV and Mamba scans
+  (``layers.local_call``) and the sequence-sharded decode attention
+  (``distributed/serve_attention.py``); the products with weights are
+  laid out explicitly (``layers.product``, ``layers.lookup``), since
+  DTensor's own strategies refuse some (torch 2.11 more than 2.13) and
+  replicate work in others.
 
-This slice executes the dense attention family sharded; the other
-families' plans hold their specs leaf for leaf (ROADMAP).
+Every block kind of the zoo runs sharded: attention (with contiguous
+and ring caches, cross-attention and a prefix), MoE, RWKV-6 and the
+Hymba hybrid.
 """
 from __future__ import annotations
 

@@ -1446,3 +1446,63 @@ def test_planned_train_step_equals_the_plain_step(nccl_world1):
         keep = (g1 >= 1e-2 * g1.max()) & (g2 >= 1e-2 * g2.max())
         assert float((b - p0).abs()[keep].min()) > 1e-2 * lr
         assert float((a.full_tensor() - b).abs()[keep].max()) <= 1e-3 * lr
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kernels", [
+    ("rwkv6_3b", ("rwkv6_scan_bhtk",)),
+    ("granite_moe_3b_a800m", ("decode_attention_bkgd",)),
+    ("whisper_base", ("flash_attention_bhsd", "decode_attention_bkgd"))])
+def test_family_kernels_launch_through_the_plan(nccl_world1, arch, kernels):
+    """At world 1 over NCCL, under ``pallas``: a prefill and two decode
+    steps of a family's smoke config (head dims the kernels take; a
+    300-frame whisper encoder, which reaches flash attention) through
+    ``jit_step_for_cell`` launch the family's kernels on the rank's chunk
+    (``layers.local_call``) and equal the unsharded calls at 1e-4."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.models import serve as SV
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.train import step as TS
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_smoke_config(arch), head_dim=64,
+                              rwkv_head_dim=64, enc_len=300,
+                              attn_impl="pallas")
+    params = M.init_params(torch.Generator(dev).manual_seed(0), cfg,
+                           device=dev)
+    g = torch.Generator(dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (4, 18), device=dev, generator=g,
+                         dtype=torch.int32)
+    frames = torch.randn((4, cfg.enc_len, cfg.d_model), device=dev,
+                         generator=g) if cfg.enc_dec else None
+    steps = [TS.jit_step_for_cell(cfg, ShapeCell(k, 32, 4, k),
+                                  nccl_world1)[0]
+             for k in ("prefill", "decode")]
+
+    def serve(planned):
+        cache = SV.init_cache(cfg, 4, 32, device=dev)
+        batch = {"tokens": toks[:, :16], "cache": cache}
+        if frames is not None:
+            batch["frames"] = frames
+        if planned:
+            lg, cache = steps[0](params, batch)
+        else:
+            lg, cache, _ = SV.prefill(params, cfg, toks[:, :16], cache=cache,
+                                      frames=frames)
+        out = [lg]
+        for i in range(2):
+            t = toks[:, 16 + i:17 + i]
+            lg, cache = (steps[1](params, {"tokens": t, "cache": cache})
+                         if planned else
+                         SV.decode_step(params, cfg, t, cache=cache))
+            out.append(lg)
+        return [x.full_tensor() if hasattr(x, "full_tensor") else x
+                for x in out]
+
+    want = serve(False)
+    ops.reset_launch_counts()
+    got = serve(True)
+    launched = ops.launch_counts()
+    for name in kernels:
+        assert launched[name] > 0, launched
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-4

@@ -3,12 +3,15 @@
     python3 tools/torch_smoke_phase.py train             # on a CUDA card
     python3 tools/torch_smoke_phase.py launch --rehearse # tiny, on the CPU
     python3 tools/torch_smoke_phase.py mesh              # on a CUDA card
+    python3 tools/torch_smoke_phase.py families          # on a CUDA card
 
 ``train`` is the smoke's phase 17 (``zoo_training_phase``), ``launch``
 its phase 19 (``launch_phase``: the launch analyses against steps on
 the card, and gradient compression), ``mesh`` its phase 20
 (``mesh_phase``: the sharding plan at world 1 over NCCL, four ranks on
-the one card over gloo).  Builds the kernels (decode
+the one card over gloo), ``families`` its phase 21 (``families_phase``:
+every family's serving through the plan at world 1, four ranks at (2,
+2) on the one card over gloo, the mesh dry-run beside them).  Builds the kernels (decode
 attention runs in both), then runs the phase and prints its lines after
 the card's name and power limit: the same checks and numbers as in the
 smoke, without the phases that run before it in the smoke's process.
@@ -28,7 +31,7 @@ sys.path.insert(0, os.path.join(HERE, "..", "src"))
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("phase", choices=["train", "launch", "mesh"])
+    ap.add_argument("phase", choices=["train", "launch", "mesh", "families"])
     ap.add_argument("--rehearse", action="store_true")
     args = ap.parse_args(argv)
     import torch
@@ -50,6 +53,8 @@ def main(argv=None) -> int:
         launches, lines = cs.zoo_training_phase(torch, dev, args.rehearse)
     elif args.phase == "mesh":
         launches, lines = None, cs.mesh_phase(torch, dev, args.rehearse, gpu)
+    elif args.phase == "families":
+        launches, lines = cs.families_phase(torch, dev, args.rehearse, gpu)
     else:
         launches, lines = cs.launch_phase(torch, dev, args.rehearse, gpu)
     for line in lines:
