@@ -227,8 +227,9 @@ Phases (any failure exits non-zero and prints no result line):
     defaults: the answers on the survivors are the oracle's.
 18. A ``kernels`` JSON line (all six kernels; flash and decode attention
     with their ``zoo_launches`` of phases 10-15, 17 and 19; each with its
-    ``families_launches`` of phase 21 (a)), then the device line as the
-    last line.
+    ``families_launches`` of phase 21 (a) and its ``fleet_mesh_launches``
+    of phase 22, (a) and (b)'s rank 0), then the device line as the last
+    line.
 19. (Run before the lines of 18.)  The launch analyses: five steps, each
     analysed on meta by ``repro_torch.launch.dryrun.analyse`` (its own
     random-weight arguments, nothing allocated) and then run once on the
@@ -302,6 +303,29 @@ Phases (any failure exits non-zero and prints no result line):
     qwen2-0.5b's and qwen2-72b's decode_32k on the (16, 16) mesh of 256
     fake ranks with their per-rank argument GiB.  A process that exits
     non-zero, or (b) past 300 s, fails the smoke.
+22. (Run after 21, before the lines of 18.)  Fleet serving over a
+    ``("stream",)`` mesh.  (a) A one-rank NCCL group from a ``file://``
+    store under ``build/`` and ``sharding.stream_mesh()``: the fleet
+    phase's 16 streams x 128 frames at g = 56 (its frames kept on the
+    host; the trained filter saved under ``build/`` and loaded back)
+    through ``plan_group_engine_factory(fetch, mesh=...)``, the
+    ground-truth pass and the learned pass with its churn: every
+    stream's per-frame answers and window hits equal the one-card
+    fleet's bit for bit; frames/s beside the one-card fleet's, the
+    kernels' launches.  (b) Four processes of this script
+    (``--fleet-worker``) on the one card over gloo, a stream mesh of 4,
+    4 streams a rank: each rank loads the filter, collects its own
+    streams' frames and runs its block's learned fetch (flash attention
+    and the CAM head), both passes (the learned one with its compacted
+    spatial tier forced onto the row kernel): every rank's answers and
+    hits of all 16 streams equal (a)'s; the stats kernel on 4 x 32 =
+    128 frames a call and the row kernel on local ids below 128; rank
+    0's first stats call equal to its plain version bit for bit; 6
+    streams over the 4 ranks take the replication fallback and agree
+    with the engine without a mesh; ``distributed_reduce`` over the 4
+    ranks (float64 on the card, through gloo's host copies) within
+    1e-12 of the merge of the ranks' accumulators.  A rank that exits
+    non-zero, or (b) past 120 s, fails the smoke.
 """
 import argparse
 import dataclasses
@@ -1632,10 +1656,15 @@ class MasksAsAnswers:
             m & torch.as_tensor(~sup, device=dev)[None, :])
 
 
-def fleet_inputs(torch, dev, scene, serve, n_streams):
-    """``n_streams`` detrac-like streams (ids cam0..), each its own
-    ``VideoStream`` with a dynamics seed from ``stream_seed``, their
-    embeddings in one tensor on the card, and per-stream fetches: the
+def fleet_ids(n_streams):
+    return [f"cam{i}" for i in range(n_streams)]
+
+
+def fleet_inputs(torch, dev, scene, serve, ids, data=None):
+    """The detrac-like streams ``ids`` (cam0..), each its own
+    ``VideoStream`` with a dynamics seed from ``stream_seed`` (collected
+    here unless ``data`` holds them), their embeddings on the card, and
+    per-stream fetches: the
     learned filter (one trunk + CAM-head call per stream and chunk; the
     outputs of the first call per chunk are kept, and a later call for
     the same chunk must give the same bits), the learned filter for the
@@ -1645,10 +1674,10 @@ def fleet_inputs(torch, dev, scene, serve, n_streams):
     from repro_torch.core.filters import FilterOutputs
     from repro_torch.core.streaming import stream_seed
     from repro_torch.data.synthetic import VideoStream, collect
-    ids = [f"cam{i}" for i in range(n_streams)]
     t0 = time.perf_counter()
-    data = {sid: collect(VideoStream(scene, dynamics_seed=stream_seed(
-        SEED, sid)), FLEET_FRAMES) for sid in ids}
+    if data is None:
+        data = {sid: collect(VideoStream(scene, dynamics_seed=stream_seed(
+            SEED, sid)), FLEET_FRAMES) for sid in ids}
     collect_s = time.perf_counter() - t0
     embeds = {sid: torch.as_tensor(d["embeds"], device=dev)
               for sid, d in data.items()}
@@ -1687,10 +1716,12 @@ def fleet_inputs(torch, dev, scene, serve, n_streams):
         (kept, served), collect_s, n_bytes
 
 
-def fleet_run(dev, scene, ids, fetch, cost_model, churn):
+def fleet_run(dev, scene, ids, fetch, cost_model, churn, **engine_kw):
     """The fleet: ``MultiStreamExecutor`` over the group engine (the
-    group plan and ``advance_group``), timed whole.  Returns the chunk
-    log, the engines built, the window results and the wall time."""
+    group plan and ``advance_group``; ``engine_kw`` such as ``mesh``
+    forwarded to ``plan_group_engine_factory``), timed whole.  Returns
+    the chunk log, the engines built, the window results and the wall
+    time."""
     from repro_torch.core.streaming import HoppingWindow
     from repro_torch.distributed.multistream import (MultiStreamExecutor,
                                                      plan_group_engine_factory)
@@ -1698,7 +1729,7 @@ def fleet_run(dev, scene, ids, fetch, cost_model, churn):
     log, engines = [], []
     inner = plan_group_engine_factory(lambda ctx, idx: fetch(ctx.stream_id,
                                                              idx),
-                                      cost_model=cost_model)
+                                      cost_model=cost_model, **engine_kw)
 
     def factory(queries, streams, slot_stats, leaf_table, step_cache,
                 device):
@@ -1746,6 +1777,16 @@ def per_frame(log, pos=None):
         for k, qid in enumerate(rec.qids):
             out[(lo, qid)] = a[:, k]
     return out
+
+
+def fleet_answers(log, results, pos):
+    """{stream id: ({"lo/qid": answers}, window hits)} of a fleet pass, in
+    plain types (phase 22's ranks write them as JSON)."""
+    return {sid: [{f"{lo}/{qid}": a.astype(int).tolist()
+                   for (lo, qid), a in per_frame(log, p).items()},
+                  [{str(q): int(n) for q, n in r.hits[sid].items()}
+                   for r in results]]
+            for sid, p in pos.items()}
 
 
 def replay_check(log, pos, sched, objects, scene, what):
@@ -1892,7 +1933,7 @@ def fleet_phase(torch, dev, scene, serve, gpu, rehearse):
     S = FLEET_STREAMS_REHEARSE if rehearse else FLEET_STREAMS
     static = CM.static_cost_model()
     ids, data, fetches, (kept, served), collect_s, n_bytes = fleet_inputs(
-        torch, dev, scene, serve, S)
+        torch, dev, scene, serve, fleet_ids(S))
     lines = [f"fleet phase: {S} streams x {FLEET_FRAMES} frames of the "
              f"detrac-like scene at g = {scene.grid} (windows of "
              f"{FLEET_WINDOW}, batch {BATCH}; collected in {collect_s:.2f} "
@@ -2089,7 +2130,13 @@ def fleet_phase(torch, dev, scene, serve, gpu, rehearse):
     lines += fleet_chunk_profile(
         torch, dev, scene, ids,
         {k: fetches[k] for k in ("learned", "ground_truth")}, static, gpu)
-    return lines, launches
+    # what phase 22 holds the stream mesh to: the streams' frames, each
+    # pass's per-frame answers and window hits, and its frames/s
+    ref = {"data": data, "fps": {name: S * FLEET_FRAMES / fleet[name][5]
+                                 for name in fleet}}
+    for name in fleet:
+        ref[name] = fleet_answers(fleet[name][1], fleet[name][4], pos)
+    return lines, launches, ref
 
 
 # ---------------------------------------------------------------------------
@@ -5213,6 +5260,432 @@ def families_phase(torch, dev, rehearse, gpu):
     return launches, lines
 
 
+# ---------------------------------------------------------------------------
+# fleet serving over a ("stream",) mesh (phase 22)
+# ---------------------------------------------------------------------------
+
+FLEET_WORLD = 4                  # (b)'s ranks on the one card
+FLEET_B_LIMIT_S = 120            # (b) from start to exit
+FLEET_FALLBACK_STREAMS = 6       # does not divide over FLEET_WORLD ranks
+FLEET_REDUCE_TOL = 1e-12         # distributed_reduce vs the merge, float64
+FLEET_KERNELS = ("spatial_stats_bgc", "spatial_stats_rows_bgc",
+                 "cam_head_bgd", "flash_attention_bhsd")
+
+
+def fleet_filter_path():
+    d = os.path.join(HERE, "build", "fleet_mesh")
+    os.makedirs(d, exist_ok=True)
+    return os.path.join(d, "filter.pt")
+
+
+def save_filter(torch, tf, path):
+    """The trained filter (pallas trunk) for phase 22's processes."""
+    from repro_torch.optim.optimizers import tree_map
+    torch.save({"params": tree_map(lambda t: t.detach().cpu(), tf.params),
+                "trunk_cfg": tf.trunk_cfg, "spec": tf.spec,
+                "count_scale": tf.count_scale}, path)
+
+
+def load_filter(torch, path, dev):
+    from repro_torch.optim.optimizers import tree_map
+    from repro_torch.train.filter_train import TrainedFilter
+    d = torch.load(path, weights_only=False)
+    return TrainedFilter(params=tree_map(lambda t: t.to(dev), d["params"]),
+                         trunk_cfg=d["trunk_cfg"], spec=d["spec"],
+                         losses=[], count_scale=d["count_scale"])
+
+
+def answers_differ(got, want):
+    """The streams whose per-frame answers or window hits differ."""
+    return sorted(sid for sid in want if got.get(sid) != want[sid])
+
+
+def stats_spy(torch, SP, ops, keep_first):
+    """Wraps the plan's two stats entry points: records each full-batch
+    call's frames and each compacted call's frames and largest row id;
+    with ``keep_first``, the first full call's inputs and output."""
+    seen = {"full": [], "rows": [], "first": None}
+    full, rows_fn = ops.spatial_stats_inline, ops.spatial_stats_rows_inline
+
+    def full_spy(grid, tau=0.2, *, classes=None):
+        out = full(grid, tau, classes=classes)
+        seen["full"].append(int(grid.shape[0]))
+        if keep_first and seen["first"] is None:
+            seen["first"] = (grid.clone(), tau, None if classes is None
+                             else classes.clone(), out.clone())
+        return out
+
+    def rows_spy(grid, rows, tau=0.2, *, classes=None):
+        seen["rows"].append((int(grid.shape[0]), int(rows.max())))
+        return rows_fn(grid, rows, tau, classes=classes)
+
+    ops.spatial_stats_inline = full_spy
+    ops.spatial_stats_rows_inline = rows_spy
+
+    def first_vs_plain():
+        if seen["first"] is None:
+            return None
+        grid, tau, classes, out = seen["first"]
+        want = SP.spatial_stats_plain(grid.contiguous(), tau, classes=classes)
+        return bool(torch.equal(out, want)), tuple(grid.shape)
+
+    def restore():
+        ops.spatial_stats_inline, ops.spatial_stats_rows_inline = \
+            full, rows_fn
+    return seen, first_vs_plain, restore
+
+
+def fleet_mesh_a(torch, dev, scene, ref, gpu, rehearse):
+    """(a) The fleet phase's streams through the group engine over a
+    ``("stream",)`` mesh of one rank (NCCL on the card, a gloo control
+    group beside it), both passes, against the one-card fleet's
+    answers bit for bit.  Returns (launches, answers, lines)."""
+    import torch.distributed as dist
+    from repro_torch.core import costmodel as CM
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import init_distributed
+    S = FLEET_STREAMS_REHEARSE if rehearse else FLEET_STREAMS
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    init_distributed(dev, init_file=mesh_store("store_fleet_a"), rank=0,
+                     world_size=1)
+    try:
+        mesh = SH.stream_mesh(device=dev)
+        serve = load_filter(torch, fleet_filter_path(), dev)
+        ids, _, fetches, _, _, _ = fleet_inputs(
+            torch, dev, scene, serve, fleet_ids(S), data=ref["data"])
+        static = CM.static_cost_model()
+        sync(torch, dev)
+        ops.reset_launch_counts()
+        runs = {name: fleet_run(dev, scene, ids, fetches[name], static,
+                                churn=name == "learned", mesh=mesh)
+                for name in ("ground_truth", "learned")}
+        sync(torch, dev)
+        launches = ops.launch_counts()
+        wrapped = [e.shard_wrap is not None for name in runs
+                   for e in runs[name][2]]
+        check(all(wrapped), "fleet mesh (a): an engine took the "
+              "replication fallback at world 1")
+        lines, got = [], {}
+        for name, (_, log, engines, ex, results, wall) in runs.items():
+            pos = {c.stream_id: c.position for c in ex.streams}
+            got[name] = fleet_answers(log, results, pos)
+            bad = answers_differ(got[name], ref[name])
+            check(not bad, f"fleet mesh (a) {name}: streams {bad} differ "
+                  f"from the one-card fleet")
+            lines.append(
+                f"fleet mesh (a) {name}: {S} streams x {FLEET_FRAMES} "
+                f"frames through plan_group_engine_factory(mesh=) on a "
+                f"('stream',) mesh of 1 rank (NCCL, gloo control group): "
+                f"every stream's per-frame answers and window hits equal "
+                f"the one-card fleet's bit for bit; {S * FLEET_FRAMES / wall:.1f}"
+                f" frames/s ({wall:.3f} s, chunk p50 "
+                f"{ex.latency_percentile(50) * 1e3:.2f} ms) beside the "
+                f"one-card fleet's {ref['fps'][name]:.1f} [{gpu}]")
+        if not rehearse:
+            for name in ("spatial_stats_bgc", "cam_head_bgd",
+                         "flash_attention_bhsd"):
+                check(launches[name] > 0, f"fleet mesh (a): {name} was "
+                      f"not launched")
+        lines.append(f"fleet mesh (a) launches (both passes): "
+                     f"{ {k: launches[k] for k in FLEET_KERNELS} } [{gpu}]")
+    finally:
+        dist.destroy_process_group()
+    return launches, got, lines
+
+
+def fleet_worker(rank, store, rehearse):
+    """One of (b)'s ranks: a gloo group of ``FLEET_WORLD`` processes on
+    the one card (the CPU in rehearsal), a ``("stream",)`` mesh of
+    ``FLEET_WORLD``.  Serves its block of the fleet's streams (their
+    frames collected here, the filter saved by the parent): the
+    ground-truth pass and the learned pass, with the stats calls recorded;
+    then each chunk of its block through the final population's group
+    plan under the wrap with the compacted spatial tier on the row kernel
+    (fleet check 3 on the mesh: each stream equal to ``evaluate`` alone),
+    the replication fallback at ``FLEET_FALLBACK_STREAMS`` streams and
+    ``distributed_reduce`` over the ranks.  Writes JSON beside the store;
+    returns 0."""
+    sys.path.insert(0, SRC)
+    import functools
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import costmodel as CM
+    from repro_torch.core import query as Q
+    from repro_torch.core.aggregates import CVAccumulator, distributed_reduce
+    from repro_torch.core.filters import FilterOutputs
+    from repro_torch.distributed import multistream as MS
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import spatial_predicate as SP
+    t_start = time.perf_counter()
+    if rehearse:
+        dev = torch.device("cpu")
+    else:
+        torch.cuda.set_device(0)
+        dev = torch.device("cuda", 0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=FLEET_WORLD)
+    d = os.path.dirname(store)
+    out = {"rank": rank}
+    try:
+        mesh = SH.stream_mesh(device=dev)
+        scene, _, _ = configure(rehearse)
+        S = FLEET_STREAMS_REHEARSE if rehearse else FLEET_STREAMS
+        ids = fleet_ids(S)
+        mine = [c.stream_id for c in MS.route_streams(ids, FLEET_WORLD)
+                if c.slot == rank]
+        serve = load_filter(torch, fleet_filter_path(), dev)
+        t0 = time.perf_counter()
+        _, _, fetches, (kept, _), collect_s, _ = fleet_inputs(
+            torch, dev, scene, serve, mine)
+        out["collect_s"] = collect_s
+        static = CM.static_cost_model()
+        seen, first_vs_plain, restore = stats_spy(torch, SP, ops,
+                                                  keep_first=rank == 0)
+        sync(torch, dev)
+        ops.reset_launch_counts()
+        runs = {}
+        t0 = time.perf_counter()
+        for name in ("ground_truth", "learned"):
+            runs[name] = fleet_run(dev, scene, ids, fetches[name], static,
+                                   churn=name == "learned", mesh=mesh)
+        sync(torch, dev)
+        out["passes_s"] = time.perf_counter() - t0
+        out["launches"] = ops.launch_counts()
+        out["stats_frames"] = list(seen["full"])
+        out["first_vs_plain"] = first_vs_plain()
+
+        # fleet check 3 on the mesh: this rank's block of every chunk
+        # through the final population's plan under the wrap, compacted
+        # spatial tiers on the row kernel, against evaluate alone
+        from repro_torch.core.plan import QueryPlan
+        from repro_torch.core.temporal import TemporalProgram
+        plan = QueryPlan(TemporalProgram(fleet_final_queries(scene.grid),
+                                         backend="numpy").frame_queries)
+        wrap = runs["learned"][2][-1].shard_wrap
+        n_eq, rows_wrap = 0, []
+        for name in ("ground_truth", "learned"):
+            for lo in range(0, FLEET_FRAMES, BATCH):
+                idx = np.arange(lo, lo + BATCH)
+                outs = [kept.get((sid, lo, BATCH)) if name == "learned"
+                        else None for sid in mine]
+                outs = [o if o is not None else fetches[name](sid, idx)
+                        for sid, o in zip(mine, outs)]
+                n0 = len(seen["rows"])
+                got = plan.build_staged(
+                    None, cost_model=static, spatial_body="rows"
+                ).evaluate_group(FilterOutputs(
+                    counts=torch.stack([o.counts for o in outs]),
+                    grid=torch.stack([o.grid for o in outs])),
+                    shard_wrap=wrap)
+                rows_wrap += seen["rows"][n0:]     # not evaluate's below
+                for s, o in enumerate(outs):
+                    want = plan.build_staged(
+                        None, cost_model=static,
+                        spatial_body="rows").evaluate(o)
+                    check(torch.equal(got[s], want), f"fleet mesh (b) "
+                          f"rank {rank}: evaluate_group under the wrap "
+                          f"({name}, frames {lo}..) differs from evaluate "
+                          f"on {mine[s]} alone")
+                    n_eq += 1
+        sync(torch, dev)
+        restore()
+        out["check3"] = n_eq
+        out["check3_launches"] = {
+            k: n - out["launches"][k] for k, n in ops.launch_counts().items()}
+        out["rows_calls"] = rows_wrap
+        out["local"] = [[c.stream_id for c in e.local_streams]
+                        for name in runs for e in runs[name][2]]
+        out["wrapped"] = [e.shard_wrap is not None
+                          for name in runs for e in runs[name][2]]
+        out["answers"], out["fps"] = {}, {}
+        for name, (_, log, _, ex, results, wall) in runs.items():
+            pos = {c.stream_id: c.position for c in ex.streams}
+            out["answers"][name] = fleet_answers(log, results, pos)
+            out["fps"][name] = S * FLEET_FRAMES / wall
+
+        # the replication fallback: 6 streams over 4 ranks, every rank
+        # serving all six, against the same engine without a mesh
+        ctxs = MS.route_streams(fleet_ids(FLEET_FALLBACK_STREAMS), 1)
+        rng = np.random.default_rng(SEED + 7)
+        g, C = scene.grid, scene.n_classes
+        fb = {c.stream_id: (
+            torch.as_tensor(rng.poisson(1.5, (2 * BATCH, C)).astype(
+                np.float32), device=dev),
+            torch.as_tensor((rng.random((2 * BATCH, g, g, C)) < 0.02)
+                            .astype(np.float32), device=dev))
+            for c in ctxs}
+
+        def fb_fetch(ctx, idx):
+            c, gr = fb[ctx.stream_id]
+            i = torch.as_tensor(idx, device=dev)
+            return FilterOutputs(counts=c[i], grid=gr[i])
+
+        fq = (Q.Count(Q.Op.GE, 3),
+              Q.And((Q.ClassCount(0, Q.Op.GE, 1),
+                     Q.Spatial(0, Q.Rel.LEFT, 1))))
+        engs = [MS.ShardedPlanGroupEngine(fq, ctxs, fb_fetch, mesh=m,
+                                          cost_model=static, device=dev)
+                for m in (mesh, None)]
+        out["fallback_wrap"] = engs[0].shard_wrap is not None
+        out["fallback_local"] = len(engs[0].local_streams)
+        out["fallback_equal"] = all(
+            np.array_equal(*(e.run_chunk(np.arange(b0, b0 + BATCH))
+                             for e in engs)) for b0 in (0, BATCH))
+
+        # distributed_reduce over the ranks against the merge
+        accs = []
+        for r in range(FLEET_WORLD):
+            rr = np.random.default_rng(700 + r)
+            z = rr.normal(40.0 + r, 3.0, (1000 + 100 * r, 2))
+            y = 2.0 * z[:, 0] - z[:, 1] + rr.normal(0.0, 1.0, z.shape[0])
+            accs.append(CVAccumulator.init(2, device=dev).update(y, z))
+        red = distributed_reduce(accs[rank], mesh=mesh)
+        merged = functools.reduce(CVAccumulator.merge, accs)
+        out["reduce_rel"] = max(
+            float(((getattr(red, f) - getattr(merged, f)).abs().max()
+                   / getattr(merged, f).abs().max()).cpu())
+            for f in ("n", "mean", "M2"))
+        out["reduce_device"] = red.M2.device.type
+        out["seconds"] = time.perf_counter() - t_start
+        with open(os.path.join(d, f"fleet{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def fleet_ranks(torch, rehearse, gpu, want):
+    """(b): ``FLEET_WORLD`` processes of this script on the one card over
+    gloo (``fleet_worker``).  Any that exits non-zero, or (b) past
+    ``FLEET_B_LIMIT_S``, fails the smoke; every process is stopped.
+    Returns (rank 0's launches, lines)."""
+    store = mesh_store("store_fleet_b")
+    d = os.path.dirname(store)
+    for r in range(FLEET_WORLD):
+        if os.path.exists(os.path.join(d, f"fleet{r}.json")):
+            os.remove(os.path.join(d, f"fleet{r}.json"))
+    extra = ["--rehearse"] if rehearse else []
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--fleet-worker", str(r), store] + extra,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(FLEET_WORLD)]
+    outs = []
+    try:
+        for p in procs:
+            left = FLEET_B_LIMIT_S - (time.perf_counter() - t0)
+            outs.append(p.communicate(timeout=max(left, 1))[0])
+    except subprocess.TimeoutExpired:
+        raise SmokeError(f"fleet mesh (b): the ranks did not finish within "
+                         f"{FLEET_B_LIMIT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    bad = [f"rank {r} exited {p.returncode}:\n{o[-2500:]}"
+           for r, (p, o) in enumerate(zip(procs, outs)) if p.returncode]
+    check(not bad, "fleet mesh (b): " + "\n".join(bad))
+    res = []
+    for r in range(FLEET_WORLD):
+        with open(os.path.join(d, f"fleet{r}.json")) as f:
+            res.append(json.load(f))
+    S = FLEET_STREAMS_REHEARSE if rehearse else FLEET_STREAMS
+    n_local = S // FLEET_WORLD
+    frames = n_local * BATCH
+    for r, x in enumerate(res):
+        check(all(x["wrapped"]) and all(len(b) == n_local
+                                        for b in x["local"]),
+              f"fleet mesh (b) rank {r}: engines {x['wrapped']} blocks "
+              f"{x['local']}, want {n_local} streams each under the wrap")
+        for name in ("ground_truth", "learned"):
+            diff = answers_differ(x["answers"][name], want[name])
+            check(not diff, f"fleet mesh (b) rank {r} {name}: streams "
+                  f"{diff} differ from (a)'s")
+        # full-batch calls see the block's 128 frames (a compacted step
+        # with the gathered-grid body sees the block's bucket rows)
+        check(x["stats_frames"] and max(x["stats_frames"]) == frames and
+              all(n % n_local == 0 for n in x["stats_frames"]),
+              f"fleet mesh (b) rank {r}: the stats kernel ran on "
+              f"{sorted(set(x['stats_frames']))} frames, want {frames}")
+        check(x["rows_calls"] and all(n == frames and top < frames
+                                      for n, top in x["rows_calls"]),
+              f"fleet mesh (b) rank {r}: row kernel calls (frames, largest "
+              f"id) {x['rows_calls'][:8]}, want local ids below {frames}")
+        if not rehearse:
+            for name in ("spatial_stats_bgc", "cam_head_bgd",
+                         "flash_attention_bhsd"):
+                check(x["launches"][name] > 0, f"fleet mesh (b) rank {r}: "
+                      f"{name} was not launched on its block")
+            check(x["check3_launches"]["spatial_stats_rows_bgc"] > 0,
+                  f"fleet mesh (b) rank {r}: the row kernel was not "
+                  f"launched under the wrap")
+        check(not x["fallback_wrap"] and x["fallback_local"]
+              == FLEET_FALLBACK_STREAMS and x["fallback_equal"],
+              f"fleet mesh (b) rank {r}: {FLEET_FALLBACK_STREAMS} streams "
+              f"over {FLEET_WORLD} ranks did not replicate and agree")
+        check(x["reduce_rel"] <= FLEET_REDUCE_TOL,
+              f"fleet mesh (b) rank {r}: distributed_reduce is "
+              f"{x['reduce_rel']:.3g} off the merge (tol "
+              f"{FLEET_REDUCE_TOL})")
+    first = res[0]["first_vs_plain"]
+    check(first is not None and first[0], f"fleet mesh (b) rank 0: the "
+          f"first stats call against its plain version: {first}")
+    r0 = res[0]
+    lines = [
+        f"fleet mesh (b): {FLEET_WORLD} processes on the one card over "
+        f"gloo, a ('stream',) mesh of {FLEET_WORLD}, {n_local} streams a "
+        f"rank (frames collected on each rank in "
+        f"{max(x['collect_s'] for x in res):.2f} s at most); every rank's "
+        f"per-frame answers and window hits of all {S} streams equal (a)'s "
+        f"in both passes (learned: register + retire in window 2); the "
+        f"stats kernel on {frames} frames a full-batch call "
+        f"({len(r0['stats_frames'])} calls on rank 0); evaluate_group under "
+        f"the wrap at the final population, the compacted spatial tier on "
+        f"the row kernel, equal to evaluate alone on each rank's "
+        f"{r0['check3']} (stream, chunk) pairs, the row kernel on local ids "
+        f"below {frames} ({len(r0['rows_calls'])} calls on rank 0; "
+        f"{r0['check3_launches']['spatial_stats_rows_bgc']} row-kernel "
+        f"launches in the check, its evaluate-alone calls included); "
+        f"rank 0's first stats "
+        f"call on {first[1]} equal to the plain version bit for bit; "
+        f"{FLEET_FALLBACK_STREAMS} streams over {FLEET_WORLD} ranks "
+        f"replicated and equal to the engine without a mesh; "
+        f"distributed_reduce over the ranks ({r0['reduce_device']} float64, "
+        f"gloo) within {max(x['reduce_rel'] for x in res):.3g} of the "
+        f"merge (tol {FLEET_REDUCE_TOL}) [{gpu}]",
+        f"fleet mesh (b) rank 0: passes {r0['passes_s']:.2f} s, frames/s "
+        f"ground truth {r0['fps']['ground_truth']:.1f}, learned "
+        f"{r0['fps']['learned']:.1f}; launches on its block "
+        f"{ {k: r0['launches'][k] for k in FLEET_KERNELS} }; ranks "
+        f"{[round(x['seconds'], 1) for x in res]} s from start, {wall:.1f} "
+        f"s in all (limit {FLEET_B_LIMIT_S}) [{gpu}]"]
+    return r0["launches"], lines
+
+
+def fleet_mesh_phase(torch, dev, scene, ref, gpu, rehearse):
+    """Phase 22: (a) the fleet over a one-rank stream mesh against the
+    one-card fleet; (b) four ranks on the one card over gloo against
+    (a).  Returns ({kernel: {"world1": n, "rank0_of_4": n}}, lines)."""
+    t_phase = time.perf_counter()
+    launches_a, want, lines = fleet_mesh_a(torch, dev, scene, ref, gpu,
+                                           rehearse)
+    for line in lines:
+        print(line, flush=True)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    launches_b, lines = fleet_ranks(torch, rehearse, gpu, want)
+    lines.append(f"fleet mesh phase: {time.perf_counter() - t_phase:.1f} s")
+    return {k: {"world1": launches_a[k], "rank0_of_4": launches_b[k]}
+            for k in launches_a}, lines
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse", action="store_true",
@@ -5223,6 +5696,9 @@ def main(argv=None):
                          "smoke itself)")
     ap.add_argument("--families-worker", nargs=2, metavar=("RANK", "STORE"),
                     help="run one rank of phase 21 (b) (started by the "
+                         "smoke itself)")
+    ap.add_argument("--fleet-worker", nargs=2, metavar=("RANK", "STORE"),
+                    help="run one rank of phase 22 (b) (started by the "
                          "smoke itself)")
     ap.add_argument("--families-dryrun", metavar="OUT",
                     help="run phase 21 (c)'s mesh dry-run (started by the "
@@ -5239,6 +5715,9 @@ def main(argv=None):
                           args.families_worker[1], args.rehearse)
     if args.families_dryrun:
         return fam_dryrun(args.families_dryrun, args.rehearse)
+    if args.fleet_worker:
+        return fleet_worker(int(args.fleet_worker[0]), args.fleet_worker[1],
+                            args.rehearse)
     sys.path.insert(0, SRC)
     import torch
     from repro_torch.data.synthetic import VideoStream, collect
@@ -5269,6 +5748,7 @@ def main(argv=None):
     params = tf.params
     serve = dataclasses.replace(
         tf, trunk_cfg=dataclasses.replace(trunk, attn_impl="pallas"))
+    save_filter(torch, serve, fleet_filter_path())
     data = collect(VideoStream(scene, dynamics_seed=SEED), N_FRAMES)
 
     qkv, feat, grids, rows = kernel_inputs(torch, dev, trunk, spec, params,
@@ -5316,8 +5796,8 @@ def main(argv=None):
         print(line, flush=True)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    lines, fleet_launches = fleet_phase(torch, dev, scene, serve, gpu,
-                                        args.rehearse)
+    lines, fleet_launches, fleet_ref = fleet_phase(torch, dev, scene, serve,
+                                                   gpu, args.rehearse)
     for line in lines:
         print(line, flush=True)
     if dev.type == "cuda":
@@ -5410,6 +5890,13 @@ def main(argv=None):
     fam_launches, lines = families_phase(torch, dev, args.rehearse, gpu)
     for line in lines:
         print(line, flush=True)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    fleet_mesh, lines = fleet_mesh_phase(torch, dev, scene, fleet_ref, gpu,
+                                         args.rehearse)
+    for line in lines:
+        print(line, flush=True)
+    del fleet_ref
     if args.rehearse:
         print("rehearsal done (CPU: plain versions, no kernels)")
         return 0
@@ -5418,6 +5905,7 @@ def main(argv=None):
         e["kernel_ms"] = e["ms"]
         e["fleet_launches"] = fleet_launches[e["name"]]
         e["families_launches"] = fam_launches.get(e["name"], 0)
+        e["fleet_mesh_launches"] = fleet_mesh[e["name"]]
         if e["name"] in ZOO_KERNELS:
             e["zoo_launches"] = {k: n[e["name"]] for k, n in zoo.items()}
     print(json.dumps({"kernels": entries}), flush=True)

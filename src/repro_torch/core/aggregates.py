@@ -330,21 +330,30 @@ class BudgetLedger:
         return dataclasses.asdict(self)
 
 
-def distributed_reduce(accs: Union[CVAccumulator, Sequence[CVAccumulator]]
-                       ) -> CVAccumulator:
-    """Pool accumulators over a *stream* axis with three sums.
+def distributed_reduce(accs: Union[CVAccumulator, Sequence[CVAccumulator]],
+                       axis_name: Optional[str] = None, *,
+                       mesh=None) -> CVAccumulator:
+    """Pool accumulators with three sums: Chan's combination written as
+    sums of (n, n * mean, M2 + n * outer(mean, mean)), identical to a
+    merge tree.
 
-    The JAX package runs this inside ``shard_map`` as three ``psum``s over
-    a mesh axis.  One H100 has no mesh axis: the streams a card serves
-    are a leading tensor axis instead, so this is the single-card form of
-    the same algebra — Chan's combination written as sums of (n,
-    n * mean, M2 + n * outer(mean, mean)), identical to a merge tree.
-    The means are taken relative to one stream's (the largest's) before
-    the sums, which changes nothing algebraically but keeps the raw
-    second moments from cancelling when the values sit far from zero.
-    ``accs`` is a list of accumulators (stacked here) or one accumulator
-    whose fields carry the leading stream axis.
+    With ``mesh`` (a ``DeviceMesh``; ``axis_name`` picks its axis, by
+    default its only one) this is the JAX package's form: ``accs`` is the
+    calling rank's accumulator, and the three sums are all-reduces over
+    the axis's group (on host copies where that group is gloo and the
+    moments lie on the card), so every rank returns the pooled
+    accumulator.  Without a mesh it is the single-card form over a
+    *stream* axis: ``accs`` is a list of accumulators (stacked here) or
+    one accumulator whose fields carry the leading stream axis.
+
+    The means are taken relative to one accumulator's (the largest's,
+    the first on ties) before the sums, which changes nothing
+    algebraically but keeps the raw second moments from cancelling when
+    the values sit far from zero; over a mesh that costs one all-gather
+    of each rank's (n, mean) beside the three all-reduces.
     """
+    if mesh is not None:
+        return _mesh_reduce(accs, mesh.get_group(axis_name))
     if isinstance(accs, CVAccumulator):
         n, mean, M2 = accs.n, accs.mean, accs.M2
     else:
@@ -364,6 +373,38 @@ def distributed_reduce(accs: Union[CVAccumulator, Sequence[CVAccumulator]]
     s1 = (n[:, None] * dm).sum(0)
     raw2 = M2 + n[:, None, None] * dm[:, :, None] * dm[:, None, :]
     s2 = raw2.sum(0)
+    safe_n = torch.clamp(total, min=1.0)
+    shift = s1 / safe_n
+    return CVAccumulator(n=total, mean=ref + shift,
+                         M2=s2 - safe_n * torch.outer(shift, shift))
+
+
+def _group_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed over ``group``'s ranks (a new tensor on ``t``'s
+    device; over gloo a card's tensor goes through a host copy)."""
+    import torch.distributed as dist
+    host = t.device.type != "cpu" and dist.get_backend(group) == "gloo"
+    out = t.cpu() if host else t.clone()
+    dist.all_reduce(out, group=group)
+    return out.to(t.device) if host else out
+
+
+def _mesh_reduce(acc: CVAccumulator, group) -> CVAccumulator:
+    import torch.distributed as dist
+    if not isinstance(acc, CVAccumulator) or acc.n.dim() != 0:
+        raise ValueError("over a mesh, distributed_reduce takes this "
+                         "rank's one (unstacked) accumulator")
+    world = dist.get_world_size(group)
+    mine = torch.cat([acc.n[None], acc.mean])
+    parts = torch.zeros((world,) + tuple(mine.shape), dtype=mine.dtype,
+                        device=mine.device)
+    parts[dist.get_rank(group)] = mine
+    parts = _group_sum(parts, group)    # the all-gather, as a sum
+    ref = parts[torch.argmax(parts[:, 0]), 1:]
+    dm = acc.mean - ref
+    total = _group_sum(acc.n, group)
+    s1 = _group_sum(acc.n * dm, group)
+    s2 = _group_sum(acc.M2 + acc.n * torch.outer(dm, dm), group)
     safe_n = torch.clamp(total, min=1.0)
     shift = s1 / safe_n
     return CVAccumulator(n=total, mean=ref + shift,

@@ -86,6 +86,12 @@ def ic_apply(p: Params, tap: torch.Tensor, spec: BranchSpec,
 # OD head (§II-B): 3 grid-mixing layers + GAP/FC counts + per-cell grid
 # --------------------------------------------------------------------------
 
+def ic_axes(spec: BranchSpec) -> Params:
+    """Logical axes of the IC head's parameters (``distributed.sharding``
+    rules): the trunk-side width of ``proj`` is ``embed``."""
+    return {"proj": ("embed", None), "w": (None, None), "b": (None,)}
+
+
 def _conv2d_init(gen: torch.Generator, cin, cout, ksize,
                  device=None) -> torch.Tensor:
     fan = cin * ksize * ksize
@@ -140,6 +146,14 @@ def od_apply(p: Params, tap: torch.Tensor, spec: BranchSpec) -> FilterOutputs:
 # OD-COF head (§II-B.1, Table I): count-only classifier
 # --------------------------------------------------------------------------
 
+def od_axes(spec: BranchSpec) -> Params:
+    """Logical axes of the OD head's parameters: the first conv's input
+    channels are ``embed``."""
+    return {"c1": (None, None, "embed", None), "c2": (None,) * 4,
+            "c3": (None,) * 4, "w": (None, None), "b": (None,),
+            "grid_w": (None, None), "grid_b": (None,)}
+
+
 def cof_init(gen: torch.Generator, spec: BranchSpec, d_model: int,
              device=None) -> Params:
     h = spec.head_dim
@@ -168,10 +182,17 @@ def cof_apply(p: Params, tap: torch.Tensor, spec: BranchSpec
     return FilterOutputs(counts=counts, grid=None)
 
 
+def cof_axes(spec: BranchSpec) -> Params:
+    """Logical axes of the OD-COF head's parameters."""
+    return {"c1": (None, None, "embed", None), "c2": (None,) * 4,
+            "c3": (None,) * 4, "c4": (None,) * 4,
+            "w": (None, None), "b": (None,)}
+
+
 HEADS = {
-    "ic": (ic_init, ic_apply),
-    "od": (od_init, od_apply),
-    "cof": (cof_init, cof_apply),
+    "ic": (ic_init, ic_apply, ic_axes),
+    "od": (od_init, od_apply, od_axes),
+    "cof": (cof_init, cof_apply, cof_axes),
 }
 
 
@@ -184,6 +205,10 @@ def branch_apply(p: Params, tap: torch.Tensor, spec: BranchSpec,
                  **kw) -> FilterOutputs:
     return HEADS[spec.kind][1](p, tap, spec, **kw) if spec.kind == "ic" \
         else HEADS[spec.kind][1](p, tap, spec)
+
+
+def branch_axes(spec: BranchSpec) -> Params:
+    return HEADS[spec.kind][2](spec)
 
 
 # --------------------------------------------------------------------------

@@ -796,6 +796,8 @@ class StagedQueryPlan:
         self._trace_count = 0       # step closures built by THIS plan
         self.last_report: Optional[StageReport] = None
         self._pending = None
+        self._wrap_refs: List = []  # keep unsigned shard_wraps alive so
+        #                             their ids stay unambiguous in keys
 
     @property
     def step_cache_max(self) -> int:
@@ -885,6 +887,20 @@ class StagedQueryPlan:
         self.order = order
         return changed
 
+    def staging(self) -> Tuple[List[int], Dict[int, np.ndarray]]:
+        """The stage order and each stage's slot order."""
+        return list(self.order), dict(self._perms)
+
+    def adopt_staging(self, order: Sequence[int],
+                      perms: Dict[int, np.ndarray]) -> None:
+        """Take another plan's ``staging()`` of the same stages (the fleet
+        engine gives every rank of a mesh rank 0's)."""
+        self.order = list(order)
+        for si, perm in perms.items():
+            if not np.array_equal(perm, self._perms[si]):
+                self._perms[si] = perm
+                self._stage_sigs[si] = self._stage_sig(si)
+
     # -- stage steps ------------------------------------------------------
 
     def _stage_body(self, si: int) -> Callable:
@@ -939,7 +955,9 @@ class StagedQueryPlan:
     # -- execution --------------------------------------------------------
 
     def _get_step(self, si: int, ran: frozenset, bucket: Optional[int],
-                  body: str, n_streams: int) -> Callable:
+                  body: str, n_streams: int,
+                  shard_wrap: Optional[Callable] = None,
+                  wrap_sig: Optional[Tuple] = None) -> Callable:
         """The step for stage ``si`` given the stages that already ran,
         over S = ``n_streams`` streams' flat (S·B) batch: eval + scatter
         + both propagation passes + per-stream undecided reductions +
@@ -959,10 +977,24 @@ class StagedQueryPlan:
         decidedness is reshaped to (S, B, D) before reducing.  Every
         other operation is per row, so each stream's slice is
         bit-identical to its walk alone (pinned by
-        tests/test_torch_multistream.py).  Keys carry the stream count
-        and the mesh slot, always None: one card has no stream mesh."""
+        tests/test_torch_multistream.py).
+
+        Under a ``shard_wrap`` (``distributed.sharding.ShardMap`` over a
+        ``("stream",)`` mesh) the step runs on the calling rank's block of
+        ``n_streams`` streams.  Keys carry the stream count and the mesh
+        identity: ``wrap_sig`` (a content digest of the mesh, so rebuilt
+        engines over the same mesh share steps), else the wrap's id, with
+        the wrap kept alive so that a recycled id never aliases a dead
+        wrap's entries."""
+        if shard_wrap is None:
+            wrap_key: Optional[Tuple] = None
+        elif wrap_sig is not None:
+            wrap_key = wrap_sig
+        else:
+            self._wrap_refs.append(shard_wrap)
+            wrap_key = ("wrapid", id(shard_wrap))
         key = ("gstep", self.plan.plan_sig, self._stage_sigs[si],
-               self._prefix_sig(ran), bucket, body, n_streams, None)
+               self._prefix_sig(ran), bucket, body, n_streams, wrap_key)
         step = self.step_cache.get(key)
         if step is not None:
             return step
@@ -1009,6 +1041,8 @@ class StagedQueryPlan:
                         undecided(decided, presumed),
                         (vals & valid[:, None]).sum(0))
 
+        if shard_wrap is not None:
+            step = shard_wrap(step)
         self._trace_count += 1
         self.step_cache.put(key, step)
         return step
@@ -1043,6 +1077,8 @@ class StagedQueryPlan:
     # -- fleet execution ----------------------------------------------------
 
     def evaluate_group(self, outs: FilterOutputs, *,
+                       shard_wrap: Optional[Callable] = None,
+                       wrap_sig: Optional[Tuple] = None,
                        presumed_decided: Optional[np.ndarray] = None
                        ) -> torch.Tensor:
         """(S, B, N) bool masks for S streams' stacked batches — each
@@ -1080,10 +1116,30 @@ class StagedQueryPlan:
         streams keep evaluating.  Presumed columns' returned values are
         UNSPECIFIED, as in ``evaluate``; stages skipped only thanks to
         presumption land in ``StageReport.skipped_presumed`` /
-        ``cost_presumed_saved``."""
+        ``cost_presumed_saved``.
+
+        ``shard_wrap`` — a ``distributed.sharding.ShardMap`` over a
+        ``("stream",)`` mesh of W ranks: ``outs`` is then the calling
+        rank's contiguous block of S / W streams, and so is the returned
+        (S / W, B, N) tensor.  Each step runs on the rank's rows (the
+        stats kernel over (S / W)·B frames, the row kernel on local flat
+        ids), while every staging decision stays group-wide and equal on
+        every rank: the per-stage (S / W, D + B) undecided fetch becomes
+        an all-gather of the (S, D + B) table, ``presumed_decided`` is
+        the whole (S, N) mask, the report is priced at S, and
+        ``flush_stats`` sums the pass counts over the ranks.  A rank that
+        decided from its own rows alone would take other branches than
+        its peers, and their collectives would no longer pair.
+        ``wrap_sig`` — a stable content signature of the wrap's mesh,
+        keying the steps (see ``_get_step``)."""
         plan = self.plan
         dev = outs.counts.device
         S, B = outs.counts.shape[:2]
+        blk = slice(0, S)
+        if shard_wrap is not None:
+            S *= shard_wrap.world
+            blk = shard_wrap.block(S)
+        S_loc = blk.stop - blk.start
         self._last_batch = B
         N = len(plan.queries)
         D = plan.n_distinct
@@ -1116,17 +1172,17 @@ class StagedQueryPlan:
                     st.kind, rows=B, batch=B, radius=st.radius)
                 stage_rows.append((st.name, 0, S * B, None, None))
             self.last_report = report
-            self._pending = ([], stage_rows)
-            return torch.zeros((S, B, N), dtype=torch.bool, device=dev)
+            self._pending = ([], stage_rows, None)
+            return torch.zeros((S_loc, B, N), dtype=torch.bool, device=dev)
         flat = FilterOutputs(
-            counts=outs.counts.reshape(S * B, *outs.counts.shape[2:]),
+            counts=outs.counts.reshape(S_loc * B, *outs.counts.shape[2:]),
             grid=None if outs.grid is None
-            else outs.grid.reshape(S * B, *outs.grid.shape[2:]))
-        presumed_dev = torch.as_tensor(presumed_d, device=dev)
-        leaf_vals = torch.zeros((S * B, plan.n_slot_cols), dtype=torch.bool,
-                                device=dev)
-        value = torch.zeros((S * B, D), dtype=torch.bool, device=dev)
-        decided = torch.zeros((S * B, D), dtype=torch.bool, device=dev)
+            else outs.grid.reshape(S_loc * B, *outs.grid.shape[2:]))
+        presumed_dev = torch.as_tensor(presumed_d[blk], device=dev)
+        leaf_vals = torch.zeros((S_loc * B, plan.n_slot_cols),
+                                dtype=torch.bool, device=dev)
+        value = torch.zeros((S_loc * B, D), dtype=torch.bool, device=dev)
+        decided = torch.zeros((S_loc * B, D), dtype=torch.bool, device=dev)
         undecided_cols = ~presumed_d
         undecided_rows = np.ones((S, B), bool)
         report = StageReport(order=[self.stages[s].name for s in self.order],
@@ -1166,27 +1222,29 @@ class StagedQueryPlan:
                 bucket = min(bucket, B)
             if bucket >= B:
                 body = self._body_for(si, None)
-                step = self._get_step(si, ran, None, body, S)
+                step = self._get_step(si, ran, None, body, S_loc,
+                                      shard_wrap, wrap_sig)
                 leaf_vals, value, decided, undec, counts = step(
                     flat, leaf_vals, presumed_dev)
                 rows_eval = B
             else:
                 body = self._body_for(si, bucket)
-                step = self._get_step(si, ran, bucket, body, S)
-                # per-stream undecided rows padded (repeating the last
-                # survivor, so duplicate scatters are benign) to the
-                # GROUP bucket, as flat ids
-                idx = np.zeros((S, bucket), np.int64)
-                for s in range(S):
-                    rows_s = np.nonzero(undecided_rows[s])[0]
+                step = self._get_step(si, ran, bucket, body, S_loc,
+                                      shard_wrap, wrap_sig)
+                # this rank's streams' undecided rows padded (repeating
+                # the last survivor, so duplicate scatters are benign) to
+                # the GROUP bucket, as local flat ids
+                idx = np.zeros((S_loc, bucket), np.int64)
+                for s, rows in enumerate(undecided_rows[blk]):
+                    rows_s = np.nonzero(rows)[0]
                     n = rows_s.size
                     idx[s, :n] = rows_s
                     idx[s, n:] = rows_s[-1] if n else 0
-                idx += (np.arange(S, dtype=np.int64) * B)[:, None]
+                idx += (np.arange(S_loc, dtype=np.int64) * B)[:, None]
                 leaf_vals, value, decided, undec, counts = step(
                     flat, leaf_vals, value, decided,
                     torch.as_tensor(idx.reshape(-1), device=dev),
-                    torch.as_tensor(n_rows, device=dev), presumed_dev)
+                    torch.as_tensor(n_rows[blk], device=dev), presumed_dev)
                 rows_eval = bucket
             if rows_eval == B:
                 # only full-batch evaluations feed the per-slot ledger,
@@ -1195,6 +1253,8 @@ class StagedQueryPlan:
                 # frame-level selectivity)
                 pending.append((self._stage_slots(si), counts, S * B))
             undec = undec.cpu().numpy()     # ONE (S, D + B) fetch/stage
+            if shard_wrap is not None:      # ... gathered over the ranks
+                undec = shard_wrap.gather(undec)
             undecided_cols, undecided_rows = undec[:, :D], undec[:, D:]
             stage_rows.append((st.name, rows_eval * S, S * B,
                                int(n_rows.sum()),
@@ -1218,20 +1278,23 @@ class StagedQueryPlan:
             stage_rows.append((self.stages[sj].name, 0, S * B, None, None))
         report.steps_compiled = self._trace_count - traces_before
         self.last_report = report
-        self._pending = (pending, stage_rows)
+        self._pending = (pending, stage_rows, shard_wrap)
         dm = plan._const(plan.dup_map, dev, index=True)
-        return value.view(S, B, D)[:, :, dm]
+        return value.view(S_loc, B, D)[:, :, dm]
 
     def flush_stats(self, stats) -> None:
         """Fold the last batch's per-slot pass counts into ``stats`` with
-        one device fetch; per-stage row traffic goes to the stage ledger
-        behind ``predicted_batch_cost``."""
+        one device fetch (summed over the ranks under a ``shard_wrap``, so
+        every rank's ledger sees the whole group's); per-stage row traffic
+        goes to the stage ledger behind ``predicted_batch_cost``."""
         if not self._pending:
             return
-        pending, stage_rows = self._pending
+        pending, stage_rows, shard_wrap = self._pending
         self._pending = None
         if pending:
             counts = torch.cat([c for _, c, _ in pending]).cpu().numpy()
+            if shard_wrap is not None:
+                counts = shard_wrap.psum(counts)
             off = 0
             for slots, _, seen in pending:
                 stats.observe_many(

@@ -758,8 +758,16 @@ def _device_bool(signals, device: torch.device) -> torch.Tensor:
 # fleet-wide advance (one step over a leading stream axis)
 # --------------------------------------------------------------------------
 
+# keepalive for unsigned shard_wraps baked into cached group steps (as
+# StagedQueryPlan._wrap_refs: the key holds only id(wrap), so the wrap
+# must outlive the entry to keep ids unique)
+_GROUP_WRAP_REFS: List[Any] = []
+
+
 def advance_group(programs: Sequence[TemporalProgram], signals, *,
-                  step_cache: Optional[StepCache] = None) -> np.ndarray:
+                  step_cache: Optional[StepCache] = None,
+                  shard_wrap: Optional[Callable] = None,
+                  wrap_sig: Optional[Tuple] = None) -> np.ndarray:
     """Advance S structurally identical ``TemporalProgram`` windows by
     one (S, B, M) bool signal batch at once (numpy, or a tensor on the
     programs' device); returns the (S, B, N) bool per-frame query
@@ -767,14 +775,18 @@ def advance_group(programs: Sequence[TemporalProgram], signals, *,
 
     The scan backend stacks each program's automaton state on a leading
     stream axis and runs ONE batched step at S = len(programs), cached
-    in ``step_cache`` under the program digest + (B, S) — the temporal
-    analogue of ``StagedQueryPlan.evaluate_group``'s group steps.  (The
-    JAX package's ``shard_wrap``/``wrap_sig`` mesh parameters have no
-    counterpart: one card has no stream mesh, so the key's mesh slot is
-    always None.)  The numpy backend falls back to a per-stream
-    ``advance`` loop (the differential reference).  Per-program host-side
-    semantics are unchanged either way: decided columns stay latched to
-    their pre-batch values and decidedness updates after the batch.
+    in ``step_cache`` under the program digest + (B, S) + mesh identity
+    — the temporal analogue of ``StagedQueryPlan.evaluate_group``'s
+    group steps.  Under the fleet engine's ``shard_wrap``
+    (``distributed.sharding.ShardMap`` over a ``("stream",)`` mesh),
+    ``programs`` and ``signals`` are the calling rank's block of the
+    fleet's streams and the outputs are that block's; the key's S is
+    the fleet's (the block's times the ranks) and its mesh slot
+    ``wrap_sig`` (else the wrap's id, the wrap kept alive).  The numpy
+    backend falls back to a per-stream ``advance`` loop (the
+    differential reference).  Per-program host-side semantics are
+    unchanged either way: decided columns stay latched to their
+    pre-batch values and decidedness updates after the batch.
 
     Programs must share a content digest (same canonical queries), a
     device, the same window position, and the same window length — the
@@ -810,10 +822,20 @@ def advance_group(programs: Sequence[TemporalProgram], signals, *,
         return np.stack([p.advance(host[s]) for s, p in enumerate(programs)])
 
     cache = step_cache if step_cache is not None else p0._step_cache
-    key = ("tgstep", p0.program_sig, int(B), S, None)
+    if wrap_sig is not None:
+        wrap_key: Any = wrap_sig
+    elif shard_wrap is not None:
+        wrap_key = ("wrapid", id(shard_wrap))
+        _GROUP_WRAP_REFS.append(shard_wrap)
+    else:
+        wrap_key = None
+    n_streams = S if shard_wrap is None else S * shard_wrap.world
+    key = ("tgstep", p0.program_sig, int(B), n_streams, wrap_key)
     step = cache.get(key)
     if step is None:
         step = p0.build_scan_fn()
+        if shard_wrap is not None:
+            step = shard_wrap(step)
         cache.put(key, step)
         p0.scan_traces += 1
 

@@ -3,10 +3,13 @@
 
 - ``TokenStream``: deterministic synthetic LM token batches, the
   reference's numpy draw (the same seed yields the same arrays).
-- ``DeviceLoader``: the one-card counterpart of the reference's
-  ``ShardedLoader``.  A background thread draws host batches and copies
-  them to the card from pinned memory on a side stream; the consumer's
-  stream waits on the copy's event before it reads a batch.
+- ``DeviceLoader``: the one-card loader.  A background thread draws host
+  batches and copies them to the card from pinned memory on a side
+  stream; the consumer's stream waits on the copy's event before it
+  reads a batch.
+- ``ShardedLoader``: the reference's, over a mesh.  The same thread
+  places each batch with the plan's input placements as DTensors (every
+  rank draws the same batch and keeps its own chunk; nothing is sent).
 - Fault tolerance: a corrupt or failed batch read is skipped and counted
   in ``skipped``, never fatal; a placement error is raised in the
   consumer.
@@ -41,8 +44,8 @@ class TokenStream:
 
 
 class DeviceLoader:
-    """Prefetching host -> device loader (``ShardedLoader`` of the JAX
-    package on one card; ``device`` in place of its shardings).
+    """Prefetching host -> device loader (the JAX package's
+    ``ShardedLoader`` on one card; ``device`` in place of its shardings).
 
     Up to ``prefetch`` batches are placed ahead of the consumer.  On a
     CUDA device each array is pinned and copied with ``non_blocking=True``
@@ -65,14 +68,23 @@ class DeviceLoader:
         self._thread = threading.Thread(target=self._worker, daemon=True)
         self._thread.start()
 
+    def _shard(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+        """The placed batch as the consumer gets it (here: as it is)."""
+        return batch
+
+    @staticmethod
+    def _local(t) -> torch.Tensor:
+        return t
+
     def _place(self, batch: Dict[str, Any]):
         if self._stream is None:
-            return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
-                self.device) for k, v in batch.items()}, None
+            return self._shard({k: torch.from_numpy(np.ascontiguousarray(
+                v)).to(self.device) for k, v in batch.items()}), None
         with torch.cuda.stream(self._stream):
-            dev = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
-                   .to(self.device, non_blocking=True)
-                   for k, v in batch.items()}
+            dev = self._shard({
+                k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+                .to(self.device, non_blocking=True)
+                for k, v in batch.items()})
             done = torch.cuda.Event()
             done.record(self._stream)
         return dev, done
@@ -120,7 +132,7 @@ class DeviceLoader:
             cur = torch.cuda.current_stream(self.device)
             cur.wait_event(done)
             for t in batch.values():
-                t.record_stream(cur)
+                self._local(t).record_stream(cur)
         return batch
 
     def close(self):
@@ -138,3 +150,34 @@ class DeviceLoader:
 
     def __exit__(self, *exc):
         self.close()
+
+
+class ShardedLoader(DeviceLoader):
+    """Prefetching host -> mesh loader (the JAX package's
+    ``ShardedLoader``).
+
+    ``shardings`` maps each batch key to its spec on ``mesh`` (a
+    ``ShardPlan``'s ``input_shardings``); the prefetch thread copies each
+    batch to the mesh's device type (the current card on CUDA, as
+    ``DeviceLoader`` does) and places it as DTensors by those specs
+    (``sharding.distribute``: every rank draws the same batch and keeps
+    its own chunk).  A corrupt batch is skipped and counted in
+    ``skipped``; a placement error, such as a key without a spec, is
+    raised in the consumer."""
+
+    def __init__(self, it: Iterator[Dict[str, np.ndarray]], shardings: Any,
+                 mesh, prefetch: int = 2):
+        self.mesh, self.shardings = mesh, shardings
+        dev = mesh.device_type
+        if dev == "cuda":
+            dev = torch.device("cuda", torch.cuda.current_device())
+        super().__init__(it, dev, prefetch)
+
+    def _shard(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+        from repro_torch.distributed import sharding as SH
+        return {k: SH.distribute(v, self.mesh, self.shardings[k])
+                for k, v in batch.items()}
+
+    @staticmethod
+    def _local(t) -> torch.Tensor:
+        return t.to_local()

@@ -1,7 +1,7 @@
 """Fleet-scale multi-stream serving: S camera streams, one staged plan.
 
-The port of the JAX package's ``distributed/multistream.py``, on one
-card.  The single-stream executors (``repro_torch.core.streaming``)
+The port of the JAX package's ``distributed/multistream.py``.  The
+single-stream executors (``repro_torch.core.streaming``)
 drive one camera through the shared multi-query cascade; a monitor
 serves many cameras x many registered queries.  This module multiplexes
 S streams through ONE ``StagedQueryPlan`` by stacking their per-chunk
@@ -12,14 +12,24 @@ S·B frames):
 
 - **Hash routing.**  Streams are ordered by a stable hash of their ids
   (``route_streams``, the JAX package's blake2b hash, so positions and
-  slots equal the reference's) and cut into contiguous slot blocks; a
-  stream keeps its stack position across chunks and registry epochs.
+  slots equal the reference's) and cut into contiguous slot blocks, one
+  per rank of the process group; a stream keeps its stack position (and
+  so its rank) across chunks and registry epochs.
 
-- **No stream mesh.**  The JAX package can wrap each group step in a
-  ``shard_map`` over a device mesh's stream axis.  One H100 has no
-  analogue, and nothing here fakes one: ``ShardedPlanGroupEngine`` keeps
-  its name so the counterpart is found, and every stream of the
-  executor sits in slot 0.
+- **The stream mesh.**  With a ``("stream",)`` mesh
+  (``sharding.stream_mesh``, one rank per process of the group), each
+  rank fetches, stacks and evaluates only its contiguous block of the
+  streams: every group step runs under ``sharding.ShardMap`` (the
+  reference's ``shard_map``) on the rank's block, so a tier's stats
+  kernel runs over its (S / W)·B frames.  The staging decisions stay
+  group-wide and equal on every rank: each stage's undecided table, the
+  temporal tier's decided and suppressed flags, the prefetch's skip test
+  and the straggler policy's wall clock are reduced over a gloo group on
+  the host, the pass counts are summed into every rank's ``SlotStats``,
+  and every restage takes rank 0's order.  ``run_chunk`` returns every
+  stream's answers on every rank.  Where S does not divide over the
+  mesh, ``spec_for`` falls back to replication, as in the reference:
+  every rank runs all S streams, with no collective but the wall clock.
 
 - **Prefetch.**  ``run_chunk(idx, next_idx)`` stages chunk k+1's stacked
   outputs one chunk ahead.  Outputs that ``fetch`` returns on the host
@@ -62,6 +72,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import query as Q
 from repro_torch.core.filters import FilterOutputs
@@ -72,6 +83,7 @@ from repro_torch.core.streaming import (HoppingWindow, QueryRegistry,
 from repro_torch.core.temporal import (TemporalProgram, TemporalStats,
                                        advance_group)
 from repro_torch.device import DeviceLike, require_on, resolve_device
+from repro_torch.distributed import sharding as SH
 
 
 # --------------------------------------------------------------------------
@@ -131,8 +143,16 @@ class ShardedPlanGroupEngine:
     (default CUDA, raising when absent) or on the host, whence they are
     copied.  ``run_chunk`` stacks them on the stream axis and runs
     ``StagedQueryPlan.evaluate_group`` — group-uniform staging, one step
-    per executed tier for the whole fleet slice.  (The name is the JAX
-    package's; one card has no stream mesh to shard over.)
+    per executed tier for the whole fleet slice.
+
+    ``mesh`` (a ``("stream",)`` mesh from ``sharding.stream_mesh``, over
+    an initialised process group: without one it raises) shards the
+    streams: ``shard_wrap`` is a ``sharding.ShardMap`` and each rank
+    serves its block ``local_streams``; where S does not divide over the
+    mesh (``spec_for`` falls back to replication) ``shard_wrap`` is None
+    and every rank serves all S.  ``wrap_sig`` is a content digest of
+    the mesh (ranks, axis names, shape and spec), which keys the group
+    steps so that rebuilt engines over the same mesh share them.
 
     ``slot_stats`` is the shared population ledger (typically the
     registry's, possibly gossip-warm-started): it orders the stages at
@@ -147,8 +167,8 @@ class ShardedPlanGroupEngine:
     def __init__(self, queries: Sequence,
                  streams: Sequence[StreamContext],
                  fetch: Callable[[StreamContext, np.ndarray], FilterOutputs],
-                 *, slot_stats=None, tau: float = 0.2, cost_model=None,
-                 min_bucket: Optional[int] = None,
+                 *, slot_stats=None, mesh=None, tau: float = 0.2,
+                 cost_model=None, min_bucket: Optional[int] = None,
                  spatial_body: str = "auto", restage_every: int = 16,
                  leaf_table=None, step_cache=None,
                  device: DeviceLike = None):
@@ -160,17 +180,33 @@ class ShardedPlanGroupEngine:
                              "(use route_streams)")
         self.fetch = fetch
         self.slot_stats = slot_stats
+        self.mesh = mesh
         self.restage_every = restage_every
         self.queries = tuple(queries)
         self._step_cache = step_cache
+        S = len(self.streams)
+        self.shard_wrap: Optional[SH.ShardMap] = None
+        self.wrap_sig: Optional[Tuple] = None
+        self._host: Optional[SH.MeshHost] = None
+        self._block = slice(0, S)
+        if mesh is not None:
+            spec = SH.spec_for(("stream",), (S,), mesh, SH.DEFAULT_RULES)
+            if len(spec) and spec[0] is not None:
+                self.shard_wrap = SH.ShardMap(mesh, spec)
+                self.wrap_sig = self.shard_wrap.signature()
+                self._block = self.shard_wrap.block(S)
+            # both raise without an initialised process group
+            self._host = self.shard_wrap or SH.MeshHost(mesh)
+        self.local_streams = self.streams[self._block]
         # temporal queries: plan over the deduped frame signals, keep
         # per-stream automaton state (shared structure, one window per
-        # stream), advance all windows with one batched step
+        # stream of this rank's block), advance the windows with one
+        # batched step
         if any(Q.has_temporal(q) for q in self.queries):
             self.temporal: Optional[List[TemporalProgram]] = [
                 TemporalProgram(self.queries, step_cache=step_cache,
                                 device=self.device)
-                for _ in self.streams]
+                for _ in self.local_streams]
             self.temporal_stats = TemporalStats()
             plan_queries = tuple(self.temporal[0].frame_queries)
         else:
@@ -183,6 +219,7 @@ class ShardedPlanGroupEngine:
         self.staged = self.plan.build_staged(
             slot_stats, min_bucket=min_bucket, cost_model=self.cost_model,
             spatial_body=spatial_body, step_cache=step_cache)
+        self._agree()
         self._chunks = 0
         self._next: Optional[Tuple[Tuple[int, int, int], FilterOutputs,
                                    Optional[torch.cuda.Event]]] = None
@@ -194,10 +231,10 @@ class ShardedPlanGroupEngine:
 
     def _stack(self, idx: np.ndarray
                ) -> Tuple[FilterOutputs, Optional[torch.cuda.Event]]:
-        """Stack per-stream chunk outputs on the stream axis, on the
-        engine's device.  Host outputs bound for the card are copied on a
-        side stream; the returned event marks the copy's end."""
-        outs = [self.fetch(ctx, idx) for ctx in self.streams]
+        """Stack this rank's streams' chunk outputs on the stream axis, on
+        the engine's device.  Host outputs bound for the card are copied
+        on a side stream; the returned event marks the copy's end."""
+        outs = [self.fetch(ctx, idx) for ctx in self.local_streams]
         counts = torch.stack([o.counts for o in outs])
         grid = None if outs[0].grid is None \
             else torch.stack([o.grid for o in outs])
@@ -255,6 +292,14 @@ class ShardedPlanGroupEngine:
             prog.start_window(hi - lo)
         self.temporal_stats.windows += 1
 
+    def _agree(self) -> None:
+        """Under the wrap, every rank takes rank 0's stage and slot order
+        (the summed pass counts keep the ledgers equal; this holds the
+        order equal even where the ranks' ledgers started apart)."""
+        if self.shard_wrap is not None:
+            self.staged.adopt_staging(
+                *self.shard_wrap.broadcast(self.staged.staging()))
+
     def _learn(self) -> None:
         if self.slot_stats is not None:
             self.staged.flush_stats(self.slot_stats)
@@ -262,16 +307,31 @@ class ShardedPlanGroupEngine:
             if self.restage_every and \
                     self._chunks % self.restage_every == 0:
                 self.staged.restage(self.slot_stats)
+                self._agree()
+
+    def _assemble(self, local: np.ndarray) -> np.ndarray:
+        """Every stream's rows on every rank: this rank's block, gathered
+        over the mesh under the wrap."""
+        return local if self.shard_wrap is None \
+            else self.shard_wrap.gather(local)
+
+    def chunk_seconds(self, seconds: float) -> float:
+        """The chunk's wall time as the straggler policy charges it: the
+        slowest rank's over a mesh, so every rank drops alike."""
+        return seconds if self._host is None else self._host.max(seconds)
 
     def run_chunk(self, idx: np.ndarray,
                   next_idx: Optional[np.ndarray] = None) -> np.ndarray:
-        """(S, B, N) bool answers for one chunk; stages ``next_idx``'s
-        inputs once this chunk's answers are on the host."""
+        """(S, B, N) bool answers for one chunk (every stream's, on every
+        rank of a mesh); stages ``next_idx``'s inputs once this chunk's
+        answers are on the host."""
         if self.temporal is not None:
             ans = self._run_chunk_temporal(idx)
         else:
-            value = self.staged.evaluate_group(self._take(idx))
-            ans = value.cpu().numpy()
+            value = self.staged.evaluate_group(
+                self._take(idx), shard_wrap=self.shard_wrap,
+                wrap_sig=self.wrap_sig)
+            ans = self._assemble(value.cpu().numpy())
             self._learn()
         if next_idx is not None and next_idx.size and \
                 not self._skips_next():
@@ -280,9 +340,12 @@ class ShardedPlanGroupEngine:
 
     def _skips_next(self) -> bool:
         """Will the next chunk skip fetching (every stream's every query
-        window-decided)?  Then there is nothing to prefetch."""
-        return self.temporal is not None and \
-            all(p.all_decided for p in self.temporal)
+        window-decided, on every rank)?  Then there is nothing to
+        prefetch."""
+        if self.temporal is None:
+            return False
+        done = all(p.all_decided for p in self.temporal)
+        return done if self.shard_wrap is None else self.shard_wrap.all(done)
 
     def _run_chunk_temporal(self, idx: np.ndarray) -> np.ndarray:
         """Temporal chunk path: staged frame signals (with per-stream
@@ -292,28 +355,35 @@ class ShardedPlanGroupEngine:
         standing masks-as-answers semantics), so the automata consume
         them directly."""
         progs = self.temporal
-        S, B = len(progs), int(idx.size)
+        S, B = len(self.streams), int(idx.size)
         M = progs[0].n_signals
+        wrap = dict(step_cache=self._step_cache, shard_wrap=self.shard_wrap,
+                    wrap_sig=self.wrap_sig)
+        # each stream's all-decided flag and suppressed signals, for every
+        # stream of the fleet (gathered over the mesh under the wrap)
+        flags = self._assemble(np.array(
+            [[p.all_decided, *p.suppressed_signals()] for p in progs],
+            bool).reshape(len(progs), 1 + M))
         ts = self.temporal_stats
         ts.frames_in += S * B
         tc = self.cost_model.temporal_cost(frames=B, batch=B)
         if tc is not None:
             ts.cost_temporal_model += S * tc
-        if all(p.all_decided for p in progs):
+        if flags[:, 0].all():
             # every stream's every query is window-decided: skip fetch,
             # stacking, and the whole staged plan for this chunk
             self._next = None
             ts.frames_skipped += S * B
             ts.cost_saved_model += S * self.plan.exhaustive_cost_model(
                 self.cost_model, batch=B)
-            return advance_group(
-                progs, torch.zeros((S, B, M), dtype=torch.bool,
-                                   device=self.device),
-                step_cache=self._step_cache)
-        suppressed = np.stack([p.suppressed_signals() for p in progs])
+            return self._assemble(advance_group(
+                progs, torch.zeros((len(progs), B, M), dtype=torch.bool,
+                                   device=self.device), **wrap))
+        suppressed = flags[:, 1:]
         ts.signal_evals_skipped += B * int(suppressed.sum())
         value = self.staged.evaluate_group(
-            self._take(idx),
+            self._take(idx), shard_wrap=self.shard_wrap,
+            wrap_sig=self.wrap_sig,
             presumed_decided=suppressed if suppressed.any() else None)
         rep = self.staged.last_report
         if rep is not None:
@@ -323,15 +393,16 @@ class ShardedPlanGroupEngine:
         # plan stopped evaluating them) — zero them before the automata;
         # every consumer of a suppressed signal is frozen or decided, so
         # the value is semantically irrelevant but must be deterministic
-        live = torch.as_tensor(~suppressed, device=value.device)
-        return advance_group(progs, value & live[:, None, :],
-                             step_cache=self._step_cache)
+        live = torch.as_tensor(~suppressed[self._block],
+                               device=value.device)
+        return self._assemble(advance_group(
+            progs, value & live[:, None, :], **wrap))
 
 
 def plan_group_engine_factory(fetch, **engine_kw) -> Callable:
     """Adapter: a ``MultiStreamExecutor`` engine factory around
     ``ShardedPlanGroupEngine`` (``fetch(stream_ctx, idx)`` as above;
-    ``engine_kw`` forwarded — tau, cost_model, ...)."""
+    ``engine_kw`` forwarded — mesh, tau, cost_model, ...)."""
     def factory(queries, streams, slot_stats=None, leaf_table=None,
                 step_cache=None, device=None):
         return ShardedPlanGroupEngine(queries, streams, fetch,
@@ -374,19 +445,22 @@ class MultiStreamExecutor:
     stream; ``latency_percentile(p)`` reports the serving percentile.
     With a ``StragglerPolicy``, drop accounting runs per stream against
     the arrival clock (each stream is charged an equal 1/S share of the
-    chunk's wall time); a behind stream's chunk results are discarded —
+    chunk's wall time, over a mesh the slowest rank's: the engine's
+    ``chunk_seconds``); a behind stream's chunk results are discarded —
     its rows still ride the stacked step (group shapes are uniform), but
     stale answers are never reported.
 
-    The fleet is routed as one slot block: one card has no slots to
-    spread it over.  ``on_window(result)`` fires
-    after each window with per-stream hit counts and may mutate the
-    registry (mid-stream multiplexing).
+    Streams are routed to ``n_slots`` contiguous slot blocks as the
+    reference routes them; by default one per rank of the process group
+    where one exists, else one.  ``on_window(result)`` fires after each
+    window with per-stream hit counts and may mutate the registry
+    (mid-stream multiplexing).
     """
 
     def __init__(self, registry: QueryRegistry, engine_factory: Callable,
                  window: HoppingWindow, batch: int,
-                 stream_ids: Sequence[Any], *, base_seed: int = 0,
+                 stream_ids: Sequence[Any], *, n_slots: Optional[int] = None,
+                 base_seed: int = 0,
                  policy: Optional[StragglerPolicy] = None,
                  device: DeviceLike = None):
         self.registry = registry
@@ -395,7 +469,11 @@ class MultiStreamExecutor:
         self.batch = batch
         self.policy = policy
         self.device = resolve_device(device)
-        self.streams = route_streams(stream_ids, 1, base_seed=base_seed)
+        if n_slots is None:
+            n_slots = dist.get_world_size() if dist.is_available() and \
+                dist.is_initialized() else 1
+        self.streams = route_streams(stream_ids, n_slots,
+                                     base_seed=base_seed)
         self.stats: Dict[Any, StreamStats] = {
             c.stream_id: StreamStats() for c in self.streams}
         self.chunk_latencies_s: List[float] = []
@@ -472,6 +550,10 @@ class MultiStreamExecutor:
                 t0 = time.perf_counter()
                 ans = engine.run_chunk(idx, nxt)    # (S, B, n_active)
                 dt = time.perf_counter() - t0
+                if self.policy is not None:
+                    charge = getattr(engine, "chunk_seconds", None)
+                    if charge is not None:
+                        dt = charge(dt)
                 self.chunk_latencies_s.append(dt)
                 share = dt / max(len(self.streams), 1)
                 for c in self.streams:

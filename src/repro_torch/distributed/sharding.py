@@ -28,15 +28,22 @@ turns a spec into DTensor ``Shard(d)`` / ``Replicate()`` per mesh
 dimension, and ``tree_shardings`` places a tree of tensors with
 ``distribute_tensor``.
 
-The reference's ``shard_map`` version shim has no counterpart: the
-port's per-shard bodies (``serve_attention``, ``pipeline``) run on each
-rank's local tensors with explicit ``torch.distributed`` collectives.
+The reference's ``shard_map`` version shim becomes ``ShardMap``: over a
+one-axis mesh, a step runs on the calling rank's contiguous block of the
+leading axis (shard_map's "the body sees the local block"), and what
+crosses ranks goes through the wrap's host collectives on a gloo group
+beside the mesh (``gather``, ``psum``, ``all``, ``max``, ``broadcast``).
+The fleet engine (``distributed.multistream``) shards its streams with
+it.  The port's other per-shard bodies (``serve_attention``,
+``pipeline``) run on each rank's local tensors with explicit
+``torch.distributed`` collectives.
 """
 from __future__ import annotations
 
 import math
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 Axis = Union[None, str, Tuple[str, ...]]
@@ -83,6 +90,9 @@ def mesh_axes(mesh) -> Dict[str, int]:
     if names is not None:
         return dict(zip(names, tuple(mesh.shape)))
     return dict(zip(mesh.axis_names, mesh.devices.shape))
+
+
+_mesh_axes = mesh_axes          # the reference's name
 
 
 def _resolve_axis(ax: Axis, dim: int, mesh_axes: Dict[str, int]) -> Axis:
@@ -252,3 +262,117 @@ def stream_mesh(n_devices: Optional[int] = None, device=None):
     if n != world:
         raise ValueError(f"asked for {n} devices, have {world} ranks")
     return make_mesh((n,), ("stream",), device=device)
+
+
+# --------------------------------------------------------------------------
+# shard_map over a one-axis mesh: each rank's block of the leading axis
+# --------------------------------------------------------------------------
+
+# a gloo group over each mesh's ranks, for the host collectives of
+# ``ShardMap``; the mesh is held beside its group so its id stays unique
+_CONTROL: Dict[int, Tuple[Any, Any]] = {}
+
+
+def control_group(mesh):
+    """A gloo group over ``mesh``'s ranks, for decisions taken on the host
+    (made once per mesh, by every rank of the process group together).
+    The mesh's own group serves when it is gloo; beside an NCCL mesh a
+    gloo group is made, since the data it carries is on the host."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        raise RuntimeError("a mesh's collectives need an initialised "
+                           "process group (launch.mesh.init_distributed)")
+    hit = _CONTROL.get(id(mesh))
+    if hit is not None and hit[0] is mesh:
+        return hit[1]
+    group = mesh.get_group() if mesh.ndim == 1 else None
+    if group is None or dist.get_backend(group) != "gloo":
+        group = dist.new_group(mesh.mesh.flatten().tolist(), backend="gloo")
+    _CONTROL[id(mesh)] = (mesh, group)
+    return group
+
+
+class MeshHost:
+    """Host collectives over a mesh's ranks (``control_group(mesh)``):
+    ``gather`` (every rank's block of a host array, in rank order),
+    ``psum``, ``all``, ``max`` and ``broadcast`` (rank 0's object)."""
+
+    def __init__(self, mesh):
+        self.group = control_group(mesh)
+        self.mesh = mesh
+        self.world = mesh.size()
+
+    def gather(self, a: np.ndarray) -> np.ndarray:
+        """The ranks' equal-shaped blocks ``a`` stacked along axis 0 in
+        rank order, on every rank."""
+        import torch.distributed as dist
+        a = np.ascontiguousarray(a)
+        t = torch.from_numpy(a.view(np.uint8) if a.dtype == bool else a)
+        parts = [torch.empty_like(t) for _ in range(self.world)]
+        dist.all_gather(parts, t, group=self.group)
+        out = torch.cat(parts).numpy()
+        return out.view(bool) if a.dtype == bool else out
+
+    def psum(self, a: np.ndarray) -> np.ndarray:
+        """The sum of every rank's ``a``, on every rank."""
+        import torch.distributed as dist
+        t = torch.from_numpy(np.array(a))
+        dist.all_reduce(t, group=self.group)
+        return t.numpy()
+
+    def all(self, flag: bool) -> bool:
+        """True on every rank when ``flag`` is True on every rank."""
+        return bool(self.gather(np.array([bool(flag)])).all())
+
+    def max(self, value: float) -> float:
+        """The largest of the ranks' ``value``, on every rank."""
+        return float(self.gather(np.array([float(value)])).max())
+
+    def broadcast(self, obj: Any) -> Any:
+        """Rank 0's ``obj`` on every rank."""
+        import torch.distributed as dist
+        box = [obj]
+        dist.broadcast_object_list(
+            box, src=dist.get_global_rank(self.group, 0), group=self.group)
+        return box[0]
+
+
+class ShardMap(MeshHost):
+    """The reference's ``shard_map`` over a one-axis mesh, in torch's
+    idiom.  ``ShardMap(mesh, spec)(fn)`` is ``fn`` run on the calling
+    rank's contiguous block of the leading axis: each rank holds only its
+    own block (the counterpart of a stream-axis ``NamedSharding``), so
+    the body runs on it as it is, and its outputs are the rank's blocks
+    of the global results.  ``spec`` must split dimension 0 over the
+    mesh's axis (``spec_for`` gives ``()`` where the length does not
+    divide, and the caller then replicates instead of wrapping).  What
+    the reference reads off a sharded global array goes through the
+    ``MeshHost`` collectives on host arrays."""
+
+    def __init__(self, mesh, spec: Spec):
+        if mesh.ndim != 1 or not spec or spec[0] != mesh.mesh_dim_names[0]:
+            raise ValueError(f"ShardMap splits dimension 0 of a one-axis "
+                             f"mesh; got spec {spec} on the mesh "
+                             f"{tuple(mesh.mesh_dim_names)}")
+        super().__init__(mesh)
+        self.spec = tuple(spec)
+        self.rank = mesh.get_local_rank()
+
+    def __call__(self, fn):
+        return fn
+
+    def block(self, n: int) -> slice:
+        """This rank's contiguous block of a leading axis of ``n``."""
+        if n % self.world:
+            raise ValueError(f"{n} rows do not split over {self.world} "
+                             f"ranks")
+        k = n // self.world
+        return slice(self.rank * k, (self.rank + 1) * k)
+
+    def signature(self) -> Tuple:
+        """A content digest of the mesh: its ranks, axis names, shape and
+        the spec (the reference's device ids, axis names, shape and
+        spec), so rebuilt engines over the same mesh share steps."""
+        return ("mesh", tuple(self.mesh.mesh.flatten().tolist()),
+                tuple(self.mesh.mesh_dim_names), tuple(self.mesh.shape),
+                repr(self.spec))

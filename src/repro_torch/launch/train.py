@@ -13,7 +13,9 @@ The reference's flags plus ``--device`` (default ``cuda``).  Without
 ``torchrun``'s environment (NCCL on CUDA, gloo with ``--device cpu``)
 and trains over a (1, world) ("data", "model") mesh through the sharding
 plan (``jit_step_for_cell``): every rank draws the same initial state
-and token stream, and the plan splits them.  ``single`` / ``multi`` are
+and token stream, and the plan splits them (the batches in the
+loader's prefetch thread: ``ShardedLoader`` with the plan's input
+placements; one card keeps ``DeviceLoader``).  ``single`` / ``multi`` are
 the 256- and 512-rank production meshes and raise elsewhere.  Under a
 mesh, a checkpoint is the whole state, gathered at each ``--ckpt-every``
 step and written by rank 0; the SIGTERM handler is not installed there
@@ -38,7 +40,8 @@ import torch.distributed as dist
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import ARCHS, get_config, get_smoke_config
-from repro_torch.data.pipeline import DeviceLoader, TokenStream
+from repro_torch.data.pipeline import (DeviceLoader, ShardedLoader,
+                                       TokenStream)
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import (init_distributed, make_host_mesh,
                                      make_production_mesh)
@@ -138,8 +141,10 @@ def main(argv=None) -> TrainRun:
     stream = TokenStream(cfg.vocab_size, args.batch, args.seq)
     run = TrainRun(start, [], [], [])
     t0 = time.perf_counter()
-    with DeviceLoader(with_extras(iter(stream), cfg, args.batch, args.seq),
-                      dev) as loader:
+    batches = with_extras(iter(stream), cfg, args.batch, args.seq)
+    loader = DeviceLoader(batches, dev) if plan is None else \
+        ShardedLoader(batches, plan.input_shardings, plan.mesh)
+    with loader:
         for step, batch in zip(range(start, args.steps), loader):
             ts = time.perf_counter()
             state, metrics = step_fn(state, batch)

@@ -12,7 +12,8 @@
 - bfloat16 leaves round-trip bit for bit.
 - ``TokenStream`` equal to the reference's for 3 batches;
   ``DeviceLoader`` keeps order, skips a corrupt batch and raises a
-  placement error in the consumer.
+  placement error in the consumer; ``ShardedLoader`` does too on two
+  gloo ranks, placing each batch as DTensors by the plan's specs.
 - ``launch.train.main`` on the CPU (``--smoke --device cpu``) with
   checkpoints, then a resume; ``launch.serve.main`` on the CPU.
 """
@@ -301,6 +302,113 @@ def test_loader_order_skip_and_placement_error():
     assert first["tokens"].dtype == torch.int32
     loader.close()
     assert not loader._thread.is_alive()
+
+
+SHARDED_LOADER = r"""
+import json, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from repro_torch.configs import get_smoke_config
+from repro_torch.data import pipeline as TDP
+from repro_torch.distributed import sharding as SH
+from repro_torch.launch.mesh import init_distributed, make_mesh
+from repro_torch.models.config import ShapeCell
+from repro_torch.optim import adamw
+from repro_torch.train import step as TS
+
+store, rank, path = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+init_distributed("cpu", init_file=store, rank=rank, world_size=2)
+mesh = make_mesh((2, 1), ("data", "model"), device="cpu")
+cfg = get_smoke_config("qwen2_0p5b")
+plan = TS.make_plan(cfg, ShapeCell("t", 16, 4, "train"), mesh, adamw(1e-3))
+
+
+class Flaky:
+    # the token stream's first 4 batches; the read of batch 2 fails
+
+    def __init__(self):
+        self.it, self.i = iter(TDP.TokenStream(cfg.vocab_size, 4, 16,
+                                               seed=3)), 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        b, self.i = next(self.it), self.i + 1
+        if self.i > 4:
+            raise StopIteration
+        if self.i == 3:
+            raise OSError("corrupt shard")
+        return b
+
+
+want = [b for i, b in zip(range(4), TDP.TokenStream(cfg.vocab_size, 4, 16,
+                                                   seed=3)) if i != 2]
+out = {"specs": {k: list(map(str, v))
+                 for k, v in plan.input_shardings.items()}}
+with TDP.ShardedLoader(Flaky(), plan.input_shardings, plan.mesh) as loader:
+    got = list(loader)
+    out["skipped"] = loader.skipped
+out["n"] = len(got)
+out["ok"] = all(
+    type(b[k]).__name__ == "DTensor"
+    and b[k].placements == SH.placements(plan.input_shardings[k], mesh)
+    and tuple(b[k].to_local().shape) == (2, 16)
+    and np.array_equal(b[k].full_tensor().numpy(), w[k])
+    for b, w in zip(got, want) for k in ("tokens", "labels"))
+
+
+def stray():
+    yield {"tokens": np.zeros((4, 16), np.int32)}
+    yield {"tokens": np.zeros((4, 16), np.int32),
+           "stray": np.zeros((4, 16), np.int32)}    # no spec for it
+
+
+loader = TDP.ShardedLoader(stray(), plan.input_shardings, plan.mesh)
+next(loader)
+try:
+    next(loader)
+    out["raised"] = None
+except KeyError as e:
+    out["raised"] = str(e)
+loader.close()
+with open(path, "w") as f:
+    json.dump(out, f)
+dist.destroy_process_group()
+"""
+
+
+def test_sharded_loader_on_two_ranks(tmp_path):
+    """``ShardedLoader`` on two gloo ranks over a (2, 1) mesh: every batch
+    arrives as DTensors with the plan's input placements (each rank
+    holding its 2 of the 4 rows, the whole equal to the stream's batch),
+    a corrupt batch is skipped and counted, and a batch key without a
+    spec raises in the consumer."""
+    import subprocess
+    import sys
+    script = tmp_path / "loader.py"
+    script.write_text(SHARDED_LOADER)
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(os.path.join(
+        os.path.dirname(__file__), "..", "src")), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, str(script), str(tmp_path / "store"), str(r),
+         str(tmp_path / f"r{r}.json")], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, o in zip(procs, outs):
+        assert p.returncode == 0, o[-3000:]
+    for r in range(2):
+        with open(tmp_path / f"r{r}.json") as f:
+            out = json.load(f)
+        assert out["specs"] == {"tokens": ["data"], "labels": ["data"]}
+        assert out["n"] == 3 and out["skipped"] == 1 and out["ok"], out
+        assert out["raised"] == "'stray'", out
 
 
 # --------------------------------------------------------------------------

@@ -112,3 +112,42 @@ def test_mesh_entry_points_default_to_cuda(tmp_path):
             LM.make_mesh((2, 2), ("data", "model"), device="cpu")
     finally:
         dist.destroy_process_group()
+
+
+def test_fleet_mesh_entry_points(tmp_path):
+    """The fleet's mesh path: ``stream_mesh`` and the engine run on CUDA
+    unless the CPU is asked for; ``mesh=`` without an initialised process
+    group raises; nothing falls back to one card."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a card")
+    import torch.distributed as dist
+    from repro_torch.core import query as Q
+    from repro_torch.core.aggregates import CVAccumulator, distributed_reduce
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.multistream import (ShardedPlanGroupEngine,
+                                                     route_streams)
+    from repro_torch.launch import mesh as LM
+    queries = (Q.ClassCount(0, Q.Op.GE, 1),)
+    ctxs = route_streams(["a", "b"], 1)
+    LM.init_distributed("cpu", init_file=str(tmp_path / "store"), rank=0,
+                        world_size=1)
+    try:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            SH.stream_mesh()
+        m = SH.stream_mesh(device="cpu")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ShardedPlanGroupEngine(queries, ctxs, None, mesh=m)
+        eng = ShardedPlanGroupEngine(queries, ctxs, None, mesh=m,
+                                     device="cpu")
+        assert eng.shard_wrap is not None and eng.wrap_sig[0] == "mesh"
+        with pytest.raises(ValueError, match="one-axis"):
+            SH.ShardMap(m, ())
+        acc = CVAccumulator.init(1, device="cpu").update(
+            torch.arange(4.0), torch.ones(4, 1))
+        red = distributed_reduce(acc, mesh=m)
+        assert float(red.n) == 4.0
+    finally:
+        dist.destroy_process_group()
+    # the mesh outlives its group: asking for it now raises
+    with pytest.raises(RuntimeError, match="process group"):
+        ShardedPlanGroupEngine(queries, ctxs, None, mesh=m, device="cpu")

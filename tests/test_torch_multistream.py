@@ -355,6 +355,25 @@ def test_route_streams_equal_reference_stable_balanced():
         route_streams(["x", "x"], 2)
 
 
+@pytest.mark.parametrize("n_slots", [None, 1, 2, 3, 4, 8])
+def test_executor_routing_equals_reference(n_slots):
+    """``MultiStreamExecutor(n_slots=)`` routes slot for slot as the
+    reference's; by default one slot a rank of the process group, and
+    one without a group (the reference: one a device, one here)."""
+    ids = [f"cam{i}" for i in range(16)]
+    kw = {} if n_slots is None else {"n_slots": n_slots}
+    ex = MultiStreamExecutor(QueryRegistry(), None,
+                             HoppingWindow(size=8, advance=8), 8, ids,
+                             base_seed=3, device=CPU, **kw)
+    ref = RM.MultiStreamExecutor(RS.QueryRegistry(), None,
+                                 RS.HoppingWindow(size=8, advance=8), 8,
+                                 ids, base_seed=3, **kw)
+    assert [(c.stream_id, c.position, c.slot, c.seed) for c in ex.streams] \
+        == [(c.stream_id, c.position, c.slot, c.seed) for c in ref.streams]
+    if n_slots is None:
+        assert {c.slot for c in ex.streams} == {0}
+
+
 @pytest.mark.parametrize("fps,slack,factor", [(50.0, 1.0, 1.0),
                                               (50.0, 1.0, 1.5),
                                               (50.0, 1.0, 1.7),

@@ -263,3 +263,38 @@ def test_make_plan_specs_are_the_trees_specs():
     dplan = TTS.make_plan(cfg, shape_cell("decode_32k"), m)
     assert dplan.input_shardings["cache"]["layers"]["k"] == \
         (None, ("pod", "data"), "model")
+
+
+# ---------------------------------------------------------------------------
+# The filter heads' axes trees (IC, OD, OD-COF)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("kind", ["ic", "od", "cof"])
+def test_filter_head_axes_equal_the_reference(kind, mesh):
+    """``branch_axes`` (and the head table's axes entry) leaf for leaf
+    against the reference's, mirroring the head's parameters, and their
+    specs at each mesh shape, for a trunk width of 256 (``embed`` splits
+    over ``data`` where it divides) and of 6 (where it does not)."""
+    from repro.core import filters as RF
+    from repro.models.config import BranchSpec as RBranchSpec
+    from repro_torch.core import filters as TF
+    from repro_torch.models.config import BranchSpec as TBranchSpec
+    rspec = RBranchSpec(layer=2, grid=8, n_classes=3, head_dim=16, kind=kind)
+    tspec = TBranchSpec(layer=2, grid=8, n_classes=3, head_dim=16, kind=kind)
+    tax = TF.branch_axes(tspec)
+    assert tax == RF.branch_axes(rspec) == TF.HEADS[kind][2](tspec)
+    m = _mesh(mesh)
+    for d_model in (256, 6):
+        rp = jax.eval_shape(lambda: RF.branch_init(jax.random.PRNGKey(0),
+                                                   rspec, d_model))
+        tp = TF.branch_init(torch.Generator(), tspec, d_model, "meta")
+        shapes = _shapes(tp)
+        assert shapes == _shapes(rp)
+        flat_ax = _flat(tax)
+        assert set(flat_ax) == set(shapes)
+        for k, ax in flat_ax.items():
+            assert len(ax) == len(shapes[k]), (k, ax, shapes[k])
+        got = _flat(TSH.tree_specs(tax, tp, m))
+        assert got == _ref_specs(RF.branch_axes(rspec), rp, m), \
+            (kind, mesh, d_model)

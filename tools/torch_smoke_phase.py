@@ -4,6 +4,7 @@
     python3 tools/torch_smoke_phase.py launch --rehearse # tiny, on the CPU
     python3 tools/torch_smoke_phase.py mesh              # on a CUDA card
     python3 tools/torch_smoke_phase.py families          # on a CUDA card
+    python3 tools/torch_smoke_phase.py fleet             # on a CUDA card
 
 ``train`` is the smoke's phase 17 (``zoo_training_phase``), ``launch``
 its phase 19 (``launch_phase``: the launch analyses against steps on
@@ -11,8 +12,12 @@ the card, and gradient compression), ``mesh`` its phase 20
 (``mesh_phase``: the sharding plan at world 1 over NCCL, four ranks on
 the one card over gloo), ``families`` its phase 21 (``families_phase``:
 every family's serving through the plan at world 1, four ranks at (2,
-2) on the one card over gloo, the mesh dry-run beside them).  Builds the kernels (decode
-attention runs in both), then runs the phase and prints its lines after
+2) on the one card over gloo, the mesh dry-run beside them), ``fleet``
+its phases 2 and 5c (the filter's training and the one-card fleet) and
+then 22 (``fleet_mesh_phase``: the fleet over a stream mesh of one rank
+over NCCL, then four ranks on the one card over gloo).  Builds the
+kernels (decode attention runs in both), then runs the phase and prints
+its lines after
 the card's name and power limit: the same checks and numbers as in the
 smoke, without the phases that run before it in the smoke's process.
 Exits non-zero if a check fails.
@@ -29,9 +34,30 @@ sys.path.insert(0, os.path.join(HERE, ".."))
 sys.path.insert(0, os.path.join(HERE, "..", "src"))
 
 
+def fleet(torch, dev, rehearse, gpu):
+    """The smoke's phases 2, 5c and 22: train the filter, serve the fleet
+    on one card, then over the stream mesh."""
+    import dataclasses
+
+    import chip_smoke as cs
+    scene, trunk, spec = cs.configure(rehearse)
+    tf, lines = cs.training_phase(torch, dev, scene, trunk, spec, rehearse)
+    serve = dataclasses.replace(
+        tf, trunk_cfg=dataclasses.replace(trunk, attn_impl="pallas"))
+    cs.save_filter(torch, serve, cs.fleet_filter_path())
+    more, _, ref = cs.fleet_phase(torch, dev, scene, serve, gpu, rehearse)
+    for line in lines + more:
+        print(line, flush=True)
+    del tf, serve
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return cs.fleet_mesh_phase(torch, dev, scene, ref, gpu, rehearse)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("phase", choices=["train", "launch", "mesh", "families"])
+    ap.add_argument("phase", choices=["train", "launch", "mesh", "families",
+                                      "fleet"])
     ap.add_argument("--rehearse", action="store_true")
     args = ap.parse_args(argv)
     import torch
@@ -55,6 +81,8 @@ def main(argv=None) -> int:
         launches, lines = None, cs.mesh_phase(torch, dev, args.rehearse, gpu)
     elif args.phase == "families":
         launches, lines = cs.families_phase(torch, dev, args.rehearse, gpu)
+    elif args.phase == "fleet":
+        launches, lines = fleet(torch, dev, args.rehearse, gpu)
     else:
         launches, lines = cs.launch_phase(torch, dev, args.rehearse, gpu)
     for line in lines:
