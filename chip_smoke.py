@@ -227,9 +227,10 @@ Phases (any failure exits non-zero and prints no result line):
     defaults: the answers on the survivors are the oracle's.
 18. A ``kernels`` JSON line (all six kernels; flash and decode attention
     with their ``zoo_launches`` of phases 10-15, 17 and 19; each with its
-    ``families_launches`` of phase 21 (a) and its ``fleet_mesh_launches``
-    of phase 22, (a) and (b)'s rank 0), then the device line as the last
-    line.
+    ``families_launches`` of phase 21 (a), its ``fleet_mesh_launches``
+    of phase 22, (a) and (b)'s rank 0, and its ``flash256_phase_launches``
+    of phase 23's sub-paths; flash attention with its ``hd256`` entry of
+    phase 23), then the device line as the last line.
 19. (Run before the lines of 18.)  The launch analyses: five steps, each
     analysed on meta by ``repro_torch.launch.dryrun.analyse`` (its own
     random-weight arguments, nothing allocated) and then run once on the
@@ -326,6 +327,30 @@ Phases (any failure exits non-zero and prints no result line):
     ranks (float64 on the card, through gloo's host copies) within
     1e-12 of the merge of the ranks' accumulators.  A rank that exits
     non-zero, or (b) past 120 s, fails the smoke.
+23. (Run after 22, before the lines of 18.)  Flash attention at head dim
+    256, ``ops.spatial_stats`` and the §IV-B twin.  (a) The hd 256 body
+    at paligemma-3b's attention shape, (B, H, KV, S, hd) = (8, 8, 1,
+    1024, 256), causal, in bf16 and float32 against the plain version
+    (2e-2 / 1e-4), with a sliding window of 256 and ragged lengths (1000
+    x 1000, 77 x 1000): device ms, call, back-to-back, plain, SDPA
+    (causal, GQA) on the same inputs, and the bound (the causal half of
+    4 B H S^2 hd FLOPs at 989 TFLOP/s in bf16, three TF32 products at
+    495 in float32, against q, k, v and o once): the ``hd256`` entry of
+    flash attention's kernel line.  (b) paligemma-3b at full width in
+    bf16, tokens only, ``attn_impl="pallas"``, random weights from a
+    seeded CUDA generator: 8 x 1024 tokens through ``models.model.
+    forward``, counts reset just before the timed pass and read just
+    after: flash attention once per layer (18) and no other kernel;
+    logits finite and within ``MESH_BF16_TOL`` of the same forward
+    under ``xla_flash``; then 2 layers in float32 within 1e-4.  (c) Head
+    dim 96, zero-padded to the 128 body, against its plain version in
+    both types, timed beside the body on inputs padded beforehand.  (d)
+    ``ops.spatial_stats`` on the filter stream's (32, 56, 56, 3) grid:
+    one launch, bit for bit against its plain version; then
+    examples/torch_monitoring_queries.py at ``--steps 40 --frames 256``
+    on the card (its table; the survivors' answers equal to the exact
+    semantics; the staged plan's masks equal to the cascade's; the
+    spatial-stats kernels launched).
 """
 import argparse
 import dataclasses
@@ -424,8 +449,10 @@ def device_ms(torch, fn, expect=None, calls=25, tries=5):
     its count over that of the call's own kernel (``expect``, a piece of
     its name; for a library call, its least launched kernel); a window
     with no launch of ``expect`` is profiled again, up to ``tries``
-    windows in all.  Fails if none records one.  Returns the time and the
-    number of windows it took."""
+    windows in all.  Where none records one, the time is read with CUDA
+    events instead, over ``calls`` back-to-back calls (``b2b_ms``), and
+    the window count is 0.  Returns the time and the number of windows
+    it took."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -443,8 +470,10 @@ def device_ms(torch, fn, expect=None, calls=25, tries=5):
         if n:
             return sum(e.self_device_time_total / e.count
                        * round(e.count / min(n)) for e in kern) / 1e3, window
-    raise SmokeError(f"torch.profiler recorded no device time for "
-                     f"{expect or 'a library call'} in {tries} windows")
+    print(f"torch.profiler recorded no device time for "
+          f"{expect or 'a library call'} in {tries} windows: CUDA events "
+          f"over {calls} back-to-back calls instead", file=sys.stderr)
+    return b2b_ms(torch, fn, calls), 0
 
 
 def b2b_ms(torch, fn, calls=50):
@@ -463,17 +492,21 @@ def b2b_ms(torch, fn, calls=50):
 
 def kernel_times(torch, fn, expect=None):
     """The three readings of one kernel or library call (see phase 3),
-    and the profiler windows the first took."""
+    the profiler windows the first took, and what timed it
+    (``device_timing``: ``profiler``, or ``cuda_events`` where no window
+    recorded a launch)."""
     ms, windows = device_ms(torch, fn, expect)
     return {"ms": ms, "call_ms": time_ms(torch, fn),
-            "b2b_ms": b2b_ms(torch, fn), "profiler_windows": windows}
+            "b2b_ms": b2b_ms(torch, fn), "profiler_windows": windows,
+            "device_timing": "profiler" if windows else "cuda_events"}
 
 
 def library_entry(t):
     """``kernel_times`` of a library call, under the kernel line's keys."""
     return {"library_ms": t["ms"], "library_call_ms": t["call_ms"],
             "library_b2b_ms": t["b2b_ms"],
-            "library_profiler_windows": t.get("profiler_windows")}
+            "library_profiler_windows": t.get("profiler_windows"),
+            "library_device_timing": t.get("device_timing")}
 
 
 def ptxas_lines(libs):
@@ -5686,6 +5719,347 @@ def fleet_mesh_phase(torch, dev, scene, ref, gpu, rehearse):
             for k in launches_a}, lines
 
 
+# ---------------------------------------------------------------------------
+# flash attention at head dim 256, ops.spatial_stats and the §IV-B
+# monitoring-queries twin (phase 23)
+# ---------------------------------------------------------------------------
+
+# (B, H, KV, S, hd): paligemma-3b's attention at 8 sequences of 1024 tokens
+# (8 heads over one kv head of 256); the rehearsal's on the CPU
+FLASH256, FLASH256_REHEARSE = (8, 8, 1, 1024, 256), (2, 2, 1, 320, 256)
+FLASH_PAD_HD = 96                # a head dim between bodies: padded to 128
+PALIGEMMA_SEQS, PALIGEMMA_TOKENS = 8, 1024
+PALIGEMMA_SEQS_REHEARSE, PALIGEMMA_TOKENS_REHEARSE = 2, 320
+PALIGEMMA_FP32_LAYERS = 2
+TWIN_ARGS = ["--steps", "40", "--frames", "256"]
+TWIN_ARGS_REHEARSE = ["--steps", "3", "--frames", "32"]
+STATS_KERNELS = ("spatial_stats_bgc", "spatial_stats_rows_bgc")
+
+
+def timers(torch, rehearse):
+    """``timer(fn)`` (CUDA events, median ms) and ``ktimer(fn, expect)``
+    (``kernel_times``); on the CPU each runs ``fn`` once, untimed."""
+    if rehearse:
+        def timer(fn):
+            fn()
+
+        def ktimer(fn, expect=None):
+            fn()
+            return {"ms": None, "call_ms": None, "b2b_ms": None}
+    else:
+        def timer(fn):
+            return time_ms(torch, fn)
+
+        def ktimer(fn, expect=None):
+            return kernel_times(torch, fn, expect)
+    return timer, ktimer
+
+
+def max_gap(torch, a, b):
+    """max |a - b| in float32, one leading row at a time (a whole bf16
+    model's logits are 4.2 GB)."""
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(a, b))
+
+
+def flash_case(torch, FA, dev, shape, dtype, seed, Sk=None, **kw):
+    """q, k, v drawn on ``dev`` (seeded CUDA or CPU generator) at (B, H,
+    KV, S, hd) (``Sk`` keys, S by default), and the kernel's max abs err
+    against the plain version (1e-4 in float32, the bf16 flash cases'
+    2e-2 in bfloat16)."""
+    B, H, KV, S, hd = shape
+    Sk = S if Sk is None else Sk
+    gen = torch.Generator(dev).manual_seed(seed)
+    q, k, v = (torch.randn(s, generator=gen, device=dev).to(dtype)
+               for s in ((B, H, S, hd), (B, KV, Sk, hd), (B, KV, Sk, hd)))
+    out = FA.flash_attention_bhsd(q, k, v, **kw)
+    want = FA.flash_attention_plain(q, k, v, **kw)
+    err = float((out.float() - want.float()).abs().max())
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    check(out.dtype == dtype and out.shape == q.shape and err <= tol,
+          f"flash attention at hd {hd} {tuple(q.shape)} x {tuple(k.shape)} "
+          f"{dtype} {kw}: max abs err {err} (tol {tol})")
+    return (q, k, v), err
+
+
+def flash256_entry(torch, dev, rehearse, timer, ktimer):
+    """(a) The hd 256 body at paligemma's shape, causal, in bf16 and
+    float32 against the plain version, each timed three ways beside the
+    plain version and SDPA (causal, GQA) on the same inputs, with its
+    bound: the causal half of 4 B H S^2 hd FLOPs at the type's
+    tensor-core peak (3xTF32 in float32) against q, k, v and o once; a
+    sliding window (256) and ragged lengths (1000 x 1000, 77 x 1000)
+    in both types.  (c) hd 96 zero-padded to the 128 body against its
+    plain version in both types, timed beside the 128 body on inputs
+    padded beforehand (the difference is the pad's cost), SDPA and the
+    bound of the hd 96 work."""
+    from repro_torch.kernels import flash_attention as FA
+    shape = FLASH256_REHEARSE if rehearse else FLASH256
+    B, H, KV, S, hd = shape
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    flops = 4 * B * H * S * S * hd // 2          # the causal half
+    entry = {"shape": [B, H, KV, S, hd], "causal": True, "launches": None}
+    lines = []
+    for dt, name in ((torch.bfloat16, "bfloat16"), (torch.float32,
+                                                    "float32")):
+        (q, k, v), err = flash_case(torch, FA, dev, shape, dt, SEED + 30,
+                                    causal=True)
+        n_bytes = (2 * B * H * S + 2 * B * KV * S) * hd * q.element_size()
+        bnd, by = (bound_ms(n_bytes, flops, BF16_FLOPS) if dt == torch.bfloat16
+                   else bound_ms(n_bytes, 3 * flops, TF32_FLOPS))
+        t = ktimer(lambda: FA.flash_attention_bhsd(q, k, v, causal=True),
+                   "flash_attention_kernel")
+        lib = ktimer(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+        e = {"dtype": name, "max_abs_err": err, **t,
+             "plain_ms": timer(lambda: FA.flash_attention_plain(
+                 q, k, v, causal=True)),
+             "bound_ms": bnd, "bound_by": by, "bound_bytes": n_bytes,
+             "bound_flops": flops * (1 if dt == torch.bfloat16 else 3),
+             **library_entry(lib)}
+        del q, k, v
+        n = 300 if rehearse else 1000                # no 64-row tile divides
+        errs = [flash_case(torch, FA, dev, shape, dt, SEED + 31, causal=True,
+                           sliding_window=256)[1],
+                flash_case(torch, FA, dev, (B, H, KV, n, hd), dt, SEED + 32,
+                           causal=True)[1],
+                flash_case(torch, FA, dev, (B, H, KV, 77, hd), dt, SEED + 33,
+                           Sk=n, causal=False)[1]]
+        e["max_abs_err_window_ragged"] = max(errs)
+        entry[name] = e
+        lines.append(
+            f"flash_attention_bhsd at hd 256 {shape} (B, H, KV, S, hd) "
+            f"{name}, causal: device {e['ms']} ms (call {e['call_ms']} ms, "
+            f"back-to-back {e['b2b_ms']} ms; plain {e['plain_ms']} ms; SDPA "
+            f"causal GQA device {e['library_ms']} ms, call "
+            f"{e.get('library_call_ms')} ms; bound {bnd:.4f} ms by {by}: "
+            f"{e['bound_flops'] / 1e9:.1f} GFLOP (the causal half"
+            + (", 3xTF32" if dt == torch.float32 else "")
+            + f") at {(BF16_FLOPS if dt == torch.bfloat16 else TF32_FLOPS) / 1e12:.0f}"
+            f" TFLOP/s, {n_bytes / 1e6:.1f} MB at "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); max abs err {err:.3g}, "
+            f"window 256 / ragged 1000 / 77 x 1000 {max(errs):.3g} (tol "
+            + ("1e-4)" if dt == torch.float32 else "2e-2)"))
+    # (c) a head dim between bodies, padded
+    pad_shape = (B, H, KV, S, FLASH_PAD_HD)
+    pad = {}
+    for dt, name in ((torch.bfloat16, "bfloat16"), (torch.float32,
+                                                    "float32")):
+        (q, k, v), err = flash_case(torch, FA, dev, pad_shape, dt,
+                                    SEED + 34, causal=True)
+        pad[f"max_abs_err_{name}"] = err
+        if dt == torch.bfloat16:
+            body = FA.body_head_dim(FLASH_PAD_HD)
+            qp, kp, vp = (torch.nn.functional.pad(t, (0, body - FLASH_PAD_HD))
+                          for t in (q, k, v))
+            t96 = ktimer(lambda: FA.flash_attention_bhsd(q, k, v,
+                                                          causal=True),
+                         "flash_attention_kernel")
+            t128 = ktimer(lambda: FA.flash_attention_bhsd(qp, kp, vp,
+                                                           causal=True),
+                          "flash_attention_kernel")
+            lib = ktimer(lambda: sdpa(q, k, v, is_causal=True,
+                                      enable_gqa=True))
+            bnd, by = bound_ms((2 * B * H * S + 2 * B * KV * S)
+                               * FLASH_PAD_HD * q.element_size(),
+                               4 * B * H * S * S * FLASH_PAD_HD // 2,
+                               BF16_FLOPS)
+            pad.update({"hd": FLASH_PAD_HD, "body": body, "dtype": name,
+                        "shape": list(pad_shape), **t96,
+                        "body_ms": t128["ms"], "body_call_ms": t128["call_ms"],
+                        "plain_ms": timer(lambda: FA.flash_attention_plain(
+                            q, k, v, causal=True)),
+                        "bound_ms": bnd, "bound_by": by,
+                        **library_entry(lib)})
+            if not rehearse:
+                pad["pad_ms"] = t96["ms"] - t128["ms"]
+            del qp, kp, vp
+        del q, k, v
+    entry["padded"] = pad
+    entry.update(entry.pop("bfloat16"))     # bf16 at the top, as decode's
+    lines.append(
+        f"flash_attention_bhsd at hd {FLASH_PAD_HD} (zero-padded to the "
+        f"{pad['body']} body) {list(pad_shape)} bfloat16, causal: device "
+        f"{pad['ms']} ms with the pad and slice (call {pad['call_ms']} ms), "
+        f"the {pad['body']} body alone on inputs padded beforehand "
+        f"{pad['body_ms']} ms: pad cost {pad.get('pad_ms')} ms; plain "
+        f"{pad['plain_ms']} ms; SDPA causal GQA device {pad['library_ms']} "
+        f"ms; bound {pad['bound_ms']:.4f} ms by {pad['bound_by']} (the "
+        f"causal half at hd {FLASH_PAD_HD}); max abs err "
+        f"{pad['max_abs_err_bfloat16']:.3g}"
+        f" (tol 2e-2), float32 {pad['max_abs_err_float32']:.3g} (tol 1e-4)")
+    return entry, lines
+
+
+def paligemma_forward(torch, dev, rehearse, ops):
+    """(b) paligemma-3b at full width (18 layers, d 2048, 8 heads over
+    one kv head of 256), bf16, tokens only, ``attn_impl="pallas"``,
+    random weights from a seeded CUDA generator: 8 x 1024 tokens through
+    ``models.model.forward`` after one untimed pass under each
+    ``attn_impl``; counts reset just before the timed pass and read just
+    after (flash attention once per layer, nothing else); its logits
+    against the same forward under ``xla_flash`` within
+    ``MESH_BF16_TOL``; then float32 at 2 layers (TF32 off), the same
+    tokens, within 1e-4."""
+    from repro_torch.models import model as M
+    over = dict(attn_impl="pallas")
+    if rehearse:
+        over.update(n_heads=2, head_dim=256)
+    n_seq, n_tok = ((PALIGEMMA_SEQS_REHEARSE, PALIGEMMA_TOKENS_REHEARSE)
+                    if rehearse else (PALIGEMMA_SEQS, PALIGEMMA_TOKENS))
+    lines, res = [], {}
+    for dt in ("bfloat16", "float32"):
+        o = dict(over, dtype=dt)
+        if dt == "float32":
+            o["n_layers"] = PALIGEMMA_FP32_LAYERS
+        cfg = model_config("paligemma_3b", rehearse, **o)
+        gen = torch.Generator(dev).manual_seed(SEED + 35)
+        params = M.init_params(gen, cfg, device=dev)
+        toks = torch.as_tensor(np.random.default_rng(SEED + 35).integers(
+            0, cfg.vocab_size, (n_seq, n_tok)), device=dev)
+        flat = dataclasses.replace(cfg, attn_impl="xla_flash")
+        for c in (cfg, flat):                            # warm-up
+            M.forward(params, c, toks)
+        sync(torch, dev)
+        ops.reset_launch_counts()
+        ops.reset_plain_counts()
+        t0 = time.perf_counter()
+        got = M.forward(params, cfg, toks).logits
+        sync(torch, dev)
+        t_k = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        plain = ops.plain_counts()["flash_attention_bhsd"]
+        want_l = dict.fromkeys(launches, 0)
+        want_l["flash_attention_bhsd"] = cfg.n_layers
+        if rehearse:
+            check(plain == cfg.n_layers, f"paligemma {dt}: the forward "
+                  f"reached flash attention {plain} times, want "
+                  f"{cfg.n_layers}")
+        else:
+            check(launches == want_l, f"paligemma {dt}: launches "
+                  f"{launches}, want {cfg.n_layers} flash attention and "
+                  f"nothing else")
+        t0 = time.perf_counter()
+        want = M.forward(params, flat, toks).logits
+        sync(torch, dev)
+        t_x = time.perf_counter() - t0
+        check(bool(torch.isfinite(got).all()), f"paligemma {dt}: logits "
+              f"not finite")
+        gap = max_gap(torch, got, want)
+        tol = MESH_BF16_TOL if dt == "bfloat16" else 1e-4
+        check(gap <= tol, f"paligemma {dt} pallas vs xla_flash logits: max "
+              f"abs gap {gap} (tol {tol})")
+        res[dt] = {"launches": launches, "gap": gap}
+        lines.append(
+            f"paligemma-3b forward, tokens only ({cfg.n_layers} layers, "
+            f"d_model {cfg.d_model}, {cfg.n_heads} heads over "
+            f"{cfg.n_kv_heads} of {cfg.head_dim}, vocab {cfg.vocab_size}, "
+            f"{dt}, random weights): {n_seq} x {n_tok} tokens under pallas "
+            f"{t_k * 1e3:.3f} ms ({n_seq * n_tok / t_k:.1f} tokens/s), "
+            f"under xla_flash {t_x * 1e3:.3f} ms; flash attention launches "
+            f"{launches['flash_attention_bhsd']} (want {cfg.n_layers}, no "
+            f"other kernel; plain calls {plain}); logits max abs gap "
+            f"{gap:.4g} (tol {tol}), max |logit| "
+            f"{max(float(x.float().abs().max()) for x in want):.4g}")
+        del params, got, want
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return res, lines
+
+
+def twin_phase(torch, dev, scene, rehearse, ops):
+    """(d) ``ops.spatial_stats`` on the filter stream's ground-truth grid
+    (the first 32 frames at g = 56, as phase 3 takes it): one launch,
+    equal to the plain version bit for bit; then
+    examples/torch_monitoring_queries.py's ``main`` at reduced steps on
+    the device, counts reset just before and read just after: its table,
+    the survivors' answers equal to the exact semantics, the staged
+    plan's masks equal to the cascade's (checked in the twin), the stats
+    kernels launched by the staged plan's spatial tier."""
+    import importlib.util
+
+    from repro_torch.data.synthetic import VideoStream, collect
+    from repro_torch.kernels import spatial_predicate as SP
+    from repro_torch.core import query as Q
+    data = collect(VideoStream(scene, dynamics_seed=SEED), BATCH)
+    grid = torch.as_tensor(data["occupancy"], device=dev).float()
+    ops.reset_launch_counts()
+    stats = ops.spatial_stats(grid)
+    sync(torch, dev)
+    n_stats = ops.launch_counts()
+    check(rehearse or (n_stats["spatial_stats_bgc"] == 1
+                       and sum(n_stats.values()) == 1),
+          f"ops.spatial_stats launched {n_stats}, want one stats kernel")
+    check(torch.equal(stats, SP.spatial_stats_plain(grid)),
+          "ops.spatial_stats differs from its plain version")
+    lines = [f"ops.spatial_stats on the filter stream's grid "
+             f"{list(grid.shape)}: {dict((k, v) for k, v in n_stats.items() if v)}"
+             f" launch(es), bit for bit against its plain version"]
+    path = os.path.join(HERE, "examples", "torch_monitoring_queries.py")
+    spec = importlib.util.spec_from_file_location("torch_monitoring_queries",
+                                                  path)
+    twin = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(twin)
+    argv = (TWIN_ARGS_REHEARSE if rehearse else TWIN_ARGS) + \
+        ["--device", dev.type]
+    ops.reset_launch_counts()
+    ops.reset_plain_counts()
+    t0 = time.perf_counter()
+    results = twin.main(argv)
+    sync(torch, dev)
+    t_twin = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    reached = (ops.plain_counts() if rehearse else launches)
+    n_reached = sum(reached[k] for k in STATS_KERNELS)
+    check(n_reached > 0, f"the twin's staged plans never reached the "
+          f"spatial stats (calls {reached})")
+    from repro_torch.data.synthetic import PRESETS
+    for r, (_, scene_name, strict, _) in zip(results, twin.QUERIES):
+        sc = PRESETS[scene_name]
+        exact = np.array([Q.eval_objects(strict(), o, sc.n_classes, sc.grid)
+                          for o in r["objects"]])
+        check(np.array_equal(r["truth"], exact)
+              and np.array_equal(r["answers"], exact & r["mask"]),
+              f"twin {r['name']}: answers on the survivors are not the "
+              f"exact semantics")
+    lines.append(
+        f"examples/torch_monitoring_queries.py {' '.join(argv)}: "
+        f"{len(results)} queries in {t_twin:.1f} s (training included), "
+        f"survivors' answers equal to eval_objects, staged masks equal to "
+        f"the cascade's; launches {dict((k, v) for k, v in launches.items() if v)}"
+        f" (stats calls {n_reached}); " + "; ".join(
+            f"{r['name']} recall {r['recall']:.3f} selectivity "
+            f"{r['selectivity']:.3f} speedup {r['speedup']:.1f}x filter "
+            f"{r['filter_ms']:.3f} ms/frame" for r in results))
+    return ({"ops_spatial_stats": n_stats, "monitoring_twin": launches},
+            lines)
+
+
+def flash256_phase(torch, dev, scene, rehearse, gpu):
+    """Phase 23: (a) and (c) ``flash256_entry``, (b) the paligemma-3b
+    forward, (d) ``twin_phase``.  Returns (the flash kernel line's
+    ``hd256`` entry, {sub-path: launches}, lines)."""
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    timer, ktimer = timers(torch, rehearse)
+    entry, lines = flash256_entry(torch, dev, rehearse, timer, ktimer)
+    for line in lines:
+        print(line, flush=True)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    fwd, lines = paligemma_forward(torch, dev, rehearse, ops)
+    for line in lines:
+        print(line, flush=True)
+    entry["launches"] = fwd["bfloat16"]["launches"]["flash_attention_bhsd"]
+    entry["logits_gap"] = {k: v["gap"] for k, v in fwd.items()}
+    twin, lines = twin_phase(torch, dev, scene, rehearse, ops)
+    lines.append(f"flash256 phase: {time.perf_counter() - t_phase:.1f} s "
+                 f"[{gpu}]")
+    launches = {"paligemma_forward": fwd["bfloat16"]["launches"],
+                "paligemma_forward_float32": fwd["float32"]["launches"],
+                **twin}
+    return entry, launches, lines
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse", action="store_true",
@@ -5816,20 +6190,7 @@ def main(argv=None):
             e["launches"] = launches[e["name"]]
     del tf, serve, params, data
 
-    # on the CPU each timed call runs once, untimed
-    if args.rehearse:
-        def timer(fn):
-            fn()
-
-        def ktimer(fn, expect=None):
-            fn()
-            return {"ms": None, "call_ms": None, "b2b_ms": None}
-    else:
-        def timer(fn):
-            return time_ms(torch, fn)
-
-        def ktimer(fn, expect=None):
-            return kernel_times(torch, fn, expect)
+    timer, ktimer = timers(torch, args.rehearse)
     rwkv_launches, calls, lines = rwkv_serving_phase(torch, dev,
                                                      args.rehearse)
     for line in lines:
@@ -5897,15 +6258,23 @@ def main(argv=None):
     for line in lines:
         print(line, flush=True)
     del fleet_ref
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    hd256, p23, lines = flash256_phase(torch, dev, scene, args.rehearse, gpu)
+    for line in lines:
+        print(line, flush=True)
     if args.rehearse:
         print("rehearsal done (CPU: plain versions, no kernels)")
         return 0
+    flash["hd256"] = hd256
     entries += [scan, decode]
     for e in entries:
         e["kernel_ms"] = e["ms"]
         e["fleet_launches"] = fleet_launches[e["name"]]
         e["families_launches"] = fam_launches.get(e["name"], 0)
         e["fleet_mesh_launches"] = fleet_mesh[e["name"]]
+        e["flash256_phase_launches"] = {k: n[e["name"]]
+                                        for k, n in p23.items()}
         if e["name"] in ZOO_KERNELS:
             e["zoo_launches"] = {k: n[e["name"]] for k, n in zoo.items()}
     print(json.dumps({"kernels": entries}), flush=True)

@@ -7,7 +7,9 @@
 // over the unmasked keys j (causal: j <= i; window w: i - j < w); masked
 // scores are NEG_INF = -0.7 * FLT_MAX, as in the TPU kernel and the plain
 // version.  q (B, H, Sq, hd), k and v (B, KV, Sk, hd), float32 or bfloat16,
-// contiguous; G = H / KV; hd in {32, 64, 128}.  o (B, H, Sq, hd) in q's type.
+// contiguous; G = H / KV; hd in {32, 64, 128, 256} (the wrapper zero-pads
+// any other hd <= 256 up to the next of these and passes the true hd's
+// scale).  o (B, H, Sq, hd) in q's type.
 //
 // Arithmetic (the TPU kernel's): scores S = q k^T * scale accumulated in
 // fp32, running max m, sum l and accumulator acc in fp32; the
@@ -56,6 +58,22 @@
 //     folded into one FMA per score; row maxima are reduced over the 4
 //     lanes of a row with shuffles, row sums only once at the end;
 //   - a warp whose rows all precede a causal key tile skips its math.
+// Head dim 256 (paligemma-3b's) changes four things, for want of
+// registers in bf16 and of shared memory in fp32, and for fp32's sums:
+//   - the key tile is 32 keys, so the S tile is 16 floats a thread beside
+//     the 128 of the o accumulator (16 rows x 256 columns a warp);
+//   - q is staged raw in shared memory (cp.async, with the first k / v
+//     tile) and its fragments are read per head-dim step: 64 registers of
+//     bf16 q fragments would not fit beside the accumulator, and split
+//     fp32 planes of q (133 KB) would not fit beside the k / v stages;
+//     fp32 splits its q fragment as it reads it, once per step and tile;
+//   - shared memory is 4 x 32 x 264 x 2 + 64 x 264 x 2 = 101,376 B in
+//     bf16 (two blocks an SM) and 4 x 32 x 260 x 4 + 64 x 260 x 4 =
+//     199,680 B in fp32 (one), both under the 232,448 B opt-in limit;
+//   - fp32 adds each head-dim step's large q k^T term to the score with
+//     one rounded fp32 add instead of leaving it in the mma's accumulator,
+//     whose running sum is truncated: over 32 steps that lost 1e-4 of a
+//     peaky softmax's output (q and k scaled by 8).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -65,24 +83,28 @@
 namespace {
 
 constexpr int kBQ = 64;            // query rows per block
-constexpr int kBK = 64;            // keys per tile
 constexpr float kNegInf = (float)(-0.7 * 3.4028234663852886e38);
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <typename T, int HD>
 struct Cfg {
   static constexpr bool kF32 = std::is_same<T, float>::value;
+  static constexpr int kBK = HD == 256 ? 32 : 64;            // keys a tile
+  static constexpr int kJ = kBK / 8;                         // S n-tiles
   static constexpr int kPitch = HD + 16 / (int)sizeof(T);   // elements
   static constexpr int kTile = kBK * kPitch;                 // elements
-  static constexpr bool kQReg = !kF32 || HD <= 64;           // q in regs
-  static constexpr int kQPitch = HD + 4;                     // floats
+  static constexpr bool kQRaw = HD == 256;         // q raw in shared mem
+  static constexpr bool kQReg = !kQRaw && (!kF32 || HD <= 64);  // in regs
+  static constexpr int kQPitch = HD + 4;       // floats (fp32 hd 128 split)
   static constexpr int kNT = HD / 8;                         // o n-tiles
   static constexpr int kM = kF32 && HD == 32 ? 2 : 1;  // row tiles/warp
   static constexpr int kThreads = kBQ / (16 * kM) * 32;      // per block
   static constexpr size_t kSmem =
       4 * (size_t)kTile * sizeof(T) +
-      (kQReg ? 0 : 2 * (size_t)kBQ * kQPitch * sizeof(float));
-  static constexpr int kMinBlocks = HD == 32 ? 4 : (HD == 64 ? 2 : 1);
+      (kQRaw ? (size_t)kBQ * kPitch * sizeof(T)
+             : kQReg ? 0 : 2 * (size_t)kBQ * kQPitch * sizeof(float));
+  static constexpr int kMinBlocks =
+      HD == 32 ? 4 : (HD == 64 || (HD == 256 && !kF32) ? 2 : 1);
 };
 
 // x rounded to TF32 (to nearest, ties away from zero, as cvt.rna does)
@@ -187,13 +209,30 @@ __device__ __forceinline__ void load_tile(T* ks, T* vs, const T* kb,
   constexpr int kE = 16 / (int)sizeof(T);        // elements per copy
   constexpr int kChunks = HD / kE;               // copies per row
 #pragma unroll
-  for (int i = threadIdx.x; i < kBK * kChunks; i += C::kThreads) {
+  for (int i = threadIdx.x; i < C::kBK * kChunks; i += C::kThreads) {
     const int r = i / kChunks;
     const int c = (i - r * kChunks) * kE;
     const bool in = k0 + r < Sk;
     const long long off = in ? (long long)(k0 + r) * HD + c : 0;
     cp_async16(ks + r * C::kPitch + c, kb + off, in);
     cp_async16(vs + r * C::kPitch + c, vb + off, in);
+  }
+}
+
+// the block's q rows q0 .. q0 + kBQ - 1, raw, at the k / v pitch (rows
+// past Sq zeroed); hd 256 only
+template <typename T, int HD>
+__device__ __forceinline__ void load_q(T* qs, const T* qb, int q0, int Sq) {
+  using C = Cfg<T, HD>;
+  constexpr int kE = 16 / (int)sizeof(T);
+  constexpr int kChunks = HD / kE;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < kBQ * kChunks; i += C::kThreads) {
+    const int r = i / kChunks;
+    const int c = (i - r * kChunks) * kE;
+    const bool in = q0 + r < Sq;
+    const long long off = in ? (long long)(q0 + r) * HD + c : 0;
+    cp_async16(qs + r * C::kPitch + c, qb + off, in);
   }
 }
 
@@ -207,9 +246,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   using C = Cfg<T, HD>;
   constexpr int kNT = C::kNT;
   constexpr int kM = C::kM;                     // 16-row tiles per warp
+  constexpr int kBK = C::kBK;
+  constexpr int kJ = C::kJ;
   extern __shared__ float4 smem4[];
   T* kv_s = reinterpret_cast<T*>(smem4);        // [stage][k, v][kBK][pitch]
-  float* qs_hi = reinterpret_cast<float*>(kv_s + 4 * C::kTile);
+  T* qs_raw = kv_s + 4 * C::kTile;              // hd 256 only
+  float* qs_hi = reinterpret_cast<float*>(qs_raw);
   float* qs_lo = qs_hi + kBQ * C::kQPitch;      // hd 128 fp32 only
 
   const int h = blockIdx.y;
@@ -236,13 +278,16 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int x = q0 - window - (kBK - 2);
     if (x > 0) t_begin = (x + kBK - 1) / kBK;
   }
-  if (t_begin < t_end)
+  if (t_begin < t_end) {
+    if constexpr (C::kQRaw) load_q<T, HD>(qs_raw, qb, q0, Sq);
     load_tile<T, HD>(kv_s, kv_s + C::kTile, kb, vb, t_begin * kBK, Sk);
+  }
   cp_async_commit();
 
   // the q tile, split once: fragments a0 (row g, col t), a1 (g + 8, t),
   // a2 (g, t + 4), a3 (g + 8, t + 4) of each row tile; tf32 columns are
-  // head dims qk_dim(t, kk) (+ 1), bf16 ones the pairs at 2t (+ 8)
+  // head dims qk_dim(t, kk) (+ 1), bf16 ones the pairs at 2t (+ 8).  At
+  // hd 256 the raw tile arrives with the first k / v stage instead
   constexpr int kQF = C::kQReg ? (C::kF32 ? HD / 8 : HD / 16) : 1;
   uint32_t qa[kM][kQF][4], qal[kM][kQF][4];
   if constexpr (C::kF32 && C::kQReg) {
@@ -261,7 +306,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int e = 0; e < 4; ++e) split(x[e], qa[mt][kk][e], qal[mt][kk][e]);
       }
     }
-  } else if constexpr (!C::kF32) {
+  } else if constexpr (C::kQReg) {
     const uint32_t* q32 = reinterpret_cast<const uint32_t*>(qb);
 #pragma unroll
     for (int mt = 0; mt < kM; ++mt) {
@@ -275,7 +320,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         qa[mt][kk][3] = rb < Sq ? q32[(long long)rb * (HD / 2) + c + 4] : 0u;
       }
     }
-  } else {
+  } else if constexpr (!C::kQRaw) {   // fp32 hd 128: split planes
     for (int i = threadIdx.x; i < kBQ * HD; i += C::kThreads) {
       const int r = i / HD;
       const int d = i - r * HD;
@@ -318,16 +363,16 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     if (!(causal && k0 > row_last)) {
       // ---- S = q k^T: s[mt][j] holds keys k0 + 8j + 2t (+1), rows g, g + 8
-      float s[kM][8][4];
+      float s[kM][kJ][4];
 #pragma unroll
       for (int mt = 0; mt < kM; ++mt)
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < kJ; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[mt][j][e] = 0.f;
       if constexpr (C::kF32 && C::kQReg) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < kJ; ++j) {
           const float* kr =
               reinterpret_cast<const float*>(ks) + (j * 8 + g) * C::kPitch;
           uint32_t bh[kQF][2], bl[kQF][2];
@@ -353,28 +398,39 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
             for (int kk = 0; kk < kQF; ++kk)
               mma_tf32(s[mt][j], qa[mt][kk], bh[kk][0], bh[kk][1]);
         }
-      } else if constexpr (C::kF32) {     // hd 128: one row tile per warp
-        float sl[8][4];
+      } else if constexpr (C::kF32) {   // hd 128 / 256: one row tile a warp
+        float sl[kJ][4];
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < kJ; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) sl[j][e] = 0.f;
 #pragma unroll 2
         for (int kk = 0; kk < HD / 8; ++kk) {
           const int c = qk_dim(t, kk);
-          const float* qh = qs_hi + (warp * 16 + g) * C::kQPitch + c;
-          const float* ql = qs_lo + (warp * 16 + g) * C::kQPitch + c;
-          constexpr int r8 = 8 * C::kQPitch;
-          const uint32_t ah[4] = {__float_as_uint(qh[0]),
-                                  __float_as_uint(qh[r8]),
-                                  __float_as_uint(qh[1]),
-                                  __float_as_uint(qh[r8 + 1])};
-          const uint32_t al[4] = {__float_as_uint(ql[0]),
-                                  __float_as_uint(ql[r8]),
-                                  __float_as_uint(ql[1]),
-                                  __float_as_uint(ql[r8 + 1])};
+          uint32_t ah[4], al[4];
+          if constexpr (C::kQRaw) {       // split as read
+            const float* qr = reinterpret_cast<const float*>(qs_raw) +
+                              (warp * 16 + g) * C::kPitch + c;
+            constexpr int r8 = 8 * C::kPitch;
+            split(qr[0], ah[0], al[0]);
+            split(qr[r8], ah[1], al[1]);
+            split(qr[1], ah[2], al[2]);
+            split(qr[r8 + 1], ah[3], al[3]);
+          } else {
+            const float* qh = qs_hi + (warp * 16 + g) * C::kQPitch + c;
+            const float* ql = qs_lo + (warp * 16 + g) * C::kQPitch + c;
+            constexpr int r8 = 8 * C::kQPitch;
+            ah[0] = __float_as_uint(qh[0]);
+            ah[1] = __float_as_uint(qh[r8]);
+            ah[2] = __float_as_uint(qh[1]);
+            ah[3] = __float_as_uint(qh[r8 + 1]);
+            al[0] = __float_as_uint(ql[0]);
+            al[1] = __float_as_uint(ql[r8]);
+            al[2] = __float_as_uint(ql[1]);
+            al[3] = __float_as_uint(ql[r8 + 1]);
+          }
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
+          for (int j = 0; j < kJ; ++j) {
             const float2 x = *reinterpret_cast<const float2*>(
                 reinterpret_cast<const float*>(ks) + (j * 8 + g) * C::kPitch +
                 c);
@@ -383,16 +439,38 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
             split(x.y, bh1, bl1);
             mma_tf32(sl[j], al, bh0, bh1);
             mma_tf32(sl[j], ah, bl0, bl1);
-            mma_tf32(s[0][j], ah, bh0, bh1);
+            if constexpr (C::kQRaw) {     // a rounded add (see the top)
+              float d[4] = {0.f, 0.f, 0.f, 0.f};
+              mma_tf32(d, ah, bh0, bh1);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) s[0][j][e] += d[e];
+            } else {
+              mma_tf32(s[0][j], ah, bh0, bh1);
+            }
           }
         }
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < kJ; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[0][j][e] += sl[j][e];
+      } else if constexpr (C::kQRaw) {  // bf16 hd 256: q read per k-step
+        const uint32_t* qr = reinterpret_cast<const uint32_t*>(
+            qs_raw + (warp * 16 + g) * C::kPitch + 2 * t);
+        constexpr int r8 = 4 * C::kPitch;           // 8 rows, in words
+#pragma unroll 2
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          const uint32_t a[4] = {qr[kk * 8], qr[r8 + kk * 8],
+                                 qr[kk * 8 + 4], qr[r8 + kk * 8 + 4]};
+#pragma unroll
+          for (int j = 0; j < kJ; ++j) {
+            const uint32_t* kr = reinterpret_cast<const uint32_t*>(
+                ks + (j * 8 + g) * C::kPitch + 2 * t);
+            mma_bf16(s[0][j], a, kr[kk * 8], kr[kk * 8 + 4]);
+          }
+        }
       } else {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < kJ; ++j) {
           const uint32_t* kr = reinterpret_cast<const uint32_t*>(
               ks + (j * 8 + g) * C::kPitch + 2 * t);
 #pragma unroll
@@ -415,7 +493,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int mt = 0; mt < kM; ++mt) {
         if (need_mask) {
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
+          for (int j = 0; j < kJ; ++j) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const int qp = row0 + mt * 16 + g + (e >> 1) * 8;
@@ -429,7 +507,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
         float mx[2] = {kNegInf, kNegInf}, corr[2];
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < kJ; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             mx[e >> 1] = fmaxf(mx[e >> 1], s[mt][j][e]);
@@ -444,7 +522,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
           l[mt][i] *= corr[i];
         }
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < kJ; ++j) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const float mi = m[mt][e >> 1];
@@ -467,7 +545,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if constexpr (C::kF32) {
         const float* vf = reinterpret_cast<const float*>(vs);
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
+        for (int kk = 0; kk < kJ; ++kk) {
           // operand column t is key 2t, column t + 4 is key 2t + 1
           uint32_t ah[kM][4], al[kM][4];
 #pragma unroll
@@ -503,7 +581,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       } else {
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
+        for (int kk = 0; kk < kJ / 2; ++kk) {
           uint32_t pa[kM][4];
 #pragma unroll
           for (int mt = 0; mt < kM; ++mt) {
@@ -596,6 +674,9 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
     case 128:
       return launch<T, 128>(q, k, v, o, B, H, KV, Sq, Sk, scale, causal,
                             window, s);
+    case 256:
+      return launch<T, 256>(q, k, v, o, B, H, KV, Sq, Sk, scale, causal,
+                            window, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -605,8 +686,11 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
 
 // q: (B, H, Sq, hd); k, v: (B, KV, Sk, hd); o: (B, H, Sq, hd); contiguous,
 // 16-byte aligned, all of one type: dtype 0 = float32, 1 = bfloat16.
-// H % KV == 0, hd in {32, 64, 128}; window <= 0 means no sliding window.
-// Returns cudaGetLastError() of the launch.
+// H % KV == 0, hd in {32, 64, 128, 256}; window <= 0 means no sliding
+// window.  scale is the softmax scale of the true head dim: the wrapper
+// zero-pads q, k and v of any other hd <= 256 up to the next of these
+// bodies, which changes no score and no kept column.  Returns
+// cudaGetLastError() of the launch.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int H,
                                       int KV, int Sq, int Sk, int hd,

@@ -110,6 +110,14 @@ def spatial_stats_inline(grid_logits: torch.Tensor, tau: float = 0.2, *,
                              classes=classes)
 
 
+def spatial_stats(grid_logits: torch.Tensor, *, tau: float = 0.2
+                  ) -> torch.Tensor:
+    """grid_logits: (B, g, g, C) -> per-class stats (B, C, 5): the JAX
+    package's public entry point, one launch of the stats kernel on the
+    card."""
+    return spatial_stats_inline(grid_logits, tau)
+
+
 def spatial_stats_rows_inline(grid_logits: torch.Tensor, rows: torch.Tensor,
                               tau: float = 0.2, *,
                               classes: Optional[torch.Tensor] = None

@@ -14,6 +14,7 @@ emulation on numpy's float32 bits pins the float32 kernel's numerical
 premise: its 3xTF32 split holds 1e-4 where one TF32 pass does not.
 """
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -55,6 +56,12 @@ CASES = [
     (2, 300, 300, 4, 2, 32, False, None, "float32"),    # ragged: JAX ref
     (1, 300, 300, 4, 1, 16, True, 100, "float32"),      # ragged, window
     (1, 300, 300, 2, 2, 16, True, None, "bfloat16"),    # ragged, bf16
+    # head dims the card runs through a padded body (96 -> 128) or its
+    # own hd 256 body (paligemma's: MQA), against the Pallas kernel
+    (1, 256, 256, 4, 2, 96, True, None, "float32"),
+    (1, 256, 256, 2, 1, 256, True, None, "float32"),
+    (1, 256, 256, 2, 1, 256, False, 64, "float32"),
+    (1, 256, 256, 2, 1, 256, True, None, "bfloat16"),
 ]
 
 
@@ -82,6 +89,28 @@ def test_flash_attention_refusals_on_cpu():
     out = FA.flash_attention_bhsd(*(torch.empty((1, 2, 8, 32), device="meta")
                                     for _ in range(3)))
     assert out.device.type == "meta" and out.shape == (1, 2, 8, 32)
+
+
+@pytest.mark.parametrize("hd", [16, 80, 96, 200, 256])
+def test_padded_head_dim_is_the_same_function(hd):
+    """What the wrapper does on the card for a head dim between the
+    kernel's bodies: q, k and v zero-padded along hd up to the body, the
+    softmax scaled by the true hd, the output sliced back.  The plain
+    version over the padded inputs (q scaled so that its 1/sqrt(body)
+    becomes 1/sqrt(hd)) gives the unpadded function; the body is the
+    least of ``HEAD_DIMS`` at or above hd, and none is above 256."""
+    body = FA.body_head_dim(hd)
+    assert body == {16: 32, 80: 128, 96: 128, 200: 256, 256: 256}[hd]
+    q, k, v = (torch.as_tensor(a).transpose(1, 2)
+               for a in _qkv(2, 96, 96, 4, 2, hd, seed=hd))
+    pad = [torch.nn.functional.pad(t, (0, body - hd)) for t in (q, k, v)]
+    pad[0] = pad[0] * math.sqrt(body / hd)
+    got = FA.flash_attention_plain(*pad, causal=True, sliding_window=40)
+    want = FA.flash_attention_plain(q, k, v, causal=True, sliding_window=40)
+    assert not got[..., hd:].any()
+    assert_close(got[..., :hd], want, rtol=0, atol=1e-5)
+    with pytest.raises(ValueError, match="head_dim up to 256"):
+        FA.body_head_dim(257)
 
 
 def _tf32(x):

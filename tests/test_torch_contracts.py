@@ -440,19 +440,40 @@ def test_pricing_provenance_prefers_measured_oracle_coeff():
 # Per-chunk oracle pricing: the allocator pays chunk-local prices
 # ---------------------------------------------------------------------------
 
-def test_explicit_chunk_prices_shift_allocation_toward_cheap_chunks():
+class _FrameClock:
+    """A ``time`` stand-in whose ``perf_counter`` moves only when the
+    oracle charges frames, by a fixed 100 µs a frame."""
+
+    def __init__(self):
+        self.now = 0.0
+
+    def perf_counter(self):
+        return self.now
+
+
+def test_explicit_chunk_prices_shift_allocation_toward_cheap_chunks(
+        monkeypatch):
     """Equal posteriors (uniform rates everywhere), skewed explicit
     chunk prices: the Thompson allocator must buy proportionally more
     estimation frames in the cheap chunks than the uniformly-priced
-    baseline does — variance shrink per COST, not per frame."""
+    baseline does — variance shrink per COST, not per frame.  The
+    executor's clock (the ``time`` name of ``repro_torch.core.contracts``
+    alone) charges a fixed time per frame, so the baseline's realized
+    per-chunk prices are uniform whatever the machine's load."""
     rng = np.random.default_rng(0)
     n = 4096
     y = (rng.random(n) < 0.2).astype(float)
     q = AggregateQuery(pred=PRED, agg="count", eps=0.05)
+    clock = _FrameClock()
+    monkeypatch.setattr(TK, "time", clock)
+
+    def value_fn(f):
+        f = np.asarray(f)
+        clock.now += 1e-4 * f.size
+        return y[f]
 
     def run(chunk_oracle_cost):
-        return ContractExecutor(q, lambda f: y[np.asarray(f)], n,
-                                n_chunks=8, seed=11,
+        return ContractExecutor(q, value_fn, n, n_chunks=8, seed=11,
                                 chunk_oracle_cost=chunk_oracle_cost).run()
 
     base = run(None)

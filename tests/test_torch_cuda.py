@@ -18,6 +18,8 @@ products) at 1e-4 against the function in float64; decode attention in
 bfloat16 also at four bf16 steps of its largest output where that is
 smaller, since a long cache's outputs are far below 1.  The WKV scan at
 the JAX kernel test's 5e-3 (and one bf16 step of its output, rtol 1e-2).
+Flash attention runs at its four bodies (hd 32, 64, 128, 256) and at
+head dims between them, zero-padded up to the next body; hd 320 raises.
 """
 import dataclasses
 
@@ -246,6 +248,21 @@ def test_spatial_stats_one_launch_per_call(cuda_device):
             names
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("tau", [0.2, -0.5])
+def test_ops_spatial_stats_one_launch_bit_exact(cuda_device, tau):
+    """The JAX package's public entry point ``ops.spatial_stats``: one
+    launch of the stats kernel, equal to the plain version bit for bit."""
+    grid = _stats_grid(cuda_device, 5, 32, 56, 3)
+    before = dict(build.LAUNCHES)
+    got = ops.spatial_stats(grid, tau=tau)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["spatial_stats_bgc"] == \
+        before["spatial_stats_bgc"] + 1
+    assert sum(build.LAUNCHES.values()) == sum(before.values()) + 1
+    assert torch.equal(got, SP.spatial_stats_plain(grid, tau=tau))
+
+
 FAULT_SCRIPT = """
 import sys, torch
 sys.path.insert(0, {src!r})
@@ -401,7 +418,15 @@ FLASH_SWEEP = (
     + [(2, 300, 300, 4, 2, 32, True, None, "float32"),
        (2, 300, 300, 4, 2, 32, False, None, "bfloat16"),
        (1, 300, 300, 4, 4, 64, True, 100, "float32"),
-       (1, 77, 300, 4, 4, 128, False, None, "float32")])
+       (1, 77, 300, 4, 4, 128, False, None, "float32")]
+    # hd 256 (paligemma's MQA, 8 heads over 1): both types and maskings,
+    # sliding windows, GQA 4/2 and ragged lengths
+    + [(1, 256, 256, 8, 1, 256, causal, None, dt)
+       for dt in ("float32", "bfloat16") for causal in (True, False)]
+    + [(1, 300, 300, 4, 1, 256, True, 100, "float32"),
+       (2, 300, 300, 4, 2, 256, True, 64, "bfloat16"),
+       (1, 77, 300, 2, 1, 256, False, None, "bfloat16"),
+       (1, 300, 77, 2, 1, 256, False, None, "float32")])
 
 
 def _qkv(case, dev, seed=0):
@@ -450,7 +475,7 @@ def _attention64(q, k, v, causal):
 # (hd, causal, kind): inputs that stress the 3xTF32 split of the float32
 # kernel: q and k scaled by 3 and by 8 (a peaky softmax, where one TF32
 # pass misses float32 by ~1e-2), and values spread over four decades
-FLASH_STRESS = [(hd, causal, kind) for hd in (32, 128)
+FLASH_STRESS = [(hd, causal, kind) for hd in (32, 128, 256)
                 for causal in (False, True)
                 for kind in ("qk x3", "qk x8", "v spread")]
 
@@ -494,17 +519,52 @@ def test_flash_attention_dispatch_counts_and_refusals(cuda_device):
     torch.testing.assert_close(out, want, rtol=0, atol=1e-4)
     with pytest.raises(RuntimeError, match="backward"):
         FA.flash_attention_bhsd(q.clone().requires_grad_(), k, v)
+    # hd 16 and 96 run through the kernel, zero-padded to the 32 and 128
+    # bodies (the reference runs them); above 256 the kernel refuses
     for hd in (16, 96):
         q2, k2, v2 = _qkv((1, 64, 64, 2, 2, hd, True, None, "float32"),
                           cuda_device)
-        with pytest.raises(ValueError, match="head_dim"):
-            FA.flash_attention_bhsd(q2, k2, v2)
+        out2 = FA.flash_attention_bhsd(q2, k2, v2)
+        assert out2.shape == q2.shape and out2.is_contiguous()
+        err = float((out2 - FA.flash_attention_plain(q2, k2, v2)).abs().max())
+        assert err <= 1e-4, (hd, err)
+    q3, k3, v3 = _qkv((1, 64, 64, 2, 2, 320, True, None, "float32"),
+                      cuda_device)
+    with pytest.raises(ValueError, match="head_dim up to 256"):
+        FA.flash_attention_bhsd(q3, k3, v3)
     with pytest.raises(TypeError):
         FA.flash_attention_bhsd(q.half(), k.half(), v.half())
     off = torch.empty(q.numel() + 1, device=cuda_device)[1:].view(q.shape)
     with pytest.raises(ValueError, match="16-byte"):
         FA.flash_attention_bhsd(off, k, v)
+    assert build.LAUNCHES["flash_attention_bhsd"] == before + 3
+
+
+# (B, Sq, Sk, H, KV, hd, causal, sliding_window, dtype): head dims between
+# the kernel's bodies, zero-padded up to the next (16 -> 32, 80 / 96 ->
+# 128, 200 -> 256), in both types, ragged and windowed
+FLASH_PADDED = [(1, 256, 256, 4, 2, 16, True, None, "bfloat16"),
+                (2, 300, 300, 4, 1, 80, False, None, "float32"),
+                (1, 300, 300, 4, 2, 96, True, 100, "float32"),
+                (1, 256, 256, 8, 1, 96, False, None, "bfloat16"),
+                (1, 77, 300, 2, 1, 200, True, None, "float32")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_PADDED, ids=str)
+def test_flash_attention_padded_head_dims_match_plain(cuda_device, case):
+    causal, sw, dt = case[6:]
+    q, k, v = _qkv(case, cuda_device, seed=case[5])
+    before = build.LAUNCHES["flash_attention_bhsd"]
+    out = FA.flash_attention_bhsd(q, k, v, causal=causal, sliding_window=sw)
+    want = FA.flash_attention_plain(q, k, v, causal=causal,
+                                    sliding_window=sw)
+    torch.cuda.synchronize()
     assert build.LAUNCHES["flash_attention_bhsd"] == before + 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    atol = 1e-4 if dt == "float32" else 2e-2
+    err = float((out.float() - want.float()).abs().max())
+    assert err <= atol, err
 
 
 @pytest.mark.cuda

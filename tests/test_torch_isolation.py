@@ -53,6 +53,51 @@ def test_port_imports_neither_jax_nor_reference_package():
         assert mod in names.split(","), names
 
 
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+# the port's scripts: the example twins, the smoke and its phase runner
+SCRIPTS = sorted(
+    [os.path.join("examples", f) for f in os.listdir(os.path.join(
+        ROOT, "examples")) if f.startswith("torch_") and f.endswith(".py")]
+    + ["chip_smoke.py", os.path.join("tools", "torch_smoke_phase.py")])
+
+_SCRIPT_PROBE = """
+import runpy, sys
+runpy.run_path(sys.argv[1], run_name="probe")   # defines, runs no main
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(",".join(bad))
+"""
+
+
+@pytest.mark.parametrize("script", SCRIPTS)
+def test_scripts_import_neither_jax_nor_reference_package(script):
+    """Every import statement of the script, at any depth, names neither
+    jax nor the JAX package (nor its benchmarks); a script that keeps its
+    work behind ``if __name__ == "__main__"`` is also loaded in a fresh
+    interpreter, which must then hold neither."""
+    import ast
+    path = os.path.join(ROOT, script)
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [n.module for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.module and not n.level]
+    bad = [n for n in names
+           if n.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks")]
+    assert not bad, f"{script} imports {bad}"
+    guarded = any(isinstance(n, ast.If) and "__main__" in ast.unparse(n.test)
+                  for n in tree.body)
+    if not guarded:
+        return
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    out = subprocess.run([sys.executable, "-c", _SCRIPT_PROBE, path],
+                         env=env, capture_output=True, text=True,
+                         timeout=120, cwd=os.path.abspath(ROOT))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "", f"{script} pulled in {out.stdout}"
+
+
 def test_entry_points_default_to_cuda_and_never_fall_back():
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour without a card")

@@ -50,6 +50,24 @@ def test_spatial_stats_plain_bit_exact_vs_pallas_interpreter(seed):
     np.testing.assert_array_equal(got[..., 4][empty], 0.0)
 
 
+@pytest.mark.parametrize("seed,tau", [(0, 0.2), (1, 0.2), (2, 0.0),
+                                      (3, -1.5)])
+def test_ops_spatial_stats_bit_exact_vs_jax_entry_point(seed, tau):
+    """``ops.spatial_stats`` against the JAX package's ``ops.spatial_stats``
+    (its jitted entry point, interpreted on the CPU) on continuous logits
+    with a value exactly at tau, at its default tau and given ones."""
+    rng = np.random.default_rng(seed)
+    gl = (rng.normal(0, 1, (3, 16, 16, 4)) * 3).astype(np.float32)
+    gl[0, 5, 5, seed % 4] = np.float32(tau)
+    kw = {} if tau == 0.2 else {"tau": tau}
+    want = np.asarray(rops.spatial_stats(jnp.asarray(gl), **kw))
+    before = ops.plain_counts()["spatial_stats_bgc"]
+    got = ops.spatial_stats(torch.as_tensor(gl), **kw)
+    assert got.shape == (3, 4, 5) and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert ops.plain_counts()["spatial_stats_bgc"] == before + 1
+
+
 @pytest.mark.parametrize("tau", [0.2, 0.0, -1.5])
 def test_spatial_stats_plain_bit_exact_on_noise_and_ties(tau):
     """Continuous logits (and values exactly at tau: strict >)."""

@@ -464,6 +464,29 @@ def test_full_width_layer_matches_jax(name):
         assert_close(tcache["layers"][key], a)
 
 
+def test_paligemma_tokens_only_forward_at_hd_256_matches_jax():
+    """A narrow paligemma (2 layers, d 128, 2 heads over 1 kv head of
+    256, GeGLU) under ``pallas``, tokens only: 384 tokens, past 256 x 256
+    scores and a multiple of the JAX wrapper's 128-row tiles, so the
+    reference runs its Pallas kernel (interpreted) at hd 256 in each
+    layer, and the port's ``_attend`` reaches ``ops.flash_attention``
+    once a layer (its plain version on the CPU)."""
+    from repro_torch.kernels import ops
+    rc = RC.get_config("paligemma_3b", n_layers=2, d_model=128, n_heads=2,
+                       n_kv_heads=1, head_dim=256, d_ff=256, vocab_size=512,
+                       dtype="float32", attn_impl="pallas", max_seq_len=512)
+    tc = port_config(rc)
+    rp = to_numpy_tree(zoo.J_INIT(jax.random.PRNGKey(15), rc))
+    tp = params_from_numpy(rp, "cpu")
+    toks = np.random.default_rng(16).integers(0, 512, (1, 384))
+    want, _, _ = j_forward(jax.tree.map(jnp.asarray, rp), rc,
+                           jnp.asarray(toks))
+    ops.reset_plain_counts()
+    got = TM.forward(tp, tc, _t(toks)).logits
+    assert ops.plain_counts()["flash_attention_bhsd"] == rc.n_layers
+    assert_close(got, want)
+
+
 def test_mamba_states_written_in_place():
     """A hybrid cache's ``ssm`` and ``conv`` keep their tensors through
     prefill and decode, and their values change each call: decode reads

@@ -5,6 +5,7 @@
     python3 tools/torch_smoke_phase.py mesh              # on a CUDA card
     python3 tools/torch_smoke_phase.py families          # on a CUDA card
     python3 tools/torch_smoke_phase.py fleet             # on a CUDA card
+    python3 tools/torch_smoke_phase.py flash256          # on a CUDA card
 
 ``train`` is the smoke's phase 17 (``zoo_training_phase``), ``launch``
 its phase 19 (``launch_phase``: the launch analyses against steps on
@@ -15,7 +16,10 @@ every family's serving through the plan at world 1, four ranks at (2,
 2) on the one card over gloo, the mesh dry-run beside them), ``fleet``
 its phases 2 and 5c (the filter's training and the one-card fleet) and
 then 22 (``fleet_mesh_phase``: the fleet over a stream mesh of one rank
-over NCCL, then four ranks on the one card over gloo).  Builds the
+over NCCL, then four ranks on the one card over gloo), ``flash256`` its
+phase 23 (``flash256_phase``: flash attention at head dim 256 and a
+padded 96, paligemma-3b's tokens-only forward under ``pallas``,
+``ops.spatial_stats`` and the monitoring-queries twin).  Builds the
 kernels (decode attention runs in both), then runs the phase and prints
 its lines after
 the card's name and power limit: the same checks and numbers as in the
@@ -25,6 +29,7 @@ Exits non-zero if a check fails.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import time
@@ -57,7 +62,7 @@ def fleet(torch, dev, rehearse, gpu):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("phase", choices=["train", "launch", "mesh", "families",
-                                      "fleet"])
+                                      "fleet", "flash256"])
     ap.add_argument("--rehearse", action="store_true")
     args = ap.parse_args(argv)
     import torch
@@ -83,6 +88,11 @@ def main(argv=None) -> int:
         launches, lines = cs.families_phase(torch, dev, args.rehearse, gpu)
     elif args.phase == "fleet":
         launches, lines = fleet(torch, dev, args.rehearse, gpu)
+    elif args.phase == "flash256":
+        scene, _, _ = cs.configure(args.rehearse)
+        entry, launches, lines = cs.flash256_phase(torch, dev, scene,
+                                                   args.rehearse, gpu)
+        lines.append(json.dumps({"hd256": entry}))
     else:
         launches, lines = cs.launch_phase(torch, dev, args.rehearse, gpu)
     for line in lines:
