@@ -336,7 +336,13 @@ Phases (any failure exits non-zero and prints no result line):
     (causal, GQA) on the same inputs, and the bound (the causal half of
     4 B H S^2 hd FLOPs at 989 TFLOP/s in bf16, three TF32 products at
     495 in float32, against q, k, v and o once): the ``hd256`` entry of
-    flash attention's kernel line.  (b) paligemma-3b at full width in
+    flash attention's kernel line; before them, bf16's wgmma body as
+    built: threads, the registers setmaxnreg gives each warp role,
+    registers at entry, spills and local bytes (none allowed), dynamic
+    shared memory and blocks an SM, its HGMMA instructions in the SASS
+    (cuobjdump), no ptxas line on wgmma serialization or setmaxnreg, and
+    its two products on one tile against torch.matmul (1e-3), the
+    entry's ``body``.  (b) paligemma-3b at full width in
     bf16, tokens only, ``attn_impl="pallas"``, random weights from a
     seeded CUDA generator: 8 x 1024 tokens through ``models.model.
     forward``, counts reset just before the timed pass and read just
@@ -5782,8 +5788,83 @@ def flash_case(torch, FA, dev, shape, dtype, seed, Sk=None, **kw):
     return (q, k, v), err
 
 
+HD256_BODY = "flash_attention_kernel_hd256_wgmma"
+
+
+def hd256_body_report(torch, dev, rehearse):
+    """bf16 hd 256's wgmma body as built: its launch shape and
+    resources from ``flash_attention_hd256_info`` (dynamic shared memory,
+    threads, the registers ``setmaxnreg`` gives a consumer and a producer
+    thread, the registers at entry and local bytes the runtime reads
+    from the binary, blocks an SM), its spills from the ``-Xptxas -v``
+    report, its HGMMA (wgmma) instructions counted in the library's SASS
+    (``cuobjdump -sass``), and any ptxas line that says wgmma was
+    serialized or ``setmaxnreg`` ignored; then its two products on one
+    tile (``wgmma_probe``) against ``torch.matmul``.  Fails on a spill,
+    a serialization or setmaxnreg line, no HGMMA, more than one block an
+    SM, or a probe error above 1e-3.  None on the CPU."""
+    if rehearse:
+        return None, []
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as FA
+    path = build.build_all(["flash_attention"])["flash_attention"]
+    info = (ctypes.c_int * 7)()
+    build.check(build.library("flash_attention").flash_attention_hd256_info(
+        info), "flash_attention_hd256_info")
+    smem, threads, regs_c, regs_p, regs_entry, local, per_sm = list(info)
+    with open(path + ".log") as f:
+        log = f.read()
+    prop = re.search(r"Function properties for \S*" + HD256_BODY
+                     + r"\S*\s+\d+ bytes stack frame, (\d+) bytes spill "
+                     r"stores, (\d+) bytes spill loads", log)
+    check(prop is not None, f"no ptxas report of {HD256_BODY}")
+    st, ld = int(prop.group(1)), int(prop.group(2))
+    warned = [ln.strip() for ln in log.splitlines()
+              if re.search(r"serializ|setmaxnreg", ln, re.I)]
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True,
+                          text=True, timeout=300)
+    check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr[-500:]}")
+    funcs = sass.stdout.split("Function : ")
+    body = [f for f in funcs if f.split("\n", 1)[0].find(HD256_BODY) >= 0]
+    check(len(body) == 1, f"{HD256_BODY} not found in the SASS")
+    hgmma = len(re.findall(r"\bHGMMA\.", body[0]))
+    gen = torch.Generator(dev).manual_seed(SEED + 36)
+    a, b, c = (torch.randn(64, 256, generator=gen, device=dev).bfloat16()
+               for _ in range(3))
+    d, e = FA.wgmma_probe(a, b, c)
+    probe = {"d": float((d - a.float() @ b.float().T).abs().max()),
+             "e": float((e - d.bfloat16().float() @ c.float()).abs().max())}
+    rep = {"kernel": HD256_BODY, "threads": threads,
+           "smem_bytes": smem, "blocks_per_sm": per_sm,
+           "regs_consumer": regs_c, "regs_producer": regs_p,
+           "regs_entry": regs_entry, "local_bytes": local,
+           "spill_stores": st, "spill_loads": ld, "hgmma_sass": hgmma,
+           "ptxas_warnings": warned, "probe_max_abs_err": probe}
+    check(st == 0 and ld == 0 and local == 0, f"{HD256_BODY} spills: "
+          f"{st}/{ld} B, local {local} B")
+    check(not warned, f"ptxas on {HD256_BODY}: {warned}")
+    check(hgmma > 0, f"{HD256_BODY} has no HGMMA in its SASS")
+    check(per_sm == 1, f"{HD256_BODY}: {per_sm} blocks an SM, want 1")
+    check(max(probe.values()) <= 1e-3, f"wgmma probe against torch.matmul: "
+          f"{probe} (tol 1e-3)")
+    line = (f"{HD256_BODY} (bf16 hd 256): {threads} threads (a producer "
+            f"warpgroup at {regs_p} registers a thread, two consumer "
+            f"warpgroups at {regs_c}, by setmaxnreg; {regs_entry} at entry), "
+            f"spill {st}/{ld} B, local {local} B; {smem} B of dynamic shared "
+            f"memory, {per_sm} block an SM; {hgmma} HGMMA (wgmma) "
+            f"instructions in its SASS; no ptxas line on wgmma "
+            f"serialization or setmaxnreg; wgmma probe (one tile's q k^T "
+            f"and p v) against torch.matmul: max abs err {probe['d']:.3g} / "
+            f"{probe['e']:.3g} (tol 1e-3)")
+    return rep, [line]
+
+
 def flash256_entry(torch, dev, rehearse, timer, ktimer):
-    """(a) The hd 256 body at paligemma's shape, causal, in bf16 and
+    """(a) bf16's wgmma body as built (``hd256_body_report``), then the
+    hd 256 body at paligemma's shape, causal, in bf16 and
     float32 against the plain version, each timed three ways beside the
     plain version and SDPA (causal, GQA) on the same inputs, with its
     bound: the causal half of 4 B H S^2 hd FLOPs at the type's
@@ -5799,7 +5880,7 @@ def flash256_entry(torch, dev, rehearse, timer, ktimer):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     flops = 4 * B * H * S * S * hd // 2          # the causal half
     entry = {"shape": [B, H, KV, S, hd], "causal": True, "launches": None}
-    lines = []
+    entry["body"], lines = hd256_body_report(torch, dev, rehearse)
     for dt, name in ((torch.bfloat16, "bfloat16"), (torch.float32,
                                                     "float32")):
         (q, k, v), err = flash_case(torch, FA, dev, shape, dt, SEED + 30,

@@ -53,7 +53,9 @@ _SIGNATURES = {
         "cam_head_launch": ([_VP] * 6 + [_I] * 4 + [_VP], _I)},
     "flash_attention": {
         "flash_attention_launch": ([_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
-                                    _I, _I, _I, _I, _F, _VP], _I)},
+                                    _I, _I, _I, _I, _F, _VP], _I),
+        "flash_attention_wgmma_probe": ([_VP] * 6, _I),
+        "flash_attention_hd256_info": ([_PI], _I)},
     "rwkv6_scan": {
         "rwkv6_scan_launch": ([_PLL, _VP], _I)},
     "decode_attention": {

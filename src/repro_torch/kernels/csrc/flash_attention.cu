@@ -58,24 +58,27 @@
 //     folded into one FMA per score; row maxima are reduced over the 4
 //     lanes of a row with shuffles, row sums only once at the end;
 //   - a warp whose rows all precede a causal key tile skips its math.
-// Head dim 256 (paligemma-3b's) changes four things, for want of
-// registers in bf16 and of shared memory in fp32, and for fp32's sums:
+// Float32 at head dim 256 (paligemma-3b's) changes four things, for want
+// of shared memory and for its sums:
 //   - the key tile is 32 keys, so the S tile is 16 floats a thread beside
 //     the 128 of the o accumulator (16 rows x 256 columns a warp);
 //   - q is staged raw in shared memory (cp.async, with the first k / v
-//     tile) and its fragments are read per head-dim step: 64 registers of
-//     bf16 q fragments would not fit beside the accumulator, and split
-//     fp32 planes of q (133 KB) would not fit beside the k / v stages;
-//     fp32 splits its q fragment as it reads it, once per step and tile;
-//   - shared memory is 4 x 32 x 264 x 2 + 64 x 264 x 2 = 101,376 B in
-//     bf16 (two blocks an SM) and 4 x 32 x 260 x 4 + 64 x 260 x 4 =
-//     199,680 B in fp32 (one), both under the 232,448 B opt-in limit;
-//   - fp32 adds each head-dim step's large q k^T term to the score with
-//     one rounded fp32 add instead of leaving it in the mma's accumulator,
+//     tile) and split as its fragments are read, once per step and tile:
+//     split fp32 planes of q (133 KB) would not fit beside the k / v
+//     stages;
+//   - shared memory is 4 x 32 x 260 x 4 + 64 x 260 x 4 = 199,680 B (one
+//     block an SM), under the 232,448 B opt-in limit;
+//   - each head-dim step's large q k^T term is added to the score with
+//     one rounded fp32 add instead of being left in the mma's accumulator,
 //     whose running sum is truncated: over 32 steps that lost 1e-4 of a
 //     peaky softmax's output (q and k scaled by 8).
+// Bf16 at head dim 256 has a body of its own for Hopper, below
+// (flash_attention_kernel_hd256_wgmma): warpgroup MMA on TMA-fed tiles.
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched
+                   // through cudaGetDriverEntryPoint (no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -93,7 +96,7 @@ struct Cfg {
   static constexpr int kJ = kBK / 8;                         // S n-tiles
   static constexpr int kPitch = HD + 16 / (int)sizeof(T);   // elements
   static constexpr int kTile = kBK * kPitch;                 // elements
-  static constexpr bool kQRaw = HD == 256;         // q raw in shared mem
+  static constexpr bool kQRaw = HD == 256;   // q raw in shared mem (fp32)
   static constexpr bool kQReg = !kQRaw && (!kF32 || HD <= 64);  // in regs
   static constexpr int kQPitch = HD + 4;       // floats (fp32 hd 128 split)
   static constexpr int kNT = HD / 8;                         // o n-tiles
@@ -103,8 +106,8 @@ struct Cfg {
       4 * (size_t)kTile * sizeof(T) +
       (kQRaw ? (size_t)kBQ * kPitch * sizeof(T)
              : kQReg ? 0 : 2 * (size_t)kBQ * kQPitch * sizeof(float));
-  static constexpr int kMinBlocks =
-      HD == 32 ? 4 : (HD == 64 || (HD == 256 && !kF32) ? 2 : 1);
+  static constexpr int kMinBlocks = HD == 32 ? 4 : (HD == 64 ? 2 : 1);
+  static_assert(kF32 || HD != 256, "bf16 hd 256 runs the wgmma body");
 };
 
 // x rounded to TF32 (to nearest, ties away from zero, as cvt.rna does)
@@ -220,7 +223,7 @@ __device__ __forceinline__ void load_tile(T* ks, T* vs, const T* kb,
 }
 
 // the block's q rows q0 .. q0 + kBQ - 1, raw, at the k / v pitch (rows
-// past Sq zeroed); hd 256 only
+// past Sq zeroed); fp32 hd 256 only
 template <typename T, int HD>
 __device__ __forceinline__ void load_q(T* qs, const T* qb, int q0, int Sq) {
   using C = Cfg<T, HD>;
@@ -453,21 +456,6 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int j = 0; j < kJ; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[0][j][e] += sl[j][e];
-      } else if constexpr (C::kQRaw) {  // bf16 hd 256: q read per k-step
-        const uint32_t* qr = reinterpret_cast<const uint32_t*>(
-            qs_raw + (warp * 16 + g) * C::kPitch + 2 * t);
-        constexpr int r8 = 4 * C::kPitch;           // 8 rows, in words
-#pragma unroll 2
-        for (int kk = 0; kk < HD / 16; ++kk) {
-          const uint32_t a[4] = {qr[kk * 8], qr[r8 + kk * 8],
-                                 qr[kk * 8 + 4], qr[r8 + kk * 8 + 4]};
-#pragma unroll
-          for (int j = 0; j < kJ; ++j) {
-            const uint32_t* kr = reinterpret_cast<const uint32_t*>(
-                ks + (j * 8 + g) * C::kPitch + 2 * t);
-            mma_bf16(s[0][j], a, kr[kk * 8], kr[kk * 8 + 4]);
-          }
-        }
       } else {
 #pragma unroll
         for (int j = 0; j < kJ; ++j) {
@@ -640,6 +628,666 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Bf16 at head dim 256: warpgroup MMA (wgmma) on TMA-fed tiles, sm_90a.
+//
+// Bound at paligemma-3b's (8, 8, 1, 1024, 256) causal: the causal half of
+// 4 B H S^2 hd is 34.4 GFLOP, 0.0347 ms at 989 TFLOP/s, against 38 MB of
+// q, k, v and o.  mma.sync reaches a fraction of that rate; only wgmma,
+// fed by TMA, reaches the tensor cores' full rate.  The design follows
+// FlashAttention-3's forward at hd 256 (Shah et al., arXiv:2407.08608):
+//   - a block owns 128 query rows of one (batch, head): two consumer
+//     warpgroups of 64 rows each, and a producer warpgroup of which one
+//     thread issues the TMA loads; setmaxnreg gives each consumer thread
+//     240 registers (o: 64 x 256 fp32 a warpgroup, 128 a thread; s: 32;
+//     p: 16 bf16 pairs) and each producer thread 24;
+//   - shared memory: the q tile (128 x 256, 64 KB, loaded once) and a
+//     two-stage ring of k and v tiles (64 keys x 256, 32 KB each), 192 KB
+//     in all, one block an SM.  Each stage has a full barrier for k and
+//     one for v, armed by the producer with expect_tx, and an empty
+//     barrier that each consumer warp arrives on when it is done;
+//   - TMA: 3-D tensor maps (hd, S, B x heads) with 128-byte swizzle and
+//     boxes of 64 head-dim columns (128 bytes, the swizzle's width), so a
+//     tile is four boxes and never reads past its own head's last key
+//     (rows past Sk or Sq come back zero).  The maps (q, k, v and o) are
+//     encoded on the host per call and passed as __grid_constant__
+//     arguments;
+//   - S = q k^T: 16 wgmma m64n64k16 over hd, q and k both K-major in
+//     shared memory; a k-step moves the descriptors 32 bytes inside a box
+//     (the swizzle is a function of the address), the next box is a box
+//     further on;
+//   - the online softmax is the other bodies' (fp32 scores, base 2 with
+//     scale * log2(e) in one FMA, NEG_INF masks and the masked-weight
+//     rule, rows reduced over the 4 lanes that share them); p is rounded
+//     to bf16 straight into wgmma's A registers: the m64nNk16 accumulator
+//     layout is the register A layout of the next product;
+//   - o += p v: 4 wgmma m64n256k16, A from registers, v read MN-major from
+//     shared memory through the instruction's transpose bit;
+//   - the TPU kernel's tile-skipping rules at 64-key tiles; a warpgroup
+//     whose 64 rows all precede a causal tile, lie past Sq or lie past a
+//     sliding window skips its math (exact: such keys weigh 0 once a row
+//     has a real score), and only tiles on an edge are masked;
+//   - the two consumer warpgroups issue their score products in turns
+//     (two named barriers), so that one's softmax runs while the tensor
+//     cores take the other's products: waiting on the same k tile, they
+//     would otherwise reach the tensor cores and the softmax together;
+//   - o = acc / l by l's rounded reciprocal and one FMA correction an
+//     element: the correctly rounded quotient, in three instructions
+//     where a division takes several more; each warpgroup stages its
+//     bf16 rows in its own q rows (swizzled as the maps) and one TMA
+//     store per box writes them, clipped at Sq: scattered 4-byte stores
+//     from the accumulator's layout cost 9% of the time at S 1,024;
+//   - blocks are launched longest-first (the q tile is the slowest block
+//     index, reversed), so causal blocks finish together.
+// A repeated call is bit-identical: no atomics, a fixed order of sums.
+namespace wg {
+
+constexpr int kBM = 128;                        // query rows a block
+constexpr int kBN = 64;                         // keys a tile
+constexpr int kHD = 256;
+constexpr int kBoxCols = 64;                    // 128 bytes of bf16
+constexpr int kThreads = 3 * 128;               // producer + 2 consumers
+constexpr int kConsumerRegs = 240, kProducerRegs = 24;
+constexpr uint32_t kRowBytes = kBoxCols * 2;    // a box row: 128 B
+constexpr uint32_t kQBox = kBM * kRowBytes;     // 16 KB
+constexpr uint32_t kKBox = kBN * kRowBytes;     // 8 KB
+constexpr uint32_t kQBytes = 4 * kQBox;         // 64 KB
+constexpr uint32_t kTileBytes = 4 * kKBox;      // 32 KB, k or v
+constexpr uint32_t kBarOff = kQBytes + 4 * kTileBytes;  // 2 stages of k, v
+// barriers (8 bytes each) at kBarOff: q, full k[2], full v[2], empty[2]
+constexpr size_t kSmem = 1024 + kBarOff + 7 * 8;   // 1024: base alignment
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// arrive once and expect `bytes` more of TMA traffic on the phase
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// box (c0 columns, c1 rows, c2 the head) of `map` into shared memory at
+// dst, completing on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// a box of shared memory at src to (c0 columns, c1 rows, c2 the head) of
+// `map`; rows past the map's end are not written
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
+                                          int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// wait until every committed group is done
+__device__ __forceinline__ void wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// keeps the compiler from moving accesses to r across a wgmma's async
+// window (the asm statements order the instructions, not the registers)
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// shared-memory matrix descriptor, 128-byte swizzle: start address, the
+// leading and stride byte offsets (all >> 4)
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+// K-major (q, k): rows of 128 B, 8-row groups 1024 B apart (lbo unused)
+__device__ __forceinline__ uint64_t desc_k(uint32_t addr) {
+  return desc(addr, 16, 1024);
+}
+// MN-major (v read along hd): the four 64-column boxes kKBox apart, 8-key
+// groups 1024 B apart
+__device__ __forceinline__ uint64_t desc_mn(uint32_t addr) {
+  return desc(addr, kKBox, 1024);
+}
+
+// d (64 x 64 fp32) = (acc ? d : 0) + a (64 x 16) b^T (b 64 x 16); a and b
+// K-major in shared memory
+__device__ __forceinline__ void mma_64x64(float (&d)[32], uint64_t da,
+                                          uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d (64 x 256 fp32) += a (64 x 16, bf16 pairs in registers) b (16 x 256);
+// b MN-major in shared memory (transposed on read)
+__device__ __forceinline__ void mma_64x256(float (&d)[128],
+                                           const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127 "
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]),
+        "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]),
+        "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]),
+        "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]),
+        "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]),
+        "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]),
+        "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// s = a b^T over the 256 head dims: 16 k-steps, 4 in each 64-column box;
+// `a_box` is the byte distance between a's boxes
+__device__ __forceinline__ void qk(float (&s)[32], uint32_t a, uint32_t a_box,
+                                   uint32_t b) {
+  const uint64_t da = desc_k(a), db = desc_k(b);
+#pragma unroll
+  for (int kk = 0; kk < kHD / 16; ++kk)
+    mma_64x64(s, da + (((kk >> 2) * a_box + (kk & 3) * 32) >> 4),
+              db + (((kk >> 2) * kKBox + (kk & 3) * 32) >> 4), kk > 0);
+}
+
+// p as wgmma's A fragments: k-step kk (keys 16 kk ..) from s's n-tiles
+// 2 kk and 2 kk + 1, rows g and g + 8
+__device__ __forceinline__ void pack_p(uint32_t (&p)[16],
+                                       const float (&s)[32]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+}
+
+// o += p v over the tile's 64 keys: 4 k-steps of 16 keys (2 KB of v each)
+__device__ __forceinline__ void pv(float (&o)[128], const uint32_t (&p)[16],
+                                   uint32_t v) {
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk)
+    mma_64x256(o, p + 4 * kk, desc_mn(v + kk * 16 * kRowBytes));
+}
+
+// the online softmax of one tile's scores, as in flash_attention_kernel
+// above: s[4 j + e] (row ra + 8 (e >> 1), key k0 + 8 j + 2 t + (e & 1))
+// becomes its weight in fp32; m and l are the rows' running max (scaled,
+// base 2) and this lane's share of their sums, corr the factor that
+// rescales the rows' accumulator.  Masked raw scores are NEG_INF; m is
+// NEG_INF while every score of its row so far is masked, so a masked
+// score weighs exp2(NEG_INF - m): 1 then, 0 once m is real, as the TPU
+// kernel's exp(NEG_INF - m)
+__device__ __forceinline__ void softmax(float (&s)[32], float (&m)[2],
+                                        float (&l)[2], float (&corr)[2],
+                                        bool need_mask, int ra, int k0,
+                                        int t, int Sk, int causal,
+                                        int window, float scale_log2) {
+  if (need_mask) {
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int qp = ra + ((j >> 1) & 1) * 8;
+      const int kp = k0 + (j >> 2) * 8 + 2 * t + (j & 1);
+      bool keep = kp < Sk;
+      if (causal) keep = keep && qp >= kp;
+      if (window > 0) keep = keep && qp - kp < window;
+      if (!keep) s[j] = kNegInf;
+    }
+  }
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+    mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], s[j]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new =
+        fmaxf(m[r], mx[r] == kNegInf ? kNegInf : mx[r] * scale_log2);
+    corr[r] = ex2(m[r] - m_new);
+    m[r] = m_new;
+    l[r] *= corr[r];
+  }
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int r = (j >> 1) & 1;
+    const float x = fmaf(s[j], scale_log2, -m[r]);
+    s[j] = ex2(need_mask && s[j] == kNegInf ? kNegInf - m[r] : x);
+    l[r] += s[j];
+  }
+}
+
+// warpgroup `id`'s turn at the tensor cores: the consumer warpgroups
+// issue their score products in turns (named barriers 1 and 2, both
+// warpgroups' 256 threads), so that one's softmax runs while the other's
+// product does
+__device__ __forceinline__ void turn_wait(int id) {
+  asm volatile("bar.sync %0, 256;" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int id) {
+  asm volatile("bar.arrive %0, 256;" ::"r"(id) : "memory");
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_kernel_hd256_wgmma(const __grid_constant__ CUtensorMap mq,
+                                   const __grid_constant__ CUtensorMap mk,
+                                   const __grid_constant__ CUtensorMap mv,
+                                   const __grid_constant__ CUtensorMap mo,
+                                   int BH, int H, int KV, int Sq, int Sk,
+                                   int n_q, float scale_log2, int causal,
+                                   int window) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t sq = base;                     // q: 4 boxes of 128 rows
+  const uint32_t bar = base + kBarOff;
+  const uint32_t full_q = bar, full_k = bar + 8, full_v = bar + 24,
+                 empty = bar + 40;              // + 8 x stage
+
+  const int bh = blockIdx.x % BH;               // b * H + h
+  const int q0 = (n_q - 1 - blockIdx.x / BH) * kBM;   // longest first
+  const int kvh = (bh / H) * KV + (bh % H) / (H / KV);
+  const int q_hi = min(q0 + kBM, Sq) - 1;       // last real query row
+
+  // the TPU kernel's skipping rules, on the block's real rows
+  const int n_k = (Sk + kBN - 1) / kBN;
+  const int t_end = causal ? min(n_k, q_hi / kBN + 1) : n_k;
+  int t_begin = 0;
+  if (window > 0) {
+    const int x = q0 - window - (kBN - 2);
+    if (x > 0) t_begin = (x + kBN - 1) / kBN;
+  }
+  const int n_t = max(t_end - t_begin, 0);      // tiles t_begin + i
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);              // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(full_q, kQBytes);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        tma_load(sq + c * kQBox, &mq, full_q, c * kBoxCols, q0, bh);
+      for (int i = 0; i < n_t; ++i) {
+        const int s = i & 1;
+        if (i >= 2) mbar_wait(empty + 8 * s, ((i >> 1) & 1) ^ 1);
+        const int k0 = (t_begin + i) * kBN;
+        const uint32_t ks = base + kQBytes + 2 * s * kTileBytes;
+        mbar_expect_tx(full_k + 8 * s, kTileBytes);
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          tma_load(ks + c * kKBox, &mk, full_k + 8 * s, c * kBoxCols, k0,
+                   kvh);
+        mbar_expect_tx(full_v + 8 * s, kTileBytes);
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          tma_load(ks + kTileBytes + c * kKBox, &mv, full_v + 8 * s,
+                   c * kBoxCols, k0, kvh);
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns rows q0 + 64 wg .. + 63
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+    const int wg = threadIdx.x / 128 - 1;
+    const int warp = (threadIdx.x >> 5) & 3;
+    const int lane = threadIdx.x & 31;
+    const int t = lane & 3;
+    const int row0 = q0 + 64 * wg;              // the warpgroup's rows
+    const int row_last = row0 + 63;
+    const int wrow0 = row0 + 16 * warp;         // the warp's rows
+    const int ra = wrow0 + (lane >> 2);         // this thread's: ra, ra + 8
+    const uint32_t qw = sq + wg * 64 * kRowBytes;
+
+    // the tiles whose math the warpgroup runs, [i_lo, i_hi): none past
+    // Sq, none after a causal tile past its last row, none before a tile
+    // that reaches into its first row's window
+    int i_lo = 0, i_hi = row0 < Sq ? n_t : 0;
+    if (causal) i_hi = min(i_hi, row_last / kBN + 1 - t_begin);
+    if (window > 0) {
+      const int x = row0 - window - (kBN - 1);
+      if (x >= 0) i_lo = x / kBN + 1 - t_begin;
+    }
+    i_lo = min(max(i_lo, 0), n_t);
+    i_hi = min(max(i_hi, i_lo), n_t);
+
+    // o at acc[4 j + e]: row ra + 8 (e >> 1), column 8 j + 2 t + (e & 1);
+    // the tile's scores, then weights, at sc[4 j + e]: the same row, key
+    // k0 + 8 j + 2 t + (e & 1)
+    float acc[128], sc[32];
+#pragma unroll
+    for (int e = 0; e < 128; ++e) acc[e] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sc[e] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+    // every tile is a turn of both warpgroups, run or not, so that their
+    // turns pair up; warpgroup 0 goes first
+    if (wg == 1) turn_pass(1);
+    mbar_wait(full_q, 0);
+    for (int i = 0; i < n_t; ++i) {
+      const int s = i & 1;
+      const uint32_t ph = (i >> 1) & 1;
+      const int k0 = (t_begin + i) * kBN;
+      const uint32_t ks = base + kQBytes + 2 * s * kTileBytes;
+      const bool run = i >= i_lo && i < i_hi;
+      mbar_wait(full_k + 8 * s, ph);
+      if (run) {
+        // ---- S = q k^T (the first k-step ignores sc's old values)
+        pin(sc);
+        turn_wait(1 + wg);
+        fence();
+        qk(sc, qw, kQBox, ks);
+        commit();
+        turn_pass(2 - wg);
+        wait_all();
+        pin(sc);
+
+        // ---- mask, online softmax (base 2), rescale the accumulator
+        const bool need_mask = k0 + kBN > Sk ||
+                               (causal && k0 + kBN - 1 > wrow0) ||
+                               (window > 0 && wrow0 + 15 - k0 >= window);
+        float corr[2];
+        softmax(sc, m, l, corr, need_mask, ra, k0, t, Sk, causal, window,
+                scale_log2);
+        uint32_t p[16];
+        pack_p(p, sc);
+#pragma unroll
+        for (int e = 0; e < 128; ++e) acc[e] *= corr[(e >> 1) & 1];
+
+        // ---- o += p v
+        mbar_wait(full_v + 8 * s, ph);
+        pin(acc);
+        pin(p);
+        fence();
+        pv(acc, p, ks + kTileBytes);
+        commit();
+        wait_all();
+        pin(acc);
+      } else {
+        turn_wait(1 + wg);
+        turn_pass(2 - wg);
+        mbar_wait(full_v + 8 * s, ph);          // the stage's loads landed
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * s);   // the stage may be refilled
+    }
+
+    // ---- o = acc / max(l, 1e-30) in bf16, staged in the warpgroup's own
+    // q rows (its products are done) in the map's swizzled layout, then
+    // stored by TMA, which writes no row past Sq
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float li = l[r];
+      li += __shfl_xor_sync(0xffffffffu, li, 1);
+      li += __shfl_xor_sync(0xffffffffu, li, 2);
+      li = fmaxf(li, 1e-30f);
+      // x / li rounded to nearest, in three instructions: the product with
+      // the rounded reciprocal, corrected by its exact residual (one FMA)
+      // (tests/test_torch_attention.py pins that this is the quotient)
+      const float rl = __frcp_rn(li);
+      auto quot = [&](float x) {
+        const float q = x * rl;
+        return fmaf(fmaf(-q, li, x), rl, q);
+      };
+      const int rr = ra - row0 + 8 * r;         // the row in the warpgroup's
+#pragma unroll
+      for (int c = 0; c < 32; ++c) {
+        const uint32_t at = qw + (c >> 3) * kQBox + rr * kRowBytes +
+                            (((c & 7) ^ (rr & 7)) << 4) + 4 * t;
+        const uint32_t v = pack_bf16(quot(acc[4 * c + 2 * r]),
+                                     quot(acc[4 * c + 2 * r + 1]));
+        asm volatile("st.shared.b32 [%0], %1;" ::"r"(at), "r"(v) : "memory");
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("bar.sync %0, 128;" ::"r"(3 + wg) : "memory");
+    if ((threadIdx.x & 127) == 0 && row0 < Sq) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        tma_store(&mo, qw + c * kQBox, c * kBoxCols, row0, bh);
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+    }
+  }
+}
+
+// One warpgroup, the body's two products on one tile: d (64 x 64 fp32) =
+// a b^T, then e (64 x 256 fp32) = bf16(d) c, for a, b, c (64 x 256) bf16
+// through the same tensor maps, descriptors and wgmma wrappers
+__global__ void __launch_bounds__(128, 1)
+flash_attention_wgmma_probe_kernel(const __grid_constant__ CUtensorMap ma,
+                                   const __grid_constant__ CUtensorMap mb,
+                                   const __grid_constant__ CUtensorMap mc,
+                                   float* __restrict__ d,
+                                   float* __restrict__ e) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t bar = base + 3 * kTileBytes;
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bar, 3 * kTileBytes);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      tma_load(base + c * kKBox, &ma, bar, c * kBoxCols, 0, 0);
+      tma_load(base + kTileBytes + c * kKBox, &mb, bar, c * kBoxCols, 0, 0);
+      tma_load(base + 2 * kTileBytes + c * kKBox, &mc, bar, c * kBoxCols, 0,
+               0);
+    }
+  }
+  mbar_wait(bar, 0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ra = 16 * warp + (lane >> 2), t = lane & 3;
+  float s[32];
+#pragma unroll
+  for (int j = 0; j < 32; ++j) s[j] = 0.f;
+  pin(s);
+  fence();
+  qk(s, base, kKBox, base + kTileBytes);
+  commit();
+  wait_all();
+  pin(s);
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+    d[(ra + 8 * ((j >> 1) & 1)) * 64 + 8 * (j >> 2) + 2 * t + (j & 1)] = s[j];
+  uint32_t p[16];
+  pack_p(p, s);
+  float acc[128];
+#pragma unroll
+  for (int j = 0; j < 128; ++j) acc[j] = 0.f;
+  pin(acc);
+  fence();
+  pv(acc, p, base + 2 * kTileBytes);
+  commit();
+  wait_all();
+  pin(acc);
+#pragma unroll
+  for (int j = 0; j < 128; ++j)
+    e[(ra + 8 * ((j >> 1) & 1)) * 256 + 8 * (j >> 2) + 2 * t + (j & 1)] =
+        acc[j];
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, or null
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) {
+      cudaGetLastError();
+      p = nullptr;
+    }
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A refused tensor map is returned as kMapError + its CUresult (the
+// wrapper names it); cudaError_t values stay below it
+constexpr int kMapError = 100000;
+
+// (rows, 256) bf16 matrices of `heads` heads, contiguous, as a 3-D map
+// with boxes of (64 columns, box_rows rows, 1 head), 128-byte swizzle;
+// rows past `rows` read as zero and are not written
+int make_map(CUtensorMap* map, const void* base, long long rows,
+             long long heads, int box_rows) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return kMapError + (int)CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[3] = {(cuuint64_t)kHD, (cuuint64_t)rows,
+                              (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)kHD * 2,
+                                 (cuuint64_t)rows * kHD * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)kBoxCols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                         const_cast<void*>(base), dims, strides, box, unit,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kMapError + (int)r;
+}
+
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int H, int KV, int Sq, int Sk, float scale, int causal,
+           int window, cudaStream_t stream) {
+  const long long BH = (long long)B * H;
+  const long long n_q = (Sq + kBM - 1) / kBM;
+  if (n_q * BH > INT_MAX) return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv, mo;
+  int rc = make_map(&mq, q, Sq, BH, kBM);
+  if (rc == 0) rc = make_map(&mk, k, Sk, (long long)B * KV, kBN);
+  if (rc == 0) rc = make_map(&mv, v, Sk, (long long)B * KV, kBN);
+  if (rc == 0) rc = make_map(&mo, o, Sq, BH, kBM / 2);   // a warpgroup's
+  if (rc != 0) return rc;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_attention_kernel_hd256_wgmma,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  flash_attention_kernel_hd256_wgmma<<<(unsigned)(n_q * BH), kThreads, kSmem,
+                                       stream>>>(
+      mq, mk, mv, mo, (int)BH, H, KV, Sq, Sk, (int)n_q, scale * kLog2e,
+      causal, window);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wg
+
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int KV, int Sq, int Sk, float scale, int causal,
@@ -675,8 +1323,12 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
       return launch<T, 128>(q, k, v, o, B, H, KV, Sq, Sk, scale, causal,
                             window, s);
     case 256:
-      return launch<T, 256>(q, k, v, o, B, H, KV, Sq, Sk, scale, causal,
-                            window, s);
+      if constexpr (std::is_same<T, float>::value)
+        return launch<T, 256>(q, k, v, o, B, H, KV, Sq, Sk, scale, causal,
+                              window, s);
+      else
+        return wg::launch(q, k, v, o, B, H, KV, Sq, Sk, scale, causal,
+                          window, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -690,7 +1342,8 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
 // window.  scale is the softmax scale of the true head dim: the wrapper
 // zero-pads q, k and v of any other hd <= 256 up to the next of these
 // bodies, which changes no score and no kept column.  Returns
-// cudaGetLastError() of the launch.
+// cudaGetLastError() of the launch, or 100000 + the CUresult of a tensor
+// map the driver refused (bf16 hd 256).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int H,
                                       int KV, int Sq, int Sk, int hd,
@@ -709,4 +1362,60 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return launch_hd<__nv_bfloat16>(q, k, v, o, B, H, KV, Sq, Sk, hd, scale,
                                     causal, window, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 hd 256 body's two products on one tile, for a card test: a, b,
+// c (64, 256) bf16, contiguous, 16-byte aligned; d (64, 64) = a b^T and
+// e (64, 256) = bf16(d) c, both float32.  Returns as above.
+extern "C" int flash_attention_wgmma_probe(const void* a, const void* b,
+                                           const void* c, void* d, void* e,
+                                           void* stream) {
+  CUtensorMap ma, mb, mc;
+  int rc = wg::make_map(&ma, a, 64, 1, 64);
+  if (rc == 0) rc = wg::make_map(&mb, b, 64, 1, 64);
+  if (rc == 0) rc = wg::make_map(&mc, c, 64, 1, 64);
+  if (rc != 0) return rc;
+  const size_t smem = 1024 + 3 * wg::kTileBytes + 8;
+  cudaError_t err = cudaFuncSetAttribute(
+      wg::flash_attention_wgmma_probe_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  wg::flash_attention_wgmma_probe_kernel<<<1, 128, smem,
+                                           (cudaStream_t)stream>>>(
+      ma, mb, mc, (float*)d, (float*)e);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 hd 256 body's launch shape and resources, for a report: out[0]
+// its dynamic shared memory (bytes), [1] threads a block, [2] and [3] the
+// registers a consumer and a producer thread get (setmaxnreg), [4] the
+// registers at entry and [5] the local memory a thread (spills), as the
+// runtime reads them from the binary, [6] its blocks an SM.  Returns a
+// cudaError_t.
+extern "C" int flash_attention_hd256_info(int* out) {
+  auto fn = wg::flash_attention_kernel_hd256_wgmma;
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wg::kSmem);
+  cudaFuncAttributes attr;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, fn);
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn,
+                                                      wg::kThreads,
+                                                      wg::kSmem);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  out[0] = (int)wg::kSmem;
+  out[1] = wg::kThreads;
+  out[2] = wg::kConsumerRegs;
+  out[3] = wg::kProducerRegs;
+  out[4] = attr.numRegs;
+  out[5] = (int)attr.localSizeBytes;
+  out[6] = blocks;
+  return 0;
 }

@@ -6,7 +6,10 @@ version.
 ``sliding_window`` masks, in float32 or bfloat16.  On a CUDA tensor it
 launches ``csrc/flash_attention.cu``, whose bodies take hd 32, 64, 128
 and 256 (``HEAD_DIMS``) and any Sq and Sk (the kernel masks the ragged
-edge itself).  Every other hd up to 256 runs through the kernel too, as
+edge itself); bf16 at hd 256 runs a Hopper body of its own (warpgroup
+MMA on TMA-fed tiles, whose tensor maps the driver may refuse: that
+raises too).  ``wgmma_probe`` runs that body's two products on one tile,
+for a card test.  Every other hd up to 256 runs through the kernel too, as
 the Pallas kernel runs any hd: q, k and v are zero-padded along hd up to
 the next body, which runs with the true hd's scale, and the output is
 sliced back.  Zero columns add nothing to a score and leave the kept
@@ -28,6 +31,14 @@ from repro_torch.kernels import build, ref
 
 HEAD_DIMS = (32, 64, 128, 256)      # the kernel's bodies
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_MAP_ERROR = 100000     # the C side's code for a refused tensor map, + CUresult
+
+
+def _check_rc(rc: int, what: str) -> None:
+    if rc >= _MAP_ERROR:
+        raise RuntimeError(f"{what}: the driver refused a TMA tensor map "
+                           f"(CUresult {rc - _MAP_ERROR})")
+    build.check(rc, what)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -110,6 +121,32 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         Sq, Sk, body, _DTYPE_CODES[q.dtype], int(causal),
         0 if sliding_window is None else int(sliding_window),
         1.0 / math.sqrt(hd), stream)
-    build.check(rc, "flash_attention_launch")
+    _check_rc(rc, "flash_attention_launch")
     build.LAUNCHES["flash_attention_bhsd"] += 1
     return out if body == hd else out[..., :hd].contiguous()
+
+
+def wgmma_probe(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 hd 256 body's two products on one tile, on the card: a, b,
+    c (64, 256) bf16 -> (a b^T, bf16(a b^T) c) in float32, (64, 64) and
+    (64, 256), through the body's tensor maps, shared-memory descriptors
+    and wgmma operand layouts.  It counts no launch: it is no part of
+    any path."""
+    for name, t in (("a", a), ("b", b), ("c", c)):
+        if t.device.type != "cuda" or t.device != a.device \
+                or t.dtype != torch.bfloat16 \
+                or tuple(t.shape) != (64, 256) or not t.is_contiguous() \
+                or t.data_ptr() % 16:
+            raise ValueError(f"wgmma_probe: {name} must be a contiguous, "
+                             f"16-byte aligned (64, 256) bfloat16 CUDA "
+                             f"tensor, got {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}")
+    lib = build.library("flash_attention")
+    d = torch.empty(64, 64, dtype=torch.float32, device=a.device)
+    e = torch.empty(64, 256, dtype=torch.float32, device=a.device)
+    rc = lib.flash_attention_wgmma_probe(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), d.data_ptr(), e.data_ptr(),
+        torch.cuda.current_stream(a.device).cuda_stream)
+    _check_rc(rc, "flash_attention_wgmma_probe")
+    return d, e

@@ -11,10 +11,13 @@ outputs of magnitude ~1), as tests/test_kernels.py holds the Pallas
 kernel; the filter forward at rtol 1e-4 / atol 1e-3, as the port's other
 filter tests (float32 matmuls summed in another order).  A TF32
 emulation on numpy's float32 bits pins the float32 kernel's numerical
-premise: its 3xTF32 split holds 1e-4 where one TF32 pass does not.
+premise: its 3xTF32 split holds 1e-4 where one TF32 pass does not, and
+exact rational arithmetic pins the bf16 hd 256 body's epilogue: its
+reciprocal-and-FMA quotient is the correctly rounded float32 division.
 """
 import dataclasses
 import math
+from fractions import Fraction
 
 import jax
 import jax.numpy as jnp
@@ -157,6 +160,42 @@ def test_tf32_split_holds_fp32_tolerance_where_one_pass_misses():
     assert three <= 1e-4, three
     assert one > 1e-4, one
     assert _tf32(np.float32(1 + 2 ** -11)) == np.float32(1 + 2 ** -10)
+
+
+def _rn32(x):
+    """An exact rational rounded to the nearest float32 (ties to even)."""
+    f = np.float32(float(x))
+    near = (np.nextafter(f, np.float32(-np.inf)), f,
+            np.nextafter(f, np.float32(np.inf)))
+    return min(near, key=lambda c: (abs(Fraction(float(c)) - x),
+                                    int(c.view(np.uint32)) & 1))
+
+
+def _fma32(a, b, c):
+    return _rn32(Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c)))
+
+
+def test_epilogue_quotient_is_correctly_rounded():
+    """The bf16 hd 256 body divides its accumulator by the row sum l with
+    l's rounded reciprocal r and one FMA correction, q = x r, then
+    fma(fma(-q, l, x), r, q); this pins that it gives x / l rounded to
+    nearest, the quotient of a float32 division, on the rows' range: l
+    from 1 (a row's largest weight is 1) to 1e5 and the empty row's
+    1e-30, x up to 10 l in size, zero, l a power of two and just below
+    one.  Exact rational arithmetic stands in for the card's FMA."""
+    rng = np.random.default_rng(3)
+    l = np.float32(10.0 ** rng.uniform(0, 5, 3000))
+    x = np.float32(l * rng.normal(0, 1, 3000)
+                   * 10.0 ** rng.uniform(-3, 1, 3000))
+    pairs = list(zip(x, l))
+    for li in (1.0, 2.0, 3.0, 1e-30, np.nextafter(np.float32(2), 0)):
+        li = np.float32(li)
+        pairs += [(np.float32(0), li)] + [
+            (xi, li) for xi in np.float32(rng.normal(0, 1, 200) * li)]
+    for xi, li in pairs:
+        r = _rn32(Fraction(1) / Fraction(float(li)))
+        q = xi * r
+        assert _fma32(_fma32(-q, li, xi), r, q) == xi / li, (xi, li)
 
 
 @pytest.mark.parametrize("S,impl,to_flash", [

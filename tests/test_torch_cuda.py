@@ -20,6 +20,8 @@ smaller, since a long cache's outputs are far below 1.  The WKV scan at
 the JAX kernel test's 5e-3 (and one bf16 step of its output, rtol 1e-2).
 Flash attention runs at its four bodies (hd 32, 64, 128, 256) and at
 head dims between them, zero-padded up to the next body; hd 320 raises.
+Bf16 hd 256's wgmma body is swept over the edges of its tiles, and its
+two products on one tile are held against ``torch.matmul`` at 1e-3.
 """
 import dataclasses
 
@@ -426,7 +428,24 @@ FLASH_SWEEP = (
     + [(1, 300, 300, 4, 1, 256, True, 100, "float32"),
        (2, 300, 300, 4, 2, 256, True, 64, "bfloat16"),
        (1, 77, 300, 2, 1, 256, False, None, "bfloat16"),
-       (1, 300, 77, 2, 1, 256, False, None, "float32")])
+       (1, 300, 77, 2, 1, 256, False, None, "float32")]
+    # bf16 hd 256's wgmma body (64-key tiles, 128-row blocks of two
+    # 64-row warpgroups): lengths on every edge of both, causal or not;
+    # Sq < Sk and Sq > Sk with B 2 and KV 2, Sk mostly no multiple of 64
+    # (a tile at a head's end reads zeros, not the next head's keys), G 1
+    # and 2; windows of 64 and 256 at G 1, 2 and 8
+    + [(1, S, S, 8, 1, 256, causal, None, "bfloat16")
+       for S in (1, 63, 64, 65, 127, 128, 129, 1000, 1024)
+       for causal in (True, False)]
+    + [(2, Sq, Sk, H, 2, 256, causal, None, "bfloat16")
+       for (Sq, Sk) in ((1, 1000), (63, 129), (129, 65), (1000, 127),
+                        (65, 1024), (300, 77))
+       for (H, causal) in ((2, False), (4, True))]
+    + [(2, Sq, Sk, H, KV, 256, True, sw, "bfloat16")
+       for (Sq, Sk) in ((127, 127), (1000, 1000), (129, 1000))
+       for (H, KV) in ((2, 2), (4, 2), (8, 1)) for sw in (64, 256)]
+    + [(1, 1000, 1000, 2, 1, 256, False, 64, "bfloat16"),
+       (2, 200, 1000, 4, 2, 256, False, 256, "bfloat16")])
 
 
 def _qkv(case, dev, seed=0):
@@ -547,7 +566,11 @@ FLASH_PADDED = [(1, 256, 256, 4, 2, 16, True, None, "bfloat16"),
                 (2, 300, 300, 4, 1, 80, False, None, "float32"),
                 (1, 300, 300, 4, 2, 96, True, 100, "float32"),
                 (1, 256, 256, 8, 1, 96, False, None, "bfloat16"),
-                (1, 77, 300, 2, 1, 200, True, None, "float32")]
+                (1, 77, 300, 2, 1, 200, True, None, "float32"),
+                # hd 200 onto bf16 hd 256's wgmma body
+                (2, 1000, 1000, 8, 1, 200, True, None, "bfloat16"),
+                (2, 129, 300, 4, 2, 200, False, None, "bfloat16"),
+                (1, 300, 300, 4, 2, 200, True, 64, "bfloat16")]
 
 
 @pytest.mark.cuda
@@ -565,6 +588,33 @@ def test_flash_attention_padded_head_dims_match_plain(cuda_device, case):
     atol = 1e-4 if dt == "float32" else 2e-2
     err = float((out.float() - want.float()).abs().max())
     assert err <= atol, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(2))
+def test_flash_attention_wgmma_probe_matches_matmul(cuda_device, seed):
+    """bf16 hd 256's two products on one tile, through its tensor maps
+    (128-byte swizzle), shared-memory descriptors and wgmma layouts: d =
+    a b^T (m64n64k16, both K-major) against ``torch.matmul`` in float32,
+    and e = bf16(d) c (m64n256k16, A from registers, c MN-major) against
+    the same product of the probe's own d.  Both are sums of exact bf16
+    products in float32, in another order than cuBLAS's: 1e-3 against
+    values up to ~60 and ~600 is a few float32 roundings of such sums,
+    while one misplaced element or swizzle chunk is off by ~1 or more."""
+    rng = np.random.default_rng(seed)
+    a, b, c = (torch.as_tensor(rng.normal(0, 1, (64, 256)).astype(
+        np.float32), device=cuda_device).bfloat16() for _ in range(3))
+    before = dict(build.LAUNCHES)
+    d, e = FA.wgmma_probe(a, b, c)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES == before
+    assert d.shape == (64, 64) and e.shape == (64, 256)
+    torch.testing.assert_close(d, a.float() @ b.float().T, rtol=0,
+                               atol=1e-3)
+    torch.testing.assert_close(e, d.bfloat16().float() @ c.float(), rtol=0,
+                               atol=1e-3)
+    with pytest.raises(ValueError, match="64, 256"):
+        FA.wgmma_probe(a[:32], b, c)
 
 
 @pytest.mark.cuda
