@@ -3178,6 +3178,32 @@ class MoeDrops:
                 if s else "no MoE prefill recorded")
 
 
+def family_setup(torch, dev, rehearse, key):
+    """The bf16 serving set-up of ``FAMILY_SERVING[key]``: (config under
+    ``attn_impl="pallas"``, random weights from a CUDA generator at the
+    family's seed, the VLM prefix's stub embeddings or None, the prompts,
+    decode steps, cache rows, seconds to draw the weights)."""
+    from repro_torch.models import model as M
+    spec = FAMILY_SERVING[key]
+    over = dict(attn_impl="pallas", dtype="bfloat16",
+                **(spec.get("rehearse", {}) if rehearse else spec["full"]))
+    cfg = model_config(spec["name"], rehearse, **over)
+    n_req, prompt_len, n_dec = spec["small"] if rehearse else spec["size"]
+    gen = torch.Generator(dev).manual_seed(SEED + spec["seed"])
+    t0 = time.perf_counter()
+    params = M.init_params(gen, cfg, device=dev)
+    sync(torch, dev)
+    init_s = time.perf_counter() - t0
+    embeds = None if not cfg.vlm_prefix else torch.randn(
+        (n_req, cfg.vlm_prefix, cfg.d_model), generator=gen,
+        device=dev).to(torch.bfloat16)
+    prompts = torch.as_tensor(np.random.default_rng(SEED + spec["seed"])
+                              .integers(0, cfg.vocab_size,
+                                        (n_req, prompt_len)), device=dev)
+    return (cfg, params, embeds, prompts, n_dec,
+            cfg.vlm_prefix + prompt_len + n_dec, init_s)
+
+
 def family_serving_phase(torch, dev, rehearse, key):
     """One family at full width in bf16 (``attn_impl="pallas"``, random
     weights from a seeded CUDA generator): prefill then greedy decode
@@ -3190,25 +3216,10 @@ def family_serving_phase(torch, dev, rehearse, key):
     cache's tensors keep their pointers."""
     from repro_torch.kernels import ops
     from repro_torch.models import layers as L
-    from repro_torch.models import model as M
     from repro_torch.models import serve as SV
-    spec = FAMILY_SERVING[key]
-    over = dict(attn_impl="pallas", dtype="bfloat16",
-                **(spec.get("rehearse", {}) if rehearse else spec["full"]))
-    cfg = model_config(spec["name"], rehearse, **over)
-    n_req, prompt_len, n_dec = spec["small"] if rehearse else spec["size"]
-    cap = cfg.vlm_prefix + prompt_len + n_dec
-    gen = torch.Generator(dev).manual_seed(SEED + spec["seed"])
-    t0 = time.perf_counter()
-    params = M.init_params(gen, cfg, device=dev)
-    sync(torch, dev)
-    init_s = time.perf_counter() - t0
-    embeds = None if not cfg.vlm_prefix else torch.randn(
-        (n_req, cfg.vlm_prefix, cfg.d_model), generator=gen,
-        device=dev).to(torch.bfloat16)
-    prompts = torch.as_tensor(np.random.default_rng(SEED + spec["seed"])
-                              .integers(0, cfg.vocab_size,
-                                        (n_req, prompt_len)), device=dev)
+    cfg, params, embeds, prompts, n_dec, cap, init_s = family_setup(
+        torch, dev, rehearse, key)
+    n_req, prompt_len = prompts.shape
     ptrs = {}
 
     def serve():
@@ -3287,20 +3298,76 @@ def family_serving_phase(torch, dev, rehearse, key):
         f"request's tokens {toks[0].tolist()}; {extra}"]
 
 
+DECODE256_BODY = "decode_attention_hd256_bulk"
+
+
+def decode256_body_report(torch, dev, B, KV, G, S, kv_len, rehearse):
+    """bf16 hd 256's body as built and planned: its threads and warp
+    roles, registers and local bytes as the runtime reads them
+    (``hd256_body_info``), spills from the ``-Xptxas -v`` report, dynamic
+    shared memory, blocks an SM, and the grid and splits the wrapper
+    gives at (B, KV, G, S) and kv_len.  Fails on a spill or more than one
+    block an SM.  None on the CPU."""
+    if rehearse:
+        return None, []
+    from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention as DA
+    path = build.build_all(["decode_attention"])["decode_attention"]
+    info = DA.hd256_body_info()
+    with open(path + ".log") as f:
+        log = f.read()
+    prop = re.search(r"Function properties for \S*" + DECODE256_BODY
+                     + r"\S*\s+\d+ bytes stack frame, (\d+) bytes spill "
+                     r"stores, (\d+) bytes spill loads", log)
+    check(prop is not None, f"no ptxas report of {DECODE256_BODY}")
+    st, ld = int(prop.group(1)), int(prop.group(2))
+    n_sm, per_sm = DA._slots(dev, 256, 1, G, build.library(
+        "decode_attention"))
+    nsplit = DA.split_count(B, KV, S, n_sm, per_sm)
+    spans = [DA.split_span(kv_len, nsplit, i) for i in range(nsplit)]
+    live = sum(hi > lo for lo, hi in spans)
+    floats = DA.scratch_floats(B, KV, G, 256, nsplit)
+    rep = {"kernel": DECODE256_BODY, **info, "spill_stores": st,
+           "spill_loads": ld, "sms": n_sm, "splits": nsplit,
+           "grid_blocks": B * KV * nsplit, "live_splits": live,
+           "tiles_a_split": -(-(spans[0][1] - spans[0][0]) // DA.TILE),
+           "scratch_bytes": 4 * floats}
+    check(st == 0 and ld == 0 and info["local_bytes"] == 0,
+          f"{DECODE256_BODY} spills: {st}/{ld} B, local "
+          f"{info['local_bytes']} B")
+    check(info["blocks_per_sm"] == 1 and per_sm == 1, f"{DECODE256_BODY}: "
+          f"{info['blocks_per_sm']} blocks an SM, want 1")
+    line = (f"{DECODE256_BODY} (bf16 hd 256): {info['threads']} threads (one "
+            f"producer warp moving bytes by TMA, "
+            f"{info['consumer_warps']} consumer warps of mma.sync), "
+            f"{info['regs']} registers a thread, spill {st}/{ld} B, local "
+            f"{info['local_bytes']} B; {info['smem_bytes']} B of dynamic "
+            f"shared memory ({info['stages']} ring stages of 64 K and 64 V "
+            f"rows), {info['blocks_per_sm']} block an SM; grid ({nsplit}, "
+            f"{KV}, {B}) = {B * KV * nsplit} blocks on {n_sm} SMs, {live} "
+            f"live splits of up to {rep['tiles_a_split']} tiles of 64 keys "
+            f"a (b, kv head), {4 * floats} B of scratch"
+            + ("" if nsplit == 1 else ", then the merge"))
+    return rep, [line]
+
+
 def decode256_entry(torch, dev, timer, ktimer, rehearse):
     """Decode attention at head dim 256 through ``ops.decode_attention`` on
     a (B, S, KV, hd) cache read in place, paligemma's group (G 8 over one
-    kv head) at the decode_32k batch and length (kv_len 30000): the
-    kernel against its plain version (``decode_tol``), timed three ways
-    beside the plain version, SDPA (masked over all S, and on the kv_len
-    slice) and its bytes bound; then float32 on a shorter cache at
-    1e-4."""
+    kv head) at the decode_32k batch and length (kv_len 30000): the bf16
+    body's report (``decode256_body_report``), the kernel against its
+    plain version (``decode_tol``), timed three ways beside the plain
+    version, SDPA (masked over all S, and on the kv_len slice) and its
+    bytes bound, then again with NaN in every cache row past kv_len
+    (bit-identical); then float32 on a shorter cache at 1e-4."""
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import ops
     B, KV, G, S, hd = DECODE256
     kv_len = DECODE_KV_LEN
     if rehearse:
         B, S, kv_len = 2, 640, 600
+    body, lines = decode256_body_report(torch, dev, B, KV, G, S, kv_len,
+                                        rehearse)
     gen = torch.Generator(dev).manual_seed(SEED + 13)
     q = torch.randn((B, KV * G, hd), generator=gen, device=dev).bfloat16()
     k = torch.randn((B, S, KV, hd), generator=gen, device=dev).bfloat16()
@@ -3319,7 +3386,7 @@ def decode256_entry(torch, dev, timer, ktimer, rehearse):
     tol = decode_tol(torch, want)
     check(err <= tol, f"decode attention at hd 256 differs from plain "
           f"(max abs err {err}, tol {tol})")
-    del out, want
+    del want
     g32 = torch.Generator(dev).manual_seed(SEED + 14)
     a, b, c = (torch.randn(shape, generator=g32, device=dev) for shape in
                ((8, KV, G, hd), (8, KV, 4096, hd), (8, KV, 4096, hd)))
@@ -3341,16 +3408,24 @@ def decode256_entry(torch, dev, timer, ktimer, rehearse):
         "tolerance": f"{tol:.3g} in bf16 (four bf16 steps of the largest "
                      f"output), 1e-4 in float32 on (8, 1, 8, 4096, 256)",
         **ktimer(lambda: DA.decode_attention_bkgd(qg, kv_, vv_, length),
-                 "decode_attention_mma"),
+                 DECODE256_BODY),
         "plain_ms": timer(lambda: DA.decode_attention_plain(qg, kt, vt,
                                                             kv_len)),
         "bound_ms": bnd, "bound_by": by, "bound_bytes": n_bytes,
         **library_entry(ktimer(lambda: sdpa(qg, kt, vt, attn_mask=mask))),
         "library_note": "SDPA with a boolean kv_len mask over all S rows",
         "library_sliced_ms": sliced["ms"],
-        "library_sliced_call_ms": sliced["call_ms"]}
-    del q, k, v, qg, kv_, vv_, kt, vt
-    return entry, [
+        "library_sliced_call_ms": sliced["call_ms"], "body": body}
+    del kt, vt
+    if not rehearse:             # the plain version weighs every row
+        k[:, kv_len:] = float("nan")
+        v[:, kv_len:] = float("nan")
+        nan_same = torch.equal(ops.decode_attention(q, k, v, length), out)
+        check(nan_same, "decode attention at hd 256 changes with NaN in "
+              "the cache rows past kv_len")
+        entry["nan_past_kv_len_bit_identical"] = nan_same
+    del q, k, v, qg, kv_, vv_, out
+    return entry, lines + [
         f"decode_attention_bkgd at hd 256 {entry['shape']} bf16, kv_len "
         f"{kv_len}, the (B, S, KV, hd) cache read in place: device "
         f"{entry['ms']} ms (call {entry['call_ms']} ms, back-to-back "
@@ -3359,7 +3434,8 @@ def decode256_entry(torch, dev, timer, ktimer, rehearse):
         f"{entry['library_sliced_ms']} ms; bound {bnd:.4f} ms by {by}: "
         f"{n_bytes / 1e9:.3f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s); "
         f"max abs err {err:.3g} (tol {tol:.3g}), float32 {err32:.3g} (tol "
-        f"1e-4)"]
+        f"1e-4); NaN in every cache row past kv_len: "
+        f"{'bit-identical' if not rehearse else 'not run (CPU)'}"]
 
 
 def family_fp32_phase(torch, dev, rehearse, key):

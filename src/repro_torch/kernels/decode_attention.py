@@ -29,6 +29,7 @@ MAX_GROUP = 16
 TILE = 64                 # keys per tile of the kernel (kTile in the source)
 MAX_SPLITS = 64
 WAVE_FILL = 0.9           # least share of the last wave's slots in use
+_MAP_ERROR = 100000       # the C side's code for a refused tensor map
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SLOTS: Dict[tuple, Tuple[int, int]] = {}
 
@@ -70,6 +71,12 @@ def split_span(kv_len: int, nsplit: int, split: int) -> Tuple[int, int]:
     per = -(-(-(-kv_len // TILE)) // nsplit)
     lo = min(split * per * TILE, kv_len)
     return lo, min(lo + per * TILE, kv_len)
+
+
+def scratch_floats(B: int, KV: int, G: int, hd: int, nsplit: int) -> int:
+    """float32 scratch of a call of ``nsplit`` splits: each split's (acc,
+    m, l) of its G rows, B KV nsplit G (hd + 2); none for one split."""
+    return 0 if nsplit == 1 else B * KV * nsplit * G * (hd + 2)
 
 
 def cache_strides(t: torch.Tensor) -> Tuple[int, int, int]:
@@ -152,13 +159,29 @@ def decode_attention_bkgd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     code = _DTYPE_CODES[q.dtype]
     nsplit = split_count(B, KV, S, *_slots(q.device, hd, code, G, lib))
-    part = (torch.empty((B, KV, nsplit, G * (hd + 2)), dtype=torch.float32,
-                        device=q.device) if nsplit > 1 else None)
+    floats = scratch_floats(B, KV, G, hd, nsplit)
+    part = (torch.empty(floats, dtype=torch.float32, device=q.device)
+            if floats else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
         out.data_ptr(), 0 if part is None else part.data_ptr(), B, KV, G, S,
         hd, code, nsplit, 1.0 / math.sqrt(hd), *ks, *vs, stream)
+    if rc >= _MAP_ERROR:
+        raise RuntimeError(f"decode_attention_launch: the driver refused a "
+                           f"TMA tensor map (CUresult {rc - _MAP_ERROR})")
     build.check(rc, "decode_attention_launch")
     build.LAUNCHES["decode_attention_bkgd"] += 1
     return out
+
+
+def hd256_body_info() -> Dict[str, int]:
+    """The bf16 hd 256 body's launch shape and resources as the CUDA
+    runtime reads them from the built library: dynamic shared memory,
+    threads, consumer warps, ring stages, registers and local bytes a
+    thread, blocks an SM."""
+    info = (ctypes.c_int * 7)()
+    build.check(build.library("decode_attention").decode_attention_hd256_info(
+        info), "decode_attention_hd256_info")
+    return dict(zip(("smem_bytes", "threads", "consumer_warps", "stages",
+                     "regs", "local_bytes", "blocks_per_sm"), info))

@@ -22,6 +22,8 @@ Flash attention runs at its four bodies (hd 32, 64, 128, 256) and at
 head dims between them, zero-padded up to the next body; hd 320 raises.
 Bf16 hd 256's wgmma body is swept over the edges of its tiles, and its
 two products on one tile are held against ``torch.matmul`` at 1e-3.
+Decode attention's bf16 hd 256 body is swept over the edges of its
+grid, and every body ignores NaN in the cache past kv_len.
 """
 import dataclasses
 
@@ -810,7 +812,25 @@ DECODE_SWEEP = (
        for dt in ("float32", "bfloat16")]
     + [(1, 1, 8, 20000, 12345, 256, "bfloat16"),
        (2, 2, 16, 1000, 999, 256, "float32"),
-       (2, 2, 16, 1000, 999, 256, "bfloat16")])
+       (2, 2, 16, 1000, 999, 256, "bfloat16")]
+    # bf16 hd 256's grid on the card's 132 SMs, one block each: B KV of 1
+    # (64 splits) at kv_len 1, one tile, one key past it, 4097 and S; 8
+    # pairs (15 splits); 100 pairs (5); 128 and 132 pairs (G 8 and 16), one
+    # block a pair, no merge; 133 pairs (9 splits at G 8; at G 1 and kv_len
+    # 1 one live split of 5); a ragged S at G 1 and 16 (6 one-tile splits);
+    # a one-row cache (a tile past the map's end)
+    + [(1, 1, 8, 20000, klen, 256, "bfloat16")
+       for klen in (1, 64, 65, 4097, 20000)]
+    + [(8, 1, 8, 4200, klen, 256, "bfloat16") for klen in (64, 65, 4097)]
+    + [(128, 1, 8, 1100, 1090, 256, "bfloat16"),
+       (100, 1, 8, 4200, 4097, 256, "bfloat16"),
+       (132, 1, 8, 2200, 2177, 256, "bfloat16"),
+       (66, 2, 16, 700, 640, 256, "bfloat16"),
+       (133, 1, 8, 2200, 2177, 256, "bfloat16"),
+       (133, 1, 1, 300, 1, 256, "bfloat16"),
+       (3, 1, 1, 333, 333, 256, "bfloat16"),
+       (2, 1, 8, 1, 1, 256, "bfloat16"),
+       (3, 2, 16, 333, 270, 256, "bfloat16")])
 
 
 def _decode_tol(want):
@@ -888,9 +908,42 @@ def test_decode_attention_reads_the_model_cache_in_place(cuda_device, case):
     nsplit = DA.split_count(B, KV, S, *DA._slots(
         got.device, hd, DA._DTYPE_CODES[dtype], G,
         build.library("decode_attention")))
-    scratch = got.numel() * got.element_size() + (
-        B * KV * nsplit * G * (hd + 2) * 4 if nsplit > 1 else 0)
+    scratch = got.numel() * got.element_size() + 4 * DA.scratch_floats(
+        B, KV, G, hd, nsplit)
     assert added <= scratch + 4096                    # no copy of k or v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(2, 1, 8, 1000, 777, 256, "bfloat16"),
+                                  (1, 1, 8, 20000, 4097, 256, "bfloat16"),
+                                  (133, 1, 8, 700, 641, 256, "bfloat16"),
+                                  (2, 1, 8, 1000, 1, 256, "bfloat16"),
+                                  (2, 2, 7, 1000, 999, 64, "bfloat16"),
+                                  (2, 2, 16, 1000, 777, 128, "bfloat16"),
+                                  (2, 1, 8, 1000, 777, 256, "float32")],
+                         ids=str)
+def test_decode_attention_ignores_the_cache_past_kv_len(cuda_device, case):
+    """NaN in every k and v row at kv_len or later changes nothing: the
+    output is bit-identical to the same call with zeros there (a ragged
+    tile's rows past kv_len are neither scored nor weighted into p v)."""
+    B, KV, G, S, klen, hd, dt = case
+    rng = np.random.default_rng(S + klen + hd)
+    dtype = getattr(torch, dt)
+    q, k, v = (torch.as_tensor(rng.normal(0, 1, shape).astype(np.float32),
+                               device=cuda_device).to(dtype)
+               for shape in ((B, KV, G, hd), (B, KV, S, hd), (B, KV, S, hd)))
+    length = torch.tensor([klen], dtype=torch.int32, device=cuda_device)
+    k[:, :, klen:] = 0
+    v[:, :, klen:] = 0
+    zeros = DA.decode_attention_bkgd(q, k, v, length)
+    k[:, :, klen:] = float("nan")
+    v[:, :, klen:] = float("nan")
+    got = DA.decode_attention_bkgd(q, k, v, length)
+    torch.cuda.synchronize()
+    assert torch.equal(got, zeros)
+    want = DA.decode_attention_plain(q, k[:, :, :klen], v[:, :, :klen], klen)
+    assert float((got.float() - want.float()).abs().max()) <= _decode_tol(
+        want)
 
 
 @pytest.mark.cuda

@@ -54,11 +54,15 @@ def test_port_imports_neither_jax_nor_reference_package():
 
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
-# the port's scripts: the example twins, the smoke and its phase runner
+# the port's scripts: the example twins, the smoke, its phase runner and
+# the decode attention tools
 SCRIPTS = sorted(
     [os.path.join("examples", f) for f in os.listdir(os.path.join(
         ROOT, "examples")) if f.startswith("torch_") and f.endswith(".py")]
-    + ["chip_smoke.py", os.path.join("tools", "torch_smoke_phase.py")])
+    + ["chip_smoke.py"]
+    + [os.path.join("tools", f) for f in (
+        "torch_smoke_phase.py", "decode_hd256_times.py",
+        "paligemma_decode_margins.py")])
 
 _SCRIPT_PROBE = """
 import runpy, sys

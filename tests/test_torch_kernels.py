@@ -239,19 +239,24 @@ def test_eval_spatial_leaves_and_class_slice_identical():
 
 # the JAX decode test's six cases (S, kv_len) x dtype, and a ragged S = 300
 # that the JAX wrapper's 256-key blocks do not divide (it falls back to its
-# reference there)
-DECODE_CASES = [(S, klen, dt) for S, klen in [(256, 256), (256, 100),
-                                              (512, 1), (300, 300),
-                                              (300, 77)]
-                for dt in ("float32", "bfloat16")]
+# reference there), at hd 64 over two kv heads; then hd 256, paligemma's
+# group (G 8 over one kv head), at kv_len 1, 100 and S
+DECODE_CASES = (
+    [pytest.param(S, klen, dt, 64, id=f"{S}-{klen}-{dt}")
+     for S, klen in [(256, 256), (256, 100), (512, 1), (300, 300), (300, 77)]
+     for dt in ("float32", "bfloat16")]
+    + [pytest.param(S, klen, dt, 256, id=f"hd256-{S}-{klen}-{dt}")
+       for S in (256, 512) for klen in (1, 100, S)
+       for dt in ("float32", "bfloat16")])
 
 
-@pytest.mark.parametrize("S,klen,dt", DECODE_CASES)
-def test_decode_attention_plain_vs_pallas_interpreter(S, klen, dt):
+@pytest.mark.parametrize("S,klen,dt,hd", DECODE_CASES)
+def test_decode_attention_plain_vs_pallas_interpreter(S, klen, dt, hd):
     """The port's ``ops.decode_attention`` (its plain version on a CPU
     tensor) against JAX's wrapper, which interprets the Pallas kernel:
     1e-4 in float32, 2e-2 in bfloat16, as tests/test_kernels.py holds it."""
-    B, H, KV, hd = 2, 8, 2, 64
+    B, H = 2, 8
+    KV = 2 if hd == 64 else 1
     rng = np.random.default_rng(S + klen)
     q, k, v = (rng.normal(0, 1, shape).astype(np.float32)
                for shape in ((B, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
@@ -319,6 +324,52 @@ def test_decode_attention_splits_cover_the_cache(B, KV, S, n_sm, per_sm,
         DA.decode_attention_bkgd(torch.zeros(1, 1, 1, 64),
                                  torch.zeros(1, 1, 8, 64),
                                  torch.zeros(1, 1, 8, 64), 9)
+
+
+def _merge_live(kv_len, nsplit):
+    """The splits the merge kernel reads for a (b, kv head): its ``live``,
+    from kv_len on the device as the kernel derives it."""
+    tiles = -(-kv_len // DA.TILE)
+    per = -(-tiles // nsplit)
+    return -(-tiles // per) if per else 0
+
+
+# (B, KV, S, SMs, kv_len) of the bf16 hd 256 body, one block an SM:
+# SPLIT_CASES' shapes, then B KV below, at and above the 132 SMs at kv_len
+# 1, one tile, one key past it, 4097 (one key in its last tile) and S
+HD256_SPLIT_CASES = [(B, KV, S, n_sm, kv_len)
+                     for B, KV, S, n_sm, _, kv_len in SPLIT_CASES] + [
+    (B, KV, 4200, 132, klen) for B, KV in [(1, 1), (8, 1), (128, 1),
+                                           (131, 1), (66, 2), (133, 1),
+                                           (132, 2), (75, 4)]
+    for klen in (1, 64, 65, 4097, 4200)]
+
+
+@pytest.mark.parametrize("B,KV,S,n_sm,kv_len", HD256_SPLIT_CASES)
+def test_decode_attention_hd256_splits_cover_the_cache(B, KV, S, n_sm,
+                                                       kv_len):
+    """The bf16 hd 256 body's grid (nsplit, KV, B) at one block an SM: one
+    split a (b, kv head) where the pairs fill ``WAVE_FILL`` of the SMs
+    (no merge), else the split count that fills the waves best; each
+    pair's splits cover [0, kv_len) once, in tile order; the merge reads
+    as many splits as hold keys; each split's (acc, m, l) lies within the
+    wrapper's scratch, which is none for one split."""
+    G, hd = 8, 256
+    nsplit = DA.split_count(B, KV, S, n_sm, 1)
+    if DA.WAVE_FILL * n_sm <= B * KV <= n_sm:
+        assert nsplit == 1
+    spans = [DA.split_span(kv_len, nsplit, i) for i in range(nsplit)]
+    keys = [key for lo, hi in spans for key in range(lo, hi)]
+    assert keys == list(range(kv_len))
+    assert all(lo % DA.TILE == 0 for lo, hi in spans if hi > lo)
+    live = [i for i, (lo, hi) in enumerate(spans) if hi > lo]
+    assert live == list(range(_merge_live(kv_len, nsplit)))
+    floats = DA.scratch_floats(B, KV, G, hd, nsplit)
+    assert (floats == 0) == (nsplit == 1)
+    pitch = G * (hd + 2)
+    if nsplit > 1:
+        last = (B * KV - 1) * nsplit + live[-1]    # the highest part row
+        assert (last + 1) * pitch <= floats
 
 
 @pytest.mark.parametrize("G,hd,dt", [(7, 64, "bfloat16"), (1, 128, "float32"),

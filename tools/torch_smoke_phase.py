@@ -6,6 +6,9 @@
     python3 tools/torch_smoke_phase.py families          # on a CUDA card
     python3 tools/torch_smoke_phase.py fleet             # on a CUDA card
     python3 tools/torch_smoke_phase.py flash256          # on a CUDA card
+    python3 tools/torch_smoke_phase.py decode256         # on a CUDA card
+    python3 tools/torch_smoke_phase.py paligemma         # on a CUDA card
+    python3 tools/torch_smoke_phase.py decode256 --root build/parent
 
 ``train`` is the smoke's phase 17 (``zoo_training_phase``), ``launch``
 its phase 19 (``launch_phase``: the launch analyses against steps on
@@ -19,7 +22,15 @@ then 22 (``fleet_mesh_phase``: the fleet over a stream mesh of one rank
 over NCCL, then four ranks on the one card over gloo), ``flash256`` its
 phase 23 (``flash256_phase``: flash attention at head dim 256 and a
 padded 96, paligemma-3b's tokens-only forward under ``pallas``,
-``ops.spatial_stats`` and the monitoring-queries twin).  Builds the
+``ops.spatial_stats`` and the monitoring-queries twin), ``decode256``
+its phase 16 (``decode256_entry``: decode attention at head dim 256 on
+(128, 1, 8, 32768, 256) at kv_len 30000, the bf16 body's report, SDPA
+and the bound beside it, NaN past kv_len, float32), ``paligemma`` its
+phase 14's paligemma-3b serving (``family_serving_phase``: profiles of
+a decode step and a prefill, 32 greedy steps, layer 0's decode call
+against plain).  ``--root`` runs the phase from another checkout (say a
+parent commit unpacked by ``git archive``), its ``chip_smoke.py`` and
+``src/`` both.  Builds the
 kernels (decode attention runs in both), then runs the phase and prints
 its lines after
 the card's name and power limit: the same checks and numbers as in the
@@ -35,8 +46,6 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, os.path.join(HERE, ".."))
-sys.path.insert(0, os.path.join(HERE, "..", "src"))
 
 
 def fleet(torch, dev, rehearse, gpu):
@@ -62,9 +71,15 @@ def fleet(torch, dev, rehearse, gpu):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("phase", choices=["train", "launch", "mesh", "families",
-                                      "fleet", "flash256"])
+                                      "fleet", "flash256", "decode256",
+                                      "paligemma"])
     ap.add_argument("--rehearse", action="store_true")
+    ap.add_argument("--root", default=os.path.join(HERE, ".."),
+                    help="the checkout whose chip_smoke.py and src/ run "
+                         "(another commit's, unpacked, to compare two on "
+                         "one card; this one's by default)")
     args = ap.parse_args(argv)
+    sys.path[:0] = [os.path.join(args.root, "src"), args.root]
     import torch
 
     import chip_smoke as cs
@@ -93,6 +108,16 @@ def main(argv=None) -> int:
         entry, launches, lines = cs.flash256_phase(torch, dev, scene,
                                                    args.rehearse, gpu)
         lines.append(json.dumps({"hd256": entry}))
+    elif args.phase == "decode256":
+        from repro_torch.kernels import ops
+        timer, ktimer = cs.timers(torch, args.rehearse)
+        entry, lines = cs.decode256_entry(torch, dev, timer, ktimer,
+                                          args.rehearse)
+        launches = ops.launch_counts()
+        lines.append(json.dumps({"hd256": entry}))
+    elif args.phase == "paligemma":
+        launches, lines = cs.family_serving_phase(torch, dev, args.rehearse,
+                                                  "paligemma")
     else:
         launches, lines = cs.launch_phase(torch, dev, args.rehearse, gpu)
     for line in lines:
