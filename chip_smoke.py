@@ -127,7 +127,9 @@ Phases (any failure exits non-zero and prints no result line):
    against its plain version, timed beside it and two
    ``scaled_dot_product_attention`` yardsticks (a boolean kv_len mask over
    all S rows; the kv_len slice, which reads the kernel's bytes), there
-   in bf16 and in float32 (the same values); a sweep (the Pallas test's
+   in bf16 and in float32 (the same values; float32 also timed beside
+   SDPA on the kv_len slice and its bytes bound, the entry's
+   ``float32``); a sweep (the Pallas test's
    cases, ragged S, G 7/16, hd 128, a 20000-key cache in both types).
    Tolerances: 1e-4 in
    float32; in bf16 the Pallas test's 2e-2 or four bf16 steps of the
@@ -203,7 +205,10 @@ Phases (any failure exits non-zero and prints no result line):
     and in float32 at 1e-4 on (8, 1, 8, 4096, 256); device ms, call,
     back-to-back, plain, SDPA (masked, and on the kv_len slice) and the
     bytes bound (3.93 GB at 3.35 TB/s); the ``hd256`` entry of decode
-    attention's kernel line.
+    attention's kernel line.  Float32 timed the same ways beside SDPA on
+    the kv_len slice and its bytes bound, at (8, 1, 8, 4096, 256) kv_len
+    3001 and at paligemma-3b's step (a 352-row cache at kv_len 330): the
+    entry's ``float32``.
 17. The zoo's training: qwen2-0.5b at published widths (bf16 parameters,
     float32 AdamW moments, remat none, ``xla_flash``) through
     ``repro_torch.launch.train.main``: 16 steps of 4 x 1024 tokens with
@@ -336,13 +341,15 @@ Phases (any failure exits non-zero and prints no result line):
     (causal, GQA) on the same inputs, and the bound (the causal half of
     4 B H S^2 hd FLOPs at 989 TFLOP/s in bf16, three TF32 products at
     495 in float32, against q, k, v and o once): the ``hd256`` entry of
-    flash attention's kernel line; before them, bf16's wgmma body as
-    built: threads, the registers setmaxnreg gives each warp role,
-    registers at entry, spills and local bytes (none allowed), dynamic
-    shared memory and blocks an SM, its HGMMA instructions in the SASS
-    (cuobjdump), no ptxas line on wgmma serialization or setmaxnreg, and
-    its two products on one tile against torch.matmul (1e-3), the
-    entry's ``body``.  (b) paligemma-3b at full width in
+    flash attention's kernel line; before them, the bf16 and float32
+    wgmma bodies as built: threads, the registers of each warp role
+    (bf16's by setmaxnreg), registers at entry, spills and local bytes
+    (none allowed), dynamic shared memory and blocks an SM, their HGMMA
+    instructions in the SASS (cuobjdump), no ptxas line on wgmma
+    serialization or setmaxnreg, and each body's two products on one
+    tile against torch.matmul (bf16 1e-3; float32's 3xTF32 within 1e-5
+    of the largest float64 value), the entry's ``body`` and
+    ``body_float32``.  (b) paligemma-3b at full width in
     bf16, tokens only, ``attn_impl="pallas"``, random weights from a
     seeded CUDA generator: 8 x 1024 tokens through ``models.model.
     forward``, counts reset just before the timed pass and read just
@@ -480,6 +487,36 @@ def device_ms(torch, fn, expect=None, calls=25, tries=5):
           f"{expect or 'a library call'} in {tries} windows: CUDA events "
           f"over {calls} back-to-back calls instead", file=sys.stderr)
     return b2b_ms(torch, fn, calls), 0
+
+
+def device_by_kernel(torch, fn, calls=25, tries=5):
+    """Device ms per launch of each kernel ``fn`` launches, from the first
+    of up to ``tries`` torch.profiler windows of ``calls`` calls (after a
+    warm-up) that records any (``device_ms`` says why a window may not);
+    {} where none does."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kern = {e.key: e.self_device_time_total / e.count / 1e3
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.count > 0
+                and e.self_device_time_total > 0}
+        if kern:
+            return kern
+    return {}
+
+
+def short_kernel(key):
+    """A profiler kernel name without its namespaces and arguments."""
+    m = re.search(r"(\w+)(?:<[^()]*>)?\(", key)
+    return m.group(1) if m else key
 
 
 def b2b_ms(torch, fn, calls=50):
@@ -2567,7 +2604,9 @@ def decode_phase(torch, dev, timer, ktimer, rehearse):
     tiled = float((DA.decode_attention_plain(q32, k32, v32,
                                              -(-kv_len // 64) * 64)
                    - want32).abs().max())
-    del q32, k32, v32, want32
+    del want32
+    fp32 = decode_fp32_entry(torch, DA, timer, ktimer, q32, k32, v32, kv_len)
+    del q32, k32, v32
     check(err32 <= 1e-4, f"decode_attention_bkgd differs from plain at "
           f"decode_32k in float32 (max abs err {err32}, tol 1e-4)")
     check(no_len > tol and tiled > 1e-4,
@@ -2604,7 +2643,7 @@ def decode_phase(torch, dev, timer, ktimer, rehearse):
         "library_sliced_ms": sliced["ms"],
         "library_sliced_call_ms": sliced["call_ms"],
         "shape": [B, KV, G, S, hd], "kv_len": kv_len,
-        "dtype": "torch.bfloat16"}
+        "dtype": "torch.bfloat16", "float32": fp32}
     del qg, kt, vt, kv_, vv_, k, v
 
     worst, worst_share = {"float32": 0.0, "bfloat16": 0.0}, 0.0
@@ -2647,6 +2686,7 @@ def decode_phase(torch, dev, timer, ktimer, rehearse):
         f"values): max abs err {err32:.3g} (tol 1e-4); the plain version "
         f"with kv_len ignored is {no_len:.3g} off in bf16 (tol {tol:.3g}), "
         f"with kv_len rounded up to 64 keys {tiled:.3g} in float32",
+        decode_fp32_line("at decode_32k", fp32),
         f"decode sweep: {len(sweep)} cases ((S, kv_len) of the Pallas "
         f"test, ragged S 300, G 7/16, hd 128, a 20000-key cache in many "
         f"splits, in both types) within tolerance: max abs err "
@@ -2654,6 +2694,40 @@ def decode_phase(torch, dev, timer, ktimer, rehearse):
         f"{worst['bfloat16']:.3g} bfloat16 (tol: four "
         f"bf16 steps of the case's largest output, at most 2e-2; the worst "
         f"case used {worst_share:.3f} of its tol)"]
+
+
+def decode_fp32_entry(torch, DA, timer, ktimer, q, k, v, kv_len):
+    """Float32 decode attention (the ``decode_attention_simt`` bodies and
+    their merge) on q (B, KV, G, hd) and a contiguous (B, KV, S, hd)
+    cache at ``kv_len``: device ms, call and back-to-back, the plain
+    version, SDPA on the kv_len slice (the same bytes; TF32 off) and the
+    bytes bound (each valid k and v row, q and o once, at 3.35 TB/s)."""
+    B, KV, G, hd = q.shape
+    length = torch.tensor([kv_len], dtype=torch.int32, device=q.device)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    n_bytes = (2 * B * KV * kv_len * hd + 2 * B * KV * G * hd) * 4
+    bnd, by = bound_ms(n_bytes, 4 * B * KV * G * kv_len * hd)
+    return {"shape": [B, KV, G, k.shape[2], hd], "kv_len": kv_len,
+            **ktimer(lambda: DA.decode_attention_bkgd(q, k, v, length),
+                     "decode_attention_simt"),
+            "plain_ms": timer(lambda: DA.decode_attention_plain(q, k, v,
+                                                                kv_len)),
+            "bound_ms": bnd, "bound_by": by, "bound_bytes": n_bytes,
+            **library_entry(ktimer(lambda: sdpa(q, k[:, :, :kv_len],
+                                                v[:, :, :kv_len]))),
+            "library_note": "SDPA on the kv_len slice"}
+
+
+def decode_fp32_line(name, e):
+    """A printed line of ``decode_fp32_entry``'s reading."""
+    return (f"decode_attention_bkgd {name} in float32 {e['shape']} (B, KV, "
+            f"G, S, hd), kv_len {e['kv_len']}: device {e['ms']} ms (call "
+            f"{e['call_ms']} ms, back-to-back {e['b2b_ms']} ms; plain "
+            f"{e['plain_ms']} ms; SDPA on the kv_len slice device "
+            f"{e['library_ms']} ms, call {e['library_call_ms']} ms; bound "
+            f"{e['bound_ms']:.4f} ms by {e['bound_by']}: "
+            f"{e['bound_bytes'] / 1e9:.4f} GB at "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
 
 
 def decode_tol(torch, want):
@@ -3394,6 +3468,13 @@ def decode256_entry(torch, dev, timer, ktimer, rehearse):
                    - DA.decode_attention_plain(a, b, c, 3001)).abs().max())
     check(err32 <= 1e-4, f"decode attention at hd 256 in float32 differs "
           f"from plain (max abs err {err32}, tol 1e-4)")
+    fp32 = {"4096": decode_fp32_entry(torch, DA, timer, ktimer, a, b, c,
+                                      3001)}
+    # paligemma-3b's float32 decode step: 8 sequences, a 352-row cache
+    # (256 image + 64 prompt + 32 generated) at its 330th row
+    b, c = (t[:, :, :352].contiguous() for t in (b, c))
+    fp32["paligemma_352"] = decode_fp32_entry(torch, DA, timer, ktimer, a,
+                                              b, c, 330)
     del a, b, c
     kt, vt = kv_.contiguous(), vv_.contiguous()
     mask = (torch.arange(S, device=dev) < kv_len)[None]
@@ -3415,7 +3496,8 @@ def decode256_entry(torch, dev, timer, ktimer, rehearse):
         **library_entry(ktimer(lambda: sdpa(qg, kt, vt, attn_mask=mask))),
         "library_note": "SDPA with a boolean kv_len mask over all S rows",
         "library_sliced_ms": sliced["ms"],
-        "library_sliced_call_ms": sliced["call_ms"], "body": body}
+        "library_sliced_call_ms": sliced["call_ms"], "body": body,
+        "float32": fp32}
     del kt, vt
     if not rehearse:             # the plain version weighs every row
         k[:, kv_len:] = float("nan")
@@ -3435,7 +3517,10 @@ def decode256_entry(torch, dev, timer, ktimer, rehearse):
         f"{n_bytes / 1e9:.3f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s); "
         f"max abs err {err:.3g} (tol {tol:.3g}), float32 {err32:.3g} (tol "
         f"1e-4); NaN in every cache row past kv_len: "
-        f"{'bit-identical' if not rehearse else 'not run (CPU)'}"]
+        f"{'bit-identical' if not rehearse else 'not run (CPU)'}",
+        decode_fp32_line("at hd 256", fp32["4096"]),
+        decode_fp32_line("at hd 256, paligemma-3b's step",
+                         fp32["paligemma_352"])]
 
 
 def family_fp32_phase(torch, dev, rehearse, key):
@@ -5864,38 +5949,71 @@ def flash_case(torch, FA, dev, shape, dtype, seed, Sk=None, **kw):
     return (q, k, v), err
 
 
-HD256_BODY = "flash_attention_kernel_hd256_wgmma"
+# hd 256's wgmma bodies by type, their resource functions and the
+# tolerances of their one-tile probes (bf16: max abs err; float32: max abs
+# err over the largest reference value)
+HD256_BODIES = {
+    "bfloat16": ("flash_attention_kernel_hd256_wgmma",
+                 "flash_attention_hd256_info", 1e-3),
+    "float32": ("flash_attention_kernel_hd256_tf32",
+                "flash_attention_hd256_f32_info", 1e-5)}
 
 
-def hd256_body_report(torch, dev, rehearse):
-    """bf16 hd 256's wgmma body as built: its launch shape and
-    resources from ``flash_attention_hd256_info`` (dynamic shared memory,
-    threads, the registers ``setmaxnreg`` gives a consumer and a producer
-    thread, the registers at entry and local bytes the runtime reads
-    from the binary, blocks an SM), its spills from the ``-Xptxas -v``
-    report, its HGMMA (wgmma) instructions counted in the library's SASS
-    (``cuobjdump -sass``), and any ptxas line that says wgmma was
+def hd256_probe(torch, FA, dev, dtype):
+    """One tile's two products through the body's own path against
+    ``torch.matmul``: bf16 ``wgmma_probe`` (max abs err against float32
+    products), float32 ``f32_wgmma_probe`` (relative to the largest
+    float64 reference value)."""
+    gen = torch.Generator(dev).manual_seed(SEED + 36)
+    if dtype == "bfloat16":
+        a, b, c = (torch.randn(64, 256, generator=gen, device=dev).bfloat16()
+                   for _ in range(3))
+        d, e = FA.wgmma_probe(a, b, c)
+        return {"d": float((d - a.float() @ b.float().T).abs().max()),
+                "e": float((e - d.bfloat16().float() @ c.float()).abs()
+                           .max())}
+    a, b, c = (torch.randn(s, generator=gen, device=dev)
+               for s in ((64, 256), (32, 256), (32, 256)))
+    d, e = FA.f32_wgmma_probe(a, b, c)
+    out = {}
+    for key, got, want in (("d", d, a.double() @ b.double().T),
+                           ("e", e, d.double() @ c.double())):
+        out[key] = float((got.double() - want).abs().max()
+                         / want.abs().max())
+    return out
+
+
+def hd256_body_report(torch, dev, rehearse, dtype="bfloat16"):
+    """hd 256's wgmma body of ``dtype`` as built: its launch shape and
+    resources from its info function (dynamic shared memory, threads,
+    the registers a consumer and a producer thread hold (bf16: given by
+    setmaxnreg; float32, 160 threads, has no setmaxnreg: both the
+    compiled count), the registers at entry and local bytes the runtime
+    reads from the binary, blocks an SM), its spills from the ``-Xptxas
+    -v`` report, its HGMMA (wgmma) instructions counted in the library's
+    SASS (``cuobjdump -sass``), and any ptxas line that says wgmma was
     serialized or ``setmaxnreg`` ignored; then its two products on one
-    tile (``wgmma_probe``) against ``torch.matmul``.  Fails on a spill,
-    a serialization or setmaxnreg line, no HGMMA, more than one block an
-    SM, or a probe error above 1e-3.  None on the CPU."""
+    tile (``hd256_probe``).  Fails on a spill, a serialization or
+    setmaxnreg line, no HGMMA, more than one block an SM, or a probe
+    error above its tolerance.  None on the CPU."""
     if rehearse:
         return None, []
     import ctypes
 
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as FA
+    kernel, info_fn, probe_tol = HD256_BODIES[dtype]
     path = build.build_all(["flash_attention"])["flash_attention"]
     info = (ctypes.c_int * 7)()
-    build.check(build.library("flash_attention").flash_attention_hd256_info(
-        info), "flash_attention_hd256_info")
+    build.check(getattr(build.library("flash_attention"), info_fn)(info),
+                info_fn)
     smem, threads, regs_c, regs_p, regs_entry, local, per_sm = list(info)
     with open(path + ".log") as f:
         log = f.read()
-    prop = re.search(r"Function properties for \S*" + HD256_BODY
+    prop = re.search(r"Function properties for \S*" + kernel
                      + r"\S*\s+\d+ bytes stack frame, (\d+) bytes spill "
                      r"stores, (\d+) bytes spill loads", log)
-    check(prop is not None, f"no ptxas report of {HD256_BODY}")
+    check(prop is not None, f"no ptxas report of {kernel}")
     st, ld = int(prop.group(1)), int(prop.group(2))
     warned = [ln.strip() for ln in log.splitlines()
               if re.search(r"serializ|setmaxnreg", ln, re.I)]
@@ -5904,43 +6022,45 @@ def hd256_body_report(torch, dev, rehearse):
                           text=True, timeout=300)
     check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr[-500:]}")
     funcs = sass.stdout.split("Function : ")
-    body = [f for f in funcs if f.split("\n", 1)[0].find(HD256_BODY) >= 0]
-    check(len(body) == 1, f"{HD256_BODY} not found in the SASS")
+    body = [f for f in funcs if f.split("\n", 1)[0].find(kernel) >= 0]
+    check(len(body) == 1, f"{kernel} not found in the SASS")
     hgmma = len(re.findall(r"\bHGMMA\.", body[0]))
-    gen = torch.Generator(dev).manual_seed(SEED + 36)
-    a, b, c = (torch.randn(64, 256, generator=gen, device=dev).bfloat16()
-               for _ in range(3))
-    d, e = FA.wgmma_probe(a, b, c)
-    probe = {"d": float((d - a.float() @ b.float().T).abs().max()),
-             "e": float((e - d.bfloat16().float() @ c.float()).abs().max())}
-    rep = {"kernel": HD256_BODY, "threads": threads,
+    probe = hd256_probe(torch, FA, dev, dtype)
+    rep = {"kernel": kernel, "dtype": dtype, "threads": threads,
            "smem_bytes": smem, "blocks_per_sm": per_sm,
            "regs_consumer": regs_c, "regs_producer": regs_p,
            "regs_entry": regs_entry, "local_bytes": local,
            "spill_stores": st, "spill_loads": ld, "hgmma_sass": hgmma,
-           "ptxas_warnings": warned, "probe_max_abs_err": probe}
-    check(st == 0 and ld == 0 and local == 0, f"{HD256_BODY} spills: "
+           "ptxas_warnings": warned, "probe_max_err": probe,
+           "probe_tol": probe_tol}
+    check(st == 0 and ld == 0 and local == 0, f"{kernel} spills: "
           f"{st}/{ld} B, local {local} B")
-    check(not warned, f"ptxas on {HD256_BODY}: {warned}")
-    check(hgmma > 0, f"{HD256_BODY} has no HGMMA in its SASS")
-    check(per_sm == 1, f"{HD256_BODY}: {per_sm} blocks an SM, want 1")
-    check(max(probe.values()) <= 1e-3, f"wgmma probe against torch.matmul: "
-          f"{probe} (tol 1e-3)")
-    line = (f"{HD256_BODY} (bf16 hd 256): {threads} threads (a producer "
-            f"warpgroup at {regs_p} registers a thread, two consumer "
-            f"warpgroups at {regs_c}, by setmaxnreg; {regs_entry} at entry), "
-            f"spill {st}/{ld} B, local {local} B; {smem} B of dynamic shared "
-            f"memory, {per_sm} block an SM; {hgmma} HGMMA (wgmma) "
+    check(not warned, f"ptxas on flash_attention.cu: {warned}")
+    check(hgmma > 0, f"{kernel} has no HGMMA in its SASS")
+    check(per_sm == 1, f"{kernel}: {per_sm} blocks an SM, want 1")
+    check(max(probe.values()) <= probe_tol, f"{dtype} wgmma probe against "
+          f"torch.matmul: {probe} (tol {probe_tol})")
+    roles = (f"a producer warpgroup at {regs_p} registers a thread, two "
+             f"consumer warpgroups at {regs_c}, by setmaxnreg; "
+             f"{regs_entry} at entry" if dtype == "bfloat16" else
+             f"one consumer warpgroup and a producer warp, {regs_entry} "
+             f"registers a thread, no setmaxnreg")
+    err = ("max abs err" if dtype == "bfloat16"
+           else "max abs err / largest float64 value")
+    line = (f"{kernel} ({dtype} hd 256): {threads} threads ({roles}), "
+            f"spill {st}/{ld} B, local {local} B; {smem} B of dynamic "
+            f"shared memory, {per_sm} block an SM; {hgmma} HGMMA (wgmma) "
             f"instructions in its SASS; no ptxas line on wgmma "
             f"serialization or setmaxnreg; wgmma probe (one tile's q k^T "
-            f"and p v) against torch.matmul: max abs err {probe['d']:.3g} / "
-            f"{probe['e']:.3g} (tol 1e-3)")
+            f"and p v) against torch.matmul: {err} {probe['d']:.3g} / "
+            f"{probe['e']:.3g} (tol {probe_tol:g})")
     return rep, [line]
 
 
 def flash256_entry(torch, dev, rehearse, timer, ktimer):
-    """(a) bf16's wgmma body as built (``hd256_body_report``), then the
-    hd 256 body at paligemma's shape, causal, in bf16 and
+    """(a) the bf16 and float32 wgmma bodies as built
+    (``hd256_body_report``), then the hd 256 body at paligemma's shape,
+    causal, in bf16 and
     float32 against the plain version, each timed three ways beside the
     plain version and SDPA (causal, GQA) on the same inputs, with its
     bound: the causal half of 4 B H S^2 hd FLOPs at the type's
@@ -5957,6 +6077,9 @@ def flash256_entry(torch, dev, rehearse, timer, ktimer):
     flops = 4 * B * H * S * S * hd // 2          # the causal half
     entry = {"shape": [B, H, KV, S, hd], "causal": True, "launches": None}
     entry["body"], lines = hd256_body_report(torch, dev, rehearse)
+    entry["body_float32"], more = hd256_body_report(torch, dev, rehearse,
+                                                    "float32")
+    lines += more
     for dt, name in ((torch.bfloat16, "bfloat16"), (torch.float32,
                                                     "float32")):
         (q, k, v), err = flash_case(torch, FA, dev, shape, dt, SEED + 30,
@@ -5968,6 +6091,10 @@ def flash256_entry(torch, dev, rehearse, timer, ktimer):
                    "flash_attention_kernel")
         lib = ktimer(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
         e = {"dtype": name, "max_abs_err": err, **t,
+             # float32: the split pass and the body, apart
+             "device_by_kernel": (device_by_kernel(torch, lambda: (
+                 FA.flash_attention_bhsd(q, k, v, causal=True)))
+                 if dt == torch.float32 and not rehearse else None),
              "plain_ms": timer(lambda: FA.flash_attention_plain(
                  q, k, v, causal=True)),
              "bound_ms": bnd, "bound_by": by, "bound_bytes": n_bytes,
@@ -5995,7 +6122,10 @@ def flash256_entry(torch, dev, rehearse, timer, ktimer):
             f" TFLOP/s, {n_bytes / 1e6:.1f} MB at "
             f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); max abs err {err:.3g}, "
             f"window 256 / ragged 1000 / 77 x 1000 {max(errs):.3g} (tol "
-            + ("1e-4)" if dt == torch.float32 else "2e-2)"))
+            + ("1e-4)" if dt == torch.float32 else "2e-2)")
+            + ("" if not e["device_by_kernel"] else "; by kernel (profiler): "
+               + ", ".join(f"{short_kernel(k)} {v:.4f} ms"
+                           for k, v in e["device_by_kernel"].items())))
     # (c) a head dim between bodies, padded
     pad_shape = (B, H, KV, S, FLASH_PAD_HD)
     pad = {}

@@ -52,10 +52,13 @@ _SIGNATURES = {
     "cam_head": {
         "cam_head_launch": ([_VP] * 6 + [_I] * 4 + [_VP], _I)},
     "flash_attention": {
-        "flash_attention_launch": ([_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
-                                    _I, _I, _I, _I, _F, _VP], _I),
+        "flash_attention_launch": ([_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
+                                    _I, _I, _I, _I, _I, _F, _VP], _I),
+        "flash_attention_workspace_floats": ([_LL, _I], _LL),
         "flash_attention_wgmma_probe": ([_VP] * 6, _I),
-        "flash_attention_hd256_info": ([_PI], _I)},
+        "flash_attention_f32_wgmma_probe": ([_VP] * 7, _I),
+        "flash_attention_hd256_info": ([_PI], _I),
+        "flash_attention_hd256_f32_info": ([_PI], _I)},
     "rwkv6_scan": {
         "rwkv6_scan_launch": ([_PLL, _VP], _I)},
     "decode_attention": {

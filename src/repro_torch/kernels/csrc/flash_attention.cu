@@ -58,22 +58,9 @@
 //     folded into one FMA per score; row maxima are reduced over the 4
 //     lanes of a row with shuffles, row sums only once at the end;
 //   - a warp whose rows all precede a causal key tile skips its math.
-// Float32 at head dim 256 (paligemma-3b's) changes four things, for want
-// of shared memory and for its sums:
-//   - the key tile is 32 keys, so the S tile is 16 floats a thread beside
-//     the 128 of the o accumulator (16 rows x 256 columns a warp);
-//   - q is staged raw in shared memory (cp.async, with the first k / v
-//     tile) and split as its fragments are read, once per step and tile:
-//     split fp32 planes of q (133 KB) would not fit beside the k / v
-//     stages;
-//   - shared memory is 4 x 32 x 260 x 4 + 64 x 260 x 4 = 199,680 B (one
-//     block an SM), under the 232,448 B opt-in limit;
-//   - each head-dim step's large q k^T term is added to the score with
-//     one rounded fp32 add instead of being left in the mma's accumulator,
-//     whose running sum is truncated: over 32 steps that lost 1e-4 of a
-//     peaky softmax's output (q and k scaled by 8).
-// Bf16 at head dim 256 has a body of its own for Hopper, below
-// (flash_attention_kernel_hd256_wgmma): warpgroup MMA on TMA-fed tiles.
+// Head dim 256 (paligemma-3b's) has two bodies of its own for Hopper,
+// below: bf16's (flash_attention_kernel_hd256_wgmma) and float32's
+// (flash_attention_kernel_hd256_tf32), warpgroup MMA on TMA-fed tiles.
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched
                    // through cudaGetDriverEntryPoint (no -lcuda)
 #include <cuda_bf16.h>
@@ -92,22 +79,20 @@ constexpr float kLog2e = 1.4426950408889634f;
 template <typename T, int HD>
 struct Cfg {
   static constexpr bool kF32 = std::is_same<T, float>::value;
-  static constexpr int kBK = HD == 256 ? 32 : 64;            // keys a tile
+  static constexpr int kBK = 64;                             // keys a tile
   static constexpr int kJ = kBK / 8;                         // S n-tiles
   static constexpr int kPitch = HD + 16 / (int)sizeof(T);   // elements
   static constexpr int kTile = kBK * kPitch;                 // elements
-  static constexpr bool kQRaw = HD == 256;   // q raw in shared mem (fp32)
-  static constexpr bool kQReg = !kQRaw && (!kF32 || HD <= 64);  // in regs
+  static constexpr bool kQReg = !kF32 || HD <= 64;       // q in registers
   static constexpr int kQPitch = HD + 4;       // floats (fp32 hd 128 split)
   static constexpr int kNT = HD / 8;                         // o n-tiles
   static constexpr int kM = kF32 && HD == 32 ? 2 : 1;  // row tiles/warp
   static constexpr int kThreads = kBQ / (16 * kM) * 32;      // per block
   static constexpr size_t kSmem =
       4 * (size_t)kTile * sizeof(T) +
-      (kQRaw ? (size_t)kBQ * kPitch * sizeof(T)
-             : kQReg ? 0 : 2 * (size_t)kBQ * kQPitch * sizeof(float));
+      (kQReg ? 0 : 2 * (size_t)kBQ * kQPitch * sizeof(float));
   static constexpr int kMinBlocks = HD == 32 ? 4 : (HD == 64 ? 2 : 1);
-  static_assert(kF32 || HD != 256, "bf16 hd 256 runs the wgmma body");
+  static_assert(HD != 256, "hd 256 runs the wgmma bodies");
 };
 
 // x rounded to TF32 (to nearest, ties away from zero, as cvt.rna does)
@@ -222,23 +207,6 @@ __device__ __forceinline__ void load_tile(T* ks, T* vs, const T* kb,
   }
 }
 
-// the block's q rows q0 .. q0 + kBQ - 1, raw, at the k / v pitch (rows
-// past Sq zeroed); fp32 hd 256 only
-template <typename T, int HD>
-__device__ __forceinline__ void load_q(T* qs, const T* qb, int q0, int Sq) {
-  using C = Cfg<T, HD>;
-  constexpr int kE = 16 / (int)sizeof(T);
-  constexpr int kChunks = HD / kE;
-#pragma unroll 4
-  for (int i = threadIdx.x; i < kBQ * kChunks; i += C::kThreads) {
-    const int r = i / kChunks;
-    const int c = (i - r * kChunks) * kE;
-    const bool in = q0 + r < Sq;
-    const long long off = in ? (long long)(q0 + r) * HD + c : 0;
-    cp_async16(qs + r * C::kPitch + c, qb + off, in);
-  }
-}
-
 template <typename T, int HD>
 __global__ void __launch_bounds__(Cfg<T, HD>::kThreads,
                                   Cfg<T, HD>::kMinBlocks)
@@ -253,8 +221,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int kJ = C::kJ;
   extern __shared__ float4 smem4[];
   T* kv_s = reinterpret_cast<T*>(smem4);        // [stage][k, v][kBK][pitch]
-  T* qs_raw = kv_s + 4 * C::kTile;              // hd 256 only
-  float* qs_hi = reinterpret_cast<float*>(qs_raw);
+  float* qs_hi = reinterpret_cast<float*>(kv_s + 4 * C::kTile);
   float* qs_lo = qs_hi + kBQ * C::kQPitch;      // hd 128 fp32 only
 
   const int h = blockIdx.y;
@@ -281,16 +248,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int x = q0 - window - (kBK - 2);
     if (x > 0) t_begin = (x + kBK - 1) / kBK;
   }
-  if (t_begin < t_end) {
-    if constexpr (C::kQRaw) load_q<T, HD>(qs_raw, qb, q0, Sq);
+  if (t_begin < t_end)
     load_tile<T, HD>(kv_s, kv_s + C::kTile, kb, vb, t_begin * kBK, Sk);
-  }
   cp_async_commit();
 
   // the q tile, split once: fragments a0 (row g, col t), a1 (g + 8, t),
   // a2 (g, t + 4), a3 (g + 8, t + 4) of each row tile; tf32 columns are
-  // head dims qk_dim(t, kk) (+ 1), bf16 ones the pairs at 2t (+ 8).  At
-  // hd 256 the raw tile arrives with the first k / v stage instead
+  // head dims qk_dim(t, kk) (+ 1), bf16 ones the pairs at 2t (+ 8)
   constexpr int kQF = C::kQReg ? (C::kF32 ? HD / 8 : HD / 16) : 1;
   uint32_t qa[kM][kQF][4], qal[kM][kQF][4];
   if constexpr (C::kF32 && C::kQReg) {
@@ -323,7 +287,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         qa[mt][kk][3] = rb < Sq ? q32[(long long)rb * (HD / 2) + c + 4] : 0u;
       }
     }
-  } else if constexpr (!C::kQRaw) {   // fp32 hd 128: split planes
+  } else {                          // fp32 hd 128: split planes
     for (int i = threadIdx.x; i < kBQ * HD; i += C::kThreads) {
       const int r = i / HD;
       const int d = i - r * HD;
@@ -401,7 +365,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
             for (int kk = 0; kk < kQF; ++kk)
               mma_tf32(s[mt][j], qa[mt][kk], bh[kk][0], bh[kk][1]);
         }
-      } else if constexpr (C::kF32) {   // hd 128 / 256: one row tile a warp
+      } else if constexpr (C::kF32) {   // hd 128: one row tile a warp
         float sl[kJ][4];
 #pragma unroll
         for (int j = 0; j < kJ; ++j)
@@ -411,27 +375,17 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int kk = 0; kk < HD / 8; ++kk) {
           const int c = qk_dim(t, kk);
           uint32_t ah[4], al[4];
-          if constexpr (C::kQRaw) {       // split as read
-            const float* qr = reinterpret_cast<const float*>(qs_raw) +
-                              (warp * 16 + g) * C::kPitch + c;
-            constexpr int r8 = 8 * C::kPitch;
-            split(qr[0], ah[0], al[0]);
-            split(qr[r8], ah[1], al[1]);
-            split(qr[1], ah[2], al[2]);
-            split(qr[r8 + 1], ah[3], al[3]);
-          } else {
-            const float* qh = qs_hi + (warp * 16 + g) * C::kQPitch + c;
-            const float* ql = qs_lo + (warp * 16 + g) * C::kQPitch + c;
-            constexpr int r8 = 8 * C::kQPitch;
-            ah[0] = __float_as_uint(qh[0]);
-            ah[1] = __float_as_uint(qh[r8]);
-            ah[2] = __float_as_uint(qh[1]);
-            ah[3] = __float_as_uint(qh[r8 + 1]);
-            al[0] = __float_as_uint(ql[0]);
-            al[1] = __float_as_uint(ql[r8]);
-            al[2] = __float_as_uint(ql[1]);
-            al[3] = __float_as_uint(ql[r8 + 1]);
-          }
+          const float* qh = qs_hi + (warp * 16 + g) * C::kQPitch + c;
+          const float* ql = qs_lo + (warp * 16 + g) * C::kQPitch + c;
+          constexpr int r8 = 8 * C::kQPitch;
+          ah[0] = __float_as_uint(qh[0]);
+          ah[1] = __float_as_uint(qh[r8]);
+          ah[2] = __float_as_uint(qh[1]);
+          ah[3] = __float_as_uint(qh[r8 + 1]);
+          al[0] = __float_as_uint(ql[0]);
+          al[1] = __float_as_uint(ql[r8]);
+          al[2] = __float_as_uint(ql[1]);
+          al[3] = __float_as_uint(ql[r8 + 1]);
 #pragma unroll
           for (int j = 0; j < kJ; ++j) {
             const float2 x = *reinterpret_cast<const float2*>(
@@ -442,14 +396,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
             split(x.y, bh1, bl1);
             mma_tf32(sl[j], al, bh0, bh1);
             mma_tf32(sl[j], ah, bl0, bl1);
-            if constexpr (C::kQRaw) {     // a rounded add (see the top)
-              float d[4] = {0.f, 0.f, 0.f, 0.f};
-              mma_tf32(d, ah, bh0, bh1);
-#pragma unroll
-              for (int e = 0; e < 4; ++e) s[0][j][e] += d[e];
-            } else {
-              mma_tf32(s[0][j], ah, bh0, bh1);
-            }
+            mma_tf32(s[0][j], ah, bh0, bh1);
           }
         }
 #pragma unroll
@@ -896,21 +843,22 @@ __device__ __forceinline__ void pv(float (&o)[128], const uint32_t (&p)[16],
 }
 
 // the online softmax of one tile's scores, as in flash_attention_kernel
-// above: s[4 j + e] (row ra + 8 (e >> 1), key k0 + 8 j + 2 t + (e & 1))
-// becomes its weight in fp32; m and l are the rows' running max (scaled,
-// base 2) and this lane's share of their sums, corr the factor that
-// rescales the rows' accumulator.  Masked raw scores are NEG_INF; m is
-// NEG_INF while every score of its row so far is masked, so a masked
-// score weighs exp2(NEG_INF - m): 1 then, 0 once m is real, as the TPU
-// kernel's exp(NEG_INF - m)
-__device__ __forceinline__ void softmax(float (&s)[32], float (&m)[2],
+// above: s[4 j + e] (row ra + 8 (e >> 1), key k0 + 8 j + 2 t + (e & 1);
+// N / 4 n-tiles of 8 keys) becomes its weight in fp32; m and l are the
+// rows' running max (scaled, base 2) and this lane's share of their sums,
+// corr the factor that rescales the rows' accumulator.  Masked raw scores
+// are NEG_INF; m is NEG_INF while every score of its row so far is
+// masked, so a masked score weighs exp2(NEG_INF - m): 1 then, 0 once m is
+// real, as the TPU kernel's exp(NEG_INF - m)
+template <int N>
+__device__ __forceinline__ void softmax(float (&s)[N], float (&m)[2],
                                         float (&l)[2], float (&corr)[2],
                                         bool need_mask, int ra, int k0,
                                         int t, int Sk, int causal,
                                         int window, float scale_log2) {
   if (need_mask) {
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
+    for (int j = 0; j < N; ++j) {
       const int qp = ra + ((j >> 1) & 1) * 8;
       const int kp = k0 + (j >> 2) * 8 + 2 * t + (j & 1);
       bool keep = kp < Sk;
@@ -921,7 +869,7 @@ __device__ __forceinline__ void softmax(float (&s)[32], float (&m)[2],
   }
   float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-  for (int j = 0; j < 32; ++j)
+  for (int j = 0; j < N; ++j)
     mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], s[j]);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -934,7 +882,7 @@ __device__ __forceinline__ void softmax(float (&s)[32], float (&m)[2],
     l[r] *= corr[r];
   }
 #pragma unroll
-  for (int j = 0; j < 32; ++j) {
+  for (int j = 0; j < N; ++j) {
     const int r = (j >> 1) & 1;
     const float x = fmaf(s[j], scale_log2, -m[r]);
     s[j] = ex2(need_mask && s[j] == kNegInf ? kNegInf - m[r] : x);
@@ -1238,26 +1186,34 @@ EncodeTiled encoder() {
 // wrapper names it); cudaError_t values stay below it
 constexpr int kMapError = 100000;
 
-// (rows, 256) bf16 matrices of `heads` heads, contiguous, as a 3-D map
-// with boxes of (64 columns, box_rows rows, 1 head), 128-byte swizzle;
-// rows past `rows` read as zero and are not written
-int make_map(CUtensorMap* map, const void* base, long long rows,
-             long long heads, int box_rows) {
+// a (d2, d1, d0) array of `type` (elements of `bytes`), contiguous, as a
+// 3-D map with boxes of (b0, b1, 1) and 128-byte swizzle; past the ends
+// reads as zero and is not written
+int make_map_3d(CUtensorMap* map, CUtensorMapDataType type, int bytes,
+                const void* base, long long d0, long long d1, long long d2,
+                int b0, int b1) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return kMapError + (int)CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[3] = {(cuuint64_t)kHD, (cuuint64_t)rows,
-                              (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)kHD * 2,
-                                 (cuuint64_t)rows * kHD * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)kBoxCols, (cuuint32_t)box_rows, 1};
+  const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1,
+                              (cuuint64_t)d2};
+  const cuuint64_t strides[2] = {(cuuint64_t)(d0 * bytes),
+                                 (cuuint64_t)(d0 * d1 * bytes)};
+  const cuuint32_t box[3] = {(cuuint32_t)b0, (cuuint32_t)b1, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                         const_cast<void*>(base), dims, strides, box, unit,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+  const CUresult r = enc(map, type, 3, const_cast<void*>(base), dims,
+                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                          CU_TENSOR_MAP_SWIZZLE_128B,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kMapError + (int)r;
+}
+
+// (rows, 256) bf16 matrices of `heads` heads with boxes of (64 columns,
+// box_rows rows, 1 head)
+int make_map(CUtensorMap* map, const void* base, long long rows,
+             long long heads, int box_rows) {
+  return make_map_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, kHD,
+                     rows, heads, kBoxCols, box_rows);
 }
 
 int launch(const void* q, const void* k, const void* v, void* o, int B,
@@ -1288,6 +1244,559 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace wg
 
+// ---------------------------------------------------------------------------
+// Float32 at head dim 256: 3xTF32 on warpgroup MMA (wgmma) on TMA-fed
+// tiles, sm_90a.
+//
+// Bound at paligemma-3b's (8, 8, 1, 1024, 256) causal: the causal half of
+// 4 B H S^2 hd is 34.4 GFLOP; three TF32 products stand for each fp32
+// one, 103 GFLOP at 495 TFLOP/s: 0.2082 ms.  Only wgmma reaches that
+// rate.  For 32-bit types wgmma has no transpose: both shared-memory
+// operands are K-major, and A may come from registers.  The design:
+//   - a split pass (split_kv_kernel) runs once a call, before the body:
+//     k becomes its TF32 planes k_hi and k_lo (the same layout), v the
+//     planes of v^T (B KV, 256, Skp): keys contiguous, so that v is a
+//     K-major B operand of p v, and within each 8 keys in the order
+//     0 2 4 6 1 3 5 7, the order in which p's accumulator layout hands
+//     the keys to A's columns (column t is key 2t, t + 4 is 2t + 1);
+//     keys past Sk (to Skp, the next multiple of 8) are zero.  Each k and
+//     v element is split once a call, not once a block and warp that
+//     reads it (eight query heads share paligemma's one kv head).  The
+//     other route, o^T = v^T p^T with v^T as A from registers, would put
+//     the head dim on the rows, so each row's rescale and sum would cross
+//     warpgroups through shared memory;
+//   - a block owns 64 query rows of one (batch, head): one consumer
+//     warpgroup of 4 warps and one producer warp, 160 threads, so every
+//     thread may hold 255 registers without setmaxnreg (o: 64 x 256 fp32,
+//     128 a thread).  Two consumer warpgroups did not pay on an H100:
+//     taking alternate key tiles, they spill under setmaxnreg's 240
+//     registers; splitting the head dims, they run in lockstep at this
+//     body's speed (PERF.md);
+//   - shared memory: q (64 KB), each thread's own A fragments in the order
+//     it reads them (one 16-byte read a k-step, no bank conflict; loaded
+//     once, split as read), and a ring of five 32 KB slots that take, in
+//     turn, a 32-key tile's k_hi, k_lo, v^T hi and v^T lo: 229,376 B, one
+//     block an SM.  The producer keeps the ring full with TMA (full
+//     barriers armed with expect_tx; empty barriers that each consumer
+//     warp arrives on); a tile of k is eight boxes of 32 head dims (128
+//     bytes, the swizzle's width), one of v^T is one box of 32 keys x 256
+//     head dims; rows past a head's end read as zero;
+//   - S = q k^T: 32 k-steps of wgmma m64n32k8, A (q's hi and lo) from
+//     registers, three products a step, a commit group a step, kPipe
+//     steps' A in registers: 240 registers, none spilled (two k-steps a
+//     group, or a second box accumulator below, spill).  The tensor cores
+//     sum a wgmma's terms into its accumulator with truncation, so a long
+//     chain drifts: the small terms (lo hi, hi lo) run in one chain over
+//     the 256 head dims, the large one (hi hi) in a chain restarted at
+//     each 64-column box and added to the score with rounded fp32 adds
+//     (tests/test_torch_attention.py holds that order at 1e-4 where one
+//     chain misses).  A box's chain is read after the next k-step's small
+//     products are issued, so the tensor cores have work meanwhile;
+//   - the online softmax is the other bodies' (fp32, base 2, NEG_INF
+//     masks and the masked-weight rule); p is split to TF32 hi and lo
+//     straight into A's registers; a warp skips the accumulator's rescale
+//     where no row's max moved (its factor is exactly 1);
+//   - o += p v: per 8 keys three wgmma m64n256k8, A = p from registers,
+//     B = the v^T planes;
+//   - the tile-skipping rules and the 32-key tiles of the body this one
+//     replaced; blocks launched longest-first (causal);
+//   - o = acc / max(l, 1e-30) by l's rounded reciprocal and one FMA
+//     correction, the correctly rounded quotient.
+// A repeated call is bit-identical: no atomics, a fixed order of sums.
+namespace tf {
+
+using wg::commit;
+using wg::desc_k;
+using wg::fence;
+using wg::mbar_arrive;
+using wg::mbar_expect_tx;
+using wg::mbar_init;
+using wg::mbar_wait;
+using wg::pin;
+using wg::smem_u32;
+using wg::softmax;
+using wg::tma_load;
+
+constexpr int kBM = 64;                         // query rows a block
+constexpr int kBN = 32;                         // keys a tile
+constexpr int kHD = 256;
+constexpr int kSteps = kHD / 8;                 // k-steps of q k^T
+constexpr int kBoxCols = 32;                    // 128 bytes of fp32
+constexpr int kThreads = 160;                   // consumers + producer warp
+constexpr int kSlots = 5;
+constexpr int kPipe = 3;                        // k-steps of A in registers
+constexpr uint32_t kKBox = kBN * 128;           // 4 KB: 32 keys x 32 dims
+constexpr uint32_t kQuarter = kBN * kHD * 4;    // 32 KB: one plane a tile
+constexpr uint32_t kQBytes = kBM * kHD * 4;     // 64 KB
+constexpr uint32_t kBarOff = kQBytes + kSlots * kQuarter;
+// barriers (8 bytes each) at kBarOff: full[kSlots], empty[kSlots]
+constexpr size_t kSmem = 1024 + kBarOff + 2 * kSlots * 8;
+
+// wait until at most N committed groups are pending
+template <int N>
+__device__ __forceinline__ void wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// d (64 x 32 fp32) = (acc ? d : 0) + a (64 x 8 TF32, registers) b^T (b
+// 32 x 8, K-major in shared memory)
+__device__ __forceinline__ void mma_n32(float (&d)[16], const uint32_t* a,
+                                        uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// d (64 x 256 fp32) += a (64 x 8 TF32, registers) b^T (b 256 x 8, K-major
+// in shared memory)
+__device__ __forceinline__ void mma_n256(float (&d)[128], const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127 "
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]),
+        "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]),
+        "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]),
+        "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]),
+        "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]),
+        "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]),
+        "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// the split pass: a block takes 32 keys x 32 head dims of one kv head
+__global__ void __launch_bounds__(256)
+split_kv_kernel(const float* __restrict__ k, const float* __restrict__ v,
+                float* __restrict__ khi, float* __restrict__ klo,
+                float* __restrict__ vthi, float* __restrict__ vtlo, int Sk,
+                int Skp) {
+  __shared__ float tile[32][33];
+  const int k0 = blockIdx.x * 32, d0 = blockIdx.y * 32;
+  const long long hk = (long long)blockIdx.z * Sk * kHD;
+  const long long hv = (long long)blockIdx.z * kHD * Skp;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+#pragma unroll
+  for (int r = ty; r < 32; r += 8) {
+    const int key = k0 + r;
+    float x = 0.f;
+    if (key < Sk) {
+      const long long at = hk + (long long)key * kHD + d0 + tx;
+      uint32_t hi, lo;
+      split(k[at], hi, lo);
+      khi[at] = __uint_as_float(hi);
+      klo[at] = __uint_as_float(lo);
+      x = v[at];
+    }
+    tile[r][tx] = x;
+  }
+  __syncthreads();
+  // position tx of a row of v^T holds key (tx & ~7) + perm(tx & 7)
+  const int p = tx & 7;
+  const int key = (tx & ~7) + (p < 4 ? 2 * p : 2 * p - 7);
+  if (k0 + tx < Skp) {
+#pragma unroll
+    for (int r = ty; r < 32; r += 8) {
+      const long long at = hv + (long long)(d0 + r) * Skp + k0 + tx;
+      uint32_t hi, lo;
+      split(tile[key][r], hi, lo);
+      vthi[at] = __uint_as_float(hi);
+      vtlo[at] = __uint_as_float(lo);
+    }
+  }
+}
+
+// s = q k^T over the 256 head dims (3xTF32, the sums as the top says).
+// qt: this thread's A fragments, one float4 a k-step, 128 threads apart;
+// khi, klo: the tile's planes (8 boxes of 32 dims).  k-step kk's A sits
+// in registers kk % kPipe until its products are done, so kPipe - 1
+// steps' products stay in flight while the next step's fragments are
+// split, and the next fragments are read from shared memory as soon as
+// these are split.  At a box's end its hi hi chain (sb) is added to s
+// after the next step's small products are issued, so the tensor cores
+// have work meanwhile
+__device__ __forceinline__ void qk(float (&s)[16], float (&sm)[16],
+                                   float (&sb)[16], const float4* qt,
+                                   uint32_t khi, uint32_t klo) {
+  uint32_t ah[kPipe][4], al[kPipe][4];
+  float4 x = qt[0];
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk) {
+    const int r = kk % kPipe;
+    if (kk >= kPipe) wait<kPipe - 1>();  // k-step kk - kPipe's are done
+    split(x.x, ah[r][0], al[r][0]);
+    split(x.y, ah[r][1], al[r][1]);
+    split(x.z, ah[r][2], al[r][2]);
+    split(x.w, ah[r][3], al[r][3]);
+    if (kk + 1 < kSteps) x = qt[128 * (kk + 1)];
+    pin(ah[r]);
+    pin(al[r]);
+    pin(sm);
+    fence();
+    const uint32_t off = (kk >> 2) * kKBox + (kk & 3) * 32;
+    mma_n32(sm, al[r], desc_k(khi + off), kk > 0);
+    mma_n32(sm, ah[r], desc_k(klo + off), 1);
+    if ((kk & 7) == 0 && kk > 0) {       // box kk / 8 - 1 is issued
+      commit();
+      wait<1>();                         // and done
+      pin(sb);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) s[e] = kk == 8 ? sb[e] : s[e] + sb[e];
+      pin(s);
+      fence();
+    }
+    pin(sb);
+    mma_n32(sb, ah[r], desc_k(khi + off), (kk & 7) != 0);
+    commit();
+  }
+  wait<0>();
+  pin(sm);
+  pin(sb);
+#pragma unroll
+  for (int e = 0; e < 16; ++e) s[e] = (s[e] + sb[e]) + sm[e];
+}
+
+// o += p v over the tile's 32 keys: p's weights (s's layout) split into
+// A's hi and lo (column t of k-step j is key 8 j + 2 t, t + 4 is 8 j +
+// 2 t + 1: the v^T planes' key order), three m64n256k8 a k-step
+__device__ __forceinline__ void pv(float (&o)[128], const float (&p)[16],
+                                   uint32_t vthi, uint32_t vtlo) {
+  uint32_t ph[16], pl[16];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    split_p(p[4 * j], ph[4 * j], pl[4 * j]);
+    split_p(p[4 * j + 2], ph[4 * j + 1], pl[4 * j + 1]);
+    split_p(p[4 * j + 1], ph[4 * j + 2], pl[4 * j + 2]);
+    split_p(p[4 * j + 3], ph[4 * j + 3], pl[4 * j + 3]);
+  }
+  pin(o);
+  pin(ph);
+  pin(pl);
+  fence();
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    mma_n256(o, pl + 4 * j, desc_k(vthi + 32 * j));
+    mma_n256(o, ph + 4 * j, desc_k(vtlo + 32 * j));
+    mma_n256(o, ph + 4 * j, desc_k(vthi + 32 * j));
+  }
+  commit();
+  wait<0>();
+  pin(o);
+}
+
+// this thread's A fragments of q k^T into its own 16-byte column of
+// shared memory: k-step kk at qt[128 kk], (row g, dim 8 kk + t), (g + 8,
+// 8 kk + t), (g, 8 kk + t + 4), (g + 8, 8 kk + t + 4); rows past Sq zero
+__device__ __forceinline__ void load_q(float4* qt, const float* qb, int ra,
+                                       int t, int Sq) {
+  const bool in_a = ra < Sq, in_b = ra + 8 < Sq;
+  const float* pa = qb + (long long)ra * kHD + t;
+  const float* pb = pa + 8 * kHD;
+#pragma unroll 8
+  for (int kk = 0; kk < kSteps; ++kk)
+    qt[128 * kk] = make_float4(in_a ? pa[8 * kk] : 0.f,
+                               in_b ? pb[8 * kk] : 0.f,
+                               in_a ? pa[8 * kk + 4] : 0.f,
+                               in_b ? pb[8 * kk + 4] : 0.f);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_kernel_hd256_tf32(const __grid_constant__ CUtensorMap mkh,
+                                  const __grid_constant__ CUtensorMap mkl,
+                                  const __grid_constant__ CUtensorMap mvh,
+                                  const __grid_constant__ CUtensorMap mvl,
+                                  const float* __restrict__ q,
+                                  float* __restrict__ o, int BH, int H,
+                                  int KV, int Sq, int Sk, int n_q,
+                                  float scale_log2, int causal, int window) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;
+  unsigned char* gbase = smem + (base - smem_u32(smem));
+  const uint32_t ring = base + kQBytes;
+  const uint32_t full = base + kBarOff, empty = full + 8 * kSlots;
+
+  const int bh = blockIdx.x % BH;               // b * H + h
+  const int q0 = (n_q - 1 - blockIdx.x / BH) * kBM;   // longest first
+  const int kvh = (bh / H) * KV + (bh % H) / (H / KV);
+  const int q_hi = min(q0 + kBM, Sq) - 1;       // last real query row
+
+  // the TPU kernel's skipping rules, on the block's real rows
+  const int n_k = (Sk + kBN - 1) / kBN;
+  const int t_end = causal ? min(n_k, q_hi / kBN + 1) : n_k;
+  int t_begin = 0;
+  if (window > 0) {
+    const int x = q0 - window - (kBN - 2);
+    if (x > 0) t_begin = (x + kBN - 1) / kBN;
+  }
+  const int n_t = max(t_end - t_begin, 0);      // tiles t_begin + i
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4);              // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // ---- producer: one thread keeps the ring full; plane n of the
+    // sequence (tile n / 4: k hi, k lo, v^T hi, v^T lo) goes to slot n % 5
+    if (threadIdx.x == 128) {
+      for (int n = 0; n < 4 * n_t; ++n) {
+        const int s = n % kSlots, u = n / kSlots;
+        if (u > 0) mbar_wait(empty + 8 * s, (u - 1) & 1);
+        const int k0 = (t_begin + n / 4) * kBN;
+        const uint32_t dst = ring + s * kQuarter, bar = full + 8 * s;
+        mbar_expect_tx(bar, kQuarter);
+        switch (n & 3) {
+          case 0:
+          case 1:
+#pragma unroll
+            for (int c = 0; c < kHD / kBoxCols; ++c)
+              tma_load(dst + c * kKBox, (n & 3) ? &mkl : &mkh, bar,
+                       c * kBoxCols, k0, kvh);
+            break;
+          default:
+            tma_load(dst, (n & 3) == 3 ? &mvl : &mvh, bar, k0, 0, kvh);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: the warpgroup owns rows q0 .. q0 + 63
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int t = lane & 3;
+    const int wrow0 = q0 + 16 * warp;           // the warp's rows
+    const int ra = wrow0 + (lane >> 2);         // this thread's: ra, ra + 8
+    float4* qt = reinterpret_cast<float4*>(gbase) + threadIdx.x;
+    load_q(qt, q + (long long)bh * Sq * kHD, ra, t, Sq);
+
+    // o at acc[4 j + e]: row ra + 8 (e >> 1), column 8 j + 2 t + (e & 1);
+    // the tile's scores, then weights, at sc[4 j + e]: the same row, key
+    // k0 + 8 j + 2 t + (e & 1)
+    float acc[128], sc[16], sm[16], sb[16];
+#pragma unroll
+    for (int e = 0; e < 128; ++e) acc[e] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) sc[e] = sm[e] = sb[e] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+    for (int i = 0; i < n_t; ++i) {
+      const int k0 = (t_begin + i) * kBN;
+      // the tile's planes: sequence 4 i + c in slot (4 i + c) % kSlots,
+      // its (4 i + c) / kSlots-th use
+      const int n = 4 * i;
+      auto slot = [&](int c) { return (n + c) % kSlots; };
+      auto use = [&](int c) { return (uint32_t)((n + c) / kSlots) & 1; };
+      // ---- S = q k^T
+      mbar_wait(full + 8 * slot(0), use(0));
+      mbar_wait(full + 8 * slot(1), use(1));
+      qk(sc, sm, sb, qt, ring + slot(0) * kQuarter,
+         ring + slot(1) * kQuarter);
+      __syncwarp();
+      if (lane == 0) {                          // the k planes may go
+        mbar_arrive(empty + 8 * slot(0));
+        mbar_arrive(empty + 8 * slot(1));
+      }
+
+      // ---- mask, online softmax (base 2), rescale the accumulator (not
+      // where no row's max moved: its factor is exactly 1)
+      const bool need_mask = k0 + kBN > Sk ||
+                             (causal && k0 + kBN - 1 > wrow0) ||
+                             (window > 0 && wrow0 + 15 - k0 >= window);
+      float corr[2];
+      softmax(sc, m, l, corr, need_mask, ra, k0, t, Sk, causal, window,
+              scale_log2);
+      if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+        for (int e = 0; e < 128; ++e) acc[e] *= corr[(e >> 1) & 1];
+      }
+
+      // ---- o += p v
+      mbar_wait(full + 8 * slot(2), use(2));
+      mbar_wait(full + 8 * slot(3), use(3));
+      pv(acc, sc, ring + slot(2) * kQuarter, ring + slot(3) * kQuarter);
+      __syncwarp();
+      if (lane == 0) {                          // the v planes may go
+        mbar_arrive(empty + 8 * slot(2));
+        mbar_arrive(empty + 8 * slot(3));
+      }
+    }
+
+    // ---- o = acc / max(l, 1e-30), the correctly rounded quotient
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float li = l[r];
+      li += __shfl_xor_sync(0xffffffffu, li, 1);
+      li += __shfl_xor_sync(0xffffffffu, li, 2);
+      li = fmaxf(li, 1e-30f);
+      const float rl = __frcp_rn(li);
+      auto quot = [&](float x) {
+        const float qv = x * rl;
+        return fmaf(fmaf(-qv, li, x), rl, qv);
+      };
+      const int row = ra + 8 * r;
+      if (row >= Sq) continue;
+      float* dst = o + ((long long)bh * Sq + row) * kHD + 2 * t;
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        *reinterpret_cast<float2*>(dst + 8 * j) =
+            make_float2(quot(acc[4 * j + 2 * r]), quot(acc[4 * j + 2 * r + 1]));
+    }
+  }
+}
+
+// One warpgroup, the body's two products on one tile, through its split
+// pass, tensor maps, descriptors and A layouts: d (64 x 32) = a b^T, then
+// e (64 x 256) = d c, for a (64 x 256), b, c (32 x 256) float32
+__global__ void __launch_bounds__(128, 1)
+flash_attention_f32_wgmma_probe_kernel(const __grid_constant__ CUtensorMap mkh,
+                                       const __grid_constant__ CUtensorMap mkl,
+                                       const __grid_constant__ CUtensorMap mvh,
+                                       const __grid_constant__ CUtensorMap mvl,
+                                       const float* __restrict__ a,
+                                       float* __restrict__ d,
+                                       float* __restrict__ e) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;
+  unsigned char* gbase = smem + (base - smem_u32(smem));
+  const uint32_t ring = base + kQBytes, bar = ring + 4 * kQuarter;
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bar, 4 * kQuarter);
+#pragma unroll
+    for (int c = 0; c < kHD / kBoxCols; ++c) {
+      tma_load(ring + c * kKBox, &mkh, bar, c * kBoxCols, 0, 0);
+      tma_load(ring + kQuarter + c * kKBox, &mkl, bar, c * kBoxCols, 0, 0);
+    }
+    tma_load(ring + 2 * kQuarter, &mvh, bar, 0, 0, 0);
+    tma_load(ring + 3 * kQuarter, &mvl, bar, 0, 0, 0);
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ra = 16 * warp + (lane >> 2), t = lane & 3;
+  float4* qt = reinterpret_cast<float4*>(gbase) + threadIdx.x;
+  load_q(qt, a, ra, t, kBM);
+  mbar_wait(bar, 0);
+  float s[16], sm[16], sb[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) s[j] = sm[j] = sb[j] = 0.f;
+  qk(s, sm, sb, qt, ring, ring + kQuarter);
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    d[(ra + 8 * ((j >> 1) & 1)) * kBN + 8 * (j >> 2) + 2 * t + (j & 1)] = s[j];
+  float acc[128];
+#pragma unroll
+  for (int j = 0; j < 128; ++j) acc[j] = 0.f;
+  pv(acc, s, ring + 2 * kQuarter, ring + 3 * kQuarter);
+#pragma unroll
+  for (int j = 0; j < 128; ++j)
+    e[(ra + 8 * ((j >> 1) & 1)) * kHD + 8 * (j >> 2) + 2 * t + (j & 1)] =
+        acc[j];
+}
+
+// keys of the v^T planes: Sk rounded up to the next multiple of 8
+inline long long padded_keys(int Sk) { return (Sk + 7LL) / 8 * 8; }
+
+// the workspace (floats) of a call: k_hi, k_lo, then v^T hi, v^T lo
+inline long long workspace_floats(long long heads, int Sk) {
+  return 2 * heads * kHD * (Sk + padded_keys(Sk));
+}
+
+// the split pass over (heads, Sk, 256) k and v into `ws`, and the four
+// planes' tensor maps
+int split_and_map(const void* k, const void* v, float* ws, long long heads,
+                  int Sk, CUtensorMap* maps, cudaStream_t stream) {
+  const long long Skp = padded_keys(Sk);
+  float* khi = ws;
+  float* klo = khi + heads * Sk * kHD;
+  float* vthi = klo + heads * Sk * kHD;
+  float* vtlo = vthi + heads * kHD * Skp;
+  if (heads > 65535) return (int)cudaErrorInvalidValue;
+  // (heads, d1, d0) float32 planes, boxes of (b0, b1, 1)
+  auto map = [&](CUtensorMap* m, const float* p, long long d0, long long d1,
+                 int b0, int b1) {
+    return wg::make_map_3d(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, p, d0, d1,
+                           heads, b0, b1);
+  };
+  int rc = map(&maps[0], khi, kHD, Sk, kBoxCols, kBN);
+  if (rc == 0) rc = map(&maps[1], klo, kHD, Sk, kBoxCols, kBN);
+  if (rc == 0) rc = map(&maps[2], vthi, Skp, kHD, kBN, kHD);
+  if (rc == 0) rc = map(&maps[3], vtlo, Skp, kHD, kBN, kHD);
+  if (rc != 0) return rc;
+  const dim3 grid((unsigned)((Skp + 31) / 32), kHD / 32, (unsigned)heads);
+  split_kv_kernel<<<grid, 256, 0, stream>>>(
+      (const float*)k, (const float*)v, khi, klo, vthi, vtlo, Sk, (int)Skp);
+  return (int)cudaGetLastError();
+}
+
+int launch(const void* q, const void* k, const void* v, void* o, void* ws,
+           int B, int H, int KV, int Sq, int Sk, float scale, int causal,
+           int window, cudaStream_t stream) {
+  const long long BH = (long long)B * H;
+  const long long n_q = (Sq + kBM - 1) / kBM;
+  if (ws == nullptr || n_q * BH > INT_MAX) return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[4];
+  int rc = split_and_map(k, v, (float*)ws, (long long)B * KV, Sk, maps,
+                         stream);
+  if (rc != 0) return rc;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_attention_kernel_hd256_tf32,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  flash_attention_kernel_hd256_tf32<<<(unsigned)(n_q * BH), kThreads, kSmem,
+                                      stream>>>(
+      maps[0], maps[1], maps[2], maps[3], (const float*)q, (float*)o,
+      (int)BH, H, KV, Sq, Sk, (int)n_q, scale * kLog2e, causal, window);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tf
+
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int KV, int Sq, int Sk, float scale, int causal,
@@ -1309,9 +1818,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 }
 
 template <typename T>
-int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
-              int H, int KV, int Sq, int Sk, int hd, float scale, int causal,
-              int window, cudaStream_t s) {
+int launch_hd(const void* q, const void* k, const void* v, void* o, void* ws,
+              int B, int H, int KV, int Sq, int Sk, int hd, float scale,
+              int causal, int window, cudaStream_t s) {
   switch (hd) {
     case 32:
       return launch<T, 32>(q, k, v, o, B, H, KV, Sq, Sk, scale, causal,
@@ -1324,8 +1833,8 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
                             window, s);
     case 256:
       if constexpr (std::is_same<T, float>::value)
-        return launch<T, 256>(q, k, v, o, B, H, KV, Sq, Sk, scale, causal,
-                              window, s);
+        return tf::launch(q, k, v, o, ws, B, H, KV, Sq, Sk, scale, causal,
+                          window, s);
       else
         return wg::launch(q, k, v, o, B, H, KV, Sq, Sk, scale, causal,
                           window, s);
@@ -1341,27 +1850,37 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
 // H % KV == 0, hd in {32, 64, 128, 256}; window <= 0 means no sliding
 // window.  scale is the softmax scale of the true head dim: the wrapper
 // zero-pads q, k and v of any other hd <= 256 up to the next of these
-// bodies, which changes no score and no kept column.  Returns
+// bodies, which changes no score and no kept column.  ws: float32 at
+// hd 256 only, flash_attention_workspace_floats(B * KV, Sk) floats,
+// 16-byte aligned (the split planes of k and v); else unused.  Returns
 // cudaGetLastError() of the launch, or 100000 + the CUresult of a tensor
-// map the driver refused (bf16 hd 256).
+// map the driver refused (hd 256).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int B, int H,
-                                      int KV, int Sq, int Sk, int hd,
-                                      int dtype, int causal, int window,
-                                      float scale, void* stream) {
+                                      const void* v, void* o, void* ws,
+                                      int B, int H, int KV, int Sq, int Sk,
+                                      int hd, int dtype, int causal,
+                                      int window, float scale, void* stream) {
   if (B <= 0 || Sq <= 0) return 0;
   if (KV <= 0 || H % KV != 0 || Sk <= 0) return (int)cudaErrorInvalidValue;
   if ((((unsigned long long)q | (unsigned long long)k |
-        (unsigned long long)v | (unsigned long long)o) & 15) != 0)
+        (unsigned long long)v | (unsigned long long)o |
+        (unsigned long long)ws) & 15) != 0)
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_hd<float>(q, k, v, o, B, H, KV, Sq, Sk, hd, scale, causal,
-                            window, s);
+    return launch_hd<float>(q, k, v, o, ws, B, H, KV, Sq, Sk, hd, scale,
+                            causal, window, s);
   if (dtype == 1)
-    return launch_hd<__nv_bfloat16>(q, k, v, o, B, H, KV, Sq, Sk, hd, scale,
-                                    causal, window, s);
+    return launch_hd<__nv_bfloat16>(q, k, v, o, ws, B, H, KV, Sq, Sk, hd,
+                                    scale, causal, window, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The float32 hd 256 body's workspace, in floats, for `heads` = B * KV kv
+// heads of Sk keys
+extern "C" long long flash_attention_workspace_floats(long long heads,
+                                                      int Sk) {
+  return tf::workspace_floats(heads, Sk);
 }
 
 // The bf16 hd 256 body's two products on one tile, for a card test: a, b,
@@ -1414,6 +1933,65 @@ extern "C" int flash_attention_hd256_info(int* out) {
   out[1] = wg::kThreads;
   out[2] = wg::kConsumerRegs;
   out[3] = wg::kProducerRegs;
+  out[4] = attr.numRegs;
+  out[5] = (int)attr.localSizeBytes;
+  out[6] = blocks;
+  return 0;
+}
+
+// The float32 hd 256 body's two products on one tile, for a card test,
+// through its split pass, tensor maps, descriptors and A layouts: a
+// (64, 256), b and c (32, 256) float32, contiguous, 16-byte aligned; ws
+// flash_attention_workspace_floats(1, 32) floats; d (64, 32) = a b^T and
+// e (64, 256) = d c (d's weights split as the body splits p), float32.
+// Returns as above.
+extern "C" int flash_attention_f32_wgmma_probe(const void* a, const void* b,
+                                               const void* c, void* d,
+                                               void* e, void* ws,
+                                               void* stream) {
+  CUtensorMap maps[4];
+  const cudaStream_t s = (cudaStream_t)stream;
+  int rc = tf::split_and_map(b, c, (float*)ws, 1, tf::kBN, maps, s);
+  if (rc != 0) return rc;
+  const size_t smem = 1024 + tf::kQBytes + 4 * tf::kQuarter + 8;
+  cudaError_t err = cudaFuncSetAttribute(
+      tf::flash_attention_f32_wgmma_probe_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  tf::flash_attention_f32_wgmma_probe_kernel<<<1, 128, smem, s>>>(
+      maps[0], maps[1], maps[2], maps[3], (const float*)a, (float*)d,
+      (float*)e);
+  return (int)cudaGetLastError();
+}
+
+// The float32 hd 256 body's launch shape and resources, for a report, as
+// flash_attention_hd256_info's: out[0] dynamic shared memory (bytes), [1]
+// threads a block, [2] and [3] the registers a consumer and a producer
+// thread hold (no setmaxnreg: both the compiled count), [4] registers at
+// entry, [5] local memory a thread, [6] blocks an SM.  Returns a
+// cudaError_t.
+extern "C" int flash_attention_hd256_f32_info(int* out) {
+  auto fn = tf::flash_attention_kernel_hd256_tf32;
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tf::kSmem);
+  cudaFuncAttributes attr;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, fn);
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn,
+                                                      tf::kThreads,
+                                                      tf::kSmem);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  out[0] = (int)tf::kSmem;
+  out[1] = tf::kThreads;
+  out[2] = attr.numRegs;
+  out[3] = attr.numRegs;
   out[4] = attr.numRegs;
   out[5] = (int)attr.localSizeBytes;
   out[6] = blocks;

@@ -6,10 +6,12 @@ version.
 ``sliding_window`` masks, in float32 or bfloat16.  On a CUDA tensor it
 launches ``csrc/flash_attention.cu``, whose bodies take hd 32, 64, 128
 and 256 (``HEAD_DIMS``) and any Sq and Sk (the kernel masks the ragged
-edge itself); bf16 at hd 256 runs a Hopper body of its own (warpgroup
-MMA on TMA-fed tiles, whose tensor maps the driver may refuse: that
-raises too).  ``wgmma_probe`` runs that body's two products on one tile,
-for a card test.  Every other hd up to 256 runs through the kernel too, as
+edge itself); hd 256 runs Hopper bodies of its own, bf16's and float32's
+(warpgroup MMA on TMA-fed tiles, whose tensor maps the driver may
+refuse: that raises too; float32's first splits k and v into TF32
+planes, in a workspace the wrapper allocates).  ``wgmma_probe`` and
+``f32_wgmma_probe`` run each body's two products on one tile, for a card
+test.  Every other hd up to 256 runs through the kernel too, as
 the Pallas kernel runs any hd: q, k and v are zero-padded along hd up to
 the next body, which runs with the true hd's scale, and the output is
 sliced back.  Zero columns add nothing to a score and leave the kept
@@ -115,15 +117,61 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q, k, v = (torch.nn.functional.pad(t, (0, body - hd))
                    for t in (q, k, v))
     out = torch.empty_like(q)
+    ws = (_workspace(lib, B * KV, Sk, q.device)
+          if body == 256 and q.dtype == torch.float32 else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KV,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), B, H, KV,
         Sq, Sk, body, _DTYPE_CODES[q.dtype], int(causal),
         0 if sliding_window is None else int(sliding_window),
         1.0 / math.sqrt(hd), stream)
     _check_rc(rc, "flash_attention_launch")
     build.LAUNCHES["flash_attention_bhsd"] += 1
     return out if body == hd else out[..., :hd].contiguous()
+
+
+def _workspace(lib, heads: int, Sk: int, device) -> torch.Tensor:
+    """float32 hd 256's workspace: the TF32 planes of k and v^T."""
+    return torch.empty(lib.flash_attention_workspace_floats(heads, Sk),
+                       dtype=torch.float32, device=device)
+
+
+def _probe_operands(what: str, dtype: torch.dtype, tensors: dict) -> None:
+    """Raise unless each of ``tensors`` ({name: (t, shape)}) is a
+    contiguous, 16-byte aligned CUDA tensor of ``dtype`` and that shape,
+    all on one card."""
+    dev = next(iter(tensors.values()))[0].device
+    for name, (t, shape) in tensors.items():
+        if t.device.type != "cuda" or t.device != dev or t.dtype != dtype \
+                or tuple(t.shape) != shape or not t.is_contiguous() \
+                or t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be a contiguous, 16-byte "
+                             f"aligned {shape} {dtype} CUDA tensor on one "
+                             f"card, got {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}")
+
+
+def f32_wgmma_probe(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The float32 hd 256 body's two 3xTF32 products on one tile, on the
+    card: a (64, 256), b and c (32, 256) float32 -> (a b^T, (a b^T) c),
+    (64, 32) and (64, 256), through the body's split pass, tensor maps,
+    shared-memory descriptors and wgmma operand layouts (the second
+    product's A is the first's result, split as the body splits p).  It
+    counts no launch: it is no part of any path."""
+    _probe_operands("f32_wgmma_probe", torch.float32,
+                    {"a": (a, (64, 256)), "b": (b, (32, 256)),
+                     "c": (c, (32, 256))})
+    lib = build.library("flash_attention")
+    d = torch.empty(64, 32, dtype=torch.float32, device=a.device)
+    e = torch.empty(64, 256, dtype=torch.float32, device=a.device)
+    ws = _workspace(lib, 1, 32, a.device)
+    rc = lib.flash_attention_f32_wgmma_probe(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), d.data_ptr(), e.data_ptr(),
+        ws.data_ptr(), torch.cuda.current_stream(a.device).cuda_stream)
+    _check_rc(rc, "flash_attention_f32_wgmma_probe")
+    return d, e
 
 
 def wgmma_probe(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
@@ -133,15 +181,8 @@ def wgmma_probe(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
     (64, 256), through the body's tensor maps, shared-memory descriptors
     and wgmma operand layouts.  It counts no launch: it is no part of
     any path."""
-    for name, t in (("a", a), ("b", b), ("c", c)):
-        if t.device.type != "cuda" or t.device != a.device \
-                or t.dtype != torch.bfloat16 \
-                or tuple(t.shape) != (64, 256) or not t.is_contiguous() \
-                or t.data_ptr() % 16:
-            raise ValueError(f"wgmma_probe: {name} must be a contiguous, "
-                             f"16-byte aligned (64, 256) bfloat16 CUDA "
-                             f"tensor, got {tuple(t.shape)} {t.dtype} on "
-                             f"{t.device}")
+    _probe_operands("wgmma_probe", torch.bfloat16,
+                    {n: (t, (64, 256)) for n, t in zip("abc", (a, b, c))})
     lib = build.library("flash_attention")
     d = torch.empty(64, 64, dtype=torch.float32, device=a.device)
     e = torch.empty(64, 256, dtype=torch.float32, device=a.device)

@@ -11,9 +11,11 @@ outputs of magnitude ~1), as tests/test_kernels.py holds the Pallas
 kernel; the filter forward at rtol 1e-4 / atol 1e-3, as the port's other
 filter tests (float32 matmuls summed in another order).  A TF32
 emulation on numpy's float32 bits pins the float32 kernel's numerical
-premise: its 3xTF32 split holds 1e-4 where one TF32 pass does not, and
-exact rational arithmetic pins the bf16 hd 256 body's epilogue: its
-reciprocal-and-FMA quotient is the correctly rounded float32 division.
+premise: its 3xTF32 split holds 1e-4 where one TF32 pass does not; a
+model of the tensor cores' truncating sums pins the float32 hd 256
+body's order of sums, which holds 1e-4 where one accumulator chain does
+not; and exact rational arithmetic pins the hd 256 bodies' epilogue:
+their reciprocal-and-FMA quotient is the correctly rounded division.
 """
 import dataclasses
 import math
@@ -160,6 +162,105 @@ def test_tf32_split_holds_fp32_tolerance_where_one_pass_misses():
     assert three <= 1e-4, three
     assert one > 1e-4, one
     assert _tf32(np.float32(1 + 2 ** -11)) == np.float32(1 + 2 ** -10)
+
+
+def _tc_step(d, a, b):
+    """One wgmma k-step, ``d + a b^T`` for a (M, 8), b (N, 8) TF32 values
+    and d (M, N) float32, as a block FMA of the tensor cores: the eight
+    products are exact, they and d are aligned to the largest of them and
+    truncated to its 24 significant bits, summed, and the sum truncated
+    to float32 (round toward zero), the model of Fasi et al., "Numerical
+    behavior of NVIDIA tensor cores" (PeerJ CS, 2021)."""
+    t = np.concatenate([d[:, :, None].astype(np.float64),
+                        a[:, None, :].astype(np.float64) * b[None, :, :]],
+                       axis=2)
+    _, e = np.frexp(np.abs(t).max(axis=2, keepdims=True))
+    ulp = np.ldexp(1.0, e - 24)
+    total = (np.trunc(t / ulp) * ulp).sum(axis=2)
+    out = total.astype(np.float32)
+    over = np.abs(out) > np.abs(total)
+    out[over] = np.nextafter(out[over], np.float32(0))
+    return out
+
+
+def _split_tf32(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _scores_tc(q, k, order):
+    """q k^T in 32 k-steps over hd 256 on the model: "one pass" (hi hi),
+    "one chain" (3xTF32, every product in one accumulator) or "boxes",
+    the float32 hd 256 body's: the small terms (lo hi, hi lo) in one
+    chain, the large one (hi hi) in a chain restarted at each 64-column
+    box and added with rounded float32 adds."""
+    (qh, ql), (kh, kl) = _split_tf32(q), _split_tf32(k)
+    zero = np.zeros((q.shape[0], k.shape[0]), np.float32)
+    steps = [slice(i, i + 8) for i in range(0, q.shape[1], 8)]
+    if order == "one pass":
+        d = zero
+        for c in steps:
+            d = _tc_step(d, qh[:, c], kh[:, c])
+        return d
+    if order == "one chain":
+        d = zero
+        for c in steps:
+            for a, b in ((ql, kh), (qh, kl), (qh, kh)):
+                d = _tc_step(d, a[:, c], b[:, c])
+        return d
+    small, s = zero, None
+    for i in range(0, len(steps), 8):
+        big = zero
+        for c in steps[i:i + 8]:
+            small = _tc_step(_tc_step(small, ql[:, c], kh[:, c]),
+                             qh[:, c], kl[:, c])
+            big = _tc_step(big, qh[:, c], kh[:, c])
+        s = big if s is None else s + big
+    return s + small
+
+
+def _pv_tc(p, v):
+    """p v in k-steps of 8 keys on the model, the body's order: lo hi,
+    hi lo, then hi hi, in one chain over the keys."""
+    (ph, pl), (vh, vl) = _split_tf32(p), _split_tf32(v.T)
+    d = np.zeros((p.shape[0], v.shape[1]), np.float32)
+    for i in range(0, p.shape[1], 8):
+        c = slice(i, i + 8)
+        for a, b in ((pl, vh), (ph, vl), (ph, vh)):
+            d = _tc_step(d, a[:, c], b[:, c])
+    return d
+
+
+def test_hd256_fp32_order_of_sums_holds_where_one_chain_misses():
+    """The float32 hd 256 body's premise, on the CPU: at hd 256 with q and
+    k scaled by 8 (scores of standard deviation 64, a peaky softmax), on
+    the model of truncating tensor-core sums, its order (small terms in
+    one chain, large ones restarted at each 64-column box, rounded adds)
+    stays within 1e-4 of float64 (~3.5e-5), where 3xTF32 summed in one
+    accumulator chain misses it (~2.3e-4) and one TF32 pass by far
+    (~2.4e-2).  64 query rows, 256 keys."""
+    rng = np.random.default_rng(0)
+    q, k, v = (rng.normal(0, 1, (n, 256)).astype(np.float32)
+               for n in (64, 256, 256))
+    q, k = q * np.float32(8), k * np.float32(8)
+    s64 = q.astype(np.float64) @ k.T.astype(np.float64) / 16
+    p64 = np.exp(s64 - s64.max(-1, keepdims=True))
+    want = (p64 / p64.sum(-1, keepdims=True)) @ v
+    err = {}
+    for order in ("one pass", "one chain", "boxes"):
+        s = _scores_tc(q, k, order) / np.float32(16)
+        p = np.exp(s - s.max(-1, keepdims=True)).astype(np.float32)
+        out = _pv_tc(p, v) / p.sum(-1, keepdims=True, dtype=np.float32)
+        err[order] = float(np.abs(out - want).max())
+    assert err["boxes"] <= 1e-4, err
+    assert err["one chain"] > 1e-4, err
+    assert err["one pass"] > 1e-2, err
+    # the model truncates: eight products of 2^-25 are lost beside 1
+    # (exactly 1 + 2^-22), kept beside 0
+    a = np.full((1, 8), 2.0 ** -12, np.float32)
+    b = np.full((1, 8), 2.0 ** -13, np.float32)
+    assert _tc_step(np.ones((1, 1), np.float32), a, b)[0, 0] == 1
+    assert _tc_step(np.zeros((1, 1), np.float32), a, b)[0, 0] == 2.0 ** -22
 
 
 def _rn32(x):

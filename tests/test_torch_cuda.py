@@ -409,6 +409,27 @@ def test_staged_plan_on_card_identical_to_exhaustive(cuda_device, body):
     assert build.LAUNCHES["spatial_stats_bgc"] > before["spatial_stats_bgc"]
 
 
+def _hd256_edges(dt):
+    """hd 256's wgmma bodies on their tile and block edges (bf16: 64-key
+    tiles, 128-row blocks of two 64-row warpgroups; float32: 32-key
+    tiles, 64-row blocks of one): lengths on every edge of both, causal
+    or not; Sq < Sk and Sq > Sk with B 2 and KV 2, Sk mostly no multiple
+    of either tile (a tile at a head's end reads zeros, not the next
+    head's keys), G 1 and 2; windows of 64 and 256 at G 1, 2 and 8."""
+    return ([(1, S, S, 8, 1, 256, causal, None, dt)
+             for S in (1, 63, 64, 65, 127, 128, 129, 1000, 1024)
+             for causal in (True, False)]
+            + [(2, Sq, Sk, H, 2, 256, causal, None, dt)
+               for (Sq, Sk) in ((1, 1000), (63, 129), (129, 65), (1000, 127),
+                                (65, 1024), (300, 77))
+               for (H, causal) in ((2, False), (4, True))]
+            + [(2, Sq, Sk, H, KV, 256, True, sw, dt)
+               for (Sq, Sk) in ((127, 127), (1000, 1000), (129, 1000))
+               for (H, KV) in ((2, 2), (4, 2), (8, 1)) for sw in (64, 256)]
+            + [(1, 1000, 1000, 2, 1, 256, False, 64, dt),
+               (2, 200, 1000, 4, 2, 256, False, 256, dt)])
+
+
 # (B, Sq, Sk, H, KV, hd, causal, sliding_window, dtype): the Pallas kernel
 # test's shapes in both types and both maskings, sliding windows with
 # GQA 4/2, and ragged lengths that no 64-row tile divides
@@ -431,24 +452,7 @@ FLASH_SWEEP = (
        (2, 300, 300, 4, 2, 256, True, 64, "bfloat16"),
        (1, 77, 300, 2, 1, 256, False, None, "bfloat16"),
        (1, 300, 77, 2, 1, 256, False, None, "float32")]
-    # bf16 hd 256's wgmma body (64-key tiles, 128-row blocks of two
-    # 64-row warpgroups): lengths on every edge of both, causal or not;
-    # Sq < Sk and Sq > Sk with B 2 and KV 2, Sk mostly no multiple of 64
-    # (a tile at a head's end reads zeros, not the next head's keys), G 1
-    # and 2; windows of 64 and 256 at G 1, 2 and 8
-    + [(1, S, S, 8, 1, 256, causal, None, "bfloat16")
-       for S in (1, 63, 64, 65, 127, 128, 129, 1000, 1024)
-       for causal in (True, False)]
-    + [(2, Sq, Sk, H, 2, 256, causal, None, "bfloat16")
-       for (Sq, Sk) in ((1, 1000), (63, 129), (129, 65), (1000, 127),
-                        (65, 1024), (300, 77))
-       for (H, causal) in ((2, False), (4, True))]
-    + [(2, Sq, Sk, H, KV, 256, True, sw, "bfloat16")
-       for (Sq, Sk) in ((127, 127), (1000, 1000), (129, 1000))
-       for (H, KV) in ((2, 2), (4, 2), (8, 1)) for sw in (64, 256)]
-    + [(1, 1000, 1000, 2, 1, 256, False, 64, "bfloat16"),
-       (2, 200, 1000, 4, 2, 256, False, 256, "bfloat16")])
-
+    + _hd256_edges("bfloat16") + _hd256_edges("float32"))
 
 def _qkv(case, dev, seed=0):
     B, Sq, Sk, H, KV, hd, _, _, dt = case
@@ -617,6 +621,35 @@ def test_flash_attention_wgmma_probe_matches_matmul(cuda_device, seed):
                                atol=1e-3)
     with pytest.raises(ValueError, match="64, 256"):
         FA.wgmma_probe(a[:32], b, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(2))
+def test_flash_attention_f32_wgmma_probe_matches_matmul(cuda_device, seed):
+    """float32 hd 256's two 3xTF32 products on one tile, through its split
+    pass, tensor maps (128-byte swizzle), shared-memory descriptors and
+    wgmma layouts (TF32 A from registers, both B planes K-major, v^T's
+    keys in the body's order): d = a b^T (m64n32k8) against
+    ``torch.matmul`` in float64, and e = d c (m64n256k8, d split as the
+    body splits p) against the float64 product of the probe's own d, each
+    within 1e-5 of the largest reference value.  3xTF32 is ~1e-6 of
+    that; one TF32 pass (~1e-3) or one misplaced element or swizzle
+    chunk is far off."""
+    rng = np.random.default_rng(seed)
+    a, b, c = (torch.as_tensor(rng.normal(0, 1, shape).astype(np.float32),
+                               device=cuda_device)
+               for shape in ((64, 256), (32, 256), (32, 256)))
+    before = dict(build.LAUNCHES)
+    d, e = FA.f32_wgmma_probe(a, b, c)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES == before
+    assert d.shape == (64, 32) and e.shape == (64, 256)
+    for got, want in ((d, a.double() @ b.double().T),
+                      (e, d.double() @ c.double())):
+        rel = float((got.double() - want).abs().max() / want.abs().max())
+        assert rel <= 1e-5, rel
+    with pytest.raises(ValueError, match="32, 256"):
+        FA.f32_wgmma_probe(a, b[:16], c)
 
 
 @pytest.mark.cuda
