@@ -207,8 +207,15 @@ Phases (any failure exits non-zero and prints no result line):
     bytes bound (3.93 GB at 3.35 TB/s); the ``hd256`` entry of decode
     attention's kernel line.  Float32 timed the same ways beside SDPA on
     the kv_len slice and its bytes bound, at (8, 1, 8, 4096, 256) kv_len
-    3001 and at paligemma-3b's step (a 352-row cache at kv_len 330): the
-    entry's ``float32``.
+    3001 and at paligemma-3b's step (a 352-row cache at kv_len 330), and
+    at (128, 1, 8, 32768, 256) kv_len 30000 on the (B, S, KV, hd) cache
+    read in place (two batch rows against plain at 1e-4, NaN past kv_len
+    bit-identical): the entry's ``float32``.  Both hd 256 bodies'
+    reports (threads, warp roles, registers, spills, shared memory,
+    blocks an SM, grid and splits; float32's also at paligemma's step):
+    the entry's ``body``, ``body_float32`` and
+    ``body_float32_paligemma_step``; a spill or a second block an SM
+    fails the phase.
 17. The zoo's training: qwen2-0.5b at published widths (bf16 parameters,
     float32 AdamW moments, remat none, ``xla_flash``) through
     ``repro_torch.launch.train.main``: 16 steps of 4 x 1024 tokens with
@@ -2696,32 +2703,46 @@ def decode_phase(torch, dev, timer, ktimer, rehearse):
         f"case used {worst_share:.3f} of its tol)"]
 
 
-def decode_fp32_entry(torch, DA, timer, ktimer, q, k, v, kv_len):
-    """Float32 decode attention (the ``decode_attention_simt`` bodies and
-    their merge) on q (B, KV, G, hd) and a contiguous (B, KV, S, hd)
-    cache at ``kv_len``: device ms, call and back-to-back, the plain
-    version, SDPA on the kv_len slice (the same bytes; TF32 off) and the
-    bytes bound (each valid k and v row, q and o once, at 3.35 TB/s)."""
+def decode_fp32_entry(torch, DA, timer, ktimer, q, k, v, kv_len,
+                      in_place=False):
+    """Float32 decode attention (``decode_attention_simt`` at hd 64 and
+    128, ``decode_attention_hd256_f32`` at hd 256, and their merge) on q
+    (B, KV, G, hd) and a (B, KV, S, hd) cache at ``kv_len``: device ms,
+    call and back-to-back, the plain version, SDPA on the kv_len slice
+    (the same bytes; TF32 off) and the bytes bound (each valid k and v
+    row, q and o once, at 3.35 TB/s).  ``in_place``: the cache is a view
+    of the model's (B, S, KV, hd) cache at phase 16's size, where SDPA
+    gets a contiguous copy of the slice and the plain version is not
+    timed."""
     B, KV, G, hd = q.shape
     length = torch.tensor([kv_len], dtype=torch.int32, device=q.device)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     n_bytes = (2 * B * KV * kv_len * hd + 2 * B * KV * G * hd) * 4
     bnd, by = bound_ms(n_bytes, 4 * B * KV * G * kv_len * hd)
-    return {"shape": [B, KV, G, k.shape[2], hd], "kv_len": kv_len,
-            **ktimer(lambda: DA.decode_attention_bkgd(q, k, v, length),
-                     "decode_attention_simt"),
-            "plain_ms": timer(lambda: DA.decode_attention_plain(q, k, v,
-                                                                kv_len)),
-            "bound_ms": bnd, "bound_by": by, "bound_bytes": n_bytes,
-            **library_entry(ktimer(lambda: sdpa(q, k[:, :, :kv_len],
-                                                v[:, :, :kv_len]))),
-            "library_note": "SDPA on the kv_len slice"}
+    ks, vs = k[:, :, :kv_len], v[:, :, :kv_len]
+    if in_place:
+        ks, vs = ks.contiguous(), vs.contiguous()
+    body = ("decode_attention_hd256_f32" if hd == 256
+            else "decode_attention_simt")
+    entry = {"shape": [B, KV, G, k.shape[2], hd], "kv_len": kv_len,
+             "body": body, "cache": "(B, S, KV, hd) in place" if in_place
+             else "(B, KV, S, hd)",
+             **ktimer(lambda: DA.decode_attention_bkgd(q, k, v, length),
+                      body),
+             "plain_ms": timer(lambda: DA.decode_attention_plain(
+                 q, k, v, kv_len)) if not in_place else None,
+             "bound_ms": bnd, "bound_by": by, "bound_bytes": n_bytes,
+             **library_entry(ktimer(lambda: sdpa(q, ks, vs))),
+             "library_note": "SDPA on the kv_len slice"}
+    del ks, vs
+    return entry
 
 
 def decode_fp32_line(name, e):
     """A printed line of ``decode_fp32_entry``'s reading."""
     return (f"decode_attention_bkgd {name} in float32 {e['shape']} (B, KV, "
-            f"G, S, hd), kv_len {e['kv_len']}: device {e['ms']} ms (call "
+            f"G, S, hd), {e['cache']}, kv_len {e['kv_len']}, {e['body']}: "
+            f"device {e['ms']} ms (call "
             f"{e['call_ms']} ms, back-to-back {e['b2b_ms']} ms; plain "
             f"{e['plain_ms']} ms; SDPA on the kv_len slice device "
             f"{e['library_ms']} ms, call {e['library_call_ms']} ms; bound "
@@ -3373,54 +3394,65 @@ def family_serving_phase(torch, dev, rehearse, key):
 
 
 DECODE256_BODY = "decode_attention_hd256_bulk"
+DECODE256_F32_BODY = "decode_attention_hd256_f32"
+PALIGEMMA_STEP = (8, 1, 8, 352, 256)   # its float32 decode step, kv_len 330
 
 
-def decode256_body_report(torch, dev, B, KV, G, S, kv_len, rehearse):
-    """bf16 hd 256's body as built and planned: its threads and warp
-    roles, registers and local bytes as the runtime reads them
-    (``hd256_body_info``), spills from the ``-Xptxas -v`` report, dynamic
-    shared memory, blocks an SM, and the grid and splits the wrapper
-    gives at (B, KV, G, S) and kv_len.  Fails on a spill or more than one
-    block an SM.  None on the CPU."""
+def decode256_body_report(torch, dev, B, KV, G, S, kv_len, rehearse,
+                          dtype="bfloat16"):
+    """An hd 256 body as built and planned (bf16's, or float32's at G's
+    rows): its threads and warp roles, registers and local bytes as the
+    runtime reads them (``hd256_body_info``), spills from the ``-Xptxas
+    -v`` report (every instantiation of the body), dynamic shared memory,
+    blocks an SM, and the grid and splits the wrapper gives at (B, KV, G,
+    S) and kv_len.  Fails on a spill or more than one block an SM.  None
+    on the CPU."""
     if rehearse:
         return None, []
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as DA
+    f32 = dtype == "float32"
+    name = DECODE256_F32_BODY if f32 else DECODE256_BODY
     path = build.build_all(["decode_attention"])["decode_attention"]
-    info = DA.hd256_body_info()
+    info = DA.hd256_body_info(dtype, G)
     with open(path + ".log") as f:
         log = f.read()
-    prop = re.search(r"Function properties for \S*" + DECODE256_BODY
-                     + r"\S*\s+\d+ bytes stack frame, (\d+) bytes spill "
-                     r"stores, (\d+) bytes spill loads", log)
-    check(prop is not None, f"no ptxas report of {DECODE256_BODY}")
-    st, ld = int(prop.group(1)), int(prop.group(2))
-    n_sm, per_sm = DA._slots(dev, 256, 1, G, build.library(
-        "decode_attention"))
+    props = re.findall(r"Function properties for \S*" + name
+                       + r"\S*\s+\d+ bytes stack frame, (\d+) bytes spill "
+                       r"stores, (\d+) bytes spill loads", log)
+    check(bool(props), f"no ptxas report of {name}")
+    st = max(int(x) for x, _ in props)
+    ld = max(int(y) for _, y in props)
+    n_sm, per_sm = DA._slots(dev, 256, DA._DTYPE_CODES[getattr(torch, dtype)],
+                             G, build.library("decode_attention"))
     nsplit = DA.split_count(B, KV, S, n_sm, per_sm)
     spans = [DA.split_span(kv_len, nsplit, i) for i in range(nsplit)]
     live = sum(hi > lo for lo, hi in spans)
     floats = DA.scratch_floats(B, KV, G, 256, nsplit)
-    rep = {"kernel": DECODE256_BODY, **info, "spill_stores": st,
-           "spill_loads": ld, "sms": n_sm, "splits": nsplit,
+    rep = {"kernel": name, "dtype": dtype, "G": G, **info,
+           "spill_stores": st, "spill_loads": ld, "sms": n_sm,
+           "shape": [B, KV, G, S, 256], "kv_len": kv_len, "splits": nsplit,
            "grid_blocks": B * KV * nsplit, "live_splits": live,
            "tiles_a_split": -(-(spans[0][1] - spans[0][0]) // DA.TILE),
            "scratch_bytes": 4 * floats}
     check(st == 0 and ld == 0 and info["local_bytes"] == 0,
-          f"{DECODE256_BODY} spills: {st}/{ld} B, local "
-          f"{info['local_bytes']} B")
-    check(info["blocks_per_sm"] == 1 and per_sm == 1, f"{DECODE256_BODY}: "
+          f"{name} spills: {st}/{ld} B, local {info['local_bytes']} B")
+    check(info["blocks_per_sm"] == 1 and per_sm == 1, f"{name}: "
           f"{info['blocks_per_sm']} blocks an SM, want 1")
-    line = (f"{DECODE256_BODY} (bf16 hd 256): {info['threads']} threads (one "
+    rows = "32 K and 32 V rows" if f32 else "64 K and 64 V rows"
+    math = ("fp32 FMAs, each on its own 32-column boxes, one softmax"
+            if f32 else "mma.sync")
+    line = (f"{name} ({dtype} hd 256, G {G}): {info['threads']} threads (one "
             f"producer warp moving bytes by TMA, "
-            f"{info['consumer_warps']} consumer warps of mma.sync), "
+            f"{info['consumer_warps']} consumer warps of {math}), "
             f"{info['regs']} registers a thread, spill {st}/{ld} B, local "
             f"{info['local_bytes']} B; {info['smem_bytes']} B of dynamic "
-            f"shared memory ({info['stages']} ring stages of 64 K and 64 V "
-            f"rows), {info['blocks_per_sm']} block an SM; grid ({nsplit}, "
-            f"{KV}, {B}) = {B * KV * nsplit} blocks on {n_sm} SMs, {live} "
-            f"live splits of up to {rep['tiles_a_split']} tiles of 64 keys "
-            f"a (b, kv head), {4 * floats} B of scratch"
+            f"shared memory ({info['stages']} ring stages of {rows}), "
+            f"{info['blocks_per_sm']} block an SM; at {rep['shape']} kv_len "
+            f"{kv_len}: grid ({nsplit}, {KV}, {B}) = {B * KV * nsplit} "
+            f"blocks on {n_sm} SMs, {live} live splits of up to "
+            f"{rep['tiles_a_split']} tiles of 64 keys a (b, kv head), "
+            f"{4 * floats} B of scratch"
             + ("" if nsplit == 1 else ", then the merge"))
     return rep, [line]
 
@@ -3433,7 +3465,12 @@ def decode256_entry(torch, dev, timer, ktimer, rehearse):
     plain version (``decode_tol``), timed three ways beside the plain
     version, SDPA (masked over all S, and on the kv_len slice) and its
     bytes bound, then again with NaN in every cache row past kv_len
-    (bit-identical); then float32 on a shorter cache at 1e-4."""
+    (bit-identical); then float32: its body's report at that shape and
+    at paligemma's step, (8, 1, 8, 4096, 256) at kv_len 3001 against the
+    plain version at 1e-4 and timed, paligemma-3b's float32 step, and the
+    same batch and length on a float32 (B, S, KV, hd) cache read in place
+    (two batch rows against the plain version at 1e-4; the plain version
+    not timed), again with NaN past kv_len (bit-identical)."""
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import ops
     B, KV, G, S, hd = DECODE256
@@ -3442,6 +3479,12 @@ def decode256_entry(torch, dev, timer, ktimer, rehearse):
         B, S, kv_len = 2, 640, 600
     body, lines = decode256_body_report(torch, dev, B, KV, G, S, kv_len,
                                         rehearse)
+    body32, more = decode256_body_report(torch, dev, B, KV, G, S, kv_len,
+                                         rehearse, "float32")
+    lines += more
+    step32, more = decode256_body_report(torch, dev, *PALIGEMMA_STEP[:4],
+                                         330, rehearse, "float32")
+    lines += more
     gen = torch.Generator(dev).manual_seed(SEED + 13)
     q = torch.randn((B, KV * G, hd), generator=gen, device=dev).bfloat16()
     k = torch.randn((B, S, KV, hd), generator=gen, device=dev).bfloat16()
@@ -3497,6 +3540,7 @@ def decode256_entry(torch, dev, timer, ktimer, rehearse):
         "library_note": "SDPA with a boolean kv_len mask over all S rows",
         "library_sliced_ms": sliced["ms"],
         "library_sliced_call_ms": sliced["call_ms"], "body": body,
+        "body_float32": body32, "body_float32_paligemma_step": step32,
         "float32": fp32}
     del kt, vt
     if not rehearse:             # the plain version weighs every row
@@ -3507,6 +3551,11 @@ def decode256_entry(torch, dev, timer, ktimer, rehearse):
               "the cache rows past kv_len")
         entry["nan_past_kv_len_bit_identical"] = nan_same
     del q, k, v, qg, kv_, vv_, out
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    err_big, nan32 = decode256_f32_in_place(torch, dev, entry, timer,
+                                            ktimer, B, KV, G, S, hd, kv_len,
+                                            length, rehearse)
     return entry, lines + [
         f"decode_attention_bkgd at hd 256 {entry['shape']} bf16, kv_len "
         f"{kv_len}, the (B, S, KV, hd) cache read in place: device "
@@ -3520,7 +3569,57 @@ def decode256_entry(torch, dev, timer, ktimer, rehearse):
         f"{'bit-identical' if not rehearse else 'not run (CPU)'}",
         decode_fp32_line("at hd 256", fp32["4096"]),
         decode_fp32_line("at hd 256, paligemma-3b's step",
-                         fp32["paligemma_352"])]
+                         fp32["paligemma_352"]),
+        decode_fp32_line("at hd 256, phase 16's batch and length",
+                         fp32["in_place"])
+        + f"; two batch rows against the plain version: max abs err "
+          f"{err_big:.3g} (tol 1e-4); NaN in every cache row past kv_len: "
+          f"{nan32}"]
+
+
+def decode256_f32_in_place(torch, dev, entry, timer, ktimer, B, KV, G, S,
+                           hd, kv_len, length, rehearse):
+    """Float32 decode attention at phase 16's batch and length on the
+    model's (B, S, KV, hd) cache read in place, through
+    ``ops.decode_attention`` (one launch): two batch rows against the
+    plain version at 1e-4, the three timings beside SDPA on the kv_len
+    slice and the bytes bound (``decode_fp32_entry``, no plain timing at
+    this size), then NaN in every cache row past kv_len, bit-identical.
+    Fills ``entry['float32']['in_place']``; returns the error and the
+    NaN check's word."""
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import ops
+    gen = torch.Generator(dev).manual_seed(SEED + 15)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev) for shape in
+               ((B, KV * G, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    qg, kv_, vv_ = q.reshape(B, KV, G, hd), k.transpose(1, 2), v.transpose(
+        1, 2)
+    ops.reset_launch_counts()
+    out = ops.decode_attention(q, k, v, length)
+    sync(torch, dev)
+    n_launch = ops.launch_counts()["decode_attention_bkgd"]
+    check(rehearse or n_launch == 1, f"hd 256 float32: ops.decode_attention "
+          f"launched {n_launch} kernels")
+    want = DA.decode_attention_plain(qg[:2], kv_[:2], vv_[:2], kv_len)
+    err = float((out.reshape(qg.shape)[:2] - want).abs().max())
+    check(err <= 1e-4, f"decode attention at hd 256 in float32 on the "
+          f"(B, S, KV, hd) cache differs from plain (max abs err {err}, "
+          f"tol 1e-4)")
+    del want
+    entry["float32"]["in_place"] = decode_fp32_entry(
+        torch, DA, timer, ktimer, qg, kv_, vv_, kv_len, in_place=True)
+    entry["max_abs_err_float32_in_place"] = err
+    word = "not run (CPU)"
+    if not rehearse:             # the plain version weighs every row
+        k[:, kv_len:] = float("nan")
+        v[:, kv_len:] = float("nan")
+        same = torch.equal(ops.decode_attention(q, k, v, length), out)
+        check(same, "decode attention at hd 256 in float32 changes with "
+              "NaN in the cache rows past kv_len")
+        entry["nan_past_kv_len_bit_identical_float32"] = same
+        word = "bit-identical"
+    del q, k, v, qg, kv_, vv_, out
+    return err, word
 
 
 def family_fp32_phase(torch, dev, rehearse, key):

@@ -64,7 +64,8 @@ _SIGNATURES = {
     "decode_attention": {
         "decode_attention_launch": ([_VP] * 6 + [_I] * 7 + [_F] + [_LL] * 6
                                     + [_VP], _I),
-        "decode_attention_blocks_per_sm": ([_I, _I, _I, _PI], _I)},
+        "decode_attention_blocks_per_sm": ([_I, _I, _I, _PI], _I),
+        "decode_attention_hd256_info": ([_I, _I, _PI], _I)},
 }
 
 

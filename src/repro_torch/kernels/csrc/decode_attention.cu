@@ -73,10 +73,34 @@
 //   - the warps' (m, l, acc) are merged in a fixed order, and so are the
 //     splits' (no float atomics: a repeated call is
 //     bit-identical);
-//   - float32 keeps the SIMT body of the first port (one key per lane,
-//     fp32 FMAs, two cp.async stages; one stage at hd 256, where two
-//     stages of 64 fp32 rows would need 266 KB): it is held at 1e-4 and is
-//     not the timed case; it takes the same strides and the split plan.
+//   - float32 at hd 256 (paligemma's float32 serving;
+//     decode_attention_hd256_f32) is bound by bytes too: a key costs
+//     4 G hd flops against 2 hd 4 bytes, 4 flop/B at G = 8, a fifth of the
+//     card's fp32 FMA rate at 3.35 TB/s, so its products stay fp32 FMAs on
+//     the SIMT cores (no TF32), with the other bodies' split plan and
+//     merge:
+//       * a producer warp fills a ring of 32-key stages (three of 64 KB at
+//         G <= 8, two at G 16) through the same cached tensor maps in
+//         fp32 boxes of 32 columns x 32 keys (128 bytes a row, 128-byte
+//         swizzle), full and empty mbarriers as in the bf16 body;
+//       * four consumer warps split the columns, two boxes (64 columns)
+//         each.  Lane = key: a warp's partial scores over its 64 columns
+//         (the swizzle puts eight lanes' rows in distinct banks; q is
+//         broadcast from shared memory) go to shared memory; after a
+//         barrier of the consumers alone (bar.sync 1) every warp sums the
+//         four partials in warp order, so all hold bit-identical scores,
+//         m, l and p and the block merges no accumulators.  Lane = column:
+//         acc += p v over the warp's two boxes, 2 G accumulators a lane.
+//         Eight warps of one box each (twice the softmax and partial sums
+//         a stage) were no faster on an H100, and two warps slower;
+//       * the softmax's G rows take each shuffle step together, so a
+//         stage waits on five shuffle latencies, not 5 x G;
+//       * rows past kv_len in a ragged stage are dropped by the select and
+//         zeroed in each warp's V box, as in the bf16 body;
+//   - float32 at hd 64 and 128 keeps the SIMT body of the first port (one
+//     key per lane, fp32 FMAs, two cp.async stages of 64 padded rows,
+//     warps on split keys merged through shared memory); it takes the same
+//     strides and the split plan.
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched
                    // through cudaGetDriverEntryPoint (no -lcuda)
 #include <cuda_bf16.h>
@@ -750,7 +774,294 @@ decode_attention_hd256_bulk(const __grid_constant__ CUtensorMap mk,
 }
 
 // ---------------------------------------------------------------------------
-// float32: SIMT body (one key per lane), not the timed case
+// float32 at hd 256: a producer warp's TMA ring, column-split SIMT consumers
+// ---------------------------------------------------------------------------
+
+namespace f32 {
+
+constexpr int kHD = 256;
+constexpr int kKeys = 32;                          // keys a stage, one a lane
+constexpr int kConsumers = 4;                      // math warps
+constexpr int kThreads = (kConsumers + 1) * 32;    // and the producer warp
+constexpr int kBoxCols = 32;                       // 128 bytes of fp32
+constexpr int kBoxes = kHD / kBoxCols;             // boxes across a row
+constexpr int kWarpBoxes = kBoxes / kConsumers;    // a warp's columns
+constexpr uint32_t kBoxBytes = kKeys * kBoxCols * 4;     // 4 KB
+constexpr uint32_t kTileBytes = kBoxes * kBoxBytes;      // K or V: 32 KB
+constexpr uint32_t kStageBytes = 2 * kTileBytes;         // K, then V
+static_assert(kBoxes % kConsumers == 0, "whole boxes a consumer warp");
+static_assert(kTile % kKeys == 0, "a split's tiles are whole stages");
+
+// Shared memory at GB query rows: the ring, q (GB x 256), the warps'
+// partial scores (two buffers of kConsumers x GB x 32), each warp's
+// probabilities (kConsumers x GB x 32), then the mbarriers full[kStages]
+// and empty[kStages]; 1024 more for the base's alignment.  Three stages
+// where they fit in 227 KB, else two (GB 16).
+template <int GB>
+struct Geo {
+  static constexpr uint32_t kQBytes = GB * kHD * 4;
+  static constexpr uint32_t kPartBytes = 2 * kConsumers * GB * kKeys * 4;
+  static constexpr uint32_t kPBytes = kConsumers * GB * kKeys * 4;
+  static constexpr uint32_t kExtra = kQBytes + kPartBytes + kPBytes;
+  static constexpr int kStages =
+      1024 + 3 * kStageBytes + kExtra + 6 * 8 <= 232448 ? 3 : 2;
+  static constexpr uint32_t kQOff = kStages * kStageBytes;
+  static constexpr uint32_t kPartOff = kQOff + kQBytes;
+  static constexpr uint32_t kPOff = kPartOff + kPartBytes;
+  static constexpr uint32_t kBarOff = kPOff + kPBytes;
+  static constexpr size_t kSmem = 1024 + kBarOff + 2 * kStages * 8;
+  static_assert(kSmem <= 232448, "dynamic shared memory above 227 KB");
+};
+
+// the consumer warps' own barrier (the producer is not in it)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kConsumers * 32) : "memory");
+}
+
+}  // namespace f32
+
+// grid (nsplit, KV, B), 160 threads, one block an SM: the keys of
+// split_span, in stages of 32.  mk, mv: k and v as 4-D tensor maps, as
+// decode_attention_hd256_bulk takes them, in boxes of 32 columns x 32
+// keys.  part: (B, KV, nsplit, G * (HD + 2)) float32 as the other bodies';
+// unused when nsplit == 1.
+template <int GB>
+__global__ void __launch_bounds__(f32::kThreads, 1)
+decode_attention_hd256_f32(const __grid_constant__ CUtensorMap mk,
+                           const __grid_constant__ CUtensorMap mv,
+                           const float* __restrict__ q,
+                           const int* __restrict__ kv_len_p,
+                           float* __restrict__ o, float* __restrict__ part,
+                           int KV, int G, int S, int slots_k, int slots_v,
+                           float scale) {
+  using namespace f32;
+  using G_ = Geo<GB>;
+  constexpr int NB = kWarpBoxes;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+
+  const int split = blockIdx.x;
+  const int nsplit = gridDim.x;
+  const int n = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const long long bn = (long long)b * KV + n;
+  const int kv_len = read_kv_len(kv_len_p, S);
+  const Span sp = split_span(kv_len, nsplit, split);
+  float* ob = o + bn * G * kHD;
+  if (sp.lo >= sp.hi) {
+    if (nsplit == 1) write_zeros(ob, G * kHD, tid, kThreads);
+    return;
+  }
+  const int n_stages = (sp.hi - sp.lo + kKeys - 1) / kKeys;
+  const int w = tid >> 5;
+  const int lane = tid & 31;
+  const uint32_t base = (bulk::smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - bulk::smem_u32(smem_raw));
+  float* qs = reinterpret_cast<float*>(smem + G_::kQOff);
+  float* parts = reinterpret_cast<float*>(smem + G_::kPartOff);
+  const uint32_t full = base + G_::kBarOff;
+  const uint32_t empty = full + 8 * G_::kStages;
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < G_::kStages; ++s) {
+      bulk::mbar_init(full + 8 * s, 1);
+      bulk::mbar_init(empty + 8 * s, kConsumers);   // one arrival a warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (w == kConsumers) {
+    // ---- producer: each stage's eight boxes of K and eight of V (lanes
+    // 0-15, one box each)
+    if (lane < 2) {
+      const CUtensorMap* map = lane ? &mv : &mk;
+      asm volatile("prefetch.tensormap [%0];" ::"l"(
+                       reinterpret_cast<uint64_t>(map))
+                   : "memory");
+    }
+    const int slots = lane < kBoxes ? slots_k : slots_v;
+    const int s_key = slots & 3, s_n = (slots >> 2) & 3;
+    for (int it = 0; it < n_stages; ++it) {
+      const int stage = it % G_::kStages;
+      const uint32_t bar = full + 8 * stage;
+      bulk::mbar_wait(empty + 8 * stage, ((it / G_::kStages) & 1) ^ 1);
+      if (lane == 0) bulk::mbar_expect_tx(bar, kStageBytes);
+      __syncwarp();
+      if (lane < 2 * kBoxes) {
+        const int key = sp.lo + it * kKeys;
+        int c[3];                      // slots 1-3: key, kv head, batch
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          c[i] = s_key == i + 1 ? key : s_n == i + 1 ? n : b;
+        bulk::tma_load(base + stage * kStageBytes + lane * kBoxBytes,
+                       lane < kBoxes ? &mk : &mv, bar,
+                       (lane % kBoxes) * kBoxCols, c[0], c[1], c[2]);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warp w owns K's and V's boxes NB w .. NB w + NB - 1.
+  // Lane = key: the partial scores over the warp's columns; the warps'
+  // partials summed in warp order give every warp the same scores, so all
+  // hold the same m, l and p and need no merge.  Lane = column: acc += p v
+  // over the warp's columns.
+  // q into shared memory (rows G .. GB - 1 zero) while the first stages
+  // are in flight
+  const float* qb = q + bn * G * kHD;
+#pragma unroll 4
+  for (int i = tid; i < GB * kHD; i += kConsumers * 32)
+    qs[i] = i < G * kHD ? qb[i] : 0.f;
+  consumers_sync();
+  float* pw = reinterpret_cast<float*>(smem + G_::kPOff) + w * GB * kKeys;
+  const int sw = lane & 7;             // the swizzle of the lane's K row
+  const uint32_t v_col = (uint32_t)((lane & 3) << 2);
+  float m[GB], l[GB], acc[GB][NB];
+#pragma unroll
+  for (int g = 0; g < GB; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.f;
+#pragma unroll
+    for (int bb = 0; bb < NB; ++bb) acc[g][bb] = 0.f;
+  }
+  for (int it = 0; it < n_stages; ++it) {
+    const int stage = it % G_::kStages;
+    const int nv = min(kKeys, sp.hi - sp.lo - it * kKeys);   // >= 1
+    bulk::mbar_wait(full + 8 * stage, (it / G_::kStages) & 1);
+    const unsigned char* kd = smem + stage * kStageBytes + w * NB * kBoxBytes;
+    unsigned char* vd = smem + stage * kStageBytes + kTileBytes +
+                        w * NB * kBoxBytes;
+    if (nv < kKeys) {
+      // the rows past hi hold whatever the cache holds there: the warp's
+      // V rows are zeroed (p is 0 there, 0 * NaN is not), K's scores
+      // dropped
+#pragma unroll
+      for (int bb = 0; bb < NB; ++bb)
+        for (int i = lane; i < (kKeys - nv) * 8; i += 32)
+          *reinterpret_cast<uint4*>(vd + bb * kBoxBytes +
+                                    (nv + i / 8) * (kBoxCols * 4) +
+                                    (i % 8) * 16) = make_uint4(0, 0, 0, 0);
+    }
+    // partial scores: 16-byte chunk j of row r at chunk j ^ (r % 8) (TMA's
+    // 128-byte swizzle), so eight lanes' rows fall in distinct banks
+    float s[GB];
+#pragma unroll
+    for (int g = 0; g < GB; ++g) s[g] = 0.f;
+#pragma unroll
+    for (int bb = 0; bb < NB; ++bb) {
+      const unsigned char* row = kd + bb * kBoxBytes + lane * (kBoxCols * 4);
+      const float* qc = qs + (w * NB + bb) * kBoxCols;
+#pragma unroll
+      for (int j = 0; j < kBoxCols / 4; ++j) {
+        const float4 kf = *reinterpret_cast<const float4*>(row +
+                                                           ((j ^ sw) << 4));
+#pragma unroll
+        for (int g = 0; g < GB; ++g) {
+          const float4 qv =
+              *reinterpret_cast<const float4*>(qc + g * kHD + j * 4);
+          s[g] = fmaf(qv.x, kf.x, s[g]);
+          s[g] = fmaf(qv.y, kf.y, s[g]);
+          s[g] = fmaf(qv.z, kf.z, s[g]);
+          s[g] = fmaf(qv.w, kf.w, s[g]);
+        }
+      }
+    }
+    float* pp = parts + (it & 1) * kConsumers * GB * kKeys;
+#pragma unroll
+    for (int g = 0; g < GB; ++g) pp[(w * GB + g) * kKeys + lane] = s[g];
+    // the other buffer was read before this barrier's previous phase, so
+    // one barrier a stage orders both
+    consumers_sync();
+    // the online softmax, the G rows' shuffles interleaved (each row's
+    // max and sum reduce in warp_max's and warp_sum's order)
+    const bool valid = lane < nv;
+    float sc[GB], red[GB], corr[GB];
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      float x = pp[g * kKeys + lane];
+#pragma unroll
+      for (int ww = 1; ww < kConsumers; ++ww)
+        x += pp[(ww * GB + g) * kKeys + lane];
+      sc[g] = valid ? x * scale : kNegInf;
+      red[g] = sc[g];
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+      for (int g = 0; g < GB; ++g)
+        red[g] = fmaxf(red[g], __shfl_xor_sync(0xffffffffu, red[g], o));
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      const float mx = fmaxf(m[g], red[g]);
+      corr[g] = expf(m[g] - mx);
+      const float p = expf(sc[g] - mx);
+      m[g] = mx;
+#pragma unroll
+      for (int bb = 0; bb < NB; ++bb) acc[g][bb] *= corr[g];
+      pw[g * kKeys + lane] = p;
+      red[g] = p;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+      for (int g = 0; g < GB; ++g)
+        red[g] += __shfl_xor_sync(0xffffffffu, red[g], o);
+#pragma unroll
+    for (int g = 0; g < GB; ++g) l[g] = l[g] * corr[g] + red[g];
+    __syncwarp();
+    // acc += p v, lane = column, the stage's keys in order
+#pragma unroll
+    for (int j = 0; j < kKeys; j += 4) {
+      float vv[4][NB];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int bb = 0; bb < NB; ++bb)
+          vv[jj][bb] = *reinterpret_cast<const float*>(
+              vd + bb * kBoxBytes + (j + jj) * (kBoxCols * 4) +
+              ((((uint32_t)(lane >> 2) ^ ((j + jj) & 7)) << 4) | v_col));
+#pragma unroll
+      for (int g = 0; g < GB; ++g) {
+        const float4 p4 = *reinterpret_cast<const float4*>(pw + g * kKeys + j);
+        const float pj[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+          for (int bb = 0; bb < NB; ++bb)
+            acc[g][bb] = fmaf(pj[jj], vv[jj][bb], acc[g][bb]);
+      }
+    }
+    // the zeros precede the ring's next TMA write of these rows
+    if (nv < kKeys)
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncwarp();
+    if (lane == 0) bulk::mbar_arrive(empty + 8 * stage);
+  }
+
+  // the split's (m, l, acc), each warp its columns: o, or the split's part
+  float* pb = part + (bn * nsplit + split) * (long long)G * (kHD + 2);
+#pragma unroll
+  for (int g = 0; g < GB; ++g) {
+    if (g >= G) break;
+    const float d = fmaxf(l[g], 1e-30f);
+#pragma unroll
+    for (int bb = 0; bb < NB; ++bb) {
+      const int col = (w * NB + bb) * kBoxCols + lane;
+      if (nsplit == 1)
+        ob[g * kHD + col] = acc[g][bb] / d;
+      else
+        pb[g * kHD + col] = acc[g][bb];
+    }
+    if (nsplit > 1 && w == 0 && lane == 0) {
+      pb[G * kHD + g] = m[g];
+      pb[G * kHD + G + g] = l[g];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// float32 at hd 64 and 128: SIMT body (one key per lane)
 // ---------------------------------------------------------------------------
 
 template <int HD>
@@ -758,7 +1069,7 @@ struct SimtGeo {
   static constexpr int kRowBytes = HD * 4 + 16;   // padded row
   static constexpr int kTileBytes = kTile * kRowBytes;
   static constexpr int kChunks = HD * 4 / 16;
-  static constexpr int kStages = HD > 128 ? 1 : 2;   // K and V per stage
+  static constexpr int kStages = 2;               // K and V per stage
 };
 
 template <int HD, int GB>
@@ -838,7 +1149,7 @@ decode_attention_simt(const float* __restrict__ q,
   cp_async_commit();
   for (int it = 0; it < n_tiles; ++it) {
     const int t0 = lo + it * kTile;
-    if (Geo::kStages == 2 && it + 1 < n_tiles) {
+    if (it + 1 < n_tiles) {
       load_tile((it + 1) & 1, t0 + kTile);
       cp_async_commit();
       cp_async_wait<1>();
@@ -847,8 +1158,7 @@ decode_attention_simt(const float* __restrict__ q,
     }
     __syncthreads();
     if (t0 + w * 32 < hi) {                    // warp-uniform skip
-      const char* kd =
-          kvbuf + (Geo::kStages == 2 ? it & 1 : 0) * 2 * Geo::kTileBytes;
+      const char* kd = kvbuf + (it & 1) * 2 * Geo::kTileBytes;
       const char* vd = kd + Geo::kTileBytes;
       // scores of this lane's key for all GB rows
       const float* krow =
@@ -907,10 +1217,6 @@ decode_attention_simt(const float* __restrict__ q,
       __syncwarp();
     }
     __syncthreads();                           // this stage is consumed
-    if (Geo::kStages == 1 && it + 1 < n_tiles) {
-      load_tile(0, t0 + kTile);
-      cp_async_commit();
-    }
   }
 
   // merge the warps' states through shared memory (the tiles are free)
@@ -991,8 +1297,17 @@ template <typename F>
 int with_simt(int hd, int G, F&& f) {
   if (hd == 64) return with_simt_g<64>(G, f);
   if (hd == 128) return with_simt_g<128>(G, f);
-  if (hd == 256) return with_simt_g<256>(G, f);
   return (int)cudaErrorInvalidValue;
+}
+// float32 at hd 256: the ring body at GB rows (4, 8 or 16)
+template <typename F>
+int with_f32_ring(int G, F&& f) {
+  using namespace f32;
+  if (G <= 4)
+    return f(decode_attention_hd256_f32<4>, Geo<4>::kSmem, kThreads);
+  if (G <= 8)
+    return f(decode_attention_hd256_f32<8>, Geo<8>::kSmem, kThreads);
+  return f(decode_attention_hd256_f32<16>, Geo<16>::kSmem, kThreads);
 }
 
 template <typename K>
@@ -1082,26 +1397,30 @@ EncodeTiled encoder() {
 // wrapper names it); cudaError_t values stay below it
 constexpr int kMapError = 100000;
 
-// k or v, (B, KV, S, 256) bf16 at element strides (sb, sn, ss) with the
-// last dim contiguous, as a 4-D map: the 256 columns, then the key, kv head
-// and batch dims in the order of their strides (a dim of size 1 last, its
-// stride past the others'), boxes of 64 columns x 64 keys, 128-byte
-// swizzle; keys past S read as zero.  slots: the coordinate slot (1-3) of
-// the key, the kv head and the batch, 2 bits apiece.
+// k or v, (B, KV, S, 256) bf16 or float32 (dtype 1 or 0) at element
+// strides (sb, sn, ss) with the last dim contiguous, as a 4-D map: the 256
+// columns, then the key, kv head and batch dims in the order of their
+// strides (a dim of size 1 last, its stride past the others'), boxes of
+// 128 bytes of columns (64 bf16, 32 float32) x a stage's keys (64 bf16,
+// 32 float32), 128-byte swizzle; keys past S read as zero.  slots: the
+// coordinate slot (1-3) of the key, the kv head and the batch, 2 bits
+// apiece.
 struct CacheMap {
   CUtensorMap map;
   int slots;
 };
 
-int make_cache_map(CacheMap* out, const void* base, int B, int KV, int S,
-                   long long sb, long long sn, long long ss) {
+int make_cache_map(CacheMap* out, const void* base, int dtype, int B, int KV,
+                   int S, long long sb, long long sn, long long ss) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return kMapError + (int)CUDA_ERROR_NOT_FOUND;
+  const long long esize = dtype == 1 ? 2 : 4;
+  const int box_keys = dtype == 1 ? kTile : f32::kKeys;
   struct Dim {
     long long size, stride;
     int box, which;
-  } d[3] = {{S, ss * 2, kTile, 0}, {KV, sn * 2, 1, 1},
-            {B, sb * 2, 1, 2}};
+  } d[3] = {{S, ss * esize, box_keys, 0}, {KV, sn * esize, 1, 1},
+            {B, sb * esize, 1, 2}};
   auto before = [](const Dim& x, const Dim& y) {
     if ((x.size == 1) != (y.size == 1)) return y.size == 1;
     return x.stride < y.stride;
@@ -1112,12 +1431,12 @@ int make_cache_map(CacheMap* out, const void* base, int B, int KV, int S,
       d[j] = d[j - 1];
       d[j - 1] = t;
     }
-  long long top = bulk::kHD * 2;       // past every element of the others
+  long long top = bulk::kHD * esize;   // past every element of the others
   for (const Dim& x : d)
     if (x.size > 1 && x.stride * x.size > top) top = x.stride * x.size;
   cuuint64_t dims[4] = {(cuuint64_t)bulk::kHD, 0, 0, 0};
   cuuint64_t strides[3];
-  cuuint32_t box[4] = {(cuuint32_t)bulk::kBoxCols, 0, 0, 0};
+  cuuint32_t box[4] = {(cuuint32_t)(128 / esize), 0, 0, 0};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   out->slots = 0;
   for (int i = 0; i < 3; ++i) {
@@ -1126,8 +1445,10 @@ int make_cache_map(CacheMap* out, const void* base, int B, int KV, int S,
     box[i + 1] = (cuuint32_t)d[i].box;
     out->slots |= (i + 1) << (2 * d[i].which);
   }
-  const CUresult r = enc(&out->map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                         const_cast<void*>(base), dims, strides, box, unit,
+  const CUresult r = enc(&out->map,
+                         dtype == 1 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                    : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                         4, const_cast<void*>(base), dims, strides, box, unit,
                          CU_TENSOR_MAP_INTERLEAVE_NONE,
                          CU_TENSOR_MAP_SWIZZLE_128B,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -1135,34 +1456,34 @@ int make_cache_map(CacheMap* out, const void* base, int B, int KV, int S,
   return r == CUDA_SUCCESS ? 0 : kMapError + (int)r;
 }
 
-// make_cache_map's map, encoded once per (pointer, shape, strides) and
-// kept (a decode step finds every layer's cache maps made)
-int cache_map(CacheMap* out, const void* base, int B, int KV, int S,
-              long long sb, long long sn, long long ss) {
+// make_cache_map's map, encoded once per (pointer, type, shape, strides)
+// and kept (a decode step finds every layer's cache maps made)
+int cache_map(CacheMap* out, const void* base, int dtype, int B, int KV,
+              int S, long long sb, long long sn, long long ss) {
   struct Key {
     const void* p;
-    long long B, KV, S, sb, sn, ss;
+    long long dtype, B, KV, S, sb, sn, ss;
     bool operator==(const Key& o) const {
-      return p == o.p && B == o.B && KV == o.KV && S == o.S && sb == o.sb &&
-             sn == o.sn && ss == o.ss;
+      return p == o.p && dtype == o.dtype && B == o.B && KV == o.KV &&
+             S == o.S && sb == o.sb && sn == o.sn && ss == o.ss;
     }
   };
   struct Hash {
     size_t operator()(const Key& k) const {
       size_t h = std::hash<const void*>()(k.p);
-      for (long long x : {k.B, k.KV, k.S, k.sb, k.sn, k.ss})
+      for (long long x : {k.dtype, k.B, k.KV, k.S, k.sb, k.sn, k.ss})
         h = h * 1000003u ^ std::hash<long long>()(x);
       return h;
     }
   };
   static std::mutex mu;
   static std::unordered_map<Key, CacheMap, Hash> maps;
-  const Key key{base, B, KV, S, sb, sn, ss};
+  const Key key{base, dtype, B, KV, S, sb, sn, ss};
   std::lock_guard<std::mutex> lock(mu);
   auto it = maps.find(key);
   if (it == maps.end()) {
     CacheMap m;
-    const int rc = make_cache_map(&m, base, B, KV, S, sb, sn, ss);
+    const int rc = make_cache_map(&m, base, dtype, B, KV, S, sb, sn, ss);
     if (rc != 0) return rc;
     if (maps.size() >= 4096) maps.clear();
     it = maps.emplace(key, m).first;
@@ -1171,20 +1492,64 @@ int cache_map(CacheMap* out, const void* base, int B, int KV, int S,
   return 0;
 }
 
-// bf16 at hd 256: the body over grid (nsplit, KV, B), then the merge
-int launch_hd256(const Args& a) {
-  CacheMap mk, mv;
-  int rc = cache_map(&mk, a.k, a.B, a.KV, a.S, a.ksb, a.ksn, a.kss);
-  if (rc == 0) rc = cache_map(&mv, a.v, a.B, a.KV, a.S, a.vsb, a.vsn, a.vss);
-  if (rc != 0) return rc;
-  cudaError_t e = allow_smem(decode_attention_hd256_bulk, bulk::kSmem);
-  if (e != cudaSuccess) return (int)e;
-  decode_attention_hd256_bulk<<<dim3(a.nsplit, a.KV, a.B), bulk::kThreads,
-                                bulk::kSmem, a.stream>>>(
-      mk.map, mv.map, (const bf16*)a.q, a.kv_len, (bf16*)a.o, a.part, a.KV,
-      a.G, a.S, mk.slots, mv.slots, a.scale);
-  e = cudaGetLastError();
-  return e != cudaSuccess ? (int)e : launch_merge<bf16>(a);
+// hd 256 in either type: the ring body over grid (nsplit, KV, B) on k's and
+// v's tensor maps, then the merge
+template <typename T>
+struct LaunchRing {
+  const Args& a;
+  int dtype;
+  template <typename K>
+  int operator()(K kernel, size_t smem, int threads) const {
+    CacheMap mk, mv;
+    int rc = cache_map(&mk, a.k, dtype, a.B, a.KV, a.S, a.ksb, a.ksn, a.kss);
+    if (rc == 0)
+      rc = cache_map(&mv, a.v, dtype, a.B, a.KV, a.S, a.vsb, a.vsn, a.vss);
+    if (rc != 0) return rc;
+    cudaError_t e = allow_smem(kernel, smem);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<dim3(a.nsplit, a.KV, a.B), threads, smem, a.stream>>>(
+        mk.map, mv.map, (const T*)a.q, a.kv_len, (T*)a.o, a.part, a.KV, a.G,
+        a.S, mk.slots, mv.slots, a.scale);
+    e = cudaGetLastError();
+    return e != cudaSuccess ? (int)e : launch_merge<T>(a);
+  }
+};
+
+// out[0] a ring body's dynamic shared memory (bytes), [1] threads a block,
+// [2] consumer (math) warps, [3] ring stages, [4] registers a thread and
+// [5] local memory a thread (spills), as the runtime reads them from the
+// binary, [6] its blocks an SM
+struct Info {
+  int* out;
+  int consumers, stages;
+  template <typename K>
+  int operator()(K kernel, size_t smem, int threads) const {
+    cudaError_t e = allow_smem(kernel, smem);
+    cudaFuncAttributes attr;
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
+    int blocks = 0;
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        threads, smem);
+    if (e != cudaSuccess) {
+      cudaGetLastError();
+      return (int)e;
+    }
+    out[0] = (int)smem;
+    out[1] = threads;
+    out[2] = consumers;
+    out[3] = stages;
+    out[4] = attr.numRegs;
+    out[5] = (int)attr.localSizeBytes;
+    out[6] = blocks;
+    return 0;
+  }
+};
+
+int f32_stages(int G) {
+  using namespace f32;
+  return G <= 4 ? Geo<4>::kStages : G <= 8 ? Geo<8>::kStages
+                                           : Geo<16>::kStages;
 }
 
 }  // namespace
@@ -1197,6 +1562,7 @@ extern "C" int decode_attention_blocks_per_sm(int hd, int dtype, int G,
     return Occupancy{out}(decode_attention_hd256_bulk, bulk::kSmem,
                           bulk::kThreads);
   if (dtype == 1) return with_mma(hd, Occupancy{out});
+  if (dtype == 0 && hd == 256) return with_f32_ring(G, Occupancy{out});
   if (dtype == 0) return with_simt(hd, G, Occupancy{out});
   return (int)cudaErrorInvalidValue;
 }
@@ -1208,7 +1574,7 @@ extern "C" int decode_attention_blocks_per_sm(int hd, int dtype, int G,
 // (split_span); part: (B, KV, nsplit, G * (hd + 2)) float32 scratch when
 // nsplit > 1.  G in 1..16, hd in {64, 128, 256}.
 // Returns cudaGetLastError() of the launches, or kMapError + the CUresult
-// of a tensor map the driver refused (bf16 at hd 256).
+// of a tensor map cuTensorMapEncodeTiled refused (hd 256).
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, const void* kv_len, void* o,
     void* part, int B, int KV, int G, int S, int hd, int dtype, int nsplit,
@@ -1225,37 +1591,23 @@ extern "C" int decode_attention_launch(
                hd, nsplit, scale, ksb, ksn, kss, vsb, vsn, vss,
                (cudaStream_t)stream};
   if (part == nullptr && nsplit > 1) return (int)cudaErrorInvalidValue;
-  if (dtype == 1 && hd == 256) return launch_hd256(a);
+  if (dtype == 1 && hd == 256)
+    return LaunchRing<bf16>{a, 1}(decode_attention_hd256_bulk, bulk::kSmem,
+                                  bulk::kThreads);
   if (dtype == 1) return with_mma(hd, Launch<bf16>{a});
+  if (dtype == 0 && hd == 256) return with_f32_ring(G, LaunchRing<float>{a, 0});
   if (dtype == 0) return with_simt(hd, G, Launch<float>{a});
   return (int)cudaErrorInvalidValue;
 }
 
-// The bf16 hd 256 body's launch shape and resources, for a report: out[0]
-// its dynamic shared memory (bytes), [1] threads a block, [2] consumer
-// (math) warps, [3] ring stages, [4] registers a thread and [5] local
-// memory a thread (spills), as the runtime reads them from the binary, [6]
-// its blocks an SM.  Returns a cudaError_t.
-extern "C" int decode_attention_hd256_info(int* out) {
-  auto fn = decode_attention_hd256_bulk;
-  cudaError_t e = allow_smem(fn, bulk::kSmem);
-  cudaFuncAttributes attr;
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, fn);
-  int blocks = 0;
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn,
-                                                      bulk::kThreads,
-                                                      bulk::kSmem);
-  if (e != cudaSuccess) {
-    cudaGetLastError();
-    return (int)e;
-  }
-  out[0] = (int)bulk::kSmem;
-  out[1] = bulk::kThreads;
-  out[2] = bulk::kConsumers;
-  out[3] = bulk::kStages;
-  out[4] = attr.numRegs;
-  out[5] = (int)attr.localSizeBytes;
-  out[6] = blocks;
-  return 0;
+// The hd 256 ring body's launch shape and resources, for a report (Info's
+// out[0..6]): the bf16 body (dtype 1), or the float32 body (dtype 0) that
+// G query rows a kv head launch.  Returns a cudaError_t.
+extern "C" int decode_attention_hd256_info(int dtype, int G, int* out) {
+  if (dtype == 1)
+    return Info{out, bulk::kConsumers, bulk::kStages}(
+        decode_attention_hd256_bulk, bulk::kSmem, bulk::kThreads);
+  if (dtype == 0 && G >= 1 && G <= kMaxRows)
+    return with_f32_ring(G, Info{out, f32::kConsumers, f32_stages(G)});
+  return (int)cudaErrorInvalidValue;
 }

@@ -175,13 +175,17 @@ def decode_attention_bkgd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def hd256_body_info() -> Dict[str, int]:
-    """The bf16 hd 256 body's launch shape and resources as the CUDA
+def hd256_body_info(dtype: str = "bfloat16", group: int = 8
+                    ) -> Dict[str, int]:
+    """An hd 256 ring body's launch shape and resources as the CUDA
     runtime reads them from the built library: dynamic shared memory,
     threads, consumer warps, ring stages, registers and local bytes a
-    thread, blocks an SM."""
+    thread, blocks an SM.  ``dtype`` "bfloat16" (the mma.sync body) or
+    "float32" (the fp32 FMA body, at the rows, 4, 8 or 16, that ``group``
+    query heads a kv head pad to)."""
+    code = _DTYPE_CODES[getattr(torch, dtype)]
     info = (ctypes.c_int * 7)()
     build.check(build.library("decode_attention").decode_attention_hd256_info(
-        info), "decode_attention_hd256_info")
+        code, group, info), "decode_attention_hd256_info")
     return dict(zip(("smem_bytes", "threads", "consumer_warps", "stages",
                      "regs", "local_bytes", "blocks_per_sm"), info))

@@ -22,8 +22,9 @@ Flash attention runs at its four bodies (hd 32, 64, 128, 256) and at
 head dims between them, zero-padded up to the next body; hd 320 raises.
 Bf16 hd 256's wgmma body is swept over the edges of its tiles, and its
 two products on one tile are held against ``torch.matmul`` at 1e-3.
-Decode attention's bf16 hd 256 body is swept over the edges of its
-grid, and every body ignores NaN in the cache past kv_len.
+Decode attention's hd 256 bodies (bf16 and float32) are swept over the
+edges of their grid, every body ignores NaN in the cache past kv_len,
+and the float32 hd 256 body repeats bit for bit.
 """
 import dataclasses
 
@@ -846,24 +847,22 @@ DECODE_SWEEP = (
     + [(1, 1, 8, 20000, 12345, 256, "bfloat16"),
        (2, 2, 16, 1000, 999, 256, "float32"),
        (2, 2, 16, 1000, 999, 256, "bfloat16")]
-    # bf16 hd 256's grid on the card's 132 SMs, one block each: B KV of 1
-    # (64 splits) at kv_len 1, one tile, one key past it, 4097 and S; 8
+    # the hd 256 ring bodies' grid on the card's 132 SMs, one block each,
+    # in both types (float32: 32-key stages, two of them at G 16): B KV of
+    # 1 (64 splits) at kv_len 1, one tile, one key past it, 4097 and S; 8
     # pairs (15 splits); 100 pairs (5); 128 and 132 pairs (G 8 and 16), one
     # block a pair, no merge; 133 pairs (9 splits at G 8; at G 1 and kv_len
     # 1 one live split of 5); a ragged S at G 1 and 16 (6 one-tile splits);
     # a one-row cache (a tile past the map's end)
-    + [(1, 1, 8, 20000, klen, 256, "bfloat16")
-       for klen in (1, 64, 65, 4097, 20000)]
-    + [(8, 1, 8, 4200, klen, 256, "bfloat16") for klen in (64, 65, 4097)]
-    + [(128, 1, 8, 1100, 1090, 256, "bfloat16"),
-       (100, 1, 8, 4200, 4097, 256, "bfloat16"),
-       (132, 1, 8, 2200, 2177, 256, "bfloat16"),
-       (66, 2, 16, 700, 640, 256, "bfloat16"),
-       (133, 1, 8, 2200, 2177, 256, "bfloat16"),
-       (133, 1, 1, 300, 1, 256, "bfloat16"),
-       (3, 1, 1, 333, 333, 256, "bfloat16"),
-       (2, 1, 8, 1, 1, 256, "bfloat16"),
-       (3, 2, 16, 333, 270, 256, "bfloat16")])
+    + [(*case, dt) for dt in ("bfloat16", "float32") for case in
+       [(1, 1, 8, 20000, klen, 256) for klen in (1, 64, 65, 4097, 20000)]
+       + [(8, 1, 8, 4200, klen, 256) for klen in (64, 65, 4097)]
+       + [(128, 1, 8, 1100, 1090, 256), (100, 1, 8, 4200, 4097, 256),
+          (132, 1, 8, 2200, 2177, 256), (66, 2, 16, 700, 640, 256),
+          (133, 1, 8, 2200, 2177, 256), (133, 1, 1, 300, 1, 256),
+          (3, 1, 1, 333, 333, 256), (2, 1, 8, 1, 1, 256),
+          (3, 2, 16, 333, 270, 256)]])
+
 
 
 def _decode_tol(want):
@@ -977,6 +976,48 @@ def test_decode_attention_ignores_the_cache_past_kv_len(cuda_device, case):
     want = DA.decode_attention_plain(q, k[:, :, :klen], v[:, :, :klen], klen)
     assert float((got.float() - want.float()).abs().max()) <= _decode_tol(
         want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(8, 1, 8, 352, 330), (8, 1, 8, 4096, 3001),
+                                  (2, 2, 16, 1000, 999), (1, 1, 1, 700, 641)],
+                         ids=str)
+def test_decode_attention_hd256_f32_repeats_bit_for_bit(cuda_device, case):
+    """The float32 hd 256 body, its merge in a fixed order and no float
+    atomics: ten calls (kv_len a tensor, then an int) give the same bits,
+    and the first is within 1e-4 of the plain version."""
+    B, KV, G, S, klen = case
+    rng = np.random.default_rng(S + klen + G)
+    q, k, v = (torch.as_tensor(rng.normal(0, 1, shape).astype(np.float32),
+                               device=cuda_device)
+               for shape in ((B, KV, G, 256), (B, KV, S, 256),
+                             (B, KV, S, 256)))
+    length = torch.tensor([klen], dtype=torch.int32, device=cuda_device)
+    first = DA.decode_attention_bkgd(q, k, v, length)
+    outs = [DA.decode_attention_bkgd(q, k, v, length if i % 2 else klen)
+            for i in range(9)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, first) for o in outs)
+    want = DA.decode_attention_plain(q, k, v, klen)
+    assert float((first - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,G,stages", [("bfloat16", 8, 3), ("float32", 1, 3),
+                                         ("float32", 8, 3),
+                                         ("float32", 16, 2)])
+def test_decode_attention_hd256_body_report(cuda_device, dt, G, stages):
+    """The hd 256 ring bodies as built: a producer warp beside four
+    consumer warps, no local memory (no spill), within 227 KB of shared
+    memory, one block an SM, and the stages each type's geometry gives
+    (float32: three 64 KB stages where q, the partial scores and p leave
+    room, two at G 16)."""
+    info = DA.hd256_body_info(dt, G)
+    assert info["consumer_warps"] == 4 and info["threads"] == 160
+    assert info["local_bytes"] == 0 and info["blocks_per_sm"] == 1
+    assert info["stages"] == stages
+    assert info["smem_bytes"] <= 232448
+    assert 0 < info["regs"] <= 255
 
 
 @pytest.mark.cuda

@@ -372,6 +372,93 @@ def test_decode_attention_hd256_splits_cover_the_cache(B, KV, S, n_sm,
         assert (last + 1) * pitch <= floats
 
 
+F32_STAGE = 32                 # keys a stage of the float32 hd 256 body
+F32_CONSUMERS = 4              # its consumer warps, 256 / 4 columns each
+NEG_INF = np.float32(-0.7 * 3.4028234663852886e38)
+
+
+def _emulate_hd256_f32(q, k, v, kv_len, n_sm=132):
+    """numpy float32 in the float32 hd 256 body's order of arithmetic: the
+    split plan at one block an SM, 32-key stages, each consumer warp's
+    partial scores over its own columns summed column by column, the
+    warps' partials summed in warp order, then scaled and masked; the
+    online softmax shared by every warp; acc += p v key by key; each
+    split's (m, l, acc), then the merge's (splits in order) or o =
+    acc / max(l, 1e-30).  q (B, KV, G, hd), k and v (B, KV, S, hd)."""
+    B, KV, G, hd = q.shape
+    S = k.shape[2]
+    W, cols = F32_CONSUMERS, hd // F32_CONSUMERS
+    scale = np.float32(1.0 / np.sqrt(hd))
+    nsplit = DA.split_count(B, KV, S, n_sm, 1)
+    qw = q.reshape(B, KV, G, W, cols).transpose(0, 1, 3, 2, 4)
+    states = []
+    for split in range(nsplit):
+        lo, hi = DA.split_span(kv_len, nsplit, split)
+        if lo >= hi:
+            continue
+        m = np.full((B, KV, G), NEG_INF, np.float32)
+        lsum = np.zeros((B, KV, G), np.float32)
+        acc = np.zeros((B, KV, G, hd), np.float32)
+        for key0 in range(lo, hi, F32_STAGE):
+            nv = min(F32_STAGE, hi - key0)
+            kw = k[:, :, key0:key0 + nv].reshape(B, KV, nv, W, cols
+                                                 ).transpose(0, 1, 3, 2, 4)
+            part = np.zeros((B, KV, W, G, nv), np.float32)
+            for c in range(cols):        # (B, KV, W, G, 1) x (.., 1, nv)
+                part += qw[..., None, c] * kw[:, :, :, None, :, c]
+            s = part[:, :, 0]
+            for w in range(1, W):
+                s = s + part[:, :, w]
+            s = s * scale
+            mx = np.maximum(m, s.max(-1))
+            corr = np.exp(m - mx)
+            p = np.exp(s - mx[..., None])
+            lsum = lsum * corr + p.sum(-1, dtype=np.float32)
+            m = mx
+            acc = acc * corr[..., None]
+            for j in range(nv):
+                acc = acc + p[..., j, None] * v[:, :, None, key0 + j]
+        states.append((m, lsum, acc))
+    if nsplit == 1:
+        m, lsum, acc = states[0]
+        return acc / np.maximum(lsum, np.float32(1e-30))[..., None]
+    mx = states[0][0]
+    for m, _, _ in states[1:]:
+        mx = np.maximum(mx, m)
+    lt = np.zeros_like(mx)
+    at = np.zeros_like(states[0][2])
+    for m, lsum, acc in states:
+        f = np.exp(m - mx)
+        lt = lt + lsum * f
+        at = at + acc * f[..., None]
+    return at / np.maximum(lt, np.float32(1e-30))[..., None]
+
+
+@pytest.mark.parametrize("G", [1, 8, 16])
+@pytest.mark.parametrize("klen", [1, 65, 330, 3001])
+def test_decode_attention_hd256_f32_order_vs_pallas_interpreter(G, klen):
+    """The float32 hd 256 body's order of arithmetic (``_emulate_hd256_f32``:
+    the split plan, 32-key stages, column-box partial scores summed in warp
+    order, the shared softmax, the merge) against JAX's wrapper, which
+    interprets the Pallas kernel, at 1e-4.  A 3,072-row cache at kv_len
+    3001 makes 47 one-tile splits of one (b, kv head) and a merge, B 2 at
+    330 six splits of a 512-row cache."""
+    B, KV, hd = (1, 1, 256) if klen > 512 else (2, 1, 256)
+    S = 3072 if klen > 512 else 512
+    rng = np.random.default_rng(klen + G)
+    q, k, v = (rng.normal(0, 1, shape).astype(np.float32)
+               for shape in ((B, KV * G, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    want = np.asarray(rops.decode_attention(
+        *(jnp.asarray(a) for a in (q, k, v)), jnp.int32(klen)))
+    k[:, klen:] = np.nan                 # rows past kv_len are never read
+    v[:, klen:] = np.nan
+    got = _emulate_hd256_f32(q.reshape(B, KV, G, hd), k.transpose(0, 2, 1, 3),
+                             v.transpose(0, 2, 1, 3), klen)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got.reshape(B, KV * G, hd), want, rtol=0,
+                               atol=1e-4)
+
+
 @pytest.mark.parametrize("G,hd,dt", [(7, 64, "bfloat16"), (1, 128, "float32"),
                                      (16, 64, "float32")])
 def test_decode_attention_reads_the_model_cache_in_place(G, hd, dt,

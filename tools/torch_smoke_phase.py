@@ -24,8 +24,9 @@ phase 23 (``flash256_phase``: flash attention at head dim 256 and a
 padded 96, paligemma-3b's tokens-only forward under ``pallas``,
 ``ops.spatial_stats`` and the monitoring-queries twin), ``decode256``
 its phase 16 (``decode256_entry``: decode attention at head dim 256 on
-(128, 1, 8, 32768, 256) at kv_len 30000, the bf16 body's report, SDPA
-and the bound beside it, NaN past kv_len, float32), ``paligemma`` its
+(128, 1, 8, 32768, 256) at kv_len 30000, the bf16 and float32 bodies'
+reports, SDPA and the bound beside it, NaN past kv_len, float32 at
+three shapes), ``paligemma`` its
 phase 14's paligemma-3b serving (``family_serving_phase``: profiles of
 a decode step and a prefill, 32 greedy steps, layer 0's decode call
 against plain).  ``--root`` runs the phase from another checkout (say a
