@@ -237,7 +237,8 @@ Phases (any failure exits non-zero and prints no result line):
     32 layers, its selective remat: 3 steps of 2 x 512 tokens, losses and
     gradient norms finite.  ``repro_torch.launch.serve.main`` at its
     defaults: the answers on the survivors are the oracle's.
-18. A ``kernels`` JSON line (all six kernels; flash and decode attention
+18. A ``kernels`` JSON line (all six kernels, each with the ``bodies`` of
+    phase 24 where it has any; flash and decode attention
     with their ``zoo_launches`` of phases 10-15, 17 and 19; each with its
     ``families_launches`` of phase 21 (a), its ``fleet_mesh_launches``
     of phase 22, (a) and (b)'s rank 0, and its ``flash256_phase_launches``
@@ -371,6 +372,28 @@ Phases (any failure exits non-zero and prints no result line):
     on the card (its table; the survivors' answers equal to the exact
     semantics; the staged plan's masks equal to the cascade's; the
     spatial-stats kernels launched).
+24. (Run after 23, before the lines of 18.)  Every shape the reference
+    takes.  (a) The seven zoo smoke configs whose single-token step
+    reaches decode attention (``SHAPES_SMOKE``: all but grok, hymba and
+    rwkv6) at their own head_dim 16, random weights: a 4 x 64 prefill and
+    8 decode steps under ``pallas`` and under ``xla_naive`` on the same
+    weights and card; decode attention launched once per layer and step
+    (counts reset just before the pallas pass, read just after), logits
+    within rtol 1e-4 / atol 1e-3 of the plain path's.  (b) Each body
+    added for shapes the kernels once refused, at one shape, against its
+    plain version and timed three ways beside its bound and a library
+    call: decode attention (``ops.decode_attention`` on the model's
+    cache in place; SDPA on the kv_len slice) at the smoke configs' hd
+    16 on decode_32k's (128, 2, 7, 32768) at kv_len 30,000, at 71 query
+    heads over one kv head at hd 64 (Falcon-7B's multi-query layout, as
+    a shape; the rows body) and in float32 at (8, 1, 8, 4096, 512),
+    kv_len 3,001 (the slab body); flash attention's slab body at (4, 8,
+    8, 1024, 512) causal bf16 beside SDPA; the CAM head at (32, 3136,
+    256) x 128 classes in float32 and on bf16 features and weights
+    beside ``torch.matmul``; the WKV scan at (4, 40, 1024, 48) bf16 on
+    its 64-row instantiation.  The entries go to the kernels line as
+    each kernel's ``bodies``, with decode attention's
+    ``smoke_hd16_launches``.
 """
 import argparse
 import dataclasses
@@ -6446,6 +6469,281 @@ def flash256_phase(torch, dev, scene, rehearse, gpu):
     return entry, launches, lines
 
 
+# ---------------------------------------------------------------------------
+# phase 24: every shape the reference takes
+# ---------------------------------------------------------------------------
+
+# the zoo smoke configs whose single-token step reaches decode attention
+# (``reaches_decode``; rwkv6 has no attention), served at their own head
+# dim 16: (requests, prompt, decode steps)
+SHAPES_SMOKE = ("qwen2_72b", "deepseek_coder_33b", "qwen2_0p5b",
+                "starcoder2_3b", "granite_moe_3b_a800m", "whisper_base",
+                "paligemma_3b")
+SHAPES_SERVE = (4, 64, 8)
+# decode attention's other bodies, one shape each, (B, KV, G, S, hd,
+# dtype, kv_len): the smoke configs' hd 16 at the decode_32k batch and
+# length in qwen2-0.5b's group of 7 over 2 kv heads (the 64-wide body);
+# Falcon-7B's published multi-query layout, 71 query heads over one kv
+# head at hd 64, used only as a shape (five chunks of 16 heads); float32
+# at hd 512 (the slab body, four slabs)
+SHAPES_DECODE = {"hd16": (128, 2, 7, 32768, 16, "bfloat16", 30000),
+                 "g71": (128, 1, 71, 32768, 64, "bfloat16", 30000),
+                 "hd512_f32": (8, 1, 8, 4096, 512, "float32", 3001)}
+SHAPES_DECODE_SMALL = {"hd16": (2, 2, 7, 640, 16, "bfloat16", 600),
+                       "g71": (2, 1, 71, 640, 64, "bfloat16", 600),
+                       "hd512_f32": (2, 1, 8, 640, 512, "float32", 600)}
+SHAPES_FLASH = (4, 8, 8, 1024, 512)     # (B, H, KV, S, hd), causal, bf16
+SHAPES_CAM = (32, 3136, 256, 128)       # (B, P, D, C)
+SHAPES_SCAN = (4, 40, 1024, 48)         # (B, H, T, K), V = K, bf16
+SHAPES_CHECK_ROWS = 4     # batch rows of a full-size decode held to plain
+
+
+def smoke_decode_serving(torch, dev, rehearse):
+    """(a) Each smoke config of ``SHAPES_SMOKE`` at its own head_dim 16,
+    random weights from a seeded generator: a prefill and decode steps
+    under ``pallas`` and under ``xla_naive`` (the plain path) on the same
+    weights and card, counts reset just before the pallas pass and read
+    just after (decode attention once per layer and step), logits within
+    rtol 1e-4 / atol 1e-3 of the plain path's, as the card tests hold the
+    hd 64 serving cases.  Returns ({name: record}, lines)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as TM
+    from repro_torch.models import serve as SV
+    n_req, n_prompt, n_dec = SHAPES_SERVE
+    out, lines = {}, []
+    for i, name in enumerate(SHAPES_SMOKE):
+        base = get_smoke_config(name)
+        check(base.head_dim == 16 and reaches_decode(base),
+              f"{name}'s smoke config no longer reaches decode at hd 16")
+        gen = torch.Generator(dev).manual_seed(SEED + 40 + i)
+        toks = torch.randint(0, base.vocab_size, (n_req, n_prompt + n_dec),
+                             generator=gen, device=dev)
+        frames = (torch.randn((n_req, base.enc_len, base.d_model),
+                              generator=gen, device=dev)
+                  if base.enc_dec else None)
+        got = {}
+        for impl in ("xla_naive", "pallas"):
+            cfg = dataclasses.replace(base, attn_impl=impl)
+            params = TM.init_params(
+                torch.Generator(dev).manual_seed(SEED + 50 + i), cfg,
+                device=dev)
+            cache = SV.init_cache(cfg, n_req, n_prompt + n_dec, device=dev)
+            sync(torch, dev)
+            ops.reset_launch_counts()
+            logits, cache, _ = SV.prefill(params, cfg, toks[:, :n_prompt],
+                                          cache=cache, frames=frames)
+            steps = [logits]
+            for t in range(n_prompt, n_prompt + n_dec):
+                logits, cache = SV.decode_step(params, cfg,
+                                               toks[:, t:t + 1], cache=cache)
+                steps.append(logits)
+            sync(torch, dev)
+            got[impl] = (torch.stack(steps, 1),
+                         ops.launch_counts()["decode_attention_bkgd"])
+        (want, n0), (have, n1) = got["xla_naive"], got["pallas"]
+        gap = float((have - want).abs().max())
+        close = torch.allclose(have, want, rtol=1e-4, atol=1e-3)
+        check(close, f"{name} at hd 16: pallas logits differ from the "
+              f"plain path's (max abs gap {gap})")
+        check(rehearse or (n0 == 0 and n1 == base.n_layers * n_dec),
+              f"{name} at hd 16: decode attention launched {n1} times "
+              f"under pallas, {n0} under xla_naive; want "
+              f"{base.n_layers * n_dec} and 0")
+        out[name] = {"head_dim": base.head_dim,
+                     "group": base.n_heads // base.n_kv_heads,
+                     "decode_launches": n1, "max_abs_logit_gap": gap}
+        lines.append(f"{name} smoke config at hd {base.head_dim} (G "
+                     f"{out[name]['group']}): {n_req} x {n_prompt} prefill + "
+                     f"{n_dec} decode steps under pallas, decode attention "
+                     f"launched {n1} times ({base.n_layers} layers x "
+                     f"{n_dec}); logits vs xla_naive max abs gap {gap:.3g} "
+                     f"(rtol 1e-4, atol 1e-3)")
+    return out, lines
+
+
+def shapes_decode_entry(torch, dev, key, shape, timer, ktimer, rehearse):
+    """(b) Decode attention at one shape of ``SHAPES_DECODE`` through
+    ``ops.decode_attention`` on a (B, S, KV, hd) cache read in place: one
+    launch, the first ``SHAPES_CHECK_ROWS`` batch rows against the plain
+    version (``decode_tol``), timed three ways beside the plain version,
+    SDPA on the kv_len slice (G query rows a kv head) and the bytes
+    bound."""
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import ops
+    B, KV, G, S, hd, dt, kv_len = shape
+    dtype = getattr(torch, dt)
+    gen = torch.Generator(dev).manual_seed(SEED + 60)
+    q, k, v = (torch.randn(s, generator=gen, device=dev).to(dtype)
+               for s in ((B, KV * G, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    length = torch.tensor([kv_len], dtype=torch.int32, device=dev)
+    ops.reset_launch_counts()
+    out = ops.decode_attention(q, k, v, length)
+    sync(torch, dev)
+    n_launch = ops.launch_counts()["decode_attention_bkgd"]
+    check(rehearse or n_launch == 1, f"decode {key}: ops.decode_attention "
+          f"launched {n_launch} kernels")
+    qg = q.reshape(B, KV, G, hd)
+    kv_, vv_ = k.transpose(1, 2), v.transpose(1, 2)
+    r = min(B, SHAPES_CHECK_ROWS)
+    want = DA.decode_attention_plain(qg[:r], kv_[:r], vv_[:r], kv_len)
+    err = float((out.reshape(qg.shape)[:r].float() - want.float()).abs()
+                .max())
+    tol = decode_tol(torch, want)
+    check(err <= tol, f"decode {key}: differs from plain (max abs err "
+          f"{err}, tol {tol})")
+    body = DA.body_for(hd, dtype, G,
+                       DA.rows_aligned(kv_, DA.cache_strides(kv_)))
+    esize = q.element_size()
+    n_bytes = 2 * B * KV * kv_len * hd * esize + 2 * B * KV * G * hd * esize
+    bnd, by = bound_ms(n_bytes, 4 * B * KV * G * kv_len * hd,
+                       BF16_FLOPS if dt == "bfloat16" else FP32_FLOPS)
+    kt, vt = (t[:, :, :kv_len].contiguous() for t in (kv_, vv_))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    expect = "decode_attention_slab" if body.width == 0 else (
+        "decode_attention_mma" if dt == "bfloat16" and body.width < 256
+        else "decode_attention")
+    entry = {
+        "body": body.name, "chunks": body.chunks, "slabs": body.slabs,
+        "rows": body.rows,
+        "shape": [B, KV, G, S, hd], "kv_len": kv_len, "dtype": str(dtype),
+        "launches": n_launch, "max_abs_err": err,
+        "tolerance": f"{tol:.3g} ({'four bf16 steps of the largest output' if dt == 'bfloat16' else 'float32'}), batch rows 0-{r - 1}",
+        **ktimer(lambda: DA.decode_attention_bkgd(qg, kv_, vv_, length),
+                 expect),
+        "plain_ms": timer(lambda: DA.decode_attention_plain(qg, kv_, vv_,
+                                                            kv_len)),
+        "bound_ms": bnd, "bound_by": by, "bound_bytes": n_bytes,
+        **library_entry(ktimer(lambda: sdpa(qg, kt, vt))),
+        "library_note": "SDPA on the kv_len slice, G query rows a kv head"}
+    del q, k, v, qg, kv_, vv_, kt, vt, out, want
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return entry
+
+
+def shapes_phase(torch, dev, rehearse, gpu):
+    """Phase 24: (a) ``smoke_decode_serving``; (b) each body that this
+    phase adds to a kernel, at one shape: decode attention at
+    ``SHAPES_DECODE``, flash attention's slab body (``SHAPES_FLASH``,
+    causal bf16, beside SDPA), the CAM head at 128 classes
+    (``SHAPES_CAM``, float32 beside ``torch.matmul`` with TF32 off, and
+    on bf16 features and weights) and the WKV scan at K 48 (``SHAPES_SCAN``,
+    on the 64-row instantiation), each against its plain version, timed
+    three ways beside its bound.  Returns ({kernel name: {body: entry}},
+    {smoke config: record}, lines)."""
+    from repro_torch.kernels import cam_head as CH
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rwkv6_scan as RK
+    t_phase = time.perf_counter()
+    timer, ktimer = timers(torch, rehearse)
+    serving, lines = smoke_decode_serving(torch, dev, rehearse)
+    bodies = {name: {} for name in ("decode_attention_bkgd",
+                                    "flash_attention_bhsd", "cam_head_bgd",
+                                    "rwkv6_scan_bhtk")}
+    for key, shape in (SHAPES_DECODE_SMALL if rehearse
+                       else SHAPES_DECODE).items():
+        bodies["decode_attention_bkgd"][key] = shapes_decode_entry(
+            torch, dev, key, shape, timer, ktimer, rehearse)
+    # flash attention above hd 256: the slab body
+    B, H, KV, S, hd = SHAPES_FLASH if not rehearse else (1, 2, 2, 128, 512)
+    (q, k, v), err = flash_case(torch, FA, dev, (B, H, KV, S, hd),
+                                torch.bfloat16, SEED + 61, causal=True)
+    ops.reset_launch_counts()
+    FA.flash_attention_bhsd(q, k, v, causal=True)
+    sync(torch, dev)
+    n_launch = ops.launch_counts()["flash_attention_bhsd"]
+    check(rehearse or n_launch == 1, f"flash attention at hd {hd} launched "
+          f"{n_launch} kernels")
+    n_bytes = 2 * (2 * B * H * S * hd + 2 * B * KV * S * hd)
+    bnd, by = bound_ms(n_bytes, 2 * B * H * S * S * hd, BF16_FLOPS)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bodies["flash_attention_bhsd"]["slab_hd512"] = {
+        "body": "slab", "shape": [B, H, KV, S, hd], "dtype": "torch.bfloat16",
+        "causal": True, "launches": n_launch,
+        "max_abs_err": err, "tolerance": "2e-2 in bf16",
+        **ktimer(lambda: FA.flash_attention_bhsd(q, k, v, causal=True),
+                 "flash_attention_slab"),
+        "plain_ms": timer(lambda: FA.flash_attention_plain(q, k, v,
+                                                           causal=True)),
+        "bound_ms": bnd, "bound_by": by, "bound_flops": 2 * B * H * S * S * hd,
+        **library_entry(ktimer(lambda: sdpa(q, k, v, is_causal=True))),
+        "library_note": "SDPA, causal"}
+    del q, k, v
+    # the CAM head past 64 classes, float32 and bf16
+    B, P, D, C = SHAPES_CAM if not rehearse else (2, 64, 32, 100)
+    gen = torch.Generator(dev).manual_seed(SEED + 62)
+    feat = torch.randn((B, P, D), generator=gen, device=dev)
+    w = torch.randn((D, C), generator=gen, device=dev) * 0.1
+    b = torch.randn((C,), generator=gen, device=dev) * 0.1
+    for key, cast in (("c128", torch.float32), ("c128_bf16", torch.bfloat16)):
+        f_, w_ = feat.to(cast), w.to(cast)
+        ops.reset_launch_counts()
+        counts, cam = CH.cam_head_bgd(f_, w_, b)
+        sync(torch, dev)
+        n_launch = ops.launch_counts()["cam_head_bgd"]
+        check(rehearse or n_launch == 1, f"cam head {key} launched "
+              f"{n_launch} kernels")
+        pc, pcam = CH.cam_head_plain(f_, w_, b)
+        err = max(float((cam - pcam).abs().max()),
+                  float((counts - pc).abs().max()))
+        check(err <= 1e-4, f"cam head {key}: max abs err {err} > 1e-4")
+        again = CH.cam_head_bgd(f_, w_, b)
+        check(torch.equal(again[0], counts) and torch.equal(again[1], cam),
+              f"cam head {key}: a repeated call is not bit-identical")
+        esize = f_.element_size()
+        n_bytes = (B * P * D + D * C) * esize + (C + B * P * C + B * C) * 4
+        bnd, by = bound_ms(n_bytes, 2 * B * P * D * C)
+        bodies["cam_head_bgd"][key] = {
+            "shape": [B, P, D, C], "dtype": str(cast), "launches": n_launch,
+            "max_abs_err": err, "tolerance": "1e-4",
+            **ktimer(lambda: CH.cam_head_bgd(f_, w_, b), "cam_tile_kernel"),
+            "plain_ms": timer(lambda: CH.cam_head_plain(f_, w_, b)),
+            "bound_ms": bnd, "bound_by": by, "bound_bytes": n_bytes,
+            **library_entry(ktimer(lambda: torch.matmul(f_, w_))),
+            "library_note": "torch.matmul(feat, w), TF32 off (the CAM "
+                            "alone, no counts)"}
+        del counts, cam, pc, pcam, again
+    del feat, w, b
+    # the WKV scan at K 48, on the 64-row instantiation
+    B, H, T, K = SHAPES_SCAN if not rehearse else (1, 2, 64, 48)
+    args = scan_inputs(torch, dev, B, H, T, K, "bfloat16", SEED + 63)
+    ops.reset_launch_counts()
+    got = RK.rwkv6_scan_bhtk(*args)
+    sync(torch, dev)
+    n_launch = ops.launch_counts()["rwkv6_scan_bhtk"]
+    check(rehearse or n_launch == 1, f"WKV scan at K {K} launched "
+          f"{n_launch} kernels")
+    err, ok = scan_err(torch, got, RK.rwkv6_scan_plain(*args))
+    check(ok, f"WKV scan at K {K}: max abs err {err} outside {SCAN_TOL}")
+    again = RK.rwkv6_scan_bhtk(*args)
+    check(torch.equal(again[0], got[0]) and torch.equal(again[1], got[1]),
+          f"WKV scan at K {K}: a repeated call is not bit-identical")
+    bnd, by = scan_bound(args)
+    bodies["rwkv6_scan_bhtk"]["k48"] = {
+        "shape": [B, H, T, K], "dtype": "torch.bfloat16",
+        "launches": n_launch,
+        "max_abs_err": err, "tolerance": SCAN_TOL,
+        **ktimer(lambda: RK.rwkv6_scan_bhtk(*args), "rwkv6_scan_kernel"),
+        "plain_ms": timer(lambda: RK.rwkv6_scan_plain(*args)),
+        "bound_ms": bnd, "bound_by": by, "library_ms": None}
+    del args, got, again
+    for name, entries in bodies.items():
+        for key, e in entries.items():
+            lines.append(f"kernel {name} [{key}] {e['shape']} {e['dtype']}: "
+                         f"device {e['ms']} ms (call {e['call_ms']} ms, "
+                         f"back-to-back {e['b2b_ms']} ms; plain "
+                         f"{e['plain_ms']} ms, bound {e['bound_ms']:.6f} ms "
+                         f"by {e['bound_by']}, library device "
+                         f"{e['library_ms']} ms), max abs err "
+                         f"{e['max_abs_err']:.3g}, launches "
+                         f"{e['launches']} [{gpu}]")
+    lines.append(f"shapes phase: {time.perf_counter() - t_phase:.1f} s "
+                 f"[{gpu}]")
+    return bodies, serving, lines
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse", action="store_true",
@@ -6649,6 +6947,12 @@ def main(argv=None):
     hd256, p23, lines = flash256_phase(torch, dev, scene, args.rehearse, gpu)
     for line in lines:
         print(line, flush=True)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    bodies, smoke_serving, lines = shapes_phase(torch, dev, args.rehearse,
+                                                gpu)
+    for line in lines:
+        print(line, flush=True)
     if args.rehearse:
         print("rehearsal done (CPU: plain versions, no kernels)")
         return 0
@@ -6663,6 +6967,11 @@ def main(argv=None):
                                         for k, n in p23.items()}
         if e["name"] in ZOO_KERNELS:
             e["zoo_launches"] = {k: n[e["name"]] for k, n in zoo.items()}
+        if bodies.get(e["name"]):
+            e["bodies"] = bodies[e["name"]]
+        if e["name"] == "decode_attention_bkgd":
+            e["smoke_hd16_launches"] = {
+                k: r["decode_launches"] for k, r in smoke_serving.items()}
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

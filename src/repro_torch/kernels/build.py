@@ -50,7 +50,7 @@ _SIGNATURES = {
     "spatial_stats": {
         "spatial_stats_launch": ([ctypes.c_char_p, _F, _VP], _I)},
     "cam_head": {
-        "cam_head_launch": ([_VP] * 6 + [_I] * 4 + [_VP], _I)},
+        "cam_head_launch": ([_VP] * 6 + [_I] * 5 + [_VP], _I)},
     "flash_attention": {
         "flash_attention_launch": ([_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
                                     _I, _I, _I, _I, _I, _F, _VP], _I),
@@ -62,8 +62,8 @@ _SIGNATURES = {
     "rwkv6_scan": {
         "rwkv6_scan_launch": ([_PLL, _VP], _I)},
     "decode_attention": {
-        "decode_attention_launch": ([_VP] * 6 + [_I] * 7 + [_F] + [_LL] * 6
-                                    + [_VP], _I),
+        "decode_attention_launch": ([_VP] * 6 + [_I] * 10 + [_F]
+                                    + [_LL] * 6 + [_VP], _I),
         "decode_attention_blocks_per_sm": ([_I, _I, _I, _PI], _I),
         "decode_attention_hd256_info": ([_I, _I, _PI], _I)},
 }

@@ -3,8 +3,10 @@
 Because GAP and the FC are linear, ``counts = relu(mean_cells(CAM) + b)``,
 so one pass over the features computes the CAM and derives the counts
 from its column sums.  ``cam_head_bgd`` launches ``csrc/cam_head.cu`` on
-a CUDA tensor and runs ``cam_head_plain`` on a CPU or ``meta`` tensor;
-any other device raises.
+a CUDA tensor (any number of classes; feat, w and b each float32 or
+bfloat16, widened to float32 as they are loaded, as the Pallas body
+widens them; the outputs float32) and runs ``cam_head_plain`` on a CPU
+or ``meta`` tensor; any other device raises.
 """
 from __future__ import annotations
 
@@ -14,8 +16,8 @@ import torch
 
 from repro_torch.kernels import build
 
-MAX_CLASSES = 64
 CELL_TILE = 64        # cells per block of csrc/cam_head.cu (its kTile)
+_BF16_BITS = {"feat": 1, "w": 2, "b": 4}    # cam_head_launch's ``types``
 
 
 def cam_head_plain(feat: torch.Tensor, w: torch.Tensor, b: torch.Tensor
@@ -38,20 +40,23 @@ def cam_head_bgd(feat: torch.Tensor, w: torch.Tensor, b: torch.Tensor
         return cam_head_plain(feat, w, b)
     if feat.device.type != "cuda":
         raise ValueError(f"unsupported device {feat.device}")
+    types = 0
     for name, t in (("feat", feat), ("w", w), ("b", b)):
         if t.device != feat.device:
             raise ValueError(f"cam_head: {name} is on {t.device}, feat on "
                              f"{feat.device}")
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"cam_head kernel takes contiguous float32; "
-                             f"{name} is {t.dtype}, contiguous="
+        if t.dtype not in (torch.float32, torch.bfloat16) \
+                or not t.is_contiguous():
+            raise ValueError(f"cam_head kernel takes contiguous float32 or "
+                             f"bfloat16; {name} is {t.dtype}, contiguous="
                              f"{t.is_contiguous()}")
+        types |= _BF16_BITS[name] if t.dtype == torch.bfloat16 else 0
     B, P, D = feat.shape
     C = w.shape[1]
-    if not 1 <= C <= MAX_CLASSES or P < 1 or B > 65535:
-        raise ValueError(f"cam_head kernel takes 1..{MAX_CLASSES} classes, "
-                         f"at least one cell and at most 65535 frames, got "
-                         f"C={C}, P={P}, B={B}")
+    if C < 1 or P < 1 or B > 65535:
+        raise ValueError(f"cam_head kernel takes at least one class and one "
+                         f"cell and at most 65535 frames, got C={C}, P={P}, "
+                         f"B={B}")
     lib = build.library("cam_head")
     counts = torch.empty((B, C), dtype=torch.float32, device=feat.device)
     cam = torch.empty((B, P, C), dtype=torch.float32, device=feat.device)
@@ -64,7 +69,7 @@ def cam_head_bgd(feat: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     stream = torch.cuda.current_stream(feat.device).cuda_stream
     rc = lib.cam_head_launch(feat.data_ptr(), w.data_ptr(), b.data_ptr(),
                              counts.data_ptr(), cam.data_ptr(),
-                             part.data_ptr(), B, P, D, C, stream)
+                             part.data_ptr(), B, P, D, C, types, stream)
     build.check(rc, "cam_head_launch")
     build.LAUNCHES["cam_head_bgd"] += 1
     return counts, cam

@@ -5,7 +5,9 @@
 //
 // cam[b, p, c] = sum_d feat[b, p, d] * w[d, c]            (float32 FMAs)
 // counts[b, c] = relu(sum_p cam[b, p, c] / P + bias[c])
-// feat (B, P, D), w (D, C), bias (C,) float32 -> counts (B, C), cam (B, P, C).
+// feat (B, P, D), w (D, C), bias (C,), each float32 or bfloat16 (widened
+// to float32 as it is loaded, as the Pallas body widens its inputs), any
+// C >= 1 -> counts (B, C), cam (B, P, C) float32.
 //
 // Bound on an H100: memory.  The kernel must read B*P*D*4 bytes of
 // features (at the filter's (32, 3136, 256) that is 102.8 MB, more than
@@ -30,9 +32,13 @@
 //     buffer, and a second small kernel sums the tiles in tile order and
 //     applies /P + b and relu.  No float atomics, so every run gives the
 //     same bits;
-//   - where D is not a multiple of 4 or feat is not 16-byte aligned, a
-//     scalar path reads one float per lane; the ragged last tile is
-//     masked; C > 4 takes ceil(C / 4) passes over the tile.
+//   - where D is not a multiple of 4 or feat is not aligned to four of its
+//     values, a scalar path reads one value per lane; the ragged last tile
+//     is masked; C > 4 takes ceil(C / 4) passes over the tile (the tile's
+//     rows come from L1 / L2 after the first), and the counts kernel
+//     takes the classes in blocks of 64, so any C runs; a bf16 feat is
+//     read 8 bytes (four values) a lane in the vector path.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -42,6 +48,24 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kTile = kRows * kWarps;    // cells per block
 constexpr int kCB = 4;                   // classes per pass
+constexpr int kCountClasses = 64;        // classes a block of the counts
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+
+// four consecutive features, streamed (evict-first)
+__device__ __forceinline__ float4 load_feat4(const float* p) {
+  return __ldcs(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 load_feat4(const bf16* p) {
+  const uint2 a = __ldcs(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(a.x << 16),
+                     __uint_as_float(a.x & 0xffff0000u),
+                     __uint_as_float(a.y << 16),
+                     __uint_as_float(a.y & 0xffff0000u));
+}
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -49,9 +73,9 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <bool VEC>
+template <typename TF, typename TW, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-cam_tile_kernel(const float* __restrict__ feat, const float* __restrict__ w,
+cam_tile_kernel(const TF* __restrict__ feat, const TW* __restrict__ w,
                 float* __restrict__ cam, float* __restrict__ part, int P,
                 int D, int C) {
   extern __shared__ float4 w_s[];               // D x kCB classes
@@ -62,17 +86,17 @@ cam_tile_kernel(const float* __restrict__ feat, const float* __restrict__ w,
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int cell0 = tile * kTile + warp * kRows;
-  const float* fb = feat + ((long long)b * P + cell0) * D;
+  const TF* fb = feat + ((long long)b * P + cell0) * D;
   float* cb = cam + ((long long)b * P + cell0) * C;
 
   for (int c0 = 0; c0 < C; c0 += kCB) {
     __syncthreads();                            // w_s and warp_part free
     for (int d = threadIdx.x; d < D; d += kThreads) {
       float4 v;
-      v.x = w[(long long)d * C + c0];
-      v.y = c0 + 1 < C ? w[(long long)d * C + c0 + 1] : 0.f;
-      v.z = c0 + 2 < C ? w[(long long)d * C + c0 + 2] : 0.f;
-      v.w = c0 + 3 < C ? w[(long long)d * C + c0 + 3] : 0.f;
+      v.x = to_f(w[(long long)d * C + c0]);
+      v.y = c0 + 1 < C ? to_f(w[(long long)d * C + c0 + 1]) : 0.f;
+      v.z = c0 + 2 < C ? to_f(w[(long long)d * C + c0 + 2]) : 0.f;
+      v.w = c0 + 3 < C ? to_f(w[(long long)d * C + c0 + 3]) : 0.f;
       w_s[d] = v;
     }
     __syncthreads();
@@ -89,10 +113,8 @@ cam_tile_kernel(const float* __restrict__ feat, const float* __restrict__ w,
         float4 x[kRows];
 #pragma unroll
         for (int r = 0; r < kRows; ++r)
-          x[r] = cell0 + r < P
-                     ? __ldcs(reinterpret_cast<const float4*>(
-                                  fb + (long long)r * D) + d4)
-                     : make_float4(0.f, 0.f, 0.f, 0.f);
+          x[r] = cell0 + r < P ? load_feat4(fb + (long long)r * D + 4 * d4)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
         const float4 w0 = w_s[4 * d4], w1 = w_s[4 * d4 + 1],
                      w2 = w_s[4 * d4 + 2], w3 = w_s[4 * d4 + 3];
 #pragma unroll
@@ -120,7 +142,7 @@ cam_tile_kernel(const float* __restrict__ feat, const float* __restrict__ w,
         float x[kRows];
 #pragma unroll
         for (int r = 0; r < kRows; ++r)
-          x[r] = cell0 + r < P ? fb[(long long)r * D + d] : 0.f;
+          x[r] = cell0 + r < P ? to_f(fb[(long long)r * D + d]) : 0.f;
         const float4 wv = w_s[d];
 #pragma unroll
         for (int r = 0; r < kRows; ++r) {
@@ -162,37 +184,32 @@ cam_tile_kernel(const float* __restrict__ feat, const float* __restrict__ w,
   }
 }
 
-// counts[b, c] = relu(sum over tiles, in tile order, of part / P + bias)
+// counts[b, c] = relu(sum over tiles, in tile order, of part / P + bias);
+// grid (B, ceil(C / 64)), a class a thread
+template <typename TB>
 __global__ void cam_counts_kernel(const float* __restrict__ part,
-                                  const float* __restrict__ bias,
+                                  const TB* __restrict__ bias,
                                   float* __restrict__ counts, int n_tiles,
                                   int P, int C) {
   const int b = blockIdx.x;
-  const int c = threadIdx.x;
+  const int c = blockIdx.y * kCountClasses + threadIdx.x;
   if (c >= C) return;
   const float* pb = part + (long long)b * n_tiles * C + c;
   float s = 0.f;
   for (int t = 0; t < n_tiles; ++t) s += pb[(long long)t * C];
-  counts[(long long)b * C + c] = fmaxf(s / (float)P + bias[c], 0.f);
+  counts[(long long)b * C + c] = fmaxf(s / (float)P + to_f(bias[c]), 0.f);
 }
 
-}  // namespace
-
-// feat: (B, P, D), w: (D, C), b: (C,), counts: (B, C), cam: (B, P, C),
-// part: (B, ceil(P / 64), C) scratch, all float32 contiguous; B <= 65535,
-// 1 <= C <= 64.  Two launches on `stream`; returns cudaGetLastError().
-extern "C" int cam_head_launch(const void* feat, const void* w, const void* b,
-                               void* counts, void* cam, void* part, int B,
-                               int P, int D, int C, void* stream) {
-  if (B <= 0) return 0;
-  if (P <= 0 || D <= 0 || C < 1 || C > 64 || B > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
+template <typename TF, typename TW, typename TB>
+int launch(const void* feat, const void* w, const void* b, float* counts,
+           float* cam, float* part, int B, int P, int D, int C,
+           cudaStream_t s) {
   const int n_tiles = (P + kTile - 1) / kTile;
   const size_t smem = (size_t)D * sizeof(float4);
-  const bool vec = D % 4 == 0 && ((unsigned long long)feat & 15) == 0;
-  const void* fn = vec ? (const void*)cam_tile_kernel<true>
-                       : (const void*)cam_tile_kernel<false>;
+  const bool vec = D % 4 == 0 &&
+                   ((unsigned long long)feat % (4 * sizeof(TF))) == 0;
+  const void* fn = vec ? (const void*)cam_tile_kernel<TF, TW, true>
+                       : (const void*)cam_tile_kernel<TF, TW, false>;
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) {      // e.g. more shared memory than the card
@@ -201,16 +218,60 @@ extern "C" int cam_head_launch(const void* feat, const void* w, const void* b,
   }
   const dim3 grid(n_tiles, B);
   if (vec)
-    cam_tile_kernel<true><<<grid, kThreads, smem, s>>>(
-        (const float*)feat, (const float*)w, (float*)cam, (float*)part, P, D,
-        C);
+    cam_tile_kernel<TF, TW, true><<<grid, kThreads, smem, s>>>(
+        (const TF*)feat, (const TW*)w, cam, part, P, D, C);
   else
-    cam_tile_kernel<false><<<grid, kThreads, smem, s>>>(
-        (const float*)feat, (const float*)w, (float*)cam, (float*)part, P, D,
-        C);
+    cam_tile_kernel<TF, TW, false><<<grid, kThreads, smem, s>>>(
+        (const TF*)feat, (const TW*)w, cam, part, P, D, C);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  cam_counts_kernel<<<B, 64, 0, s>>>((const float*)part, (const float*)b,
-                                     (float*)counts, n_tiles, P, C);
+  cam_counts_kernel<TB><<<dim3(B, (C + kCountClasses - 1) / kCountClasses),
+                          kCountClasses, 0, s>>>(part, (const TB*)b, counts,
+                                                 n_tiles, P, C);
   return (int)cudaGetLastError();
+}
+
+template <typename TF, typename TW>
+int launch_b(const void* feat, const void* w, const void* b, float* counts,
+             float* cam, float* part, int B, int P, int D, int C, bool b16,
+             cudaStream_t s) {
+  return b16 ? launch<TF, TW, bf16>(feat, w, b, counts, cam, part, B, P, D,
+                                    C, s)
+             : launch<TF, TW, float>(feat, w, b, counts, cam, part, B, P, D,
+                                     C, s);
+}
+
+}  // namespace
+
+// feat: (B, P, D), w: (D, C), b: (C,), counts: (B, C), cam: (B, P, C),
+// part: (B, ceil(P / 64), C) scratch, all contiguous; feat, w and b each
+// float32 or bfloat16 (types: bit 0 feat, bit 1 w, bit 2 b set where
+// bfloat16), counts, cam and part float32; B <= 65535, C >= 1.  Two
+// launches on `stream`; returns cudaGetLastError().
+extern "C" int cam_head_launch(const void* feat, const void* w, const void* b,
+                               void* counts, void* cam, void* part, int B,
+                               int P, int D, int C, int types, void* stream) {
+  if (B <= 0) return 0;
+  if (P <= 0 || D <= 0 || C < 1 || B > 65535 || C > 65535 * kCountClasses ||
+      types < 0 || types > 7)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  float* fc = (float*)counts;
+  float* fm = (float*)cam;
+  float* fp = (float*)part;
+  const bool b16 = types & 4;
+  switch (types & 3) {
+    case 0:
+      return launch_b<float, float>(feat, w, b, fc, fm, fp, B, P, D, C, b16,
+                                    s);
+    case 1:
+      return launch_b<bf16, float>(feat, w, b, fc, fm, fp, B, P, D, C, b16,
+                                   s);
+    case 2:
+      return launch_b<float, bf16>(feat, w, b, fc, fm, fp, B, P, D, C, b16,
+                                   s);
+    default:
+      return launch_b<bf16, bf16>(feat, w, b, fc, fm, fp, B, P, D, C, b16,
+                                  s);
+  }
 }

@@ -9,9 +9,34 @@
 // q (B, KV, G, hd) contiguous, float32 or bfloat16; k and v of q's type,
 // read in place through their element strides (batch, kv head, key) with
 // the last dimension contiguous, so both the (B, KV, S, hd) layout and the
-// model's (B, S, KV, hd) cache launch without a copy; rows 16-byte
-// aligned.  kv_len an int32 on the device, 1 <= kv_len <= S; G <= 16,
-// hd in {64, 128, 256}.  o (B, KV, G, hd) in q's type.
+// model's (B, S, KV, hd) cache launch without a copy.  kv_len an int32 on
+// the device, 1 <= kv_len <= S.  Any G >= 1 and any hd >= 1.  o (B, KV, G,
+// hd) in q's type.
+//
+// Every shape launches one of the bodies below (the wrapper's body_for
+// picks it; nothing is copied or padded in device memory):
+//   - a head dim up to 256 runs the least body of width 64, 128 or 256 at
+//     or above it, on the true hd: the loads copy hd columns and leave the
+//     body's columns past it zero in shared memory (cp.async's src-size
+//     operand zero-fills; the hd 256 ring bodies' tensor maps have an hd
+//     extent of the true hd, so a box's columns past it arrive zero), q's
+//     columns past hd are zero, and only hd columns of o are stored.  A
+//     zero column adds nothing to a score, so this is the same function;
+//   - G > 16 query heads a kv head: in bf16 at widths 64 and 128 the rows
+//     body (decode_attention_mma_rows) gives each warp 16 heads over all
+//     keys of a stage, up to 128 heads a block, so a block reads each
+//     cache row once; the other bodies run chunks of 16 heads (the mma A
+//     operand's rows) as a grid index beside the split, next to it in the
+//     block order, so a (split, kv head)'s chunks run side by side and read
+//     the same cache rows through L2 (from device memory about once, from
+//     L2 ceil(G / 16) times);
+//   - hd above 256, and any cache whose rows are not 16-byte aligned (base
+//     or strides), run the slab body (decode_attention_slab): a block owns
+//     128 columns of o, scores each 32-key stage over the whole hd in
+//     chunks of 128 columns, in a fixed order (so every slab of a row holds
+//     the same m and l, bit for bit), and adds p v over its own columns.
+//     Aligned rows are copied by 16-byte cp.async (zero-filled past hd),
+//     others element by element.
 //
 // Arithmetic (the TPU kernel's): scores q k^T * scale in fp32, keys at
 // kv_len or later score NEG_INF = -0.7 * FLT_MAX, online softmax with the
@@ -121,12 +146,17 @@ constexpr int kMmaStages = 3;
 constexpr int kSimtWarps = 2;
 constexpr float kNegInf = (float)(-0.7 * 3.4028234663852886e38);
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
+// 16 bytes into shared memory of which the first n (0..16) are read from
+// gmem and the rest zero-filled (n = 0 reads nothing)
+__device__ __forceinline__ void cp_async_n(void* smem, const void* gmem,
+                                           int n) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  const int n = pred ? 16 : 0;           // 0: zero-fill, read nothing
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(gmem), "r"(n));
+}
+// the bytes of 16-byte chunk c of a row of `row_bytes`, for cp_async_n
+__device__ __forceinline__ int chunk_bytes(int row_bytes, int c) {
+  return min(max(row_bytes - c * 16, 0), 16);
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -200,6 +230,56 @@ __device__ __forceinline__ int read_kv_len(const int* p, int S) {
   return min(max(*p, 0), S);
 }
 
+// A block's place in the grid: blockIdx.x = (split * nch + chunk) * nslab
+// + slab, so a split's group chunks and slabs are neighbours in the block
+// order and read the same cache rows at about the same time (through L2).
+// The block takes query heads g0 .. g0 + gc - 1 of its kv head's G (a
+// chunk of at most `rows`: 16, or the rows body's 16 a warp) and, in the
+// slab body, output columns 128 slab .. 128 slab + 127.
+struct Place {
+  int split, nsplit, chunk, slab, g0, gc;
+};
+__device__ __forceinline__ Place place(int G, int nch, int nslab,
+                                       int rows = kMaxRows) {
+  Place p;
+  const int x = blockIdx.x;
+  p.slab = x % nslab;
+  p.chunk = (x / nslab) % nch;
+  p.split = x / (nslab * nch);
+  p.nsplit = gridDim.x / (nslab * nch);
+  p.g0 = p.chunk * rows;
+  p.gc = min(G - p.g0, rows);
+  return p;
+}
+// A split's float32 scratch: acc (gc, D), then m (gc), then l (gc), one
+// per (b, kv head, chunk, split) at a pitch of min(G, rows) (D + 2) floats
+__device__ __forceinline__ float* part_of(float* part, long long bn,
+                                          const Place& p, int G, int nch,
+                                          int D, int rows = kMaxRows) {
+  const long long pitch = (long long)min(G, rows) * (D + 2);
+  return part + ((bn * nch + p.chunk) * p.nsplit + p.split) * pitch;
+}
+
+// columns col (even) and col + 1 of q's row `row` as the bf16 pair of an
+// mma operand register, zero past hd (D) and at rows >= rows; one 4-byte
+// load where D is even and q 4-byte aligned (`pairs`), so that a pair lies
+// wholly inside or past the row
+__device__ __forceinline__ unsigned q_pair(const bf16* qb, int row, int col,
+                                           int rows, int D, bool pairs) {
+  if (row >= rows) return 0u;
+  if (pairs)
+    return col < D ? *reinterpret_cast<const unsigned*>(
+                         qb + (long long)row * D + col)
+                   : 0u;
+  const bf16 z = __float2bfloat16(0.f);
+  const __nv_bfloat162 h = __halves2bfloat162(
+      col < D ? qb[(long long)row * D + col] : z,
+      col + 1 < D ? qb[(long long)row * D + col + 1] : z);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
@@ -208,16 +288,18 @@ template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as astype does
 }
 
-// Merge the warps' (m, l, acc) of one block (kWarps x 16 rows staged in
-// cm, cl, ca) and write o (one split) or the split's part.
+// Merge the warps' (m, l, acc) of one block (kWarps x kRows rows of HD
+// columns staged in cm, cl, ca) and write the hd (D) columns of its gc rows
+// of o (one split) or the split's part.
 template <typename T, int HD, int kWarps, int kRows>
 __device__ __forceinline__ void finish_block(const float* cm, const float* cl,
                                              const float* ca, T* ob,
-                                             float* pb, int G, int nsplit,
-                                             int tid, int nthreads) {
-  for (int i = tid; i < G * HD; i += nthreads) {
-    const int g = i / HD;
-    const int d = i - g * HD;
+                                             float* pb, int gc, int D,
+                                             int nsplit, int tid,
+                                             int nthreads) {
+  for (int i = tid; i < gc * D; i += nthreads) {
+    const int g = i / D;
+    const int d = i - g * D;
     float mx = kNegInf;
 #pragma unroll
     for (int ww = 0; ww < kWarps; ++ww) mx = fmaxf(mx, cm[ww * kRows + g]);
@@ -233,8 +315,8 @@ __device__ __forceinline__ void finish_block(const float* cm, const float* cl,
     } else {
       pb[i] = at;
       if (d == 0) {
-        pb[G * HD + g] = mx;
-        pb[G * HD + G + g] = lt;
+        pb[gc * D + g] = mx;
+        pb[gc * D + gc + g] = lt;
       }
     }
   }
@@ -371,16 +453,16 @@ __device__ __forceinline__ void warp_tile(const Rows& at,
   }
 }
 
-// hd 64 and 128: grid (nsplit, KV, B), 128 threads.  part: (B, KV,
-// nsplit, G * (HD + 2)) float32 with acc (G, HD), then m (G), then l (G);
-// unused when nsplit == 1.
+// hd up to 64 and up to 128 (D <= HD columns of a body HD wide): grid
+// (nsplit nch, KV, B), 128 threads.  part: part_of's scratch; unused when
+// nsplit == 1.
 template <int HD>
 __global__ void __launch_bounds__(kMmaWarps * 32)
 decode_attention_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v,
                      const int* __restrict__ kv_len_p, bf16* __restrict__ o,
-                     float* __restrict__ part, int KV, int G, int S,
-                     long long ksb, long long ksn, long long kss,
+                     float* __restrict__ part, int KV, int G, int S, int D,
+                     int nch, long long ksb, long long ksn, long long kss,
                      long long vsb, long long vsn, long long vss,
                      float scale) {
   using Geo = MmaGeo<HD>;
@@ -389,8 +471,9 @@ decode_attention_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int kThreads = kMmaWarps * 32;
   extern __shared__ __align__(16) unsigned char smem[];
 
-  const int split = blockIdx.x;
-  const int nsplit = gridDim.x;
+  const Place pl = place(G, nch, 1);
+  const int nsplit = pl.nsplit;
+  const int gc = pl.gc;
   const int n = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
@@ -400,10 +483,10 @@ decode_attention_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int tq = lane & 3;             // fragment column pair
   const long long bn = (long long)b * KV + n;
   const int kv_len = read_kv_len(kv_len_p, S);
-  const Span sp = split_span(kv_len, nsplit, split);
-  bf16* ob = o + bn * G * HD;
+  const Span sp = split_span(kv_len, nsplit, pl.split);
+  bf16* ob = o + (bn * G + pl.g0) * D;
   if (sp.lo >= sp.hi) {
-    if (nsplit == 1) write_zeros(ob, G * HD, tid, kThreads);
+    if (nsplit == 1) write_zeros(ob, gc * D, tid, kThreads);
     return;
   }
   const unsigned char* kb =
@@ -413,23 +496,23 @@ decode_attention_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const long long krow = kss * 2, vrow = vss * 2;     // bytes per key
   const int n_tiles = (sp.hi - sp.lo + kTile - 1) / kTile;
 
-  // q as the A operand of every k-step, rows >= G zero, in registers
+  // q as the A operand of every k-step, rows >= gc and columns >= D zero,
+  // in registers
   unsigned qa[KS][4];
-  const bf16* qb = q + bn * G * HD;
-  {
-    const unsigned* r0 = reinterpret_cast<const unsigned*>(qb + gr * HD);
-    const unsigned* r1 =
-        reinterpret_cast<const unsigned*>(qb + (gr + 8) * HD);
+  const bf16* qb = q + (bn * G + pl.g0) * D;
+  const bool pairs = D % 2 == 0 && ((unsigned long long)qb & 3) == 0;
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      const int c = (kk * 16 + 2 * tq) / 2;
-      qa[kk][0] = gr < G ? r0[c] : 0u;
-      qa[kk][1] = gr + 8 < G ? r1[c] : 0u;
-      qa[kk][2] = gr < G ? r0[c + 4] : 0u;
-      qa[kk][3] = gr + 8 < G ? r1[c + 4] : 0u;
-    }
+  for (int kk = 0; kk < KS; ++kk) {
+    const int c = kk * 16 + 2 * tq;
+    qa[kk][0] = q_pair(qb, gr, c, gc, D, pairs);
+    qa[kk][1] = q_pair(qb, gr + 8, c, gc, D, pairs);
+    qa[kk][2] = q_pair(qb, gr, c + 8, gc, D, pairs);
+    qa[kk][3] = q_pair(qb, gr + 8, c + 8, gc, D, pairs);
   }
 
+  // a row's D columns; the chunks past them, and rows at hi or later,
+  // zero-filled
+  const int row_bytes = D * 2;
   auto load_tile = [&](int stage, int t0) {
     unsigned char* kd = smem + stage * 2 * Geo::kTileBytes;
     unsigned char* vd = kd + Geo::kTileBytes;
@@ -438,12 +521,11 @@ decode_attention_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int row = i / Geo::kChunks;
       const int c = i % Geo::kChunks;
       const int key = t0 + row;
-      const bool in = key < sp.hi;
-      const long long j = in ? key : sp.lo;
-      cp_async16(kd + row * Geo::kRowBytes + c * 16, kb + j * krow + c * 16,
-                 in);
-      cp_async16(vd + row * Geo::kRowBytes + c * 16, vb + j * vrow + c * 16,
-                 in);
+      const int nb = key < sp.hi ? chunk_bytes(row_bytes, c) : 0;
+      const long long j = nb ? key : sp.lo;
+      const int off = nb ? c * 16 : 0;
+      cp_async_n(kd + row * Geo::kRowBytes + c * 16, kb + j * krow + off, nb);
+      cp_async_n(vd + row * Geo::kRowBytes + c * 16, vb + j * vrow + off, nb);
     }
   };
 
@@ -513,8 +595,173 @@ decode_attention_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   __syncthreads();
   finish_block<bf16, HD, kMmaWarps, kMaxRows>(
-      cm, cl, ca, ob, part + (bn * nsplit + split) * (long long)G * (HD + 2),
-      G, nsplit, tid, kThreads);
+      cm, cl, ca, ob, part_of(part, bn, pl, G, nch, D), gc, D, nsplit, tid,
+      kThreads);
+}
+
+// The ldmatrix addresses of a lane in a stage of rows padded by 16 bytes,
+// for a warp that takes all 64 keys: key group j (16 keys) is 16 rows on.
+struct PaddedTile {
+  unsigned kd, vd;
+  __device__ __forceinline__ unsigned k(int j, int kk) const {
+    return kd + j * 16 * kRowStride + kk * 32;
+  }
+  __device__ __forceinline__ unsigned v(int j, int dp) const {
+    return vd + j * 16 * kRowStride + dp * 32;
+  }
+  unsigned kRowStride;
+};
+
+// bf16 at hd up to 64 and up to 128 with G > 16 query heads a kv head:
+// grid (nsplit nch, KV, B), NW warps, each owning 16 query rows (a chunk of
+// 16 NW rows a block) over all 64 keys of every stage, so a block reads
+// each cache row once for its 16 NW query heads (decode_attention_mma
+// splits the keys of a stage over its warps instead, for G <= 16).  No
+// state crosses warps: each writes its rows' o, or their (acc, m, l) to
+// part_of's scratch, itself.  The ring, its loads and the arithmetic are
+// decode_attention_mma's.
+template <int HD, int NW>
+__global__ void __launch_bounds__(NW * 32)
+decode_attention_mma_rows(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v,
+                          const int* __restrict__ kv_len_p,
+                          bf16* __restrict__ o, float* __restrict__ part,
+                          int KV, int G, int S, int D, int nch, long long ksb,
+                          long long ksn, long long kss, long long vsb,
+                          long long vsn, long long vss, float scale) {
+  using Geo = MmaGeo<HD>;
+  constexpr int KS = HD / 16;          // k-steps of q k^T
+  constexpr int NT = HD / 8;           // n-tiles of the accumulator
+  constexpr int kThreads = NW * 32;
+  constexpr int kRows = NW * 16;       // query rows a block
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const Place pl = place(G, nch, 1, kRows);
+  const int nsplit = pl.nsplit;
+  const int gc = pl.gc;
+  const int n = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int w = tid >> 5;
+  const int lane = tid & 31;
+  const int gr = lane >> 2;            // fragment row (and row + 8)
+  const int tq = lane & 3;             // fragment column pair
+  const long long bn = (long long)b * KV + n;
+  const int kv_len = read_kv_len(kv_len_p, S);
+  const Span sp = split_span(kv_len, nsplit, pl.split);
+  bf16* ob = o + (bn * G + pl.g0) * D;
+  if (sp.lo >= sp.hi) {
+    if (nsplit == 1) write_zeros(ob, gc * D, tid, kThreads);
+    return;
+  }
+  const unsigned char* kb =
+      reinterpret_cast<const unsigned char*>(k + b * ksb + n * ksn);
+  const unsigned char* vb =
+      reinterpret_cast<const unsigned char*>(v + b * vsb + n * vsn);
+  const long long krow = kss * 2, vrow = vss * 2;     // bytes per key
+  const int n_tiles = (sp.hi - sp.lo + kTile - 1) / kTile;
+  const int r0 = w * 16;               // the warp's first row in the chunk
+  const bool busy = r0 < gc;           // warp-uniform: rows of its own
+
+  // the warp's q rows as the A operand of every k-step, rows >= gc and
+  // columns >= D zero, in registers
+  unsigned qa[KS][4];
+  const bf16* qb = q + (bn * G + pl.g0) * D;
+  const bool pairs = D % 2 == 0 && ((unsigned long long)qb & 3) == 0;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const int c = kk * 16 + 2 * tq;
+    qa[kk][0] = q_pair(qb, r0 + gr, c, gc, D, pairs);
+    qa[kk][1] = q_pair(qb, r0 + gr + 8, c, gc, D, pairs);
+    qa[kk][2] = q_pair(qb, r0 + gr, c + 8, gc, D, pairs);
+    qa[kk][3] = q_pair(qb, r0 + gr + 8, c + 8, gc, D, pairs);
+  }
+
+  const int row_bytes = D * 2;
+  auto load_tile = [&](int stage, int t0) {
+    unsigned char* kd = smem + stage * 2 * Geo::kTileBytes;
+    unsigned char* vd = kd + Geo::kTileBytes;
+    for (int i = tid; i < kTile * Geo::kChunks; i += kThreads) {
+      const int row = i / Geo::kChunks;
+      const int c = i % Geo::kChunks;
+      const int key = t0 + row;
+      const int nb = key < sp.hi ? chunk_bytes(row_bytes, c) : 0;
+      const long long j = nb ? key : sp.lo;
+      const int off = nb ? c * 16 : 0;
+      cp_async_n(kd + row * Geo::kRowBytes + c * 16, kb + j * krow + off, nb);
+      cp_async_n(vd + row * Geo::kRowBytes + c * 16, vb + j * vrow + off, nb);
+    }
+  };
+
+#pragma unroll
+  for (int st = 0; st < kMmaStages - 1; ++st) {
+    if (st < n_tiles) load_tile(st, sp.lo + st * kTile);
+    cp_async_commit();
+  }
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[NT][4];
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+
+  // ldmatrix addresses: lane -> row (lane & 7) of matrix (lane >> 3)
+  const int mi = lane >> 3;
+  const int r8 = lane & 7;
+  const int k_off = ((mi >> 1) * 8 + r8) * Geo::kRowBytes + (mi & 1) * 16;
+  const int v_off = ((mi & 1) * 8 + r8) * Geo::kRowBytes + (mi >> 1) * 16;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<kMmaStages - 2>();   // tile it has landed (this thread)
+    __syncthreads();                   // ... for all; tile it - 1 is used
+    {
+      const int nt = it + kMmaStages - 1;
+      if (nt < n_tiles) load_tile(nt % kMmaStages, sp.lo + nt * kTile);
+      cp_async_commit();
+    }
+    if (!busy) continue;
+    const unsigned kd = (unsigned)__cvta_generic_to_shared(
+        smem + (it % kMmaStages) * 2 * Geo::kTileBytes);
+    warp_tile<HD, kTile, HD>(
+        PaddedTile{kd + k_off, kd + Geo::kTileBytes + v_off,
+                   (unsigned)Geo::kRowBytes},
+        qa, sp.lo + it * kTile, sp.hi, scale, m, l, acc, tq);
+  }
+  cp_async_wait<0>();
+  if (!busy) return;
+
+  // the warp's rows: l over the row's four lanes, then o or the split's
+  // part
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  float* pb = part_of(part, bn, pl, G, nch, D, kRows);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + gr + 8 * h;
+    if (row >= gc) continue;
+    const float d = fmaxf(l[h], 1e-30f);
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = t * 8 + 2 * tq + e;
+        if (col >= D) continue;
+        if (nsplit == 1)
+          ob[row * D + col] = __float2bfloat16(acc[t][2 * h + e] / d);
+        else
+          pb[row * D + col] = acc[t][2 * h + e];
+      }
+    }
+    if (nsplit > 1 && tq == 0) {
+      pb[gc * D + row] = m[h];
+      pb[gc * D + gc + row] = l[h];
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -604,36 +851,44 @@ struct SwizzledRows {
 
 }  // namespace bulk
 
-// grid (nsplit, KV, B), 160 threads, one block an SM: the keys of
+// grid (nsplit nch, KV, B), 160 threads, one block an SM: the keys of
 // split_span, as decode_attention_mma takes them.  mk, mv: k and v as 4-D
-// tensor maps (the 256 columns, then the key, kv head and batch dims in
-// the order of their strides; slots_k and slots_v hold the coordinate slot
-// of each, 2 bits apiece).  part: (B, KV, nsplit, G * (HD + 2)) float32
-// as decode_attention_mma's; unused when nsplit == 1.
+// tensor maps (the hd (D <= 256) columns, then the key, kv head and batch
+// dims in the order of their strides; slots_k and slots_v hold the
+// coordinate slot of each, 2 bits apiece); a box's columns past D arrive
+// zero.  part: part_of's scratch; unused when nsplit == 1.  FULL: D = 256,
+// one chunk (G <= 16) and q 4-byte aligned, known at compile time, so the
+// full-width shapes pay nothing for the general ones.
+template <bool FULL>
 __global__ void __launch_bounds__(bulk::kThreads, 1)
 decode_attention_hd256_bulk(const __grid_constant__ CUtensorMap mk,
                             const __grid_constant__ CUtensorMap mv,
                             const bf16* __restrict__ q,
                             const int* __restrict__ kv_len_p,
                             bf16* __restrict__ o, float* __restrict__ part,
-                            int KV, int G, int S, int slots_k, int slots_v,
-                            float scale) {
+                            int KV, int G, int S, int D, int nch, int slots_k,
+                            int slots_v, float scale) {
   using namespace bulk;
   constexpr int KS = kHD / 16;
   constexpr int NT = kCols / 8;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
+  if constexpr (FULL) {
+    D = kHD;
+    nch = 1;
+  }
 
-  const int split = blockIdx.x;
-  const int nsplit = gridDim.x;
+  const Place pl = place(G, nch, 1);
+  const int nsplit = pl.nsplit;
+  const int gc = pl.gc;
   const int n = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
   const long long bn = (long long)b * KV + n;
   const int kv_len = read_kv_len(kv_len_p, S);
-  const Span sp = split_span(kv_len, nsplit, split);
-  bf16* ob = o + bn * G * kHD;
+  const Span sp = split_span(kv_len, nsplit, pl.split);
+  bf16* ob = o + (bn * G + pl.g0) * D;
   if (sp.lo >= sp.hi) {
-    if (nsplit == 1) write_zeros(ob, G * kHD, tid, kThreads);
+    if (nsplit == 1) write_zeros(ob, gc * D, tid, kThreads);
     return;
   }
   const int n_tiles = (sp.hi - sp.lo + kTile - 1) / kTile;
@@ -693,20 +948,20 @@ decode_attention_hd256_bulk(const __grid_constant__ CUtensorMap mk,
   const int r8 = lane & 7;
   const uint32_t k_row = ((mi >> 1) * 8 + r8) * (kBoxCols * 2);
   const uint32_t v_row = ((mi & 1) * 8 + r8) * (kBoxCols * 2);
-  // q as the A operand of every k-step, rows >= G zero, in registers
+  // q as the A operand of every k-step, rows >= gc and columns >= D zero,
+  // in registers
   unsigned qa[KS][4];
   {
-    const unsigned* r0 =
-        reinterpret_cast<const unsigned*>(q + (bn * G + gr) * kHD);
-    const unsigned* r1 =
-        reinterpret_cast<const unsigned*>(q + (bn * G + gr + 8) * kHD);
+    const bf16* qb = q + (bn * G + pl.g0) * D;
+    const bool pairs =
+        FULL || (D % 2 == 0 && ((unsigned long long)qb & 3) == 0);
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
-      const int c = kk * 8 + tq;
-      qa[kk][0] = gr < G ? r0[c] : 0u;
-      qa[kk][1] = gr + 8 < G ? r1[c] : 0u;
-      qa[kk][2] = gr < G ? r0[c + 4] : 0u;
-      qa[kk][3] = gr + 8 < G ? r1[c + 4] : 0u;
+      const int c = kk * 16 + 2 * tq;
+      qa[kk][0] = q_pair(qb, gr, c, gc, D, pairs);
+      qa[kk][1] = q_pair(qb, gr + 8, c, gc, D, pairs);
+      qa[kk][2] = q_pair(qb, gr, c + 8, gc, D, pairs);
+      qa[kk][3] = q_pair(qb, gr + 8, c + 8, gc, D, pairs);
     }
   }
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
@@ -750,25 +1005,36 @@ decode_attention_hd256_bulk(const __grid_constant__ CUtensorMap mk,
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
   }
-  float* pb = part + (bn * nsplit + split) * (long long)G * (kHD + 2);
+  float* pb = part_of(part, bn, pl, G, nch, D);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = gr + 8 * h;
-    if (row >= G) continue;
+    if (row >= gc) continue;
     const float d = fmaxf(l[h], 1e-30f);
 #pragma unroll
     for (int t = 0; t < NT; ++t) {
       const int col = w * kCols + t * 8 + 2 * tq;
-      if (nsplit == 1)
-        *reinterpret_cast<unsigned*>(ob + row * kHD + col) =
-            pack_bf16(acc[t][2 * h] / d, acc[t][2 * h + 1] / d);
-      else
-        *reinterpret_cast<float2*>(pb + row * kHD + col) =
-            make_float2(acc[t][2 * h], acc[t][2 * h + 1]);
+      if (col + 1 < D && D % 2 == 0) {     // a pair, 4- or 8-byte aligned
+        if (nsplit == 1)
+          *reinterpret_cast<unsigned*>(ob + row * D + col) =
+              pack_bf16(acc[t][2 * h] / d, acc[t][2 * h + 1] / d);
+        else
+          *reinterpret_cast<float2*>(pb + row * D + col) =
+              make_float2(acc[t][2 * h], acc[t][2 * h + 1]);
+        continue;
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (col + e >= D) continue;
+        if (nsplit == 1)
+          ob[row * D + col + e] = __float2bfloat16(acc[t][2 * h + e] / d);
+        else
+          pb[row * D + col + e] = acc[t][2 * h + e];
+      }
     }
     if (nsplit > 1 && w == 0 && tq == 0) {
-      pb[G * kHD + row] = m[h];
-      pb[G * kHD + G + row] = l[h];
+      pb[gc * D + row] = m[h];
+      pb[gc * D + gc + row] = l[h];
     }
   }
 }
@@ -820,36 +1086,41 @@ __device__ __forceinline__ void consumers_sync() {
 
 }  // namespace f32
 
-// grid (nsplit, KV, B), 160 threads, one block an SM: the keys of
+// grid (nsplit nch, KV, B), 160 threads, one block an SM: the keys of
 // split_span, in stages of 32.  mk, mv: k and v as 4-D tensor maps, as
 // decode_attention_hd256_bulk takes them, in boxes of 32 columns x 32
-// keys.  part: (B, KV, nsplit, G * (HD + 2)) float32 as the other bodies';
-// unused when nsplit == 1.
-template <int GB>
+// keys.  part: part_of's scratch; unused when nsplit == 1.  FULL: D = 256
+// and one chunk, known at compile time, as decode_attention_hd256_bulk's.
+template <int GB, bool FULL>
 __global__ void __launch_bounds__(f32::kThreads, 1)
 decode_attention_hd256_f32(const __grid_constant__ CUtensorMap mk,
                            const __grid_constant__ CUtensorMap mv,
                            const float* __restrict__ q,
                            const int* __restrict__ kv_len_p,
                            float* __restrict__ o, float* __restrict__ part,
-                           int KV, int G, int S, int slots_k, int slots_v,
-                           float scale) {
+                           int KV, int G, int S, int D, int nch, int slots_k,
+                           int slots_v, float scale) {
   using namespace f32;
   using G_ = Geo<GB>;
   constexpr int NB = kWarpBoxes;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
+  if constexpr (FULL) {
+    D = kHD;
+    nch = 1;
+  }
 
-  const int split = blockIdx.x;
-  const int nsplit = gridDim.x;
+  const Place pl = place(G, nch, 1);
+  const int nsplit = pl.nsplit;
+  const int gc = pl.gc;
   const int n = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
   const long long bn = (long long)b * KV + n;
   const int kv_len = read_kv_len(kv_len_p, S);
-  const Span sp = split_span(kv_len, nsplit, split);
-  float* ob = o + bn * G * kHD;
+  const Span sp = split_span(kv_len, nsplit, pl.split);
+  float* ob = o + (bn * G + pl.g0) * D;
   if (sp.lo >= sp.hi) {
-    if (nsplit == 1) write_zeros(ob, G * kHD, tid, kThreads);
+    if (nsplit == 1) write_zeros(ob, gc * D, tid, kThreads);
     return;
   }
   const int n_stages = (sp.hi - sp.lo + kKeys - 1) / kKeys;
@@ -907,12 +1178,14 @@ decode_attention_hd256_f32(const __grid_constant__ CUtensorMap mk,
   // partials summed in warp order give every warp the same scores, so all
   // hold the same m, l and p and need no merge.  Lane = column: acc += p v
   // over the warp's columns.
-  // q into shared memory (rows G .. GB - 1 zero) while the first stages
-  // are in flight
-  const float* qb = q + bn * G * kHD;
+  // q into shared memory (rows gc .. GB - 1 and columns D .. 255 zero)
+  // while the first stages are in flight
+  const float* qb = q + (bn * G + pl.g0) * D;
 #pragma unroll 4
-  for (int i = tid; i < GB * kHD; i += kConsumers * 32)
-    qs[i] = i < G * kHD ? qb[i] : 0.f;
+  for (int i = tid; i < GB * kHD; i += kConsumers * 32) {
+    const int g = i / kHD, d = i % kHD;
+    qs[i] = g < gc && d < D ? qb[g * D + d] : 0.f;
+  }
   consumers_sync();
   float* pw = reinterpret_cast<float*>(smem + G_::kPOff) + w * GB * kKeys;
   const int sw = lane & 7;             // the swizzle of the lane's K row
@@ -1040,22 +1313,23 @@ decode_attention_hd256_f32(const __grid_constant__ CUtensorMap mk,
   }
 
   // the split's (m, l, acc), each warp its columns: o, or the split's part
-  float* pb = part + (bn * nsplit + split) * (long long)G * (kHD + 2);
+  float* pb = part_of(part, bn, pl, G, nch, D);
 #pragma unroll
   for (int g = 0; g < GB; ++g) {
-    if (g >= G) break;
+    if (g >= gc) break;
     const float d = fmaxf(l[g], 1e-30f);
 #pragma unroll
     for (int bb = 0; bb < NB; ++bb) {
       const int col = (w * NB + bb) * kBoxCols + lane;
+      if (col >= D) continue;
       if (nsplit == 1)
-        ob[g * kHD + col] = acc[g][bb] / d;
+        ob[g * D + col] = acc[g][bb] / d;
       else
-        pb[g * kHD + col] = acc[g][bb];
+        pb[g * D + col] = acc[g][bb];
     }
     if (nsplit > 1 && w == 0 && lane == 0) {
-      pb[G * kHD + g] = m[g];
-      pb[G * kHD + G + g] = l[g];
+      pb[gc * D + g] = m[g];
+      pb[gc * D + gc + g] = l[g];
     }
   }
 }
@@ -1085,9 +1359,9 @@ decode_attention_simt(const float* __restrict__ q,
                       const float* __restrict__ v,
                       const int* __restrict__ kv_len_p,
                       float* __restrict__ o, float* __restrict__ part,
-                      int KV, int G, int S, long long ksb, long long ksn,
-                      long long kss, long long vsb, long long vsn,
-                      long long vss, float scale) {
+                      int KV, int G, int S, int D, int nch, long long ksb,
+                      long long ksn, long long kss, long long vsb,
+                      long long vsn, long long vss, float scale) {
   using Geo = SimtGeo<HD>;
   constexpr int NC = HD / 32;                   // accumulator columns/lane
   constexpr int kThreads = kSimtWarps * 32;
@@ -1096,8 +1370,9 @@ decode_attention_simt(const float* __restrict__ q,
   float* ps = qs + GB * HD;                     // kSimtWarps x GB x 32
   char* kvbuf = reinterpret_cast<char*>(ps + kSimtWarps * GB * 32);
 
-  const int split = blockIdx.x;
-  const int nsplit = gridDim.x;
+  const Place pl = place(G, nch, 1);
+  const int nsplit = pl.nsplit;
+  const int gc = pl.gc;
   const int n = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
@@ -1105,21 +1380,26 @@ decode_attention_simt(const float* __restrict__ q,
   const int lane = tid & 31;
   const long long bn = (long long)b * KV + n;
   const int kv_len = read_kv_len(kv_len_p, S);
-  const Span sp = split_span(kv_len, nsplit, split);
-  float* ob = o + bn * G * HD;
+  const Span sp = split_span(kv_len, nsplit, pl.split);
+  float* ob = o + (bn * G + pl.g0) * D;
   if (sp.lo >= sp.hi) {
-    if (nsplit == 1) write_zeros(ob, G * HD, tid, kThreads);
+    if (nsplit == 1) write_zeros(ob, gc * D, tid, kThreads);
     return;
   }
-  const float* qb = q + bn * G * HD;
+  const float* qb = q + (bn * G + pl.g0) * D;
   const float* kb = k + b * ksb + n * ksn;
   const float* vb = v + b * vsb + n * vsn;
   const int lo = sp.lo, hi = sp.hi;
   const int n_tiles = (hi - lo + kTile - 1) / kTile;
 
-  for (int i = tid; i < GB * HD; i += kThreads)
-    qs[i] = i < G * HD ? qb[i] : 0.f;
+  for (int i = tid; i < GB * HD; i += kThreads) {
+    const int g = i / HD, d = i % HD;
+    qs[i] = g < gc && d < D ? qb[g * D + d] : 0.f;
+  }
 
+  // a row's D columns; the chunks past them, and rows at hi or later,
+  // zero-filled
+  const int row_bytes = D * 4;
   auto load_tile = [&](int stage, int t0) {
     char* kd = kvbuf + stage * 2 * Geo::kTileBytes;
     char* vd = kd + Geo::kTileBytes;
@@ -1127,12 +1407,11 @@ decode_attention_simt(const float* __restrict__ q,
       const int row = i / Geo::kChunks;
       const int c = i - row * Geo::kChunks;
       const int key = t0 + row;
-      const bool in = key < hi;
-      const long long j = in ? key : lo;
-      cp_async16(kd + row * Geo::kRowBytes + c * 16, kb + j * kss + c * 4,
-                 in);
-      cp_async16(vd + row * Geo::kRowBytes + c * 16, vb + j * vss + c * 4,
-                 in);
+      const int nb = key < hi ? chunk_bytes(row_bytes, c) : 0;
+      const long long j = nb ? key : lo;
+      const int off = nb ? c * 4 : 0;
+      cp_async_n(kd + row * Geo::kRowBytes + c * 16, kb + j * kss + off, nb);
+      cp_async_n(vd + row * Geo::kRowBytes + c * 16, vb + j * vss + off, nb);
     }
   };
 
@@ -1235,34 +1514,288 @@ decode_attention_simt(const float* __restrict__ q,
   }
   __syncthreads();
   finish_block<float, HD, kSimtWarps, GB>(
-      cm, cl, ca, ob, part + (bn * nsplit + split) * (long long)G * (HD + 2),
-      G, nsplit, tid, kThreads);
+      cm, cl, ca, ob, part_of(part, bn, pl, G, nch, D), gc, D, nsplit, tid,
+      kThreads);
 }
 
-// grid (KV, B, G): merge row g of the live splits' (m, l, acc) into o.
-template <typename T, int HD>
+// ---------------------------------------------------------------------------
+// any hd, rows of any alignment: the slab body
+// ---------------------------------------------------------------------------
+
+namespace slab {
+
+constexpr int kKeys = 32;                  // keys a stage, one a lane
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kCols = 128;                 // columns of a score chunk, of a slab
+constexpr int kWarpCols = kCols / kWarps;  // a warp's columns of either
+
+// Shared memory at GB query rows: two buffers of 32 rows of 128 columns of
+// T (K's chunk or V's slab; rows padded by 16 bytes, so the rows a
+// lane = key read start in distinct banks), two of q's chunk widened to
+// float (GB x 128), the warps' partial scores (kWarps x GB x 32) and each
+// warp's probabilities (kWarps x GB x 32)
+template <typename T, int GB>
+struct Geo {
+  static constexpr int kPitch = kCols + 16 / (int)sizeof(T);   // elements
+  static constexpr int kBufBytes = kKeys * kPitch * (int)sizeof(T);
+  static constexpr int kQOff = 2 * kBufBytes;
+  static constexpr int kPartOff = kQOff + 2 * GB * kCols * 4;
+  static constexpr int kPOff = kPartOff + kWarps * GB * kKeys * 4;
+  static constexpr size_t kSmem = (size_t)kPOff + kWarps * GB * kKeys * 4;
+  static_assert(kSmem <= 232448, "dynamic shared memory above 227 KB");
+};
+
+// four consecutive values of a row in shared memory -> floats
+__device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+}
+__device__ __forceinline__ void load4(const bf16* p, float (&x)[4]) {
+  const uint2 a = *reinterpret_cast<const uint2*>(p);
+  x[0] = __uint_as_float(a.x << 16);
+  x[1] = __uint_as_float(a.x & 0xffff0000u);
+  x[2] = __uint_as_float(a.y << 16);
+  x[3] = __uint_as_float(a.y & 0xffff0000u);
+}
+
+}  // namespace slab
+
+// grid (nsplit nch nslab, KV, B), 128 threads: the keys of split_span in
+// stages of 32, each stage one item per 128-column chunk of K (with q's
+// chunk), then one of V's slab (the block's 128 columns of o), copied into
+// a two-buffer ring.  Lane = key: each warp's partial scores over its 32
+// columns of each chunk, chunk by chunk; after the stage's last chunk the
+// warps' partials are summed in warp order, so every warp, and every slab
+// of the row, holds the same scores, m and l.  Lane = column: acc += p v
+// over the warp's 32 columns of the slab, key by key.  bf16: the
+// products in fp32 on the SIMT cores, p rounded to bf16 before p v as the
+// other bodies round it.  VEC: rows 16-byte aligned, copied by cp.async
+// with columns past hd and rows at hi or later zero-filled; else element
+// by element.  part: part_of's scratch (m and l from slab 0); unused when
+// nsplit == 1.
+template <typename T, int GB, bool VEC>
+__global__ void __launch_bounds__(slab::kThreads)
+decode_attention_slab(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v,
+                      const int* __restrict__ kv_len_p, T* __restrict__ o,
+                      float* __restrict__ part, int KV, int G, int S, int D,
+                      int nch, int nslab, long long ksb, long long ksn,
+                      long long kss, long long vsb, long long vsn,
+                      long long vss, float scale) {
+  using namespace slab;
+  using Ge = Geo<T, GB>;
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const Place pl = place(G, nch, nslab);
+  const int nsplit = pl.nsplit;
+  const int gc = pl.gc;
+  const int n = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int w = tid >> 5;
+  const int lane = tid & 31;
+  const long long bn = (long long)b * KV + n;
+  const int kv_len = read_kv_len(kv_len_p, S);
+  const Span sp = split_span(kv_len, nsplit, pl.split);
+  T* ob = o + (bn * G + pl.g0) * D;
+  if (sp.lo >= sp.hi) {
+    if (nsplit == 1 && pl.slab == 0) write_zeros(ob, gc * D, tid, kThreads);
+    return;
+  }
+  const T* qb = q + (bn * G + pl.g0) * D;
+  const T* kb = k + b * ksb + n * ksn;
+  const T* vb = v + b * vsb + n * vsn;
+  const int n_kc = (D + kCols - 1) / kCols;     // score chunks
+  const int per = n_kc + 1;                     // items a stage
+  const int n_stages = (sp.hi - sp.lo + kKeys - 1) / kKeys;
+  const int n_items = n_stages * per;
+  const int col_v = pl.slab * kCols;            // the slab's first column
+  float* qs = reinterpret_cast<float*>(smem + Ge::kQOff);
+  float* parts = reinterpret_cast<float*>(smem + Ge::kPartOff);
+  float* pw = reinterpret_cast<float*>(smem + Ge::kPOff) + w * GB * kKeys;
+
+  // item i into buffer i & 1: rows key0 .. key0 + 31 of K's chunk or V's
+  // slab (columns past hd and rows at hi or later zero); a chunk of K
+  // brings q's chunk too, widened to float (rows past gc zero)
+  auto issue = [&](int i) {
+    const int it = i / per, j = i % per;
+    const int key0 = sp.lo + it * kKeys;
+    const bool is_v = j == n_kc;
+    const int c0 = is_v ? col_v : j * kCols;
+    const int cols = min(kCols, D - c0);        // >= 1
+    const T* src = is_v ? vb : kb;
+    const long long ss = is_v ? vss : kss;
+    T* dst = reinterpret_cast<T*>(smem + (i & 1) * Ge::kBufBytes);
+    if constexpr (VEC) {
+      constexpr int kE = 16 / (int)sizeof(T);   // elements a copy
+      constexpr int kChunks = kCols / kE;
+      for (int x = tid; x < kKeys * kChunks; x += kThreads) {
+        const int r = x / kChunks, c = x % kChunks;
+        const int key = key0 + r;
+        const int nb =
+            key < sp.hi ? chunk_bytes(cols * (int)sizeof(T), c) : 0;
+        cp_async_n(dst + r * Ge::kPitch + c * kE,
+                   nb ? src + key * ss + c0 + c * kE : src, nb);
+      }
+    } else {
+      for (int x = tid; x < kKeys * kCols; x += kThreads) {
+        const int r = x / kCols, c = x % kCols;
+        const int key = key0 + r;
+        dst[r * Ge::kPitch + c] = key < sp.hi && c < cols
+                                      ? src[key * ss + c0 + c]
+                                      : from_f<T>(0.f);
+      }
+    }
+    if (!is_v) {
+      float* qd = qs + (i & 1) * GB * kCols;
+      for (int x = tid; x < GB * kCols; x += kThreads) {
+        const int g = x / kCols, c = x % kCols;
+        qd[x] = g < gc && c < cols ? to_f(qb[(long long)g * D + c0 + c])
+                                   : 0.f;
+      }
+    }
+  };
+
+  float s[GB], m[GB], l[GB], acc[GB];
+#pragma unroll
+  for (int g = 0; g < GB; ++g) {
+    s[g] = 0.f;
+    m[g] = kNegInf;
+    l[g] = 0.f;
+    acc[g] = 0.f;
+  }
+  issue(0);
+  cp_async_commit();
+  for (int i = 0; i < n_items; ++i) {
+    if (i + 1 < n_items) issue(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();                // item i has landed (this thread)
+    __syncthreads();                   // ... for all; item i - 1 is used
+    const int it = i / per, j = i % per;
+    const T* buf = reinterpret_cast<const T*>(smem + (i & 1) * Ge::kBufBytes);
+    if (j < n_kc) {
+      // lane = key: partial scores over the warp's 32 columns of the chunk
+      const float* qc = qs + (i & 1) * GB * kCols + w * kWarpCols;
+      const T* row = buf + lane * Ge::kPitch + w * kWarpCols;
+#pragma unroll 2
+      for (int c = 0; c < kWarpCols; c += 4) {
+        float kf[4];
+        load4(row + c, kf);
+#pragma unroll
+        for (int g = 0; g < GB; ++g) {
+          const float4 qv = *reinterpret_cast<const float4*>(qc + g * kCols
+                                                             + c);
+          s[g] = fmaf(qv.x, kf[0], s[g]);
+          s[g] = fmaf(qv.y, kf[1], s[g]);
+          s[g] = fmaf(qv.z, kf[2], s[g]);
+          s[g] = fmaf(qv.w, kf[3], s[g]);
+        }
+      }
+      if (j == n_kc - 1) {             // the stage's partials, for its V item
+#pragma unroll
+        for (int g = 0; g < GB; ++g) {
+          parts[(w * GB + g) * kKeys + lane] = s[g];
+          s[g] = 0.f;
+        }
+      }
+    } else {
+      // the warps' partials in warp order, scaled and masked; the online
+      // softmax, the G rows' shuffles interleaved
+      const bool valid = sp.lo + it * kKeys + lane < sp.hi;
+      float sc[GB], red[GB];
+#pragma unroll
+      for (int g = 0; g < GB; ++g) {
+        float x = parts[g * kKeys + lane];
+#pragma unroll
+        for (int ww = 1; ww < kWarps; ++ww)
+          x += parts[(ww * GB + g) * kKeys + lane];
+        sc[g] = valid ? x * scale : kNegInf;
+        red[g] = sc[g];
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+        for (int g = 0; g < GB; ++g)
+          red[g] = fmaxf(red[g], __shfl_xor_sync(0xffffffffu, red[g], off));
+      float corr[GB];
+#pragma unroll
+      for (int g = 0; g < GB; ++g) {
+        const float mx = fmaxf(m[g], red[g]);
+        corr[g] = expf(m[g] - mx);
+        const float p = expf(sc[g] - mx);
+        m[g] = mx;
+        acc[g] *= corr[g];
+        pw[g * kKeys + lane] = to_f(from_f<T>(p));   // v's type, as p v
+        red[g] = p;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+        for (int g = 0; g < GB; ++g)
+          red[g] += __shfl_xor_sync(0xffffffffu, red[g], off);
+#pragma unroll
+      for (int g = 0; g < GB; ++g) l[g] = l[g] * corr[g] + red[g];
+      __syncwarp();
+      // lane = column: acc += p v over the stage's keys in order
+      const T* vc = buf + w * kWarpCols + lane;
+#pragma unroll 4
+      for (int key = 0; key < kKeys; ++key) {
+        const float vv = to_f(vc[key * Ge::kPitch]);
+#pragma unroll
+        for (int g = 0; g < GB; ++g)
+          acc[g] = fmaf(pw[g * kKeys + key], vv, acc[g]);
+      }
+    }
+    __syncthreads();                   // buffer i & 1 may be refilled
+  }
+
+  // the split's (m, l, acc), each lane its column of the slab
+  const int col = col_v + w * kWarpCols + lane;
+  float* pb = part_of(part, bn, pl, G, nch, D);
+#pragma unroll
+  for (int g = 0; g < GB; ++g) {
+    if (g >= gc) break;
+    if (col < D) {
+      if (nsplit == 1)
+        ob[(long long)g * D + col] = from_f<T>(acc[g] / fmaxf(l[g], 1e-30f));
+      else
+        pb[g * D + col] = acc[g];
+    }
+    if (nsplit > 1 && pl.slab == 0 && tid == 0) {
+      pb[gc * D + g] = m[g];
+      pb[gc * D + gc + g] = l[g];
+    }
+  }
+}
+
+// grid (KV, B, G): merge query head g's live splits' (m, l, acc) into its
+// hd (D) columns of o; the body ran chunks of `rows` query heads
+template <typename T>
 __global__ void __launch_bounds__(128)
 decode_attention_merge(const float* __restrict__ part, T* __restrict__ o,
                        const int* __restrict__ kv_len_p, int KV, int G,
-                       int S, int nsplit) {
+                       int S, int D, int nch, int rows, int nsplit) {
   const long long bn = (long long)blockIdx.y * KV + blockIdx.x;
   const int g = blockIdx.z;
-  const long long pitch = (long long)G * (HD + 2);
-  const float* pb = part + bn * nsplit * pitch;
+  const int chunk = g / rows, r = g % rows;
+  const int gc = min(G - chunk * rows, rows);
+  const long long pitch = (long long)min(G, rows) * (D + 2);
+  const float* pb = part + (bn * nch + chunk) * nsplit * pitch;
   const int kv_len = read_kv_len(kv_len_p, S);
   const int per = tiles_per_split(kv_len, nsplit);
   const int tiles = (kv_len + kTile - 1) / kTile;
   const int live = per > 0 ? (tiles + per - 1) / per : 0;
   float mx = kNegInf;
-  for (int s = 0; s < live; ++s) mx = fmaxf(mx, pb[s * pitch + G * HD + g]);
-  for (int d = threadIdx.x; d < HD; d += blockDim.x) {
+  for (int s = 0; s < live; ++s) mx = fmaxf(mx, pb[s * pitch + gc * D + r]);
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
     float lt = 0.f, at = 0.f;
     for (int s = 0; s < live; ++s) {
-      const float f = expf(pb[s * pitch + G * HD + g] - mx);
-      lt += pb[s * pitch + G * HD + G + g] * f;
-      at += pb[s * pitch + g * HD + d] * f;
+      const float f = expf(pb[s * pitch + gc * D + r] - mx);
+      lt += pb[s * pitch + gc * D + gc + r] * f;
+      at += pb[s * pitch + r * D + d] * f;
     }
-    o[(bn * G + g) * HD + d] = from_f<T>(at / fmaxf(lt, 1e-30f));
+    o[(bn * G + g) * D + d] = from_f<T>(at / fmaxf(lt, 1e-30f));
   }
 }
 
@@ -1271,21 +1804,45 @@ struct Args {
   const int* kv_len;
   void* o;
   float* part;
-  int B, KV, G, S, hd, nsplit;
+  int B, KV, G, S, D, nsplit, nch, nslab, rows;
   float scale;
   long long ksb, ksn, kss, vsb, vsn, vss;
   cudaStream_t stream;
 };
 
 // Call f(kernel, dynamic shared memory, threads) with the kernel that a
-// (dtype, hd, G) launches: the tensor-core body for bfloat16 at hd 64 and
-// 128 (hd 256 has a body of its own, launched by launch_hd256), the SIMT
-// body (rows padded to 4, 8 or 16) for float32.
+// (dtype, body width, G) launches: the tensor-core body for bfloat16 at
+// widths 64 and 128 (256 has a ring body of its own), the SIMT body (rows
+// padded to 4, 8 or 16) for float32; G > 16 runs chunks of 16 rows.
 template <typename F>
 int with_mma(int hd, F&& f) {
   if (hd == 64) return f(decode_attention_mma<64>, MmaGeo<64>::kSmem, 128);
   if (hd == 128) return f(decode_attention_mma<128>, MmaGeo<128>::kSmem, 128);
   return (int)cudaErrorInvalidValue;
+}
+// bf16 at widths 64 and 128 with G > 16: the rows body at `rows` query
+// heads a block (mma_rows: 32, 64 or 128, two, four or eight warps)
+template <int HD, typename F>
+int with_rows_hd(int rows, F&& f) {
+  if (rows == 32)
+    return f(decode_attention_mma_rows<HD, 2>, MmaGeo<HD>::kSmem, 64);
+  if (rows == 64)
+    return f(decode_attention_mma_rows<HD, 4>, MmaGeo<HD>::kSmem, 128);
+  return f(decode_attention_mma_rows<HD, 8>, MmaGeo<HD>::kSmem, 256);
+}
+template <typename F>
+int with_rows(int hd, int rows, F&& f) {
+  if (hd == 64) return with_rows_hd<64>(rows, f);
+  if (hd == 128) return with_rows_hd<128>(rows, f);
+  return (int)cudaErrorInvalidValue;
+}
+// the query heads a block of the body that (dtype, width, G) launches
+// takes: bf16 at widths 64 and 128 beyond 16 heads, the rows body's 32,
+// 64 or 128 (the least that holds G, at most 128); else 16
+int mma_rows(int dtype, int body, int G) {
+  if (dtype != 1 || (body != 64 && body != 128) || G <= kMaxRows)
+    return kMaxRows;
+  return G <= 32 ? 32 : G <= 64 ? 64 : 128;
 }
 template <int HD, typename F>
 int with_simt_g(int G, F&& f) {
@@ -1299,15 +1856,47 @@ int with_simt(int hd, int G, F&& f) {
   if (hd == 128) return with_simt_g<128>(G, f);
   return (int)cudaErrorInvalidValue;
 }
-// float32 at hd 256: the ring body at GB rows (4, 8 or 16)
-template <typename F>
-int with_f32_ring(int G, F&& f) {
+// float32 at width 256: the ring body at GB rows (4, 8 or 16), FULL where
+// hd is 256 and G <= 16 (ring_full)
+template <bool FULL, typename F>
+int with_f32_ring_f(int G, F&& f) {
   using namespace f32;
   if (G <= 4)
-    return f(decode_attention_hd256_f32<4>, Geo<4>::kSmem, kThreads);
+    return f(decode_attention_hd256_f32<4, FULL>, Geo<4>::kSmem, kThreads);
   if (G <= 8)
-    return f(decode_attention_hd256_f32<8>, Geo<8>::kSmem, kThreads);
-  return f(decode_attention_hd256_f32<16>, Geo<16>::kSmem, kThreads);
+    return f(decode_attention_hd256_f32<8, FULL>, Geo<8>::kSmem, kThreads);
+  return f(decode_attention_hd256_f32<16, FULL>, Geo<16>::kSmem, kThreads);
+}
+template <typename F>
+int with_f32_ring(int G, bool full, F&& f) {
+  return full ? with_f32_ring_f<true>(G, f) : with_f32_ring_f<false>(G, f);
+}
+// the bf16 ring body, FULL or not
+template <typename F>
+int with_bulk(bool full, F&& f) {
+  return full ? f(decode_attention_hd256_bulk<true>, bulk::kSmem,
+                  bulk::kThreads)
+              : f(decode_attention_hd256_bulk<false>, bulk::kSmem,
+                  bulk::kThreads);
+}
+// whether a width-256 call is the ring bodies' full shape: hd 256, one
+// chunk of query heads, q 4-byte aligned
+bool ring_full(const void* q, int D, int G) {
+  return D == 256 && G <= kMaxRows && ((unsigned long long)q & 3) == 0;
+}
+// any hd, either alignment: the slab body at GB rows (4, 8 or 16)
+template <typename T, bool VEC, typename F>
+int with_slab_v(int G, F&& f) {
+  using namespace slab;
+  if (G <= 4)
+    return f(decode_attention_slab<T, 4, VEC>, Geo<T, 4>::kSmem, kThreads);
+  if (G <= 8)
+    return f(decode_attention_slab<T, 8, VEC>, Geo<T, 8>::kSmem, kThreads);
+  return f(decode_attention_slab<T, 16, VEC>, Geo<T, 16>::kSmem, kThreads);
+}
+template <typename T, typename F>
+int with_slab(int G, bool vec, F&& f) {
+  return vec ? with_slab_v<T, true>(G, f) : with_slab_v<T, false>(G, f);
 }
 
 template <typename K>
@@ -1335,19 +1924,14 @@ struct Occupancy {
 template <typename T>
 int launch_merge(const Args& a) {
   if (a.nsplit == 1) return 0;
-  const dim3 grid(a.KV, a.B, a.G);
-  if (a.hd == 64)
-    decode_attention_merge<T, 64><<<grid, 64, 0, a.stream>>>(
-        a.part, (T*)a.o, a.kv_len, a.KV, a.G, a.S, a.nsplit);
-  else if (a.hd == 128)
-    decode_attention_merge<T, 128><<<grid, 128, 0, a.stream>>>(
-        a.part, (T*)a.o, a.kv_len, a.KV, a.G, a.S, a.nsplit);
-  else
-    decode_attention_merge<T, 256><<<grid, 128, 0, a.stream>>>(
-        a.part, (T*)a.o, a.kv_len, a.KV, a.G, a.S, a.nsplit);
+  decode_attention_merge<T><<<dim3(a.KV, a.B, a.G), a.D <= 64 ? 64 : 128, 0,
+                              a.stream>>>(a.part, (T*)a.o, a.kv_len, a.KV,
+                                          a.G, a.S, a.D, a.nch, a.rows,
+                                          a.nsplit);
   return (int)cudaGetLastError();
 }
 
+// the cp.async bodies over grid (nsplit nch, KV, B), then the merge
 template <typename T>
 struct Launch {
   const Args& a;
@@ -1355,10 +1939,28 @@ struct Launch {
   int operator()(K kernel, size_t smem, int threads) const {
     cudaError_t e = allow_smem(kernel, smem);
     if (e != cudaSuccess) return (int)e;
-    kernel<<<dim3(a.nsplit, a.KV, a.B), threads, smem, a.stream>>>(
+    kernel<<<dim3(a.nsplit * a.nch, a.KV, a.B), threads, smem, a.stream>>>(
         (const T*)a.q, (const T*)a.k, (const T*)a.v, a.kv_len, (T*)a.o,
-        a.part, a.KV, a.G, a.S, a.ksb, a.ksn, a.kss, a.vsb, a.vsn, a.vss,
-        a.scale);
+        a.part, a.KV, a.G, a.S, a.D, a.nch, a.ksb, a.ksn, a.kss, a.vsb,
+        a.vsn, a.vss, a.scale);
+    e = cudaGetLastError();
+    return e != cudaSuccess ? (int)e : launch_merge<T>(a);
+  }
+};
+
+// the slab body over grid (nsplit nch nslab, KV, B), then the merge
+template <typename T>
+struct LaunchSlab {
+  const Args& a;
+  template <typename K>
+  int operator()(K kernel, size_t smem, int threads) const {
+    cudaError_t e = allow_smem(kernel, smem);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<dim3(a.nsplit * a.nch * a.nslab, a.KV, a.B), threads, smem,
+             a.stream>>>((const T*)a.q, (const T*)a.k, (const T*)a.v,
+                         a.kv_len, (T*)a.o, a.part, a.KV, a.G, a.S, a.D,
+                         a.nch, a.nslab, a.ksb, a.ksn, a.kss, a.vsb, a.vsn,
+                         a.vss, a.scale);
     e = cudaGetLastError();
     return e != cudaSuccess ? (int)e : launch_merge<T>(a);
   }
@@ -1397,21 +1999,21 @@ EncodeTiled encoder() {
 // wrapper names it); cudaError_t values stay below it
 constexpr int kMapError = 100000;
 
-// k or v, (B, KV, S, 256) bf16 or float32 (dtype 1 or 0) at element
-// strides (sb, sn, ss) with the last dim contiguous, as a 4-D map: the 256
-// columns, then the key, kv head and batch dims in the order of their
+// k or v, (B, KV, S, D) bf16 or float32 (dtype 1 or 0), D <= 256, at
+// element strides (sb, sn, ss) with the last dim contiguous, as a 4-D map:
+// the D columns, then the key, kv head and batch dims in the order of their
 // strides (a dim of size 1 last, its stride past the others'), boxes of
 // 128 bytes of columns (64 bf16, 32 float32) x a stage's keys (64 bf16,
-// 32 float32), 128-byte swizzle; keys past S read as zero.  slots: the
-// coordinate slot (1-3) of the key, the kv head and the batch, 2 bits
-// apiece.
+// 32 float32), 128-byte swizzle; columns past D and keys past S read as
+// zero.  slots: the coordinate slot (1-3) of the key, the kv head and the
+// batch, 2 bits apiece.
 struct CacheMap {
   CUtensorMap map;
   int slots;
 };
 
 int make_cache_map(CacheMap* out, const void* base, int dtype, int B, int KV,
-                   int S, long long sb, long long sn, long long ss) {
+                   int S, int D, long long sb, long long sn, long long ss) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return kMapError + (int)CUDA_ERROR_NOT_FOUND;
   const long long esize = dtype == 1 ? 2 : 4;
@@ -1434,7 +2036,7 @@ int make_cache_map(CacheMap* out, const void* base, int dtype, int B, int KV,
   long long top = bulk::kHD * esize;   // past every element of the others
   for (const Dim& x : d)
     if (x.size > 1 && x.stride * x.size > top) top = x.stride * x.size;
-  cuuint64_t dims[4] = {(cuuint64_t)bulk::kHD, 0, 0, 0};
+  cuuint64_t dims[4] = {(cuuint64_t)D, 0, 0, 0};
   cuuint64_t strides[3];
   cuuint32_t box[4] = {(cuuint32_t)(128 / esize), 0, 0, 0};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
@@ -1459,31 +2061,31 @@ int make_cache_map(CacheMap* out, const void* base, int dtype, int B, int KV,
 // make_cache_map's map, encoded once per (pointer, type, shape, strides)
 // and kept (a decode step finds every layer's cache maps made)
 int cache_map(CacheMap* out, const void* base, int dtype, int B, int KV,
-              int S, long long sb, long long sn, long long ss) {
+              int S, int D, long long sb, long long sn, long long ss) {
   struct Key {
     const void* p;
-    long long dtype, B, KV, S, sb, sn, ss;
+    long long dtype, B, KV, S, D, sb, sn, ss;
     bool operator==(const Key& o) const {
       return p == o.p && dtype == o.dtype && B == o.B && KV == o.KV &&
-             S == o.S && sb == o.sb && sn == o.sn && ss == o.ss;
+             S == o.S && D == o.D && sb == o.sb && sn == o.sn && ss == o.ss;
     }
   };
   struct Hash {
     size_t operator()(const Key& k) const {
       size_t h = std::hash<const void*>()(k.p);
-      for (long long x : {k.dtype, k.B, k.KV, k.S, k.sb, k.sn, k.ss})
+      for (long long x : {k.dtype, k.B, k.KV, k.S, k.D, k.sb, k.sn, k.ss})
         h = h * 1000003u ^ std::hash<long long>()(x);
       return h;
     }
   };
   static std::mutex mu;
   static std::unordered_map<Key, CacheMap, Hash> maps;
-  const Key key{base, dtype, B, KV, S, sb, sn, ss};
+  const Key key{base, dtype, B, KV, S, D, sb, sn, ss};
   std::lock_guard<std::mutex> lock(mu);
   auto it = maps.find(key);
   if (it == maps.end()) {
     CacheMap m;
-    const int rc = make_cache_map(&m, base, dtype, B, KV, S, sb, sn, ss);
+    const int rc = make_cache_map(&m, base, dtype, B, KV, S, D, sb, sn, ss);
     if (rc != 0) return rc;
     if (maps.size() >= 4096) maps.clear();
     it = maps.emplace(key, m).first;
@@ -1492,8 +2094,8 @@ int cache_map(CacheMap* out, const void* base, int dtype, int B, int KV,
   return 0;
 }
 
-// hd 256 in either type: the ring body over grid (nsplit, KV, B) on k's and
-// v's tensor maps, then the merge
+// width 256 in either type: the ring body over grid (nsplit nch, KV, B)
+// on k's and v's tensor maps, then the merge
 template <typename T>
 struct LaunchRing {
   const Args& a;
@@ -1501,15 +2103,17 @@ struct LaunchRing {
   template <typename K>
   int operator()(K kernel, size_t smem, int threads) const {
     CacheMap mk, mv;
-    int rc = cache_map(&mk, a.k, dtype, a.B, a.KV, a.S, a.ksb, a.ksn, a.kss);
+    int rc = cache_map(&mk, a.k, dtype, a.B, a.KV, a.S, a.D, a.ksb, a.ksn,
+                       a.kss);
     if (rc == 0)
-      rc = cache_map(&mv, a.v, dtype, a.B, a.KV, a.S, a.vsb, a.vsn, a.vss);
+      rc = cache_map(&mv, a.v, dtype, a.B, a.KV, a.S, a.D, a.vsb, a.vsn,
+                     a.vss);
     if (rc != 0) return rc;
     cudaError_t e = allow_smem(kernel, smem);
     if (e != cudaSuccess) return (int)e;
-    kernel<<<dim3(a.nsplit, a.KV, a.B), threads, smem, a.stream>>>(
+    kernel<<<dim3(a.nsplit * a.nch, a.KV, a.B), threads, smem, a.stream>>>(
         mk.map, mv.map, (const T*)a.q, a.kv_len, (T*)a.o, a.part, a.KV, a.G,
-        a.S, mk.slots, mv.slots, a.scale);
+        a.S, a.D, a.nch, mk.slots, mv.slots, a.scale);
     e = cudaGetLastError();
     return e != cudaSuccess ? (int)e : launch_merge<T>(a);
   }
@@ -1554,49 +2158,71 @@ int f32_stages(int G) {
 
 }  // namespace
 
-// Resident blocks per SM of the kernel that (hd, dtype, G) launches, from
-// the occupancy calculator (the wrapper's planner reads it once).
-extern "C" int decode_attention_blocks_per_sm(int hd, int dtype, int G,
+// Resident blocks per SM of the body that (body, dtype, G) launches (body:
+// the width 64, 128 or 256, or 0 for the slab body), from the occupancy
+// calculator (the wrapper's planner reads it once).
+extern "C" int decode_attention_blocks_per_sm(int body, int dtype, int G,
                                               int* out) {
-  if (dtype == 1 && hd == 256)
-    return Occupancy{out}(decode_attention_hd256_bulk, bulk::kSmem,
-                          bulk::kThreads);
-  if (dtype == 1) return with_mma(hd, Occupancy{out});
-  if (dtype == 0 && hd == 256) return with_f32_ring(G, Occupancy{out});
-  if (dtype == 0) return with_simt(hd, G, Occupancy{out});
+  if (body == 0 && dtype == 1) return with_slab<bf16>(G, true, Occupancy{out});
+  if (body == 0 && dtype == 0)
+    return with_slab<float>(G, true, Occupancy{out});
+  if (dtype == 1 && body == 256)
+    return with_bulk(true, Occupancy{out});
+  if (dtype == 1 && G > kMaxRows)
+    return with_rows(body, mma_rows(dtype, body, G), Occupancy{out});
+  if (dtype == 1) return with_mma(body, Occupancy{out});
+  if (dtype == 0 && body == 256)
+    return with_f32_ring(G, true, Occupancy{out});
+  if (dtype == 0) return with_simt(body, G, Occupancy{out});
   return (int)cudaErrorInvalidValue;
 }
 
-// q, o: (B, KV, G, hd) contiguous; k, v: element strides (batch, kv head,
-// key) with the last dimension contiguous, 16-byte aligned rows; all of
-// one type: dtype 0 = float32, 1 = bfloat16.  kv_len: one int32 on the
-// device.  The valid keys are cut into nsplit splits of whole 64-key tiles
-// (split_span); part: (B, KV, nsplit, G * (hd + 2)) float32 scratch when
-// nsplit > 1.  G in 1..16, hd in {64, 128, 256}.
+// q, o: (B, KV, G, D) contiguous; k, v: element strides (batch, kv head,
+// key) with the last dimension contiguous; all of one type: dtype 0 =
+// float32, 1 = bfloat16.  kv_len: one int32 on the device.  body: the
+// width (64, 128 or 256, at least D; rows 16-byte aligned) of the body that
+// runs, or 0 for the slab body (any D, any alignment; nslab = ceil(D /
+// 128)).  nch = ceil(G / rows) chunks of query heads, rows = 16, or for
+// bf16 at widths 64 and 128 beyond 16 heads the rows body's (mma_rows).
+// The valid keys are cut into nsplit splits of whole 64-key tiles
+// (split_span); part: B KV nch nsplit min(G, rows) (D + 2) floats of
+// scratch when nsplit > 1.
 // Returns cudaGetLastError() of the launches, or kMapError + the CUresult
-// of a tensor map cuTensorMapEncodeTiled refused (hd 256).
+// of a tensor map cuTensorMapEncodeTiled refused (width 256).
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, const void* kv_len, void* o,
-    void* part, int B, int KV, int G, int S, int hd, int dtype, int nsplit,
-    float scale, long long ksb, long long ksn, long long kss, long long vsb,
-    long long vsn, long long vss, void* stream) {
+    void* part, int B, int KV, int G, int S, int D, int body, int dtype,
+    int nsplit, int nch, int nslab, float scale, long long ksb, long long ksn,
+    long long kss, long long vsb, long long vsn, long long vss,
+    void* stream) {
   if (B <= 0 || KV <= 0) return 0;
   const long long align = dtype == 1 ? 8 : 4;     // elements per 16 bytes
-  if (G < 1 || G > kMaxRows || S < 1 || nsplit < 1 || nsplit > 65535 ||
-      KV > 65535 || B > 65535 || ((unsigned long long)k & 15) ||
-      ((unsigned long long)v & 15) || ksb % align || ksn % align ||
-      kss % align || vsb % align || vsn % align || vss % align)
+  const bool vec = !(((unsigned long long)k | (unsigned long long)v) & 15) &&
+                   !(ksb % align || ksn % align || kss % align ||
+                     vsb % align || vsn % align || vss % align);
+  const int rows = body == 0 ? kMaxRows : mma_rows(dtype, body, G);
+  if (G < 1 || G > 65535 || D < 1 || S < 1 || nsplit < 1 ||
+      nsplit > 65535 || KV > 65535 || B > 65535 ||
+      nch != (G + rows - 1) / rows ||
+      (body == 0 ? nslab != (D + slab::kCols - 1) / slab::kCols
+                 : nslab != 1 || D > body || !vec))
     return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, (const int*)kv_len, o, (float*)part, B, KV, G, S,
-               hd, nsplit, scale, ksb, ksn, kss, vsb, vsn, vss,
-               (cudaStream_t)stream};
+               D, nsplit, nch, nslab, rows, scale, ksb, ksn, kss, vsb, vsn,
+               vss, (cudaStream_t)stream};
   if (part == nullptr && nsplit > 1) return (int)cudaErrorInvalidValue;
-  if (dtype == 1 && hd == 256)
-    return LaunchRing<bf16>{a, 1}(decode_attention_hd256_bulk, bulk::kSmem,
-                                  bulk::kThreads);
-  if (dtype == 1) return with_mma(hd, Launch<bf16>{a});
-  if (dtype == 0 && hd == 256) return with_f32_ring(G, LaunchRing<float>{a, 0});
-  if (dtype == 0) return with_simt(hd, G, Launch<float>{a});
+  if (body == 0 && dtype == 1)
+    return with_slab<bf16>(G, vec, LaunchSlab<bf16>{a});
+  if (body == 0 && dtype == 0)
+    return with_slab<float>(G, vec, LaunchSlab<float>{a});
+  if (dtype == 1 && body == 256)
+    return with_bulk(ring_full(q, D, G), LaunchRing<bf16>{a, 1});
+  if (dtype == 1 && rows > kMaxRows)
+    return with_rows(body, rows, Launch<bf16>{a});
+  if (dtype == 1) return with_mma(body, Launch<bf16>{a});
+  if (dtype == 0 && body == 256)
+    return with_f32_ring(G, ring_full(q, D, G), LaunchRing<float>{a, 0});
+  if (dtype == 0) return with_simt(body, G, Launch<float>{a});
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1605,9 +2231,9 @@ extern "C" int decode_attention_launch(
 // G query rows a kv head launch.  Returns a cudaError_t.
 extern "C" int decode_attention_hd256_info(int dtype, int G, int* out) {
   if (dtype == 1)
-    return Info{out, bulk::kConsumers, bulk::kStages}(
-        decode_attention_hd256_bulk, bulk::kSmem, bulk::kThreads);
-  if (dtype == 0 && G >= 1 && G <= kMaxRows)
-    return with_f32_ring(G, Info{out, f32::kConsumers, f32_stages(G)});
+    return with_bulk(true, Info{out, bulk::kConsumers, bulk::kStages});
+  if (dtype == 0 && G >= 1)
+    return with_f32_ring(G, true,
+                         Info{out, f32::kConsumers, f32_stages(G)});
   return (int)cudaErrorInvalidValue;
 }

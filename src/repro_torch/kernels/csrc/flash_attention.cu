@@ -7,9 +7,10 @@
 // over the unmasked keys j (causal: j <= i; window w: i - j < w); masked
 // scores are NEG_INF = -0.7 * FLT_MAX, as in the TPU kernel and the plain
 // version.  q (B, H, Sq, hd), k and v (B, KV, Sk, hd), float32 or bfloat16,
-// contiguous; G = H / KV; hd in {32, 64, 128, 256} (the wrapper zero-pads
-// any other hd <= 256 up to the next of these and passes the true hd's
-// scale).  o (B, H, Sq, hd) in q's type.
+// contiguous; G = H / KV; hd in {32, 64, 128, 256} or a multiple of 8
+// above 256 (the wrapper zero-pads any other hd up to the next of these and
+// passes the true hd's scale; above 256 the slab body runs, below).  o (B,
+// H, Sq, hd) in q's type.
 //
 // Arithmetic (the TPU kernel's): scores S = q k^T * scale accumulated in
 // fp32, running max m, sum l and accumulator acc in fp32; the
@@ -1797,6 +1798,382 @@ int launch(const void* q, const void* k, const void* v, void* o, void* ws,
 
 }  // namespace tf
 
+// ---------------------------------------------------------------------------
+// Head dims above 256, both types: column slabs on mma.sync.
+//
+// A head dim above 256 (the wrapper zero-pads it to a multiple of 8, D)
+// would hold o's 64 x D accumulator in registers, more than a thread has.
+// So a block owns 64 query rows (four warps of 16, as the hd <= 128 bodies)
+// and 128 columns of o, a slab (grid (q tiles x slabs, H, B), the slabs of
+// a q tile neighbours in the block order, so they read the same k and v
+// tiles through L2).  For each 64-key tile it computes the scores over the
+// whole head dim in chunks of 64 columns, chunk by chunk in the same order
+// in every slab, so the slabs of a row hold the same scores, m and l bit
+// for bit; then p v over its own 128 columns.  Each chunk's q and k, and
+// each tile's 128 columns of v, are an item of a two-buffer cp.async ring
+// (rows padded by 16 bytes; rows past Sq or Sk and columns past D zero).
+// The products are the hd <= 128 bodies': bf16 by mma.sync.m16n8k16,
+// float32 by m16n8k8 on the 3xTF32 split (q split as read from shared
+// memory).  A chunk's scores restart their accumulator and are added to
+// the tile's with rounded fp32 adds (the large terms; the small ones run
+// in one chain over D), so a long head dim does not lengthen the chain the
+// tensor cores sum into; the softmax, masks and skipping rules are the
+// other bodies'.  The cost: q and k are read once a slab (ceil(D / 128)
+// times, from L2 after the first), the scores computed once a slab.
+// ---------------------------------------------------------------------------
+namespace slab {
+
+constexpr int kBK = 64;        // keys a tile
+constexpr int kKC = 64;        // head-dim columns a chunk of q k^T
+constexpr int kNS = 128;       // columns of o a block owns
+constexpr int kThreads = 128;  // four warps of 16 query rows
+
+template <typename T>
+struct Geo {
+  static constexpr int kE = 16 / (int)sizeof(T);       // elements a copy
+  static constexpr int kQKPitch = kKC + kE;            // elements, padded
+  static constexpr int kVPitch = kNS + kE;
+  static constexpr int kQK = (kBQ + kBK) * kQKPitch;   // q's chunk, k's
+  static constexpr int kV = kBK * kVPitch;
+  static constexpr int kBuf = kQK > kV ? kQK : kV;     // elements a buffer
+  static constexpr size_t kSmem = 2 * (size_t)kBuf * sizeof(T);
+};
+
+}  // namespace slab
+
+template <typename T>
+__global__ void __launch_bounds__(slab::kThreads)
+flash_attention_slab(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, T* __restrict__ o, int H,
+                     int KV, int Sq, int Sk, int D, int nslab,
+                     float scale_log2, int causal, int window) {
+  using namespace slab;
+  using Ge = Geo<T>;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int kJ = kBK / 8;                   // score n-tiles
+  constexpr int kNT = kNS / 8;                  // o n-tiles
+  constexpr int kE = Ge::kE;
+  extern __shared__ float4 smem4[];
+  T* smem = reinterpret_cast<T*>(smem4);
+
+  const int slab_i = blockIdx.x % nslab;
+  const int q0 = blockIdx.x / nslab * kBQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int q_hi = min(q0 + kBQ, Sq) - 1;       // last real query row
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;                      // fragment row group
+  const int t = lane & 3;                       // fragment column group
+  const int row0 = q0 + warp * 16;              // the warp's first row
+  const int row_last = row0 + 15;
+  const int col_v = slab_i * kNS;               // the slab's first column
+  const T* qb = q + (long long)(b * H + h) * Sq * D;
+  const T* kb = k + (long long)(b * KV + kvh) * Sk * D;
+  const T* vb = v + (long long)(b * KV + kvh) * Sk * D;
+  T* ob = o + (long long)(b * H + h) * Sq * D;
+
+  // the TPU kernel's skipping rules, on the block's real rows
+  const int n_k = (Sk + kBK - 1) / kBK;
+  const int t_end = causal ? min(n_k, q_hi / kBK + 1) : n_k;
+  int t_begin = 0;
+  if (window > 0) {
+    const int x = q0 - window - (kBK - 2);
+    if (x > 0) t_begin = (x + kBK - 1) / kBK;
+  }
+  const int n_kc = (D + kKC - 1) / kKC;         // score chunks
+  const int per = n_kc + 1;                     // items a tile
+  const int n_items = max(t_end - t_begin, 0) * per;
+
+  // item i into buffer i & 1: chunk j's 64 columns of the block's q rows
+  // and the tile's k rows, or the tile's v rows over the slab
+  auto issue = [&](int i) {
+    const int k0 = (t_begin + i / per) * kBK;
+    const int j = i % per;
+    T* dst = smem + (i & 1) * Ge::kBuf;
+    if (j < n_kc) {
+      const int c0 = j * kKC;
+      constexpr int kCh = kKC / kE;             // copies a row
+      for (int x = threadIdx.x; x < (kBQ + kBK) * kCh; x += kThreads) {
+        const int r = x / kCh, c = x % kCh;
+        const bool is_q = r < kBQ;
+        const int row = is_q ? q0 + r : k0 + r - kBQ;
+        const bool in = row < (is_q ? Sq : Sk) && c0 + c * kE < D;
+        const T* src = (is_q ? qb : kb) + (long long)row * D + c0 + c * kE;
+        cp_async16(dst + r * Ge::kQKPitch + c * kE, in ? src : qb, in);
+      }
+    } else {
+      constexpr int kCh = kNS / kE;
+      for (int x = threadIdx.x; x < kBK * kCh; x += kThreads) {
+        const int r = x / kCh, c = x % kCh;
+        const bool in = k0 + r < Sk && col_v + c * kE < D;
+        cp_async16(dst + r * Ge::kVPitch + c * kE,
+                   in ? vb + (long long)(k0 + r) * D + col_v + c * kE : vb,
+                   in);
+      }
+    }
+  };
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[kNT][4];
+  float s[kJ][4], sl[kJ][4];    // the tile's scores; float32's small terms
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  if (n_items > 0) issue(0);
+  cp_async_commit();
+  for (int i = 0; i < n_items; ++i) {
+    if (i + 1 < n_items) issue(i + 1);
+    cp_async_commit();
+    cp_async_wait1();                // item i has landed (this thread)
+    __syncthreads();                 // ... for all; item i - 1 is used
+    const int k0 = (t_begin + i / per) * kBK;
+    const int j = i % per;
+    const T* buf = smem + (i & 1) * Ge::kBuf;
+    if (causal && k0 > row_last) {   // the warp's rows precede the tile
+      __syncthreads();
+      continue;
+    }
+    if (j == 0) {
+#pragma unroll
+      for (int jj = 0; jj < kJ; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[jj][e] = sl[jj][e] = 0.f;
+    }
+    if (j < n_kc) {
+      // ---- the chunk's scores, in an accumulator of their own
+      const T* qs = buf + (warp * 16) * Ge::kQKPitch;
+      const T* ks = buf + kBQ * Ge::kQKPitch;
+      float sc[kJ][4];
+#pragma unroll
+      for (int jj = 0; jj < kJ; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[jj][e] = 0.f;
+      if constexpr (kF32) {
+        const float* qf = reinterpret_cast<const float*>(qs);
+        const float* kf = reinterpret_cast<const float*>(ks);
+#pragma unroll
+        for (int ii = 0; ii < kKC / 16; ++ii) {     // k-steps 2ii, 2ii + 1
+          const int c = qk_dim(t, 2 * ii);
+          const float4 x0 = *reinterpret_cast<const float4*>(
+              qf + g * Ge::kQKPitch + c);
+          const float4 x1 = *reinterpret_cast<const float4*>(
+              qf + (g + 8) * Ge::kQKPitch + c);
+          uint32_t ah[2][4], al[2][4];
+          split(x0.x, ah[0][0], al[0][0]);
+          split(x1.x, ah[0][1], al[0][1]);
+          split(x0.y, ah[0][2], al[0][2]);
+          split(x1.y, ah[0][3], al[0][3]);
+          split(x0.z, ah[1][0], al[1][0]);
+          split(x1.z, ah[1][1], al[1][1]);
+          split(x0.w, ah[1][2], al[1][2]);
+          split(x1.w, ah[1][3], al[1][3]);
+#pragma unroll
+          for (int jj = 0; jj < kJ; ++jj) {
+            const float4 y = *reinterpret_cast<const float4*>(
+                kf + (jj * 8 + g) * Ge::kQKPitch + c);
+            uint32_t bh[2][2], bl[2][2];
+            split(y.x, bh[0][0], bl[0][0]);
+            split(y.y, bh[0][1], bl[0][1]);
+            split(y.z, bh[1][0], bl[1][0]);
+            split(y.w, bh[1][1], bl[1][1]);
+#pragma unroll
+            for (int kk = 0; kk < 2; ++kk) {
+              mma_tf32(sl[jj], al[kk], bh[kk][0], bh[kk][1]);
+              mma_tf32(sl[jj], ah[kk], bl[kk][0], bl[kk][1]);
+              mma_tf32(sc[jj], ah[kk], bh[kk][0], bh[kk][1]);
+            }
+          }
+        }
+      } else {
+        const uint32_t* q32 = reinterpret_cast<const uint32_t*>(qs);
+        constexpr int P2 = Ge::kQKPitch / 2;        // pitch in 32-bit words
+#pragma unroll
+        for (int kk = 0; kk < kKC / 16; ++kk) {
+          const int c = kk * 8 + t;                 // in 32-bit words
+          const uint32_t qa[4] = {q32[g * P2 + c], q32[(g + 8) * P2 + c],
+                                  q32[g * P2 + c + 4],
+                                  q32[(g + 8) * P2 + c + 4]};
+#pragma unroll
+          for (int jj = 0; jj < kJ; ++jj) {
+            const uint32_t* kr = reinterpret_cast<const uint32_t*>(ks) +
+                                 (jj * 8 + g) * P2 + c;
+            mma_bf16(sc[jj], qa, kr[0], kr[4]);
+          }
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < kJ; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[jj][e] += sc[jj][e];
+    } else {
+      if constexpr (kF32) {
+#pragma unroll
+        for (int jj = 0; jj < kJ; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[jj][e] += sl[jj][e];
+      }
+      // ---- mask, online softmax (base 2), rescale the accumulator; the
+      // masked-weight rule of flash_attention_kernel
+      const bool need_mask = k0 + kBK > Sk ||
+                             (causal && k0 + kBK - 1 > row0) ||
+                             (window > 0 && row_last - k0 >= window);
+      if (need_mask) {
+#pragma unroll
+        for (int jj = 0; jj < kJ; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qp = row0 + g + (e >> 1) * 8;
+            const int kp = k0 + jj * 8 + 2 * t + (e & 1);
+            bool keep = kp < Sk;
+            if (causal) keep = keep && qp >= kp;
+            if (window > 0) keep = keep && qp - kp < window;
+            if (!keep) s[jj][e] = kNegInf;
+          }
+      }
+      float mx[2] = {kNegInf, kNegInf}, corr[2];
+#pragma unroll
+      for (int jj = 0; jj < kJ; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[jj][e]);
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii) {
+        mx[ii] = fmaxf(mx[ii], __shfl_xor_sync(0xffffffffu, mx[ii], 1));
+        mx[ii] = fmaxf(mx[ii], __shfl_xor_sync(0xffffffffu, mx[ii], 2));
+        const float m_new = fmaxf(
+            m[ii], mx[ii] == kNegInf ? kNegInf : mx[ii] * scale_log2);
+        corr[ii] = ex2(m[ii] - m_new);
+        m[ii] = m_new;
+        l[ii] *= corr[ii];
+      }
+#pragma unroll
+      for (int jj = 0; jj < kJ; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float mi = m[e >> 1];
+          const float x = fmaf(s[jj][e], scale_log2, -mi);
+          s[jj][e] = ex2(need_mask && s[jj][e] == kNegInf ? kNegInf - mi : x);
+          l[e >> 1] += s[jj][e];
+        }
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        acc[n][0] *= corr[0];
+        acc[n][1] *= corr[0];
+        acc[n][2] *= corr[1];
+        acc[n][3] *= corr[1];
+      }
+      // ---- acc += p v over the slab's columns
+      constexpr int P = Ge::kVPitch;
+      if constexpr (kF32) {
+        const float* vf = reinterpret_cast<const float*>(buf);
+#pragma unroll
+        for (int kk = 0; kk < kJ; ++kk) {
+          uint32_t ah[4], al[4];
+          split_p(s[kk][0], ah[0], al[0]);
+          split_p(s[kk][2], ah[1], al[1]);
+          split_p(s[kk][1], ah[2], al[2]);
+          split_p(s[kk][3], ah[3], al[3]);
+          const float* vr = vf + (kk * 8 + 2 * t) * P;
+#pragma unroll
+          for (int mm = 0; mm < kNT / 4; ++mm) {
+            const float4 x0 =
+                *reinterpret_cast<const float4*>(vr + v_dim(g, 4 * mm));
+            const float4 x1 =
+                *reinterpret_cast<const float4*>(vr + P + v_dim(g, 4 * mm));
+            const float a0[4] = {x0.x, x0.y, x0.z, x0.w};
+            const float a1[4] = {x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              uint32_t bh0, bl0, bh1, bl1;
+              split(a0[e], bh0, bl0);
+              split(a1[e], bh1, bl1);
+              float(&d)[4] = acc[4 * mm + e];
+              mma_tf32(d, al, bh0, bh1);
+              mma_tf32(d, ah, bl0, bl1);
+              mma_tf32(d, ah, bh0, bh1);
+            }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < kJ / 2; ++kk) {
+          const uint32_t pa[4] = {
+              pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+          const T* vr = buf + (kk * 16 + 2 * t) * P + g;
+#pragma unroll
+          for (int n = 0; n < kNT; ++n) {
+            const T* c = vr + n * 8;
+            const uint32_t b0 = pack_bf16(c[0], c[P]);
+            const uint32_t b1 = pack_bf16(c[8 * P], c[9 * P]);
+            mma_bf16(acc[n], pa, b0, b1);
+          }
+        }
+      }
+    }
+    __syncthreads();                 // buffer i & 1 may be refilled
+  }
+
+#pragma unroll
+  for (int ii = 0; ii < 2; ++ii) {
+    float li = l[ii];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    li = fmaxf(li, 1e-30f);
+    const int r = row0 + g + 8 * ii;
+    if (r >= Sq) continue;
+    if constexpr (kF32) {            // head dims v_dim(2t (+ 1), n)
+#pragma unroll
+      for (int mm = 0; mm < kNT / 4; ++mm) {
+        const int col = col_v + v_dim(2 * t, 4 * mm);
+        if (col >= D) continue;
+        float* dst = ob + (long long)r * D + col;
+        const int n = 4 * mm, c = 2 * ii;
+        *reinterpret_cast<float4*>(dst) =
+            make_float4(acc[n][c] / li, acc[n + 1][c] / li,
+                        acc[n + 2][c] / li, acc[n + 3][c] / li);
+        *reinterpret_cast<float4*>(dst + 4) = make_float4(
+            acc[n][c + 1] / li, acc[n + 1][c + 1] / li,
+            acc[n + 2][c + 1] / li, acc[n + 3][c + 1] / li);
+      }
+    } else {
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        if (col_v + n * 8 >= D) continue;
+        *reinterpret_cast<__nv_bfloat162*>(ob + (long long)r * D + col_v +
+                                           n * 8 + 2 * t) =
+            __floats2bfloat162_rn(acc[n][2 * ii] / li,
+                                  acc[n][2 * ii + 1] / li);
+      }
+    }
+  }
+}
+
+template <typename T>
+int launch_slab(const void* q, const void* k, const void* v, void* o, int B,
+                int H, int KV, int Sq, int Sk, int D, float scale,
+                int causal, int window, cudaStream_t stream) {
+  const size_t smem = slab::Geo<T>::kSmem;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_attention_slab<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) {      // report it, leave no stale error behind
+    cudaGetLastError();
+    return (int)e;
+  }
+  const int nslab = (D + slab::kNS - 1) / slab::kNS;
+  const dim3 grid((Sq + kBQ - 1) / kBQ * nslab, H, B);
+  flash_attention_slab<T><<<grid, slab::kThreads, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, H, KV, Sq, Sk, D, nslab,
+      scale * kLog2e, causal, window);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int KV, int Sq, int Sk, float scale, int causal,
@@ -1839,6 +2216,9 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, void* ws,
         return wg::launch(q, k, v, o, B, H, KV, Sq, Sk, scale, causal,
                           window, s);
     default:
+      if (hd > 256 && hd % 8 == 0)
+        return launch_slab<T>(q, k, v, o, B, H, KV, Sq, Sk, hd, scale,
+                              causal, window, s);
       return (int)cudaErrorInvalidValue;
   }
 }
@@ -1847,10 +2227,11 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, void* ws,
 
 // q: (B, H, Sq, hd); k, v: (B, KV, Sk, hd); o: (B, H, Sq, hd); contiguous,
 // 16-byte aligned, all of one type: dtype 0 = float32, 1 = bfloat16.
-// H % KV == 0, hd in {32, 64, 128, 256}; window <= 0 means no sliding
-// window.  scale is the softmax scale of the true head dim: the wrapper
-// zero-pads q, k and v of any other hd <= 256 up to the next of these
-// bodies, which changes no score and no kept column.  ws: float32 at
+// H % KV == 0, hd in {32, 64, 128, 256} or a multiple of 8 above 256 (the
+// slab body); window <= 0 means no sliding window.  scale is the softmax
+// scale of the true head dim: the wrapper zero-pads q, k and v of any other
+// hd up to the next of these bodies, which changes no score and no kept
+// column.  ws: float32 at
 // hd 256 only, flash_attention_workspace_floats(B * KV, Sk) floats,
 // 16-byte aligned (the split planes of k and v); else unused.  Returns
 // cudaGetLastError() of the launch, or 100000 + the CUresult of a tensor

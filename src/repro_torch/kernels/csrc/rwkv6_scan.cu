@@ -8,11 +8,22 @@
 //   S_t = diag(exp(lw_t)) S_{t-1} + k_t v_t^T
 // r, k, v (B, H, T, K|V) float32 or bfloat16 (one type), lw (B, H, T, K)
 // float32, each read in place through its element strides (batch, head,
-// token) with the last dimension contiguous and rows 16-byte aligned.
-// u (H, K) and s0 (B, H, K, V) float32, contiguous.  out in r's type
-// through its strides (the wrapper passes a (B, T, H, V) tensor, the
-// layout the time-mix reads); sT (B, H, K, V) float32.  K in
-// {16, 32, 64, 128}; any T >= 1 and V >= 1.
+// token) with the last dimension contiguous.  u (H, K) and s0 (B, H, K, V)
+// float32, contiguous.  out in r's type through its strides (the wrapper
+// passes a (B, T, H, V) tensor, the layout the time-mix reads); sT
+// (B, H, K, V) float32.  Any K >= 1, T >= 1 and V >= 1:
+//   - the body is instantiated at K 16, 32, 64 and 128 (Kp); a K between
+//     runs the next of them with r, k, lw and u zero past K in shared
+//     memory and the state's rows past K neither loaded from s0 nor stored
+//     to sT.  That is exact: a zero key adds nothing to the state, a zero
+//     r reads nothing from it, and those rows start at zero;
+//   - a K above 128 splits the state into slabs of 128 rows, each run by
+//     its own blocks on its rows (its share of r S and of the bonus
+//     (r . u . k) v) into a float32 scratch; a second kernel
+//     (rwkv6_sum_slabs) sums the slabs' partial outputs in slab order, so
+//     a repeated call is bit-identical;
+//   - rows that are not 16-byte aligned (start or strides of r, k, v or
+//     lw) are copied element by element instead of by cp.async.
 //
 // The TPU kernel is chunked because its matrix unit wants (c, c) products:
 // within a chunk it scales r and k by exp(+-cumsum(lw)), up to e^64, and
@@ -58,6 +69,8 @@
 //     its one token by an all-reduce instead.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -187,13 +200,20 @@ struct Strides {
   long long b, h, t;
 };
 
-template <typename T, int K>
+// grid (ceil(V / kCols) x slabs, H, B).  The block's slab holds the
+// state's rows k0 .. k0 + K - 1 (k0 = K slab) of the Kall rows, of which
+// the first Kt = min(K, Kall - k0) are real.  out: TO through os_, plus
+// slab_stride a slab (a slab's partial sums, float32, where Kall > 128).
+// VEC: r, k, v and lw rows 16-byte aligned, copied by cp.async; else
+// element by element.
+template <typename T, typename TO, int K, bool VEC>
 __global__ void __launch_bounds__(Geo<T, K>::kThreads)
 rwkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
                   const T* __restrict__ v, const float* __restrict__ lw,
                   const float* __restrict__ u, const float* __restrict__ s0,
-                  T* __restrict__ out, float* __restrict__ sT, int H, int T_,
-                  int V, Strides rs_, Strides ks_, Strides ws_, Strides vs_,
+                  TO* __restrict__ out, float* __restrict__ sT, int H,
+                  int T_, int V, int Kall, int n_vb, long long slab_stride,
+                  Strides rs_, Strides ks_, Strides ws_, Strides vs_,
                   Strides os_) {
   using G = Geo<T, K>;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -201,22 +221,28 @@ rwkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
+  const int slab = blockIdx.x / n_vb;
+  const int k0 = slab * K;                  // the slab's first state row
+  const int Kt = min(K, Kall - k0);         // its real rows
   const int p = tid % G::kSplit;            // rows p * 4.. of S here
   const int g = tid % G::kGroups;           // the row group it stages
   const int c0 = 4 * (tid / G::kSplit);     // its four columns in the tile
-  const int col0 = blockIdx.x * G::kCols;
+  const int col0 = blockIdx.x % n_vb * G::kCols;
   const int col = col0 + c0;
   const long long bh = (long long)b * H + h;
   constexpr long long E = sizeof(T);
+  // the real rows of the thread's staged row group, and its bytes of r, k
+  const int g_rows = min(max(Kt - g * kItemRows, 0), kItemRows);
+  const int g_bytes = g_rows * (int)E;
   const unsigned char* rb = reinterpret_cast<const unsigned char*>(
-      r + b * rs_.b + h * rs_.h + g * kItemRows);
+      r + b * rs_.b + h * rs_.h + k0 + g * kItemRows);
   const unsigned char* kb = reinterpret_cast<const unsigned char*>(
-      k + b * ks_.b + h * ks_.h + g * kItemRows);
+      k + b * ks_.b + h * ks_.h + k0 + g * kItemRows);
   const unsigned char* wb = reinterpret_cast<const unsigned char*>(
-      lw + b * ws_.b + h * ws_.h + g * kItemRows);
+      lw + b * ws_.b + h * ws_.h + k0 + g * kItemRows);
   const unsigned char* vb = reinterpret_cast<const unsigned char*>(
       v + b * vs_.b + h * vs_.h + col0);
-  T* ob = out + b * os_.b + h * os_.h;
+  TO* ob = out + slab * slab_stride + b * os_.b + h * os_.h;
   const int n_chunks = (T_ + kChunk - 1) / kChunk;
   const bool vec_ok =
       ((unsigned long long)ob % 16 == 0) && (os_.t % G::kOVec == 0);
@@ -242,6 +268,24 @@ rwkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
   constexpr int kMineV = (G::kVChunks + G::kThreads - 1) / G::kThreads;
   const long long step_r = kChunk * rs_.t * E, step_k = kChunk * ks_.t * E,
                   step_w = kChunk * ws_.t * 4, step_v = kChunk * vs_.t * E;
+  // a piece of n real bytes (the rest of its 16 zero): cp.async where
+  // the rows are aligned, else element by element (the bits of an element
+  // of el's size)
+  using Raw = typename std::conditional<sizeof(T) == 2, unsigned short,
+                                        unsigned>::type;
+  auto piece = [&](unsigned char* d, const unsigned char* s_, int n,
+                   auto el) {
+    if constexpr (VEC) {
+      cp_async16(d, s_, n);
+    } else {
+      using EL = decltype(el);
+#pragma unroll
+      for (int e = 0; e < 16 / (int)sizeof(EL); ++e)
+        reinterpret_cast<EL*>(d)[e] =
+            e * (int)sizeof(EL) < n ? reinterpret_cast<const EL*>(s_)[e]
+                                    : EL(0);
+    }
+  };
   auto issue = [&](int ch) {
     unsigned char* st = stage(ch);
     const int t0 = ch * kChunk;
@@ -249,19 +293,23 @@ rwkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
     for (int j = 0; j < kMine; ++j) {
       if (tid + j * G::kThreads >= G::kItems) break;
       const int t = (tid + j * G::kThreads) / G::kGroups;
-      const int n = t0 + t < T_ ? 16 : 0;
+      const bool in = t0 + t < T_;
       const unsigned char* r_ = src[j][0] + ch * step_r;
       const unsigned char* k_ = src[j][1] + ch * step_k;
       const unsigned char* w_ = src[j][2] + ch * step_w;
 #pragma unroll
       for (int q = 0; q < kItemRows * (int)E / 16; ++q) {
-        cp_async16(st + dst[j] * E + q * 16, n ? r_ + q * 16 : rb, n);
-        cp_async16(st + G::kR + dst[j] * E + q * 16, n ? k_ + q * 16 : kb,
-                   n);
+        const int n = in ? min(max(g_bytes - q * 16, 0), 16) : 0;
+        piece(st + dst[j] * E + q * 16, n ? r_ + q * 16 : rb, n, Raw(0));
+        piece(st + G::kR + dst[j] * E + q * 16, n ? k_ + q * 16 : kb, n,
+              Raw(0));
       }
 #pragma unroll
-      for (int q = 0; q < 2; ++q)
-        cp_async16(st + G::kW + dst[j] * 4 + q * 16, n ? w_ + q * 16 : wb, n);
+      for (int q = 0; q < 2; ++q) {
+        const int n = in ? min(max(g_rows * 4 - q * 16, 0), 16) : 0;
+        piece(st + G::kW + dst[j] * 4 + q * 16, n ? w_ + q * 16 : wb, n,
+              0u);
+      }
     }
 #pragma unroll
     for (int j = 0; j < kMineV; ++j) {     // its 16-byte pieces of v
@@ -269,8 +317,8 @@ rwkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
       if (i >= G::kVChunks) break;
       const int t = i / G::kPerRow, q = i % G::kPerRow;
       const int n = t0 + t < T_ ? min(max(v_bytes - q * 16, 0), 16) : 0;
-      cp_async16(st + G::kV + (t * G::kCols + q * G::kOVec) * E,
-                 n ? vb + t * vs_.t * E + ch * step_v + q * 16 : vb, n);
+      piece(st + G::kV + (t * G::kCols + q * G::kOVec) * E,
+            n ? vb + t * vs_.t * E + ch * step_v + q * 16 : vb, n, Raw(0));
     }
   };
 
@@ -315,7 +363,7 @@ rwkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
       if ((c0 >> 2) & 1) return;
     }
     if (p != 0 || tok >= T_ || col0 + c0 >= V) return;
-    T* dst = ob + (long long)tok * os_.t + col0 + c0;
+    TO* dst = ob + (long long)tok * os_.t + col0 + c0;
     if constexpr (sizeof(T) == 2 && G::kSplit < 32) {
       write_out(dst, x, vec_ok, V - col0 - c0);
     } else {
@@ -324,16 +372,22 @@ rwkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
     }
   };
 
-  float uq[kRows];                // u of this thread's rows
+  float uq[kRows];                // u of this thread's rows (0 past Kt)
 #pragma unroll
-  for (int m = 0; m < kRows; ++m) uq[m] = u[(long long)h * K + p * kRows + m];
-  // S and sT move as 16-byte rows of four columns where V allows it
+  for (int m = 0; m < kRows; ++m)
+    uq[m] = p * kRows + m < Kt ? u[(long long)h * Kall + k0 + p * kRows + m]
+                               : 0.f;
+  // S and sT move as 16-byte rows of four columns where V allows it; rows
+  // past Kt start at zero and are not stored
   const bool s_vec = V % 4 == 0;
   float S[4][kRows];              // rows p * 4.. of columns col..col + 3
 #pragma unroll
   for (int m = 0; m < kRows; ++m) {
-    const float* src = s0 + (bh * K + p * kRows + m) * V + col;
-    if (s_vec && col < V) {
+    const float* src = s0 + (bh * Kall + k0 + p * kRows + m) * V + col;
+    if (p * kRows + m >= Kt) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) S[c][m] = 0.f;
+    } else if (s_vec && col < V) {
       const float4 x = *reinterpret_cast<const float4*>(src);
       S[0][m] = x.x; S[1][m] = x.y; S[2][m] = x.z; S[3][m] = x.w;
     } else {
@@ -438,7 +492,8 @@ rwkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
 
 #pragma unroll
   for (int m = 0; m < kRows; ++m) {
-    float* dst = sT + (bh * K + p * kRows + m) * V + col;
+    if (p * kRows + m >= Kt) break;
+    float* dst = sT + (bh * Kall + k0 + p * kRows + m) * V + col;
     if (s_vec && col < V) {
       *reinterpret_cast<float4*>(dst) =
           make_float4(S[0][m], S[1][m], S[2][m], S[3][m]);
@@ -450,16 +505,45 @@ rwkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
   }
 }
 
-template <typename T, int K>
-int launch(const void* r, const void* k, const void* v, const float* lw,
-           const float* u, const float* s0, void* out, float* sT, int B,
-           int H, int T_, int V, const long long* st, cudaStream_t stream) {
-  using G = Geo<T, K>;
+// out[b, h, t, c] = the slabs' partial sums of o, added in slab order, in
+// T through out's strides; part: (slabs, B, H, T, V) float32, n = B H T V
+template <typename T>
+__global__ void __launch_bounds__(256)
+rwkv6_sum_slabs(const float* __restrict__ part, T* __restrict__ out,
+                int slabs, int H, int T_, int V, long long n, Strides os) {
+  for (long long i = blockIdx.x * 256ll + threadIdx.x; i < n;
+       i += (long long)gridDim.x * 256) {
+    float x = part[i];
+    for (int sl = 1; sl < slabs; ++sl) x += part[sl * n + i];
+    const int c = (int)(i % V);
+    long long rest = i / V;
+    const int t = (int)(rest % T_);
+    rest /= T_;
+    const int h = (int)(rest % H);
+    store1(out + rest / H * os.b + h * os.h + t * os.t + c, x);
+  }
+}
+
+struct Call {
+  const void *r, *k, *v;
+  const float *lw, *u, *s0;
+  float* sT;
+  int B, H, T_, K, V;
+  const long long* st;     // strides of r, k, lw, v, out (see below)
+  cudaStream_t stream;
+};
+
+// the body at KP rows a slab, its outputs (TO) through os (and
+// slab_stride a slab)
+template <typename T, typename TO, int KP, bool VEC>
+int launch(const Call& c, TO* out, Strides os, long long slab_stride) {
+  using G = Geo<T, KP>;
+  auto kernel = rwkv6_scan_kernel<T, TO, KP, VEC>;
   static unsigned ready = 0;   // devices whose shared-memory limit is set
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess && !(ready >> (dev & 31) & 1u)) {
-    e = cudaFuncSetAttribute(rwkv6_scan_kernel<T, K>,
+    e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              G::kSmem);
     if (e == cudaSuccess) ready |= 1u << (dev & 31);
@@ -468,44 +552,51 @@ int launch(const void* r, const void* k, const void* v, const float* lw,
     cudaGetLastError();
     return (int)e;
   }
-  const dim3 grid((V + G::kCols - 1) / G::kCols, H, B);
-  rwkv6_scan_kernel<T, K><<<grid, G::kThreads, G::kSmem, stream>>>(
-      (const T*)r, (const T*)k, (const T*)v, lw, u, s0, (T*)out, sT, H, T_,
-      V, Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
-      Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]},
-      Strides{st[12], st[13], st[14]});
+  const long long* st = c.st;
+  const int n_vb = (c.V + G::kCols - 1) / G::kCols;
+  const dim3 grid(n_vb * ((c.K + KP - 1) / KP), c.H, c.B);
+  kernel<<<grid, G::kThreads, G::kSmem, c.stream>>>(
+      (const T*)c.r, (const T*)c.k, (const T*)c.v, c.lw, c.u, c.s0, out,
+      c.sT, c.H, c.T_, c.V, c.K, n_vb, slab_stride,
+      Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
+      Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]}, os);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_k(const void* r, const void* k, const void* v, const float* lw,
-             const float* u, const float* s0, void* out, float* sT, int B,
-             int H, int T_, int K, int V, const long long* st,
-             cudaStream_t s) {
-  switch (K) {
-    case 16:
-      return launch<T, 16>(r, k, v, lw, u, s0, out, sT, B, H, T_, V, st, s);
-    case 32:
-      return launch<T, 32>(r, k, v, lw, u, s0, out, sT, B, H, T_, V, st, s);
-    case 64:
-      return launch<T, 64>(r, k, v, lw, u, s0, out, sT, B, H, T_, V, st, s);
-    case 128:
-      return launch<T, 128>(r, k, v, lw, u, s0, out, sT, B, H, T_, V, st, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+// K up to 128: the least instantiation at or above it, straight into out;
+// above 128: slabs of 128 rows into `part`, then their sum
+template <typename T, bool VEC>
+int launch_k(const Call& c, void* out, float* part) {
+  const Strides os{c.st[12], c.st[13], c.st[14]};
+  if (c.K <= 16) return launch<T, T, 16, VEC>(c, (T*)out, os, 0);
+  if (c.K <= 32) return launch<T, T, 32, VEC>(c, (T*)out, os, 0);
+  if (c.K <= 64) return launch<T, T, 64, VEC>(c, (T*)out, os, 0);
+  if (c.K <= 128) return launch<T, T, 128, VEC>(c, (T*)out, os, 0);
+  if (part == nullptr) return (int)cudaErrorInvalidValue;
+  const long long n = (long long)c.B * c.H * c.T_ * c.V;
+  const int rc = launch<T, float, 128, VEC>(
+      c, part, Strides{(long long)c.H * c.T_ * c.V, (long long)c.T_ * c.V,
+                       c.V}, n);
+  if (rc != 0) return rc;
+  const long long want = (n + 255) / 256;
+  const long long blocks = want < 132 * 16 ? want : 132 * 16;
+  rwkv6_sum_slabs<T><<<(unsigned)blocks, 256, 0, c.stream>>>(
+      part, (T*)out, (c.K + 127) / 128, c.H, c.T_, c.V, n, os);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// One array a of 29 values, so that a call converts two arguments: the
+// One array a of 30 values, so that a call converts two arguments: the
 // pointers r, k, v, lw, u, s0, out, sT; then B, H, T, K, V and the dtype of
 // r, k, v and out (0 = float32, 1 = bfloat16; lw, u, s0 and sT are
 // float32); then the element strides (batch, head, token) of r, k, lw, v
-// and out.  r, k, lw: (B, H, T, K); v, out: (B, H, T, V); last dimensions
-// contiguous; r, k, lw and v 16-byte aligned rows.  u: (H, K) and s0, sT:
-// (B, H, K, V) contiguous.  K in {16, 32, 64, 128}.
-// Returns cudaGetLastError() of the launch.
+// and out; then `part`, float32 scratch of ceil(K / 128) B H T V where
+// K > 128 (else unused).  r, k, lw: (B, H, T, K); v, out: (B, H, T, V);
+// last dimensions contiguous.  u: (H, K) and s0, sT: (B, H, K, V)
+// contiguous.  Any K >= 1; rows of r, k, lw and v that are 16-byte aligned
+// (start and strides) are copied by cp.async, others element by element.
+// Returns cudaGetLastError() of the launches.
 extern "C" int rwkv6_scan_launch(const long long* a, void* stream) {
   const void *r = (const void*)a[0], *k = (const void*)a[1],
              *v = (const void*)a[2], *lw = (const void*)a[3],
@@ -514,26 +605,25 @@ extern "C" int rwkv6_scan_launch(const long long* a, void* stream) {
   const int B = (int)a[8], H = (int)a[9], T_ = (int)a[10], K = (int)a[11],
             V = (int)a[12], dtype = (int)a[13];
   const long long* st = a + 14;
+  float* part = (float*)a[29];
   if (B <= 0 || H <= 0 || V <= 0) return 0;
-  if (T_ <= 0 || H > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
+  if (T_ <= 0 || K <= 0 || H > 65535 || B > 65535)
+    return (int)cudaErrorInvalidValue;
   const long long align = dtype == 1 ? 8 : 4;     // elements per 16 bytes
   const int sizes[3] = {B, H, T_};                // a size-1 stride is moot
+  bool vec = !((((unsigned long long)r | (unsigned long long)k |
+                 (unsigned long long)lw | (unsigned long long)v) & 15));
   for (int i = 0; i < 12; ++i)                    // r, k: T; lw: float; v: T
     if (sizes[i % 3] > 1 && st[i] % (i < 6 || i >= 9 ? align : 4))
-      return (int)cudaErrorInvalidValue;
-  if (((unsigned long long)r | (unsigned long long)k |
-       (unsigned long long)lw | (unsigned long long)v) & 15)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const float* lwf = (const float*)lw;
-  const float* uf = (const float*)u;
-  const float* s0f = (const float*)s0;
-  float* sTf = (float*)sT;
+      vec = false;
+  const Call c{r, k, v, (const float*)lw, (const float*)u,
+               (const float*)s0, (float*)sT, B, H, T_, K, V, st,
+               (cudaStream_t)stream};
   if (dtype == 0)
-    return launch_k<float>(r, k, v, lwf, uf, s0f, out, sTf, B, H, T_, K, V,
-                           st, s);
+    return vec ? launch_k<float, true>(c, out, part)
+               : launch_k<float, false>(c, out, part);
   if (dtype == 1)
-    return launch_k<__nv_bfloat16>(r, k, v, lwf, uf, s0f, out, sTf, B, H, T_,
-                                   K, V, st, s);
+    return vec ? launch_k<__nv_bfloat16, true>(c, out, part)
+               : launch_k<__nv_bfloat16, false>(c, out, part);
   return (int)cudaErrorInvalidValue;
 }

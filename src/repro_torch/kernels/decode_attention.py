@@ -3,11 +3,18 @@
 ``decode_attention_bkgd`` takes q (B, KV, G, hd), the G query heads of
 each kv head, and k, v (B, KV, S, hd), with ``kv_len`` an int or a
 one-element integer tensor in 1..S; keys at ``kv_len`` or later are
-masked.  On a CUDA tensor it launches ``csrc/decode_attention.cu`` (hd 64,
-128 or 256, G up to 16, float32 or bfloat16, any S: the kernel masks the
-ragged edge itself); on a CPU or ``meta`` tensor it runs
+masked.  On a CUDA tensor it launches ``csrc/decode_attention.cu`` at any
+hd >= 1, any G >= 1, any S (the kernel masks the ragged edge itself), in
+float32 or bfloat16; on a CPU or ``meta`` tensor it runs
 ``decode_attention_plain``, the full-softmax ``ref.decode_attention_ref``;
-any other device raises.
+any other device raises.  ``body_for`` says which body runs a shape: an
+hd up to 256 the least of the 64, 128 and 256 wide bodies at or above it
+(the columns past hd zero in shared memory, never in device memory), in
+chunks of 16 query heads (bf16 at widths 64 and 128 beyond 16 heads: the
+rows body, 16 heads a warp and up to 128 a block, each cache row read
+once a block); an hd above 256, or a cache whose rows are not 16-byte
+aligned, the slab body (128 columns of the output a block, the scores
+over the whole hd).
 k and v are read in place through their strides, so a transposed view of
 the model's (B, S, KV, hd) cache launches without a copy.  A ``kv_len``
 tensor stays on the device: the kernel reads it there and cuts the valid
@@ -18,14 +25,15 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
 from repro_torch.kernels import build, ref
 
-HEAD_DIMS = (64, 128, 256)
-MAX_GROUP = 16
+HEAD_DIMS = (64, 128, 256)  # the widths of the bodies that take hd <= 256
+GROUP_CHUNK = 16          # query heads a block (the mma A operand's rows)
+SLAB = 128                # output columns a block of the slab body
 TILE = 64                 # keys per tile of the kernel (kTile in the source)
 MAX_SPLITS = 64
 WAVE_FILL = 0.9           # least share of the last wave's slots in use
@@ -64,6 +72,47 @@ def split_count(B: int, KV: int, S: int, n_sm: int, per_sm: int) -> int:
     return best
 
 
+class Body(NamedTuple):
+    """The body that runs a shape: ``width`` 64, 128 or 256 (its columns;
+    the hd past the true one is zero in shared memory), or 0 for the slab
+    body; ``rows`` query heads a block (``GROUP_CHUNK``, or the rows
+    body's 32, 64 or 128) in ``chunks`` blocks a kv head; ``slabs`` blocks
+    of ``SLAB`` output columns (the slab body's, else 1)."""
+    width: int
+    chunks: int
+    slabs: int
+    rows: int = GROUP_CHUNK
+
+    @property
+    def name(self) -> str:
+        if self.width == 0:
+            return "slab"
+        return f"w{self.width}" + ("_rows" if self.rows > GROUP_CHUNK
+                                   else "")
+
+
+def body_for(hd: int, dtype: torch.dtype, G: int, aligned: bool = True
+             ) -> Body:
+    """The body of the CUDA kernel that runs head dim ``hd`` in ``dtype``
+    at ``G`` query heads a kv head: the least of ``HEAD_DIMS`` at or above
+    hd where the cache's rows are 16-byte ``aligned`` (start and strides),
+    else the slab body, which also takes every hd above 256.  bf16 at
+    widths 64 and 128 beyond 16 heads runs the rows body: a warp a 16
+    heads, the least of 32, 64 and 128 heads a block that holds G (128
+    and more blocks beyond)."""
+    if hd < 1 or G < 1:
+        raise ValueError(f"decode_attention: hd {hd} and G {G} must be >= 1")
+    if aligned:
+        for width in HEAD_DIMS:
+            if hd <= width:
+                rows = GROUP_CHUNK
+                if dtype == torch.bfloat16 and width < 256 \
+                        and G > GROUP_CHUNK:
+                    rows = 32 if G <= 32 else 64 if G <= 64 else 128
+                return Body(width, -(-G // rows), 1, rows)
+    return Body(0, -(-G // GROUP_CHUNK), -(-hd // SLAB))
+
+
 def split_span(kv_len: int, nsplit: int, split: int) -> Tuple[int, int]:
     """Keys [lo, hi) of one split, as the kernel derives them from kv_len
     on the device: ceil(tiles / nsplit) whole tiles per split, the last
@@ -73,37 +122,48 @@ def split_span(kv_len: int, nsplit: int, split: int) -> Tuple[int, int]:
     return lo, min(lo + per * TILE, kv_len)
 
 
-def scratch_floats(B: int, KV: int, G: int, hd: int, nsplit: int) -> int:
-    """float32 scratch of a call of ``nsplit`` splits: each split's (acc,
-    m, l) of its G rows, B KV nsplit G (hd + 2); none for one split."""
-    return 0 if nsplit == 1 else B * KV * nsplit * G * (hd + 2)
+def scratch_floats(B: int, KV: int, G: int, hd: int, nsplit: int,
+                   rows: int = GROUP_CHUNK) -> int:
+    """float32 scratch of a call of ``nsplit`` splits whose body takes
+    ``rows`` query heads a block: each (b, kv head, chunk of query heads,
+    split)'s (acc, m, l) at a pitch of min(G, rows) rows, B KV ceil(G /
+    rows) nsplit min(G, rows) (hd + 2); none for one split."""
+    if nsplit == 1:
+        return 0
+    return B * KV * -(-G // rows) * nsplit * min(G, rows) * (hd + 2)
 
 
 def cache_strides(t: torch.Tensor) -> Tuple[int, int, int]:
     """The (batch, kv head, key) element strides through which the kernel
     reads a (B, KV, S, hd) k or v in place (0 for a dimension of size 1).
-    It needs the last dimension contiguous and 16-byte aligned rows."""
-    align = 16 // t.element_size()
-    strides = tuple(s if n > 1 else 0 for s, n in zip(t.stride()[:3],
-                                                      t.shape[:3]))
-    if t.stride(3) != 1 or t.data_ptr() % 16 or any(s % align
-                                                     for s in strides):
+    It needs the last dimension contiguous."""
+    if t.stride(3) != 1 and t.shape[3] > 1:
         raise ValueError(f"decode_attention kernel reads k and v in place "
-                         f"and needs a contiguous last dimension and "
-                         f"16-byte aligned rows; got strides {t.stride()}")
-    return strides
+                         f"and needs a contiguous last dimension; got "
+                         f"strides {t.stride()}")
+    return tuple(s if n > 1 else 0 for s, n in zip(t.stride()[:3],
+                                                   t.shape[:3]))
 
 
-def _slots(device: torch.device, hd: int, dtype: int, G: int, lib
+def rows_aligned(t: torch.Tensor, strides: Tuple[int, int, int]) -> bool:
+    """Whether every row of ``t`` starts on a 16-byte boundary (its start
+    and its ``cache_strides``), as 16-byte copies and tensor maps need."""
+    align = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and not any(s % align for s in strides)
+
+
+def _slots(device: torch.device, width: int, dtype: int, G: int, lib
            ) -> Tuple[int, int]:
-    """(SMs, resident blocks per SM) of the kernel that (hd, dtype, G)
-    launches, read once per device and kernel."""
-    key = (device.index, hd, dtype, 4 if G <= 4 else 8 if G <= 8 else 16)
+    """(SMs, resident blocks per SM) of the body of ``width`` (0: the slab
+    body) that (dtype, G) launches, read once per device and body."""
+    key = (device.index, width, dtype,
+           next(n for n in (4, 8, 16, 32, 64, 128, 1 << 16) if G <= n))
     got = _SLOTS.get(key)
     if got is None:
         per_sm = ctypes.c_int(0)
         build.check(lib.decode_attention_blocks_per_sm(
-            hd, dtype, G, ctypes.byref(per_sm)), "decode_attention occupancy")
+            width, dtype, G, ctypes.byref(per_sm)),
+            "decode_attention occupancy")
         got = _SLOTS[key] = (torch.cuda.get_device_properties(
             device).multi_processor_count, max(per_sm.value, 1))
     return got
@@ -134,16 +194,15 @@ def decode_attention_bkgd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError(f"decode_attention kernel takes float32 or bfloat16, "
                         f"got {q.dtype}")
     B, KV, G, hd = q.shape
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"decode_attention kernel takes head_dim in "
-                         f"{HEAD_DIMS}, got {hd}")
-    if not 1 <= G <= MAX_GROUP or KV > 65535 or B > 65535:
-        raise ValueError(f"decode_attention kernel takes 1..{MAX_GROUP} query "
-                         f"heads per kv head and at most 65535 kv heads and "
-                         f"batch rows, got G={G}, KV={KV}, B={B}")
+    if KV > 65535 or B > 65535 or G > 65535:
+        raise ValueError(f"decode_attention kernel takes at most 65535 query "
+                         f"heads per kv head, kv heads and batch rows, got "
+                         f"G={G}, KV={KV}, B={B}")
     if not q.is_contiguous():
         raise ValueError("decode_attention kernel needs a contiguous q")
     ks, vs = cache_strides(k), cache_strides(v)
+    body = body_for(hd, q.dtype, G,
+                    rows_aligned(k, ks) and rows_aligned(v, vs))
     if isinstance(kv_len, torch.Tensor):
         if kv_len.numel() != 1 or kv_len.dtype.is_floating_point:
             raise ValueError(f"decode_attention: kv_len must be one integer, "
@@ -158,15 +217,17 @@ def decode_attention_bkgd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return out
     code = _DTYPE_CODES[q.dtype]
-    nsplit = split_count(B, KV, S, *_slots(q.device, hd, code, G, lib))
-    floats = scratch_floats(B, KV, G, hd, nsplit)
+    nsplit = split_count(B, KV * body.chunks * body.slabs, S,
+                         *_slots(q.device, body.width, code, G, lib))
+    floats = scratch_floats(B, KV, G, hd, nsplit, body.rows)
     part = (torch.empty(floats, dtype=torch.float32, device=q.device)
             if floats else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
         out.data_ptr(), 0 if part is None else part.data_ptr(), B, KV, G, S,
-        hd, code, nsplit, 1.0 / math.sqrt(hd), *ks, *vs, stream)
+        hd, body.width, code, nsplit, body.chunks, body.slabs,
+        1.0 / math.sqrt(hd), *ks, *vs, stream)
     if rc >= _MAP_ERROR:
         raise RuntimeError(f"decode_attention_launch: the driver refused a "
                            f"TMA tensor map (CUresult {rc - _MAP_ERROR})")

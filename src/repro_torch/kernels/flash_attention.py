@@ -11,13 +11,17 @@ edge itself); hd 256 runs Hopper bodies of its own, bf16's and float32's
 refuse: that raises too; float32's first splits k and v into TF32
 planes, in a workspace the wrapper allocates).  ``wgmma_probe`` and
 ``f32_wgmma_probe`` run each body's two products on one tile, for a card
-test.  Every other hd up to 256 runs through the kernel too, as
-the Pallas kernel runs any hd: q, k and v are zero-padded along hd up to
-the next body, which runs with the true hd's scale, and the output is
+test.  A head dim above 256 runs the slab body (``csrc``'s
+``flash_attention_slab``: a block owns 128 columns of o and computes the
+scores over the whole hd in chunks of 64, on mma.sync in either type).
+Every other hd runs through the kernel too, as the Pallas kernel runs any
+hd: q, k and v are zero-padded along hd up to the body's
+(``body_head_dim``: the next of ``HEAD_DIMS`` up to 256, the next multiple
+of 8 above), which runs with the true hd's scale, and the output is
 sliced back.  Zero columns add nothing to a score and leave the kept
 columns as they are, so this is the same function; the pad costs a copy
-of q, k and v and the slice one of o.  A head dim above 256 raises on
-the card.  On a CPU or ``meta`` tensor it runs ``flash_attention_plain``,
+of q, k and v and the slice one of o.  No head dim is refused.  On a CPU
+or ``meta`` tensor it runs ``flash_attention_plain``,
 the full-softmax ``ref.flash_attention_ref``; any other device raises.
 The JAX package's kernel has no gradient, and neither has this one:
 inputs that require grad raise.
@@ -31,7 +35,8 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-HEAD_DIMS = (32, 64, 128, 256)      # the kernel's bodies
+HEAD_DIMS = (32, 64, 128, 256)      # the kernel's bodies up to 256
+SLAB_ALIGN = 8          # the slab body's head dims: multiples of 8 above 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAP_ERROR = 100000     # the C side's code for a refused tensor map, + CUresult
 
@@ -55,14 +60,14 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def body_head_dim(hd: int) -> int:
-    """The kernel body that runs head dim ``hd``: the least of
-    ``HEAD_DIMS`` at or above it (the rest is zero padding)."""
+    """The head dim the kernel runs for ``hd``: the least of ``HEAD_DIMS``
+    at or above it, or above 256 the next multiple of ``SLAB_ALIGN`` (the
+    slab body's; 16-byte rows in either type).  The rest is zero
+    padding."""
     for body in HEAD_DIMS:
         if hd <= body:
             return body
-    raise ValueError(f"flash_attention kernel takes head_dim up to "
-                     f"{HEAD_DIMS[-1]} (bodies {HEAD_DIMS}, smaller ones "
-                     f"zero-padded), got {hd}")
+    return -(-hd // SLAB_ALIGN) * SLAB_ALIGN
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

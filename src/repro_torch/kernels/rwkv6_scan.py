@@ -4,10 +4,14 @@
 and s0 (B, H, K, V) and returns ``(out (B, H, T, V) in r's dtype,
 sT (B, H, K, V) float32)``.  r, k and v are float32 or bfloat16 (the
 model's dtype); lw, u and s0 are float32, as the RWKV time-mix passes
-them.  On a CUDA tensor it launches ``csrc/rwkv6_scan.cu`` (K in 16, 32,
-64 or 128; any T >= 1 and V >= 1; r, k, v and lw read in place
-through their strides, with 16-byte aligned rows; u and s0
-contiguous); on a CPU or ``meta`` tensor it runs
+them.  On a CUDA tensor it launches ``csrc/rwkv6_scan.cu`` (any K, T and
+V >= 1: a K up to 128 runs the least of the 16, 32, 64 and 128 row
+instantiations at or above it, zero past K in shared memory; a K above
+128 runs slabs of 128 state rows into a float32 scratch that a second
+kernel sums in slab order; r, k, v and lw read in place through their
+strides, by 16-byte copies where their rows are 16-byte aligned, else
+element by element; u and s0 contiguous); on a CPU or ``meta`` tensor it
+runs
 ``rwkv6_scan_plain``, the sequential ``ref.rwkv6_scan_ref``; any other
 device raises.  The JAX package's kernel has no gradient, and neither
 has this one: inputs that require grad raise.
@@ -21,7 +25,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-KEY_DIMS = (16, 32, 64, 128)
+SLAB_ROWS = 128                 # state rows a slab where K is above 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -55,13 +59,12 @@ def _check(r, k, v, lw, u, s0) -> None:
 def scan_strides(t: torch.Tensor) -> Tuple[int, int, int]:
     """The (batch, head, token) element strides through which the kernel
     reads a (B, H, T, ·) input in place; the last dimension must be
-    contiguous.  The kernel copies rows by 16-byte cp.async, so it also
-    needs the start and the strides of dimensions longer than one 16-byte
-    aligned; the launch checks that (its inputs are on the card), and the
-    wrapper raises ValueError.  Kept lean: the decode path calls this four
-    times a layer."""
+    contiguous.  The kernel copies rows by 16-byte cp.async where the
+    start and the strides of dimensions longer than one are 16-byte
+    aligned, else element by element (the launch tells them apart).  Kept
+    lean: the decode path calls this four times a layer."""
     s = t.stride()
-    if s[3] != 1:
+    if s[3] != 1 and t.shape[3] > 1:
         raise ValueError(f"rwkv6_scan kernel needs a contiguous last "
                          f"dimension; got strides {s}")
     return s[0], s[1], s[2]
@@ -101,8 +104,8 @@ def rwkv6_scan_bhtk(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("rwkv6_scan kernel needs contiguous u and s0")
     B, H, T, K = r.shape
     V = v.shape[3]
-    if K not in KEY_DIMS:
-        raise ValueError(f"rwkv6_scan kernel takes K in {KEY_DIMS}, got {K}")
+    if K < 1:
+        raise ValueError("rwkv6_scan kernel needs K >= 1")
     if H > 65535 or B > 65535:
         raise ValueError(f"rwkv6_scan kernel takes at most 65535 heads and "
                          f"batch rows, got H={H}, B={B}")
@@ -111,27 +114,26 @@ def rwkv6_scan_bhtk(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sT = torch.empty((B, H, K, V), dtype=f32, device=dev)
     if V == 0:
         return out, sT
+    # K above 128: each slab's partial outputs, summed in slab order
+    part = (torch.empty((-(-K // SLAB_ROWS), B, H, T, V), dtype=f32,
+                        device=dev) if K > SLAB_ROWS else None)
     args = _Args(r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
                  u.data_ptr(), s0.data_ptr(), out.data_ptr(), sT.data_ptr(),
                  B, H, T, K, V, code, *scan_strides(r), *scan_strides(k),
-                 *scan_strides(lw), *scan_strides(v), T * H * V, V, H * V)
+                 *scan_strides(lw), *scan_strides(v), T * H * V, V, H * V,
+                 0 if part is None else part.data_ptr())
     rc = (_LIB or _load()).rwkv6_scan_launch(
         args,
         # the current stream's handle, as torch.cuda.current_stream(dev)
         # .cuda_stream gives it, without building a Stream object
         torch._C._cuda_getCurrentRawStream(dev.index))
-    if rc == _INVALID_VALUE:
-        raise ValueError("rwkv6_scan kernel needs 16-byte aligned rows of "
-                         "r, k, v and lw (start and strides) and at most "
-                         "65535 heads and batch rows")
     if rc:
         build.check(rc, "rwkv6_scan_launch")
     build.LAUNCHES["rwkv6_scan_bhtk"] += 1
     return out, sT
 
 
-_Args = ctypes.c_longlong * 29          # see rwkv6_scan_launch
-_INVALID_VALUE = 1                      # cudaErrorInvalidValue
+_Args = ctypes.c_longlong * 30          # see rwkv6_scan_launch
 _LIB = None
 
 

@@ -67,6 +67,9 @@ CASES = [
     (1, 256, 256, 2, 1, 256, True, None, "float32"),
     (1, 256, 256, 2, 1, 256, False, 64, "float32"),
     (1, 256, 256, 2, 1, 256, True, None, "bfloat16"),
+    # above 256: the slab body's head dims on the card
+    (1, 256, 256, 2, 1, 320, True, None, "float32"),
+    (1, 256, 256, 2, 1, 320, False, 64, "bfloat16"),
 ]
 
 
@@ -96,16 +99,18 @@ def test_flash_attention_refusals_on_cpu():
     assert out.device.type == "meta" and out.shape == (1, 2, 8, 32)
 
 
-@pytest.mark.parametrize("hd", [16, 80, 96, 200, 256])
+@pytest.mark.parametrize("hd", [16, 80, 96, 200, 256, 300, 320])
 def test_padded_head_dim_is_the_same_function(hd):
     """What the wrapper does on the card for a head dim between the
     kernel's bodies: q, k and v zero-padded along hd up to the body, the
     softmax scaled by the true hd, the output sliced back.  The plain
     version over the padded inputs (q scaled so that its 1/sqrt(body)
     becomes 1/sqrt(hd)) gives the unpadded function; the body is the
-    least of ``HEAD_DIMS`` at or above hd, and none is above 256."""
+    least of ``HEAD_DIMS`` at or above hd, above 256 the next multiple of
+    8 (the slab body's), so no head dim is refused."""
     body = FA.body_head_dim(hd)
-    assert body == {16: 32, 80: 128, 96: 128, 200: 256, 256: 256}[hd]
+    assert body == {16: 32, 80: 128, 96: 128, 200: 256, 256: 256, 300: 304,
+                    320: 320}[hd]
     q, k, v = (torch.as_tensor(a).transpose(1, 2)
                for a in _qkv(2, 96, 96, 4, 2, hd, seed=hd))
     pad = [torch.nn.functional.pad(t, (0, body - hd)) for t in (q, k, v)]
@@ -114,8 +119,8 @@ def test_padded_head_dim_is_the_same_function(hd):
     want = FA.flash_attention_plain(q, k, v, causal=True, sliding_window=40)
     assert not got[..., hd:].any()
     assert_close(got[..., :hd], want, rtol=0, atol=1e-5)
-    with pytest.raises(ValueError, match="head_dim up to 256"):
-        FA.body_head_dim(257)
+    assert [FA.body_head_dim(n) for n in (1, 257, 264, 1021, 1024)] == [
+        32, 264, 264, 1024, 1024]
 
 
 def _tf32(x):
@@ -261,6 +266,112 @@ def test_hd256_fp32_order_of_sums_holds_where_one_chain_misses():
     b = np.full((1, 8), 2.0 ** -13, np.float32)
     assert _tc_step(np.ones((1, 1), np.float32), a, b)[0, 0] == 1
     assert _tc_step(np.zeros((1, 1), np.float32), a, b)[0, 0] == 2.0 ** -22
+
+
+def _tf32_trunc(x):
+    """TF32 truncation (the 19 bits the mma reads of a float32 operand)."""
+    u = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return (u & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _qk_step_dims(c0, kk):
+    """Head dims of k-step kk of the 64-column chunk at c0, as the float32
+    bodies map operand columns to dims (``qk_dim``: 8t + 4 ((kk >> 1) & 1)
+    + 32 (kk >> 2) + 2 (kk & 1), and + 1, for t in 0..3)."""
+    off = 4 * ((kk >> 1) & 1) + 32 * (kk >> 2) + 2 * (kk & 1)
+    return np.array(sorted(c0 + 8 * t + off + e for t in range(4)
+                           for e in (0, 1)))
+
+
+NEG_INF = np.float32(-0.7 * 3.4028234663852886e38)
+
+
+def _emulate_flash_slab_f32(q, k, v, causal):
+    """numpy float32 in the order of arithmetic of the float32 slab body
+    (hd above 256), one head, on the model of the tensor cores' truncating
+    sums (``_tc_step``): 64-row query tiles and 64-key tiles; for each
+    tile the scores over 64-column chunks of the head dim, chunk by chunk,
+    each chunk's large terms (q_hi k_hi) in an accumulator of their own
+    added to the tile's with rounded float32 adds, the small ones (lo hi,
+    hi lo) in one chain over the whole head dim, added last; the base-2
+    online softmax with the masked-weight rule; p split to TF32 (its low
+    part truncated), acc += p v in k-steps of 8 keys (lo hi, hi lo, hi
+    hi); o = acc / max(l, 1e-30)."""
+    Sq, D = q.shape
+    Sk = k.shape[0]
+    scale_log2 = np.float32(1.0 / math.sqrt(D) * 1.4426950408889634)
+    (qh, ql), (kh, kl) = _split_tf32(q), _split_tf32(k)
+    vh, vl = _split_tf32(v)
+    out = np.zeros((Sq, D), np.float32)
+    for q0 in range(0, Sq, 64):
+        rows = np.arange(q0, min(q0 + 64, Sq))
+        q_hi = rows[-1]
+        n_k = -(-Sk // 64)
+        t_end = min(n_k, q_hi // 64 + 1) if causal else n_k
+        m = np.full(len(rows), NEG_INF, np.float32)
+        lsum = np.zeros(len(rows), np.float32)
+        acc = np.zeros((len(rows), D), np.float32)
+        for t in range(t_end):
+            keys = np.arange(t * 64, min(t * 64 + 64, Sk))
+            zero = np.zeros((len(rows), len(keys)), np.float32)
+            s, small = zero, zero
+            for c0 in range(0, D, 64):
+                big = zero
+                for kk in range(8):
+                    d = _qk_step_dims(c0, kk)
+                    d = d[d < D]
+                    qa = lambda x: x[np.ix_(rows, d)]
+                    kb = lambda x: x[np.ix_(keys, d)]
+                    small = _tc_step(_tc_step(small, qa(ql), kb(kh)),
+                                     qa(qh), kb(kl))
+                    big = _tc_step(big, qa(qh), kb(kh))
+                s = s + big
+            s = s + small
+            keep = np.ones_like(s, bool)
+            if causal:
+                keep = rows[:, None] >= keys[None, :]
+            s = np.where(keep, s, NEG_INF)
+            mx = s.max(1)
+            m_new = np.maximum(m, np.where(mx == NEG_INF, NEG_INF,
+                                           mx * scale_log2))
+            corr = np.exp2(m - m_new).astype(np.float32)
+            x = np.where(keep, s * scale_log2 - m_new[:, None],
+                         NEG_INF - m_new[:, None])
+            p = np.exp2(x).astype(np.float32)
+            m = m_new
+            lsum = lsum * corr + p.sum(1, dtype=np.float32)
+            acc = acc * corr[:, None]
+            ph = _tf32(p)
+            pl = _tf32_trunc(p - ph)
+            for j in range(0, len(keys), 8):
+                c = slice(j, j + 8)
+                kc = keys[c]
+                for a, b in ((pl, vh), (ph, vl), (ph, vh)):
+                    acc = _tc_step(acc, a[:, c], b[kc].T)
+        out[rows] = acc / np.maximum(lsum, np.float32(1e-30))[:, None]
+    return out
+
+
+@pytest.mark.parametrize("D,causal", [(320, True), (320, False),
+                                      (512, True)])
+def test_flash_slab_f32_order_vs_pallas_interpreter(D, causal):
+    """The float32 slab body's order of arithmetic
+    (``_emulate_flash_slab_f32``: 64-column chunks of the scores, their
+    large terms restarted a chunk, the small ones in one chain, the
+    softmax and p v on the model of truncating tensor-core sums) against
+    JAX's ``ops.flash_attention``, which interprets the Pallas kernel at
+    these lengths, at 1e-4: one head of 128 rows and keys, q and k scaled
+    by 2 (a peakier softmax than unit draws)."""
+    rng = np.random.default_rng(D + causal)
+    q, k, v = (rng.normal(0, 1, (128, D)).astype(np.float32)
+               for _ in range(3))
+    q, k = q * np.float32(2), k * np.float32(2)
+    want = np.asarray(rops.flash_attention(
+        *(jnp.asarray(a)[None, :, None] for a in (q, k, v)),
+        causal=causal))[0, :, 0]
+    got = _emulate_flash_slab_f32(q, k, v, causal)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
 
 
 def _rn32(x):

@@ -325,7 +325,11 @@ def test_spatial_stats_refusals(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("P,D,C", [(3136, 256, 3), (64, 16, 8),
-                                   (100, 40, 33), (9, 300, 64)])
+                                   (100, 40, 33), (9, 300, 64),
+                                   # past 64 classes: the counts kernel's
+                                   # class blocks
+                                   (100, 40, 65), (300, 64, 100),
+                                   (3136, 256, 256)])
 def test_cam_head_kernel_matches_plain(cuda_device, P, D, C):
     g = torch.Generator().manual_seed(P + D + C)
     feat = torch.randn((4, P, D), generator=g).to(cuda_device)
@@ -365,6 +369,38 @@ def test_cam_head_kernel_grid_edges(cuda_device, B, P, D, C, aligned):
     pc, pcam = CH.cam_head_plain(feat, w, b)
     assert build.LAUNCHES["cam_head_bgd"] == before + 1
     assert cam.shape == (B, P, C) and counts.shape == (B, C)
+    torch.testing.assert_close(cam, pcam, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(counts, pc, rtol=1e-4, atol=1e-4)
+    again, cam2 = CH.cam_head_bgd(feat, w, b)
+    assert torch.equal(again, counts) and torch.equal(cam2, cam)
+
+
+# (P, D, C, which inputs are bf16): bf16 features, weights and bias, alone
+# and together, widened on load as the Pallas body widens them; the
+# vector path (D % 4 == 0) and the scalar one (D 30)
+CAM_BF16 = [(3136, 256, 3, "feat"), (300, 64, 100, "feat w b"),
+            (100, 40, 65, "w"), (64, 30, 5, "feat w"),
+            (3136, 256, 128, "feat w b")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,D,C,bf16", CAM_BF16, ids=str)
+def test_cam_head_kernel_bf16_inputs_match_plain(cuda_device, P, D, C, bf16):
+    """bf16 inputs launch the kernel (no cast on the host) and match the
+    plain version, which widens them too, at 1e-4, float32 out, bit for
+    bit on a repeated call."""
+    g = torch.Generator().manual_seed(P + D + C)
+    feat = torch.randn((4, P, D), generator=g)
+    w = torch.randn((D, C), generator=g) * 0.1
+    b = torch.randn((C,), generator=g) * 0.1
+    feat, w, b = (t.to(cuda_device, torch.bfloat16 if n in bf16.split()
+                       else torch.float32)
+                  for n, t in (("feat", feat), ("w", w), ("b", b)))
+    before = build.LAUNCHES["cam_head_bgd"]
+    counts, cam = CH.cam_head_bgd(feat, w, b)
+    assert build.LAUNCHES["cam_head_bgd"] == before + 1
+    assert counts.dtype == cam.dtype == torch.float32
+    pc, pcam = CH.cam_head_plain(feat, w, b)
     torch.testing.assert_close(cam, pcam, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(counts, pc, rtol=1e-4, atol=1e-4)
     again, cam2 = CH.cam_head_bgd(feat, w, b)
@@ -546,24 +582,20 @@ def test_flash_attention_dispatch_counts_and_refusals(cuda_device):
     with pytest.raises(RuntimeError, match="backward"):
         FA.flash_attention_bhsd(q.clone().requires_grad_(), k, v)
     # hd 16 and 96 run through the kernel, zero-padded to the 32 and 128
-    # bodies (the reference runs them); above 256 the kernel refuses
-    for hd in (16, 96):
+    # bodies, and hd 320 on the slab body (the reference runs them all)
+    for hd in (16, 96, 320):
         q2, k2, v2 = _qkv((1, 64, 64, 2, 2, hd, True, None, "float32"),
                           cuda_device)
         out2 = FA.flash_attention_bhsd(q2, k2, v2)
         assert out2.shape == q2.shape and out2.is_contiguous()
         err = float((out2 - FA.flash_attention_plain(q2, k2, v2)).abs().max())
         assert err <= 1e-4, (hd, err)
-    q3, k3, v3 = _qkv((1, 64, 64, 2, 2, 320, True, None, "float32"),
-                      cuda_device)
-    with pytest.raises(ValueError, match="head_dim up to 256"):
-        FA.flash_attention_bhsd(q3, k3, v3)
     with pytest.raises(TypeError):
         FA.flash_attention_bhsd(q.half(), k.half(), v.half())
     off = torch.empty(q.numel() + 1, device=cuda_device)[1:].view(q.shape)
     with pytest.raises(ValueError, match="16-byte"):
         FA.flash_attention_bhsd(off, k, v)
-    assert build.LAUNCHES["flash_attention_bhsd"] == before + 3
+    assert build.LAUNCHES["flash_attention_bhsd"] == before + 4
 
 
 # (B, Sq, Sk, H, KV, hd, causal, sliding_window, dtype): head dims between
@@ -595,6 +627,41 @@ def test_flash_attention_padded_head_dims_match_plain(cuda_device, case):
     atol = 1e-4 if dt == "float32" else 2e-2
     err = float((out.float() - want.float()).abs().max())
     assert err <= atol, err
+
+
+# (B, Sq, Sk, H, KV, hd, causal, sliding_window, dtype): head dims above
+# 256 on the slab body (hd 300 padded to 304), both types, causal and
+# windowed, GQA, ragged lengths no 64-row or 64-key tile divides
+FLASH_WIDE = [(B, Sq, Sk, H, KV, hd, causal, sw, dt)
+              for hd in (320, 512, 1024)
+              for (B, Sq, Sk, H, KV, causal, sw) in [
+                  (1, 200, 200, 4, 2, True, None),
+                  (1, 77, 300, 2, 1, False, None),
+                  (2, 300, 300, 4, 2, True, 64)]
+              for dt in ("float32", "bfloat16")] + [
+    (1, 129, 129, 2, 2, 300, True, None, "float32"),
+    (2, 65, 200, 4, 1, 300, False, 100, "bfloat16")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_WIDE, ids=str)
+def test_flash_attention_above_256_matches_plain(cuda_device, case):
+    """The slab body: one launch, the plain version's values (1e-4 in
+    float32, 2e-2 in bf16), bit for bit on a repeated call."""
+    causal, sw, dt = case[6:]
+    q, k, v = _qkv(case, cuda_device, seed=case[5] + case[1])
+    before = build.LAUNCHES["flash_attention_bhsd"]
+    out = FA.flash_attention_bhsd(q, k, v, causal=causal, sliding_window=sw)
+    want = FA.flash_attention_plain(q, k, v, causal=causal,
+                                    sliding_window=sw)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention_bhsd"] == before + 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    atol = 1e-4 if dt == "float32" else 2e-2
+    err = float((out.float() - want.float()).abs().max())
+    assert err <= atol, err
+    assert torch.equal(FA.flash_attention_bhsd(q, k, v, causal=causal,
+                                               sliding_window=sw), out)
 
 
 @pytest.mark.cuda
@@ -680,7 +747,12 @@ RWKV_SWEEP = (
     + [(1, 2, 77, 32, 32, "float32"), (1, 2, 40, 128, 128, "bfloat16"),
        (2, 2, 33, 64, 40, "float32")]
     # K = 128 over more chunks than the kernel's three pipeline stages
-    + [(1, 2, 100, 128, 128, dt) for dt in ("float32", "bfloat16")])
+    + [(1, 2, 100, 128, 128, dt) for dt in ("float32", "bfloat16")]
+    # key widths with no instantiation of their own (run zero-padded on
+    # the next), and above 128 (slabs of 128 state rows, summed)
+    + [(2, 3, T, K, V, dt) for K in (8, 48, 80, 192, 256)
+       for T, V in ((1, 64), (50, 40), (100, 64))
+       for dt in ("float32", "bfloat16")])
 
 
 def _scan_inputs(case, dev, seed=0, strong=False):
@@ -748,7 +820,10 @@ def test_rwkv6_scan_kernel_state_continuation(cuda_device, dt):
 @pytest.mark.parametrize("case", [(2, 3, 100, 64, 64, "bfloat16"),
                                   (4, 40, 50, 64, 64, "bfloat16"),
                                   (1, 2, 70, 128, 128, "float32"),
-                                  (2, 3, 33, 16, 16, "float32")], ids=str)
+                                  (2, 3, 33, 16, 16, "float32"),
+                                  (2, 3, 50, 48, 64, "bfloat16"),
+                                  (1, 2, 40, 192, 64, "float32"),
+                                  (2, 2, 33, 80, 40, "bfloat16")], ids=str)
 def test_rwkv6_scan_kernel_reads_strided_views(cuda_device, case):
     """The time-mix's layout: r, k, v, lw made as (B, T, H, K) and seen as
     (B, H, T, K); the kernel reads them in place and gives the bits of the
@@ -781,16 +856,24 @@ def test_rwkv6_scan_kernel_reads_strided_views(cuda_device, case):
 
 
 @pytest.mark.cuda
-def test_rwkv6_scan_kernel_refuses_unaligned_rows(cuda_device):
-    """Rows the kernel cannot copy by 16 bytes raise, before any launch."""
-    r, k, v, lw, u, s0 = _scan_inputs((1, 2, 20, 16, 16, "float32"),
-                                      cuda_device)
+@pytest.mark.parametrize("K,dt", [(16, "float32"), (5, "float32"),
+                                  (20, "bfloat16")])
+def test_rwkv6_scan_kernel_refuses_unaligned_rows(cuda_device, K, dt):
+    """Rows no 16-byte copy can read (a view one element into a wider
+    row; a contiguous K of 5 float32 or 20 bf16) launch: the kernel copies
+    them element by element, to the plain version's values and to the
+    bits of the aligned call."""
+    r, k, v, lw, u, s0 = _scan_inputs((1, 2, 20, K, 16, dt), cuda_device)
     before = build.LAUNCHES["rwkv6_scan_bhtk"]
-    wide = torch.zeros((1, 2, 20, 17), device=cuda_device)
+    wide = torch.zeros((1, 2, 20, K + 1), device=cuda_device, dtype=r.dtype)
     wide[..., 1:] = r
-    with pytest.raises(ValueError, match="16-byte"):
-        RK.rwkv6_scan_bhtk(wide[..., 1:], k, v, lw, u, s0)
-    assert build.LAUNCHES["rwkv6_scan_bhtk"] == before
+    got = RK.rwkv6_scan_bhtk(wide[..., 1:], k, v, lw, u, s0)
+    assert build.LAUNCHES["rwkv6_scan_bhtk"] == before + 1
+    _scan_close(*got, *RK.rwkv6_scan_plain(r, k, v, lw, u, s0))
+    aligned = torch.zeros((1, 2, 20, 64), device=cuda_device, dtype=r.dtype)
+    aligned[..., :K] = r
+    want = RK.rwkv6_scan_bhtk(aligned[..., :K], k, v, lw, u, s0)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.cuda
@@ -805,9 +888,11 @@ def test_rwkv6_scan_kernel_strong_decays(cuda_device, dt):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
-def test_rwkv6_scan_kernel_state_continuation_k128(cuda_device, dt):
-    """K = 128, halves carried through sT across a chunk boundary."""
-    r, k, v, lw, u, s0 = _scan_inputs((1, 2, 90, 128, 128, dt), cuda_device,
+@pytest.mark.parametrize("K", [128, 48, 192])
+def test_rwkv6_scan_kernel_state_continuation_k128(cuda_device, dt, K):
+    """K = 128 (and 48, zero-padded, and 192, in slabs), halves carried
+    through sT across a chunk boundary."""
+    r, k, v, lw, u, s0 = _scan_inputs((1, 2, 90, K, 128, dt), cuda_device,
                                       seed=5)
     whole, whole_s = RK.rwkv6_scan_bhtk(r, k, v, lw, u, s0)
     h = 41
@@ -1023,14 +1108,141 @@ def test_decode_attention_hd256_body_report(cuda_device, dt, G, stages):
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd", [32, 96, 512])
 def test_decode_attention_refuses_other_head_dims(cuda_device, hd):
-    """Head dims 64, 128 and 256 launch; any other raises (no fallback)."""
-    q = torch.zeros((1, 1, 4, hd), device=cuda_device, dtype=torch.bfloat16)
-    k = torch.zeros((1, 1, 64, hd), device=cuda_device, dtype=torch.bfloat16)
+    """Head dims other than the bodies' 64, 128 and 256 launch too (no
+    raise and no fallback): hd 32 and 96 on the next body's width, 512 on
+    the slab body, each one launch that matches the plain version."""
+    g = torch.Generator().manual_seed(hd)
+    q = torch.randn((1, 1, 4, hd), generator=g).to(cuda_device, torch.bfloat16)
+    k = torch.randn((1, 1, 64, hd), generator=g).to(cuda_device,
+                                                      torch.bfloat16)
     before = build.LAUNCHES["decode_attention_bkgd"]
-    with pytest.raises(ValueError, match="head_dim"):
-        DA.decode_attention_bkgd(q, k, k, 10)
-    assert build.LAUNCHES["decode_attention_bkgd"] == before
+    out = DA.decode_attention_bkgd(q, k, k, 10)
+    assert build.LAUNCHES["decode_attention_bkgd"] == before + 1
+    want = DA.decode_attention_plain(q, k, k, 10)
+    assert float((out.float() - want.float()).abs().max()) <= _decode_tol(want)
     assert DA.HEAD_DIMS == (64, 128, 256)
+    assert DA.body_for(hd, torch.bfloat16, 4).width == {32: 64, 96: 128,
+                                                       512: 0}[hd]
+
+
+# every head dim and group the reference takes: below, between and above
+# the bodies' widths, G past the 16 rows of a block (chunks), in both types
+ANY_HD = (8, 16, 20, 32, 48, 96, 160, 192, 320, 512)
+ANY_G = (1, 7, 16, 17, 32, 71)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G", ANY_G)
+@pytest.mark.parametrize("hd", ANY_HD)
+def test_decode_attention_any_shape_matches_plain(cuda_device, hd, G, dt):
+    """``ops.decode_attention`` on the model's (B, S, KV, hd) cache at
+    every (hd, G): one launch a call, the cache read in place (the call
+    adds only its output and split scratch to the peak), at kv_len 1, 64,
+    65 and S of a 1,500-row cache that one (b, kv head) cuts into many
+    splits; NaN in every row at kv_len or later; the plain version's
+    values at ``_decode_tol``; a repeated call bit for bit."""
+    B, KV, S = 1, 2, 1500
+    dtype = getattr(torch, dt)
+    g = torch.Generator().manual_seed(hd * 100 + G)
+    q = torch.randn((B, KV * G, hd), generator=g).to(cuda_device, dtype)
+    k = torch.randn((B, S, KV, hd), generator=g).to(cuda_device, dtype)
+    v = torch.randn((B, S, KV, hd), generator=g).to(cuda_device, dtype)
+    qg = q.reshape(B, KV, G, hd)
+    for klen in (1, 64, 65, S):
+        k[:, klen:] = float("nan")
+        v[:, klen:] = float("nan")
+        length = torch.tensor([klen], dtype=torch.int32, device=cuda_device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        before = build.LAUNCHES["decode_attention_bkgd"]
+        got = ops.decode_attention(q, k, v, length)
+        torch.cuda.synchronize()
+        added = torch.cuda.max_memory_allocated() - base
+        assert build.LAUNCHES["decode_attention_bkgd"] == before + 1
+        assert got.dtype == dtype and got.shape == q.shape
+        want = DA.decode_attention_plain(qg, k[:, :klen].transpose(1, 2),
+                                         v[:, :klen].transpose(1, 2), klen)
+        err = float((got.reshape(qg.shape).float() - want.float()).abs()
+                    .max())
+        assert err <= _decode_tol(want), (klen, err)
+        kk = k.transpose(1, 2)
+        body = DA.body_for(hd, dtype, G,
+                           DA.rows_aligned(kk, DA.cache_strides(kk)))
+        nsplit = DA.split_count(B, KV * body.chunks * body.slabs, S,
+                                *DA._slots(got.device, body.width,
+                                           DA._DTYPE_CODES[dtype], G,
+                                           build.library("decode_attention")))
+        sizes = (got.numel() * got.element_size(),
+                 4 * DA.scratch_floats(B, KV, G, hd, nsplit, body.rows))
+        # the caching allocator may hand a request above 1 MiB a cached
+        # block up to 1 MiB larger, whole; a copy of k is larger still
+        slack = 4096 + sum(2**20 for n in sizes if n > 2**20)
+        assert k[0, :, 0].numel() * k.element_size() * S > slack
+        assert added <= sum(sizes) + slack, (klen, added, sizes)
+        assert torch.equal(ops.decode_attention(q, k, v, klen), got)
+        k[:, klen:] = 0
+        v[:, klen:] = 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,G,dt,q_off", [(7, 3, "bfloat16", 0),
+                                           (13, 20, "bfloat16", 0),
+                                           (7, 3, "float32", 0),
+                                           (16, 20, "bfloat16", 1),
+                                           (16, 7, "bfloat16", 1)], ids=str)
+def test_decode_attention_odd_head_dims_on_aligned_rows(cuda_device, hd, G,
+                                                        dt, q_off):
+    """An odd head dim on a cache whose rows are 16-byte aligned (a
+    (B, KV, S, 16) storage seen through its first hd columns) runs the
+    padded bodies, their q read element by element; so does a q that
+    starts an odd number of elements into its storage: one launch, the
+    plain version's values, bit for bit on a repeat."""
+    B, KV, S, klen = 2, 8, 700, 641
+    dtype = getattr(torch, dt)
+    g = torch.Generator().manual_seed(hd + G + q_off)
+    flat = torch.randn(B * KV * G * hd + q_off, generator=g).to(cuda_device,
+                                                                 dtype)
+    q = flat[q_off:].view(B, KV, G, hd)
+    k, v = (torch.randn((B, KV, S, 16), generator=g).to(cuda_device,
+                                                        dtype)[..., :hd]
+            for _ in range(2))
+    assert DA.rows_aligned(k, DA.cache_strides(k))
+    assert DA.body_for(hd, dtype, G, True).width == 64
+    before = build.LAUNCHES["decode_attention_bkgd"]
+    out = DA.decode_attention_bkgd(q, k, v, klen)
+    assert build.LAUNCHES["decode_attention_bkgd"] == before + 1
+    want = DA.decode_attention_plain(q, k, v, klen)
+    assert float((out.float() - want.float()).abs().max()) <= _decode_tol(
+        want)
+    assert torch.equal(DA.decode_attention_bkgd(q, k, v, klen), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,G,dt", [(20, 7, "bfloat16"), (6, 3, "float32"),
+                                     (130, 17, "bfloat16"),
+                                     (300, 8, "float32")], ids=str)
+def test_decode_attention_unaligned_rows_launch(cuda_device, hd, G, dt):
+    """A contiguous (B, KV, S, hd) cache whose rows are not 16-byte
+    aligned (bf16 hd 20, float32 hd 6 and 130 ... 300) runs the slab body's
+    narrower copies: one launch, the plain version's values, NaN past
+    kv_len ignored, bit for bit on a repeat."""
+    B, KV, S, klen = 2, 2, 700, 641
+    dtype = getattr(torch, dt)
+    g = torch.Generator().manual_seed(hd + G)
+    q, k, v = (torch.randn(s, generator=g).to(cuda_device, dtype)
+               for s in ((B, KV, G, hd), (B, KV, S, hd), (B, KV, S, hd)))
+    k[:, :, klen:] = float("nan")
+    v[:, :, klen:] = float("nan")
+    assert not DA.rows_aligned(k, DA.cache_strides(k)) or hd == 300
+    before = build.LAUNCHES["decode_attention_bkgd"]
+    out = DA.decode_attention_bkgd(q, k, v, klen)
+    assert build.LAUNCHES["decode_attention_bkgd"] == before + 1
+    want = DA.decode_attention_plain(q, k[:, :, :klen], v[:, :, :klen], klen)
+    assert float((out.float() - want.float()).abs().max()) <= _decode_tol(
+        want)
+    assert torch.equal(DA.decode_attention_bkgd(q, k, v, klen), out)
 
 
 @pytest.mark.cuda
@@ -1074,8 +1286,9 @@ def test_rwkv_model_pallas_path_matches_plain_path(cuda_device):
 # ---------------------------------------------------------------------------
 
 def _zoo_smoke(name, **over):
-    """A zoo smoke config at head dim 64 (a head dim both attention kernels
-    take), ``attn_impl="pallas"``, float32."""
+    """A zoo smoke config at head dim 64 (the cases below keep the width
+    they were written at; ``test_zoo_smoke_decode_at_own_head_dim`` serves
+    the configs' own 16), ``attn_impl="pallas"``, float32."""
     from repro_torch.configs import get_smoke_config
     return dataclasses.replace(get_smoke_config(name), head_dim=64,
                                attn_impl="pallas", **over)
@@ -1133,6 +1346,52 @@ def test_zoo_serving_on_the_card_matches_the_cpu(cuda_device, name):
     torch.testing.assert_close(have, want, rtol=1e-4, atol=1e-3)
     for k in c0:
         torch.testing.assert_close(c1[k], c0[k], rtol=1e-4, atol=1e-3)
+
+
+# the zoo smoke configs that send a single-token step to decode attention
+# (no window, no softcap; rwkv6 has no attention): all but grok and hymba
+DECODE_SMOKE = ["qwen2_72b", "deepseek_coder_33b", "qwen2_0p5b",
+                "starcoder2_3b", "granite_moe_3b_a800m", "whisper_base",
+                "paligemma_3b"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", DECODE_SMOKE)
+def test_zoo_smoke_decode_at_own_head_dim(cuda_device, name):
+    """Each smoke config at its own head_dim (16) served on the card under
+    ``pallas`` (prefill of 40 tokens into a 48-row cache, 4 decode steps):
+    decode attention launches once per layer and step, and the logits
+    match the plain path (``xla_naive``) on the same card and weights at
+    1e-4 / 1e-3."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as TM
+    from repro_torch.models import serve as TSV
+    base = get_smoke_config(name)
+    assert base.head_dim == 16
+    rng = np.random.default_rng(7)
+    toks = torch.as_tensor(rng.integers(0, base.vocab_size, (2, 44)),
+                           device=cuda_device)
+    frames = torch.as_tensor(rng.normal(0, 1, (2, base.enc_len,
+                                               base.d_model)).astype(
+        np.float32), device=cuda_device) if base.enc_dec else None
+    out = {}
+    for impl in ("xla_naive", "pallas"):
+        cfg = dataclasses.replace(base, attn_impl=impl)
+        p = TM.init_params(torch.Generator(cuda_device).manual_seed(3), cfg)
+        cache = TSV.init_cache(cfg, 2, 48, device=cuda_device)
+        before = build.LAUNCHES["decode_attention_bkgd"]
+        logits, cache, _ = TSV.prefill(p, cfg, toks[:, :40], cache=cache,
+                                       frames=frames)
+        got = [logits]
+        for i in range(40, 44):
+            logits, cache = TSV.decode_step(p, cfg, toks[:, i:i + 1],
+                                            cache=cache)
+            got.append(logits)
+        out[impl] = (torch.stack(got, 1),
+                     build.LAUNCHES["decode_attention_bkgd"] - before)
+    (want, d0), (have, d1) = out["xla_naive"], out["pallas"]
+    assert d0 == 0 and d1 == base.n_layers * 4
+    torch.testing.assert_close(have, want, rtol=1e-4, atol=1e-3)
 
 
 def _to_numpy(tree):

@@ -213,6 +213,28 @@ def test_cam_head_plain_vs_pallas_interpreter(g, D, C):
                                atol=1e-4)
 
 
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_cam_head_many_classes_vs_jax_entry_point(dt):
+    """``ops.cam_head`` at C 100 (past the 64 classes the card's counts
+    kernel once took) in float32 and on bf16 features, weights and bias,
+    against JAX's ``ops.cam_head``, which interprets the Pallas kernel
+    (both widen to float32 and return float32), at 1e-4."""
+    rng = np.random.default_rng(100)
+    feat = rng.normal(0, 1, (2, 8, 8, 48)).astype(np.float32)
+    w = (rng.normal(0, 1, (48, 100)) * 0.1).astype(np.float32)
+    b = (rng.normal(0, 1, (100,)) * 0.1).astype(np.float32)
+    jdt, tdt = getattr(jnp, dt), getattr(torch, dt)
+    rc, rcam = rops.cam_head(*(jnp.asarray(a, jdt) for a in (feat, w, b)))
+    tc, tcam = ops.cam_head(*(torch.as_tensor(a).to(tdt)
+                              for a in (feat, w, b)))
+    assert tc.dtype == tcam.dtype == torch.float32
+    assert tcam.shape == (2, 8, 8, 100) and tc.shape == (2, 100)
+    np.testing.assert_allclose(tc.numpy(), np.asarray(rc), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(tcam.numpy(), np.asarray(rcam), rtol=1e-4,
+                               atol=1e-4)
+
+
 def test_eval_spatial_leaves_and_class_slice_identical():
     rng = np.random.default_rng(3)
     B, g, C = 5, 8, 4
@@ -248,6 +270,77 @@ DECODE_CASES = (
     + [pytest.param(S, klen, dt, 256, id=f"hd256-{S}-{klen}-{dt}")
        for S in (256, 512) for klen in (1, 100, S)
        for dt in ("float32", "bfloat16")])
+
+
+# (hd, G, dtype): head dims and groups that run the card's padded bodies
+# (hd 16 is every zoo smoke config's; 20 has rows no 16-byte copy fits),
+# chunks of 16 query heads (G 20) and the slab body (hd 320)
+ANY_SHAPE_CASES = [(hd, G, dt) for hd, G in [(16, 7), (16, 20), (20, 20),
+                                             (96, 20), (320, 4), (320, 20)]
+                   for dt in ("float32", "bfloat16")]
+
+
+@pytest.mark.parametrize("hd,G,dt", ANY_SHAPE_CASES, ids=str)
+def test_decode_attention_any_shape_vs_pallas_interpreter(hd, G, dt):
+    """``ops.decode_attention`` (the plain version on a CPU tensor) at
+    head dims and group sizes that the card runs on padded, chunked or
+    slab bodies, against JAX's wrapper interpreting the Pallas kernel (S
+    256, one of its blocks) at kv_len 77 and S: 1e-4 in float32, 2e-2 in
+    bfloat16, as ``DECODE_CASES``."""
+    B, KV, S = 2, 2, 256
+    rng = np.random.default_rng(hd + G)
+    q, k, v = (rng.normal(0, 1, shape).astype(np.float32)
+               for shape in ((B, KV * G, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    jdt, tdt = getattr(jnp, dt), getattr(torch, dt)
+    tq, tk, tv = (torch.as_tensor(a).to(tdt) for a in (q, k, v))
+    for klen in (77, S):
+        want = rops.decode_attention(*(jnp.asarray(a, jdt) for a in (q, k, v)),
+                                     jnp.int32(klen))
+        got = ops.decode_attention(tq, tk, tv, klen)
+        assert got.dtype == tdt and got.shape == (B, KV * G, hd)
+        np.testing.assert_allclose(
+            got.float().numpy(), np.asarray(want, np.float32),
+            atol=1e-4 if dt == "float32" else 2e-2)
+
+
+# (hd, dtype, G, aligned) -> (width, chunks, slabs, rows): the least body
+# at or above hd up to 256, chunks of 16 query heads (bf16 at widths 64
+# and 128 beyond 16 heads: the rows body's 32, 64 or 128 a block), the slab
+# body above 256 or for rows no 16-byte copy or tensor map can read
+BODY_CASES = [(1, "bfloat16", 1, True, (64, 1, 1, 16)),
+              (16, "bfloat16", 7, True, (64, 1, 1, 16)),
+              (16, "float32", 7, True, (64, 1, 1, 16)),
+              (64, "bfloat16", 16, True, (64, 1, 1, 16)),
+              (65, "bfloat16", 17, True, (128, 1, 1, 32)),
+              (65, "float32", 17, True, (128, 2, 1, 16)),
+              (128, "bfloat16", 32, True, (128, 1, 1, 32)),
+              (64, "bfloat16", 71, True, (64, 1, 1, 128)),
+              (64, "bfloat16", 200, True, (64, 2, 1, 128)),
+              (48, "bfloat16", 40, True, (64, 1, 1, 64)),
+              (129, "float32", 8, True, (256, 1, 1, 16)),
+              (256, "bfloat16", 71, True, (256, 5, 1, 16)),
+              (257, "float32", 1, True, (0, 1, 3, 16)),
+              (320, "bfloat16", 20, True, (0, 2, 3, 16)),
+              (512, "float32", 8, True, (0, 1, 4, 16)),
+              (1024, "bfloat16", 1, True, (0, 1, 8, 16)),
+              (20, "bfloat16", 71, False, (0, 5, 1, 16)),
+              (200, "float32", 8, False, (0, 1, 2, 16))]
+
+
+@pytest.mark.parametrize("hd,dt,G,aligned,want", BODY_CASES, ids=str)
+def test_decode_attention_body_for_every_shape(hd, dt, G, aligned, want):
+    """``body_for`` routes every head dim and group to a body; the split
+    plan's blocks and the merge scratch follow its chunks, slabs and rows
+    (a pitch of min(G, rows) rows a chunk)."""
+    body = DA.body_for(hd, getattr(torch, dt), G, aligned)
+    assert (body.width, body.chunks, body.slabs, body.rows) == want
+    assert body.name == ("slab" if want[0] == 0 else f"w{want[0]}"
+                         + ("_rows" if want[3] > 16 else ""))
+    assert DA.scratch_floats(2, 3, G, hd, 1, body.rows) == 0
+    assert DA.scratch_floats(2, 3, G, hd, 5, body.rows) == (
+        2 * 3 * body.chunks * 5 * min(G, body.rows) * (hd + 2))
+    with pytest.raises(ValueError):
+        DA.body_for(0, torch.float32, G)
 
 
 @pytest.mark.parametrize("S,klen,dt,hd", DECODE_CASES)
@@ -459,8 +552,96 @@ def test_decode_attention_hd256_f32_order_vs_pallas_interpreter(G, klen):
                                atol=1e-4)
 
 
+SLAB_STAGE, SLAB_COLS, SLAB_WARPS = 32, 128, 4   # the slab body's geometry
+
+
+def _emulate_slab_f32(q, k, v, kv_len, n_sm=132, per_sm=3):
+    """numpy float32 in the float32 slab body's order of arithmetic (hd
+    above 256): the split plan over B KV chunks slabs blocks at ``per_sm``
+    blocks an SM; 32-key stages; each warp's partial scores over its 32
+    columns of every 128-column chunk, column by column and chunk by
+    chunk, the four warps' partials summed in warp order, then scaled and
+    masked; the online softmax; acc += p v key by key; each split's (m, l,
+    acc), then the merge's (splits in order) or o = acc / max(l, 1e-30).
+    Every slab of a row computes these same scores, so one emulation
+    stands for all.  q (B, KV, G, hd), k and v (B, KV, S, hd)."""
+    B, KV, G, hd = q.shape
+    S = k.shape[2]
+    body = DA.body_for(hd, torch.float32, G)
+    nsplit = DA.split_count(B, KV * body.chunks * body.slabs, S, n_sm, per_sm)
+    scale = np.float32(1.0 / np.sqrt(hd))
+    wc = SLAB_COLS // SLAB_WARPS
+    states = []
+    for split in range(nsplit):
+        lo, hi = DA.split_span(kv_len, nsplit, split)
+        if lo >= hi:
+            continue
+        m = np.full((B, KV, G), NEG_INF, np.float32)
+        lsum = np.zeros((B, KV, G), np.float32)
+        acc = np.zeros((B, KV, G, hd), np.float32)
+        for key0 in range(lo, hi, SLAB_STAGE):
+            nv = min(SLAB_STAGE, hi - key0)
+            kk = k[:, :, key0:key0 + nv]
+            part = np.zeros((SLAB_WARPS, B, KV, G, nv), np.float32)
+            for c0 in range(0, hd, SLAB_COLS):
+                for w in range(SLAB_WARPS):
+                    for c in range(c0 + w * wc, min(c0 + (w + 1) * wc, hd)):
+                        part[w] += q[..., c, None] * kk[:, :, None, :, c]
+            s = part[0]
+            for w in range(1, SLAB_WARPS):
+                s = s + part[w]
+            s = s * scale
+            mx = np.maximum(m, s.max(-1))
+            corr = np.exp(m - mx)
+            p = np.exp(s - mx[..., None])
+            lsum = lsum * corr + p.sum(-1, dtype=np.float32)
+            m = mx
+            acc = acc * corr[..., None]
+            for j in range(nv):
+                acc = acc + p[..., j, None] * v[:, :, None, key0 + j]
+        states.append((m, lsum, acc))
+    if nsplit == 1:
+        m, lsum, acc = states[0]
+        return acc / np.maximum(lsum, np.float32(1e-30))[..., None]
+    mx = states[0][0]
+    for m, _, _ in states[1:]:
+        mx = np.maximum(mx, m)
+    lt = np.zeros_like(mx)
+    at = np.zeros_like(states[0][2])
+    for m, lsum, acc in states:
+        f = np.exp(m - mx)
+        lt = lt + lsum * f
+        at = at + acc * f[..., None]
+    return at / np.maximum(lt, np.float32(1e-30))[..., None]
+
+
+@pytest.mark.parametrize("B,KV,G,S,klen,hd", [(2, 1, 20, 256, 77, 320),
+                                              (1, 1, 1, 2048, 1500, 320),
+                                              (2, 1, 8, 512, 330, 512)],
+                         ids=str)
+def test_decode_attention_slab_f32_order_vs_pallas_interpreter(B, KV, G, S,
+                                                               klen, hd):
+    """The float32 slab body's order of arithmetic (``_emulate_slab_f32``)
+    against JAX's wrapper interpreting the Pallas kernel, at 1e-4: G 20
+    (two chunks of query heads), one (b, kv head) cut into many splits
+    and merged, and hd 512 (four slabs)."""
+    rng = np.random.default_rng(hd + G + klen)
+    q, k, v = (rng.normal(0, 1, shape).astype(np.float32)
+               for shape in ((B, KV * G, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    want = np.asarray(rops.decode_attention(
+        *(jnp.asarray(a) for a in (q, k, v)), jnp.int32(klen)))
+    k[:, klen:] = np.nan                 # rows past kv_len are never read
+    v[:, klen:] = np.nan
+    got = _emulate_slab_f32(q.reshape(B, KV, G, hd), k.transpose(0, 2, 1, 3),
+                            v.transpose(0, 2, 1, 3), klen)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got.reshape(B, KV * G, hd), want, rtol=0,
+                               atol=1e-4)
+
+
 @pytest.mark.parametrize("G,hd,dt", [(7, 64, "bfloat16"), (1, 128, "float32"),
-                                     (16, 64, "float32")])
+                                     (16, 64, "float32"), (7, 16, "bfloat16"),
+                                     (20, 320, "float32")])
 def test_decode_attention_reads_the_model_cache_in_place(G, hd, dt,
                                                          monkeypatch):
     """``ops.decode_attention`` hands the kernel wrapper (B, KV, S, hd)
@@ -495,12 +676,21 @@ def test_decode_attention_reads_the_model_cache_in_place(G, hd, dt,
 
 
 def test_decode_attention_cache_strides_refuse_what_the_kernel_cannot_read():
+    """A last dimension that is not contiguous raises; rows off a 16-byte
+    boundary are read in place too, by the slab body's narrower copies
+    (``rows_aligned`` tells ``body_for``)."""
     k = torch.zeros(2, 300, 2, 64)
-    assert DA.cache_strides(k[:1].transpose(1, 2)) == (0, 64, 128)
+    ks = DA.cache_strides(k[:1].transpose(1, 2))
+    assert ks == (0, 64, 128) and DA.rows_aligned(k, ks)
     with pytest.raises(ValueError, match="in place"):
         DA.cache_strides(k.transpose(1, 3))        # last dim not contiguous
-    with pytest.raises(ValueError, match="in place"):
-        DA.cache_strides(k[..., 1:].transpose(1, 2)[..., :60])  # misaligned
+    off = k[..., 1:].transpose(1, 2)[..., :60]     # misaligned rows
+    ks = DA.cache_strides(off)
+    assert ks == (300 * 128, 64, 128) and not DA.rows_aligned(off, ks)
+    assert DA.body_for(60, torch.float32, 4,
+                       DA.rows_aligned(off, ks)).width == 0
+    odd = torch.zeros(2, 2, 300, 20, dtype=torch.bfloat16)   # 40-byte rows
+    assert not DA.rows_aligned(odd, DA.cache_strides(odd))
 
 
 def test_cpu_dispatch_never_launches_and_other_devices_raise(monkeypatch):

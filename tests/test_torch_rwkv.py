@@ -64,6 +64,21 @@ def _both(arrays):
 SCAN_SHAPES = [(64, 16), (128, 64), (96, 32), (50, 16)]
 
 
+@pytest.mark.parametrize("K", [48, 192])
+def test_rwkv6_scan_other_key_widths_match_jax_kernel(K):
+    """Key widths the card runs on a padded instantiation (48 on 64) and in
+    slabs of 128 state rows (192): ``ops.rwkv6_scan`` (the plain version on
+    a CPU tensor) against JAX's ``ops.rwkv6_scan``, which interprets the
+    Pallas kernel, at the kernel test's 5e-3."""
+    jx, tt = _both(_scan_inputs(K, 2, 3, 64, K, V=40))
+    ko, ks = ops.rwkv6_scan(*tt)
+    jo, js = rops.rwkv6_scan(*jx)
+    assert ko.shape == (2, 3, 64, 40) and ks.shape == (2, 3, K, 40)
+    np.testing.assert_allclose(ko.numpy(), np.asarray(jo), atol=5e-3)
+    np.testing.assert_allclose(ks.numpy(), np.asarray(js), atol=5e-3)
+
+
+
 @pytest.mark.parametrize("T,K", SCAN_SHAPES)
 def test_rwkv6_scan_matches_jax(T, K):
     jx, tt = _both(_scan_inputs(T + K, 2, 3, T, K))

@@ -1,6 +1,7 @@
 """Time decode attention at head dim 256 beside SDPA, for source trees.
 
     python3 tools/decode_hd256_times.py [--dtype D] [--others] [SRC ...]
+    python3 tools/decode_hd256_times.py --shapes [SRC ...]
 
 On a CUDA card.  For each source tree (a directory holding
 ``repro_torch``; ``src`` by default), in the order given and each in a
@@ -19,7 +20,11 @@ time, the bytes bound at 3.35 TB/s, and ``scaled_dot_product_attention``
 on the ``kv_len`` slice of a contiguous (B, KV, S, hd) copy (TF32 off).
 ``--others`` also times the bodies at the other head dims the same way
 (``OTHERS``: decode_32k's hd 64 shape in bf16 and float32, hd 128 in
-both types).  Times are CUDA events around 50 back-to-back calls, the
+both types).  ``--shapes`` times only ``WIDE``, the shapes of the smoke's
+phase 24 (the zoo smoke configs' hd 16 at decode_32k's batch and length,
+71 query heads over one kv head at hd 64, float32 hd 512) and 33 heads
+over one (a half-empty block of the rows body).  Times are CUDA events
+around 50 back-to-back calls, the
 least of 3 such windows (``body``; at a small shape this is the host's
 time a call), the device time a call from torch.profiler (the body and
 the merge, or SDPA's kernels), the median of 101 single calls
@@ -59,10 +64,15 @@ OTHERS = ((128, 2, 7, 32768, 64, "bfloat16", 30000),
           (32, 2, 8, 32768, 128, "bfloat16", 30000),
           (32, 2, 7, 8192, 64, "float32", 8000),
           (32, 2, 8, 32768, 128, "float32", 30000))
+# --shapes: (B, KV, G, S, hd, dtype, kv_len), on the (B, S, KV, hd) cache
+WIDE = ((128, 2, 7, 32768, 16, "bfloat16", 30000),
+        (128, 1, 71, 32768, 64, "bfloat16", 30000),
+        (128, 1, 33, 32768, 64, "bfloat16", 30000),
+        (8, 1, 8, 4096, 512, "float32", 3001))
 HBM = 3.35e12                    # bytes/s
 
 
-def times(src: str, dtypes: tuple, others: bool) -> None:
+def times(src: str, dtypes: tuple, others: bool, wide: bool) -> None:
     sys.path.insert(0, os.path.abspath(src))
     import torch
 
@@ -124,8 +134,10 @@ def times(src: str, dtypes: tuple, others: bool) -> None:
         return sorted(out)[reps // 2]
 
     cases = [(B, 1, G, S, HD, dt, kv_len, layout)
-             for dt, B, S, kv_len, layout in SHAPES if dt in dtypes]
+             for dt, B, S, kv_len, layout in SHAPES if dt in dtypes
+             and not wide]
     cases += [(*c, "bskd") for c in (OTHERS if others else ())]
+    cases += [(*c, "bskd") for c in (WIDE if wide else ())]
     for B, KV, G_, S, hd, dt, kv_len, layout in cases:
         dtype = getattr(torch, dt)
         q = torch.randn(B, KV, G_, hd, generator=gen, device=dev).to(dtype)
@@ -207,6 +219,8 @@ def main(argv: list[str]) -> int:
                     default="both")
     ap.add_argument("--others", action="store_true",
                     help="also time the hd 64 and 128 bodies")
+    ap.add_argument("--shapes", action="store_true",
+                    help="time only the phase-24 shapes (WIDE)")
     ap.add_argument("--sass", action="store_true",
                     help="compare two trees' SASS, function by function")
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
@@ -219,7 +233,7 @@ def main(argv: list[str]) -> int:
     dtypes = (("bfloat16", "float32") if args.dtype == "both"
               else (args.dtype,))
     if args.one:
-        times(args.src[0], dtypes, args.others)
+        times(args.src[0], dtypes, args.others, args.shapes)
         return 0
     print(subprocess.run(["nvidia-smi", "-i", "0",
                           "--query-gpu=name,power.limit",
@@ -230,6 +244,7 @@ def main(argv: list[str]) -> int:
         rc |= subprocess.run([sys.executable, os.path.abspath(__file__),
                               "--one", "--dtype", args.dtype, src]
                              + (["--others"] if args.others else [])
+                             + (["--shapes"] if args.shapes else [])
                              ).returncode
     return rc
 

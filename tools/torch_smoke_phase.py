@@ -8,6 +8,7 @@
     python3 tools/torch_smoke_phase.py flash256          # on a CUDA card
     python3 tools/torch_smoke_phase.py decode256         # on a CUDA card
     python3 tools/torch_smoke_phase.py paligemma         # on a CUDA card
+    python3 tools/torch_smoke_phase.py shapes            # on a CUDA card
     python3 tools/torch_smoke_phase.py decode256 --root build/parent
 
 ``train`` is the smoke's phase 17 (``zoo_training_phase``), ``launch``
@@ -29,7 +30,10 @@ reports, SDPA and the bound beside it, NaN past kv_len, float32 at
 three shapes), ``paligemma`` its
 phase 14's paligemma-3b serving (``family_serving_phase``: profiles of
 a decode step and a prefill, 32 greedy steps, layer 0's decode call
-against plain).  ``--root`` runs the phase from another checkout (say a
+against plain), ``shapes`` its phase 24 (``shapes_phase``: the zoo smoke
+configs' decode serving at their own head dim 16 under ``pallas`` against
+``xla_naive``, and each body added for shapes the bodies before it
+refused, timed at one shape beside its bound).  ``--root`` runs the phase from another checkout (say a
 parent commit unpacked by ``git archive``), its ``chip_smoke.py`` and
 ``src/`` both.  Builds the
 kernels (decode attention runs in both), then runs the phase and prints
@@ -73,7 +77,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("phase", choices=["train", "launch", "mesh", "families",
                                       "fleet", "flash256", "decode256",
-                                      "paligemma"])
+                                      "paligemma", "shapes"])
     ap.add_argument("--rehearse", action="store_true")
     ap.add_argument("--root", default=os.path.join(HERE, ".."),
                     help="the checkout whose chip_smoke.py and src/ run "
@@ -119,6 +123,10 @@ def main(argv=None) -> int:
     elif args.phase == "paligemma":
         launches, lines = cs.family_serving_phase(torch, dev, args.rehearse,
                                                   "paligemma")
+    elif args.phase == "shapes":
+        bodies, launches, lines = cs.shapes_phase(torch, dev, args.rehearse,
+                                                  gpu)
+        lines.append(json.dumps({"bodies": bodies}))
     else:
         launches, lines = cs.launch_phase(torch, dev, args.rehearse, gpu)
     for line in lines:
