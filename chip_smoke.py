@@ -387,11 +387,14 @@ Phases (any failure exits non-zero and prints no result line):
     16 on decode_32k's (128, 2, 7, 32768) at kv_len 30,000, at 71 query
     heads over one kv head at hd 64 (Falcon-7B's multi-query layout, as
     a shape; the rows body) and in float32 at (8, 1, 8, 4096, 512),
-    kv_len 3,001 (the slab body); flash attention's slab body at (4, 8,
-    8, 1024, 512) causal bf16 beside SDPA; the CAM head at (32, 3136,
-    256) x 128 classes in float32 and on bf16 features and weights
-    beside ``torch.matmul``; the WKV scan at (4, 40, 1024, 48) bf16 on
-    its 64-row instantiation.  The entries go to the kernels line as
+    kv_len 3,001 (the slab body); flash attention at (4, 8, 8, 1024,
+    512) causal, bf16 on the wide wgmma body and float32 on the slab
+    body, beside SDPA (TF32 off); the CAM head at (32, 3136, 256) x 128
+    classes (the MMA body) in float32 and on bf16 features and weights,
+    and at the zoo configs' IC branch's 8 classes in float32, beside
+    ``torch.matmul``, each a repeated call bit for bit, with the MMA
+    body's resources; the WKV scan at (4, 40, 1024, 48) bf16 on its
+    64-row instantiation.  The entries go to the kernels line as
     each kernel's ``bodies``, with decode attention's
     ``smoke_hd16_launches``.
 """
@@ -6494,6 +6497,9 @@ SHAPES_DECODE_SMALL = {"hd16": (2, 2, 7, 640, 16, "bfloat16", 600),
                        "hd512_f32": (2, 1, 8, 640, 512, "float32", 600)}
 SHAPES_FLASH = (4, 8, 8, 1024, 512)     # (B, H, KV, S, hd), causal, bf16
 SHAPES_CAM = (32, 3136, 256, 128)       # (B, P, D, C)
+SHAPES_CAM_IC = 8       # the zoo configs' IC branch: 8 classes over 256
+# the CAM head's kernel functions by body (cam_head.body_for)
+CAM_KERNELS = {"stream": "cam_tile_kernel", "mma": "cam_mma_kernel"}
 SHAPES_SCAN = (4, 40, 1024, 48)         # (B, H, T, K), V = K, bf16
 SHAPES_CHECK_ROWS = 4     # batch rows of a full-size decode held to plain
 
@@ -6562,6 +6568,18 @@ def smoke_decode_serving(torch, dev, rehearse):
     return out, lines
 
 
+def cam_bound(n_bytes, macs, bf16, body):
+    """The CAM head's bound: its bytes, or its products at the rate of the
+    units its body runs them on: fp32 FMAs for the streaming body; for
+    the MMA body one bf16 product on bf16 features and weights (``bf16``),
+    three TF32 products a float32 one (3xTF32) on float32 ones."""
+    if body == "stream":
+        return bound_ms(n_bytes, 2 * macs)
+    if bf16:
+        return bound_ms(n_bytes, 2 * macs, BF16_FLOPS)
+    return bound_ms(n_bytes, 3 * 2 * macs, TF32_FLOPS)
+
+
 def shapes_decode_entry(torch, dev, key, shape, timer, ktimer, rehearse):
     """(b) Decode attention at one shape of ``SHAPES_DECODE`` through
     ``ops.decode_attention`` on a (B, S, KV, hd) cache read in place: one
@@ -6623,14 +6641,16 @@ def shapes_decode_entry(torch, dev, key, shape, timer, ktimer, rehearse):
 
 
 def shapes_phase(torch, dev, rehearse, gpu):
-    """Phase 24: (a) ``smoke_decode_serving``; (b) each body that this
-    phase adds to a kernel, at one shape: decode attention at
-    ``SHAPES_DECODE``, flash attention's slab body (``SHAPES_FLASH``,
-    causal bf16, beside SDPA), the CAM head at 128 classes
-    (``SHAPES_CAM``, float32 beside ``torch.matmul`` with TF32 off, and
-    on bf16 features and weights) and the WKV scan at K 48 (``SHAPES_SCAN``,
-    on the 64-row instantiation), each against its plain version, timed
-    three ways beside its bound.  Returns ({kernel name: {body: entry}},
+    """Phase 24: (a) ``smoke_decode_serving``; (b) each body added for
+    shapes the first bodies refused, at one shape: decode attention at
+    ``SHAPES_DECODE``, flash attention above hd 256 (``SHAPES_FLASH``,
+    causal, bf16 on the wide wgmma body and float32 on the slab body,
+    beside SDPA), the CAM head at 128 classes (``SHAPES_CAM``, the MMA
+    body, float32 beside ``torch.matmul`` with TF32 off, and on bf16
+    features and weights) and at ``SHAPES_CAM_IC`` classes in float32,
+    and the WKV scan at K 48 (``SHAPES_SCAN``, on the 64-row
+    instantiation), each against its plain version, timed three ways
+    beside its bound.  Returns ({kernel name: {body: entry}},
     {smoke config: record}, lines)."""
     from repro_torch.kernels import cam_head as CH
     from repro_torch.kernels import flash_attention as FA
@@ -6646,65 +6666,90 @@ def shapes_phase(torch, dev, rehearse, gpu):
                        else SHAPES_DECODE).items():
         bodies["decode_attention_bkgd"][key] = shapes_decode_entry(
             torch, dev, key, shape, timer, ktimer, rehearse)
-    # flash attention above hd 256: the slab body
+    # flash attention above hd 256: bf16 on the wide wgmma body, float32
+    # on the slab body
     B, H, KV, S, hd = SHAPES_FLASH if not rehearse else (1, 2, 2, 128, 512)
-    (q, k, v), err = flash_case(torch, FA, dev, (B, H, KV, S, hd),
-                                torch.bfloat16, SEED + 61, causal=True)
-    ops.reset_launch_counts()
-    FA.flash_attention_bhsd(q, k, v, causal=True)
-    sync(torch, dev)
-    n_launch = ops.launch_counts()["flash_attention_bhsd"]
-    check(rehearse or n_launch == 1, f"flash attention at hd {hd} launched "
-          f"{n_launch} kernels")
-    n_bytes = 2 * (2 * B * H * S * hd + 2 * B * KV * S * hd)
-    bnd, by = bound_ms(n_bytes, 2 * B * H * S * S * hd, BF16_FLOPS)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    bodies["flash_attention_bhsd"]["slab_hd512"] = {
-        "body": "slab", "shape": [B, H, KV, S, hd], "dtype": "torch.bfloat16",
-        "causal": True, "launches": n_launch,
-        "max_abs_err": err, "tolerance": "2e-2 in bf16",
-        **ktimer(lambda: FA.flash_attention_bhsd(q, k, v, causal=True),
-                 "flash_attention_slab"),
-        "plain_ms": timer(lambda: FA.flash_attention_plain(q, k, v,
-                                                           causal=True)),
-        "bound_ms": bnd, "bound_by": by, "bound_flops": 2 * B * H * S * S * hd,
-        **library_entry(ktimer(lambda: sdpa(q, k, v, is_causal=True))),
-        "library_note": "SDPA, causal"}
-    del q, k, v
-    # the CAM head past 64 classes, float32 and bf16
+    for key, dtype in (("wide_hd512", torch.bfloat16),
+                       ("slab_hd512_f32", torch.float32)):
+        (q, k, v), err = flash_case(torch, FA, dev, (B, H, KV, S, hd), dtype,
+                                    SEED + 61, causal=True)
+        kernel = FA.kernel_for(hd, dtype)
+        before = None if rehearse else FA.body_launches()
+        ops.reset_launch_counts()
+        FA.flash_attention_bhsd(q, k, v, causal=True)
+        sync(torch, dev)
+        n_launch = ops.launch_counts()["flash_attention_bhsd"]
+        check(rehearse or n_launch == 1, f"flash attention at hd {hd} "
+              f"{dtype} launched {n_launch} kernels")
+        check(rehearse or FA.body_launches()[kernel] - before[kernel] == 1,
+              f"flash attention at hd {hd} {dtype}: {kernel} did not run")
+        f32 = dtype == torch.float32
+        n_bytes = q.element_size() * (2 * B * H * S * hd + 2 * B * KV * S * hd)
+        flops = 2 * B * H * S * S * hd              # the causal half
+        bnd, by = (bound_ms(n_bytes, 3 * flops, TF32_FLOPS) if f32
+                   else bound_ms(n_bytes, flops, BF16_FLOPS))
+        bodies["flash_attention_bhsd"][key] = {
+            "body": kernel, "shape": [B, H, KV, S, hd], "dtype": str(dtype),
+            "causal": True, "launches": n_launch,
+            "max_abs_err": err, "tolerance": "1e-4" if f32 else "2e-2 in bf16",
+            **ktimer(lambda: FA.flash_attention_bhsd(q, k, v, causal=True),
+                     kernel),
+            "plain_ms": timer(lambda: FA.flash_attention_plain(q, k, v,
+                                                               causal=True)),
+            "bound_ms": bnd, "bound_by": by, "bound_flops": (
+                3 * flops if f32 else flops),
+            **library_entry(ktimer(lambda: sdpa(q, k, v, is_causal=True))),
+            "library_note": "SDPA, causal" + (", TF32 off" if f32 else "")}
+        del q, k, v
+    # the CAM head: 128 classes (the MMA body) in float32 and on bf16
+    # features and weights, and the zoo configs' IC branch's 8 classes in
+    # float32 (on the body the crossover gives it)
     B, P, D, C = SHAPES_CAM if not rehearse else (2, 64, 32, 100)
     gen = torch.Generator(dev).manual_seed(SEED + 62)
     feat = torch.randn((B, P, D), generator=gen, device=dev)
     w = torch.randn((D, C), generator=gen, device=dev) * 0.1
     b = torch.randn((C,), generator=gen, device=dev) * 0.1
-    for key, cast in (("c128", torch.float32), ("c128_bf16", torch.bfloat16)):
-        f_, w_ = feat.to(cast), w.to(cast)
+    for key, cast, n_cls in (("c128", torch.float32, C),
+                             ("c128_bf16", torch.bfloat16, C),
+                             ("c8", torch.float32, SHAPES_CAM_IC)):
+        f_, w_, b_ = feat.to(cast), w[:, :n_cls].to(cast).contiguous(), \
+            b[:n_cls].contiguous()
+        body = CH.body_for(n_cls, D, cast, f_.data_ptr())
+        before = None if rehearse else CH.body_launches()
         ops.reset_launch_counts()
-        counts, cam = CH.cam_head_bgd(f_, w_, b)
+        counts, cam = CH.cam_head_bgd(f_, w_, b_)
         sync(torch, dev)
         n_launch = ops.launch_counts()["cam_head_bgd"]
         check(rehearse or n_launch == 1, f"cam head {key} launched "
               f"{n_launch} kernels")
-        pc, pcam = CH.cam_head_plain(f_, w_, b)
+        check(rehearse or CH.body_launches()[body] - before[body] == 1,
+              f"cam head {key}: the {body} body did not run")
+        pc, pcam = CH.cam_head_plain(f_, w_, b_)
         err = max(float((cam - pcam).abs().max()),
                   float((counts - pc).abs().max()))
         check(err <= 1e-4, f"cam head {key}: max abs err {err} > 1e-4")
-        again = CH.cam_head_bgd(f_, w_, b)
+        again = CH.cam_head_bgd(f_, w_, b_)
         check(torch.equal(again[0], counts) and torch.equal(again[1], cam),
               f"cam head {key}: a repeated call is not bit-identical")
-        esize = f_.element_size()
-        n_bytes = (B * P * D + D * C) * esize + (C + B * P * C + B * C) * 4
-        bnd, by = bound_ms(n_bytes, 2 * B * P * D * C)
+        n_bytes = (B * P * D + D * n_cls) * f_.element_size() \
+            + (n_cls + B * P * n_cls + B * n_cls) * 4
+        bnd, by = cam_bound(n_bytes, B * P * D * n_cls,
+                             cast == torch.bfloat16, body)
         bodies["cam_head_bgd"][key] = {
-            "shape": [B, P, D, C], "dtype": str(cast), "launches": n_launch,
-            "max_abs_err": err, "tolerance": "1e-4",
-            **ktimer(lambda: CH.cam_head_bgd(f_, w_, b), "cam_tile_kernel"),
-            "plain_ms": timer(lambda: CH.cam_head_plain(f_, w_, b)),
+            "body": body, "shape": [B, P, D, n_cls], "dtype": str(cast),
+            "launches": n_launch, "max_abs_err": err, "tolerance": "1e-4",
+            "repeat_bit_identical": True,
+            **ktimer(lambda: CH.cam_head_bgd(f_, w_, b_), CAM_KERNELS[body]),
+            "plain_ms": timer(lambda: CH.cam_head_plain(f_, w_, b_)),
             "bound_ms": bnd, "bound_by": by, "bound_bytes": n_bytes,
             **library_entry(ktimer(lambda: torch.matmul(f_, w_))),
             "library_note": "torch.matmul(feat, w), TF32 off (the CAM "
                             "alone, no counts)"}
-        del counts, cam, pc, pcam, again
+        if not rehearse:
+            bodies["cam_head_bgd"][key]["mma_info"] = CH.mma_info(
+                n_cls, cast, cast)
+        del counts, cam, pc, pcam, again, f_, w_, b_
     del feat, w, b
     # the WKV scan at K 48, on the 64-row instantiation
     B, H, T, K = SHAPES_SCAN if not rehearse else (1, 2, 64, 48)

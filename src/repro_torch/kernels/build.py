@@ -50,7 +50,10 @@ _SIGNATURES = {
     "spatial_stats": {
         "spatial_stats_launch": ([ctypes.c_char_p, _F, _VP], _I)},
     "cam_head": {
-        "cam_head_launch": ([_VP] * 6 + [_I] * 5 + [_VP], _I)},
+        "cam_head_launch": ([_VP] * 7 + [_I] * 6 + [_VP], _I),
+        "cam_head_workspace_bytes": ([_I, _I, _I], _LL),
+        "cam_head_mma_info": ([_I, _I, _PI], _I),
+        "cam_head_body_launches": ([_PI], _I)},
     "flash_attention": {
         "flash_attention_launch": ([_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
                                     _I, _I, _I, _I, _I, _F, _VP], _I),
@@ -58,7 +61,9 @@ _SIGNATURES = {
         "flash_attention_wgmma_probe": ([_VP] * 6, _I),
         "flash_attention_f32_wgmma_probe": ([_VP] * 7, _I),
         "flash_attention_hd256_info": ([_PI], _I),
-        "flash_attention_hd256_f32_info": ([_PI], _I)},
+        "flash_attention_hd256_f32_info": ([_PI], _I),
+        "flash_attention_wide_info": ([_I, _PI], _I),
+        "flash_attention_body_launches": ([_PI], _I)},
     "rwkv6_scan": {
         "rwkv6_scan_launch": ([_PLL, _VP], _I)},
     "decode_attention": {
@@ -133,7 +138,16 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+# the sources' code for a tensor map the driver refused, + its CUresult
+# (cudaError_t values stay below it)
+MAP_ERROR = 100000
+
+
 def check(rc: int, what: str) -> None:
-    """Raise on a non-zero ``cudaError_t`` returned by a launch."""
+    """Raise on a non-zero ``cudaError_t`` returned by a launch, or on a
+    TMA tensor map the driver refused (``MAP_ERROR`` + its CUresult)."""
+    if rc >= MAP_ERROR:
+        raise RuntimeError(f"{what}: the driver refused a TMA tensor map "
+                           f"(CUresult {rc - MAP_ERROR})")
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")

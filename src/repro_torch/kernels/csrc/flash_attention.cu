@@ -9,8 +9,9 @@
 // version.  q (B, H, Sq, hd), k and v (B, KV, Sk, hd), float32 or bfloat16,
 // contiguous; G = H / KV; hd in {32, 64, 128, 256} or a multiple of 8
 // above 256 (the wrapper zero-pads any other hd up to the next of these and
-// passes the true hd's scale; above 256 the slab body runs, below).  o (B,
-// H, Sq, hd) in q's type.
+// passes the true hd's scale; above 256 bf16 up to hd 512 runs a wgmma
+// body of its own, float32 and wider head dims the slab body, below).  o
+// (B, H, Sq, hd) in q's type.
 //
 // Arithmetic (the TPU kernel's): scores S = q k^T * scale accumulated in
 // fp32, running max m, sum l and accumulator acc in fp32; the
@@ -61,7 +62,8 @@
 //   - a warp whose rows all precede a causal key tile skips its math.
 // Head dim 256 (paligemma-3b's) has two bodies of its own for Hopper,
 // below: bf16's (flash_attention_kernel_hd256_wgmma) and float32's
-// (flash_attention_kernel_hd256_tf32), warpgroup MMA on TMA-fed tiles.
+// (flash_attention_kernel_hd256_tf32), warpgroup MMA on TMA-fed tiles;
+// so has bf16 at head dims 257-512 (flash_attention_kernel_wide_wgmma).
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched
                    // through cudaGetDriverEntryPoint (no -lcuda)
 #include <cuda_bf16.h>
@@ -74,6 +76,7 @@
 namespace {
 
 constexpr int kBQ = 64;            // query rows per block
+constexpr int kWideMaxHd = 512;    // bf16's wide wgmma body, 257-512
 constexpr float kNegInf = (float)(-0.7 * 3.4028234663852886e38);
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -1799,6 +1802,416 @@ int launch(const void* q, const void* k, const void* v, void* o, void* ws,
 }  // namespace tf
 
 // ---------------------------------------------------------------------------
+// Bf16 at head dims 257-512: warpgroup MMA (wgmma) on TMA-fed tiles, the
+// scores computed once a tile, sm_90a.
+//
+// Bound at (4, 8, 8, 1024, 512) causal: 134 MB of q, k, v and o (0.0401
+// ms at 3.35 TB/s) against the causal half of 4 B H S^2 hd, 34.4 GFLOP
+// (0.0347 ms at 989 TFLOP/s).  The slab body below recomputes q k^T over
+// the whole head dim once for each 128 columns of o (four times at hd
+// 512) on mma.sync.  This body follows the bf16 hd 256 one's pattern
+// (flash_attention_kernel_hd256_wgmma) with the head dim split instead
+// of the rows:
+//   - a block owns 64 query rows of one (batch, head) and all of hd: a
+//     producer warpgroup (one thread issues the TMA loads) and two
+//     consumer warpgroups, each owning NB 64-column boxes of the head dim
+//     (NB = 3 up to hd 384, 4 up to 512); setmaxnreg gives a consumer
+//     thread 232 registers (o: 64 x 64 NB fp32, 32 NB a thread) and a
+//     producer thread 40;
+//   - shared memory: q (64 rows x 2 NB boxes, loaded once), a ring of
+//     32-key stages of k and v (2 NB boxes of 4 KB each), and the score
+//     exchange: 224 KB at NB 4 (two stages), 176 KB at NB 3 (three);
+//   - TMA maps with the true hd's extent: columns past hd read as zero,
+//     and boxes wholly past it are not loaded but zeroed once in shared
+//     memory (q's and every stage's k), so that every warpgroup runs the
+//     same unrolled products; no column past hd or row past Sq is
+//     stored, so q, k and v are read in place;
+//   - S = q k^T: each consumer warpgroup takes its boxes' partial (wgmma
+//     m64n32k16, 4 k-steps a box), writes it to shared memory in its
+//     accumulator layout, and after a named barrier of both adds the
+//     other's: the same two fp32 terms in both warpgroups (a + b is b +
+//     a), so both hold the same scores, m and l bit for bit;
+//   - the online softmax is the other bodies' (fp32, base 2 with scale *
+//     log2(e) in one FMA, NEG_INF masks and the masked-weight rule); p is
+//     rounded to bf16 straight into wgmma's A registers;
+//   - o += p v over the warpgroup's own columns: 2 wgmma m64n(64 NB)k16,
+//     A from registers, v MN-major through the transpose bit;
+//   - the TPU kernel's tile-skipping rules at 32-key tiles on the block's
+//     rows; blocks launched longest-first (causal);
+//   - o = acc / max(l, 1e-30) by l's rounded reciprocal and one FMA
+//     correction, staged in the warpgroup's own q boxes and stored by
+//     TMA.
+// A repeated call is bit-identical: no atomics, a fixed order of sums.
+namespace wide {
+
+using wg::desc;
+using wg::desc_k;
+using wg::fence;
+using wg::commit;
+using wg::wait_all;
+using wg::mbar_arrive;
+using wg::mbar_expect_tx;
+using wg::mbar_init;
+using wg::mbar_wait;
+using wg::pin;
+using wg::smem_u32;
+using wg::softmax;
+using wg::tma_load;
+using wg::tma_store;
+
+constexpr int kBM = 64;                         // query rows a block
+constexpr int kBN = 32;                         // keys a tile
+constexpr int kBoxCols = 64;                    // 128 bytes of bf16
+constexpr int kThreads = 3 * 128;               // producer + 2 consumers
+constexpr int kConsumerRegs = 232, kProducerRegs = 40;
+constexpr uint32_t kRowBytes = kBoxCols * 2;
+constexpr uint32_t kQBox = kBM * kRowBytes;     // 8 KB
+constexpr uint32_t kKBox = kBN * kRowBytes;     // 4 KB
+constexpr uint32_t kXBytes = 2 * 2 * 128 * 16 * 4;   // the exchange, x 2
+
+template <int NB>
+struct Geo {
+  static constexpr int kBoxes = 2 * NB;
+  static constexpr int kStages = NB == 4 ? 2 : 3;
+  static constexpr uint32_t kQBytes = kBoxes * kQBox;
+  static constexpr uint32_t kTile = kBoxes * kKBox;   // k or v
+  static constexpr uint32_t kXOff = kQBytes + kStages * 2 * kTile;
+  static constexpr uint32_t kBarOff = kXOff + kXBytes;
+  // barriers (8 bytes each) at kBarOff: q, full k[kStages], full
+  // v[kStages], empty[kStages]
+  static constexpr size_t kSmem = 1024 + kBarOff + (1 + 3 * kStages) * 8;
+};
+
+// d (64 x 32 fp32) = (acc ? d : 0) + a (64 x 16) b^T (b 32 x 16); a and b
+// K-major in shared memory
+__device__ __forceinline__ void mma_64x32(float (&d)[16], uint64_t da,
+                                          uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, "
+      "%4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, "
+      "1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d (64 x 192 fp32) += a (64 x 16, bf16 pairs in registers) b (16 x 192);
+// b MN-major in shared memory (transposed on read)
+__device__ __forceinline__ void mma_64x192(float (&d)[96],
+                                           const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {%0, %1, %2, "
+      "%3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
+      "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95}, {%96, %97, %98, %99}, %100, "
+      "p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// d (64 x 256 fp32) += a b, as mma_64x192
+__device__ __forceinline__ void mma_pv(float (&d)[128], const uint32_t* a,
+                                       uint64_t db) {
+  wg::mma_64x256(d, a, db);
+}
+__device__ __forceinline__ void mma_pv(float (&d)[96], const uint32_t* a,
+                                       uint64_t db) {
+  mma_64x192(d, a, db);
+}
+
+template <int NB>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_kernel_wide_wgmma(const __grid_constant__ CUtensorMap mq,
+                                  const __grid_constant__ CUtensorMap mk,
+                                  const __grid_constant__ CUtensorMap mv,
+                                  const __grid_constant__ CUtensorMap mo,
+                                  int BH, int H, int KV, int Sq, int Sk,
+                                  int hd, int n_q, float scale_log2,
+                                  int causal, int window) {
+  using G = Geo<NB>;
+  constexpr int kS = G::kStages;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;
+  unsigned char* gbase = smem + (base - smem_u32(smem));
+  const uint32_t sq = base;                     // q: 2 NB boxes of 64 rows
+  const uint32_t ring = base + G::kQBytes;      // stage s: k, then v
+  float4* xs = reinterpret_cast<float4*>(gbase + G::kXOff);
+  const uint32_t bar = base + G::kBarOff;
+  const uint32_t full_q = bar, full_k = bar + 8, full_v = full_k + 8 * kS,
+                 empty = full_v + 8 * kS;       // + 8 x stage
+  const int n_box = (hd + kBoxCols - 1) / kBoxCols;   // boxes holding hd
+
+  const int bh = blockIdx.x % BH;               // b * H + h
+  const int q0 = (n_q - 1 - blockIdx.x / BH) * kBM;   // longest first
+  const int kvh = (bh / H) * KV + (bh % H) / (H / KV);
+  const int q_hi = min(q0 + kBM, Sq) - 1;       // last real query row
+
+  // the TPU kernel's skipping rules, on the block's real rows
+  const int n_k = (Sk + kBN - 1) / kBN;
+  const int t_end = causal ? min(n_k, q_hi / kBN + 1) : n_k;
+  int t_begin = 0;
+  if (window > 0) {
+    const int x = q0 - window - (kBN - 2);
+    if (x > 0) t_begin = (x + kBN - 1) / kBN;
+  }
+  const int n_t = max(t_end - t_begin, 0);      // tiles t_begin + i
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+#pragma unroll
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);              // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer: one thread keeps the ring full; tile i goes to stage
+    // i % kS
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(full_q, n_box * kQBox);
+      for (int c = 0; c < n_box; ++c)
+        tma_load(sq + c * kQBox, &mq, full_q, c * kBoxCols, q0, bh);
+      for (int i = 0; i < n_t; ++i) {
+        const int s = i % kS, u = i / kS;
+        if (u > 0) mbar_wait(empty + 8 * s, (u - 1) & 1);
+        const int k0 = (t_begin + i) * kBN;
+        const uint32_t ks = ring + 2 * s * G::kTile;
+        mbar_expect_tx(full_k + 8 * s, n_box * kKBox);
+        for (int c = 0; c < n_box; ++c)
+          tma_load(ks + c * kKBox, &mk, full_k + 8 * s, c * kBoxCols, k0, kvh);
+        mbar_expect_tx(full_v + 8 * s, n_box * kKBox);
+        for (int c = 0; c < n_box; ++c)
+          tma_load(ks + G::kTile + c * kKBox, &mv, full_v + 8 * s,
+                   c * kBoxCols, k0, kvh);
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns boxes NB wg .. NB wg + NB - 1 of
+    // the head dim, both all 64 rows
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+    const int wg = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5;
+    const int lane = threadIdx.x & 31;
+    const int t = lane & 3;
+    const int wrow0 = q0 + 16 * warp;           // the warp's rows
+    const int ra = wrow0 + (lane >> 2);         // this thread's: ra, ra + 8
+    const int box0 = NB * wg;                   // the warpgroup's first box
+    const int nb = min(NB, n_box - box0);       // its boxes that hold hd
+    // its boxes past hd: zero in q and in every stage's k (TMA never
+    // writes them), seen by the tensor cores' async proxy
+    for (int bx = nb; bx < NB; ++bx) {
+      uint4* q4 = reinterpret_cast<uint4*>(gbase + (box0 + bx) * kQBox);
+      for (int i = tid; i < (int)(kQBox / 16); i += 128)
+        q4[i] = make_uint4(0u, 0u, 0u, 0u);
+      for (int st = 0; st < kS; ++st) {
+        uint4* k4 = reinterpret_cast<uint4*>(
+            gbase + G::kQBytes + 2 * st * G::kTile + (box0 + bx) * kKBox);
+        for (int i = tid; i < (int)(kKBox / 16); i += 128)
+          k4[i] = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("bar.sync %0, 128;" ::"r"(2 + wg) : "memory");
+
+    // o at acc[4 j + e]: row ra + 8 (e >> 1), column 64 box0 + 8 j + 2 t +
+    // (e & 1); the tile's scores, then weights, at sc[4 j + e]: the same
+    // row, key k0 + 8 j + 2 t + (e & 1)
+    float acc[32 * NB], sc[16];
+#pragma unroll
+    for (int e = 0; e < 32 * NB; ++e) acc[e] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) sc[e] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+    mbar_wait(full_q, 0);
+    for (int i = 0; i < n_t; ++i) {
+      const int s = i % kS;
+      const uint32_t ph = (i / kS) & 1;
+      const int k0 = (t_begin + i) * kBN;
+      const uint32_t ks = ring + 2 * s * G::kTile;
+      mbar_wait(full_k + 8 * s, ph);
+      // ---- this warpgroup's partial of S = q k^T (the first k-step
+      // ignores sc's old values)
+      pin(sc);
+      fence();
+#pragma unroll
+      for (int bx = 0; bx < NB; ++bx) {
+        const uint32_t qa = sq + (box0 + bx) * kQBox;
+        const uint32_t kb = ks + (box0 + bx) * kKBox;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          mma_64x32(sc, desc_k(qa + kk * 32), desc_k(kb + kk * 32),
+                    bx > 0 || kk > 0);
+      }
+      commit();
+      wait_all();
+      pin(sc);
+      // ---- the exchange: both warpgroups add the same two partials
+      float4* mine = xs + ((i & 1) * 2 + wg) * 4 * 128 + tid;
+      const float4* other = xs + ((i & 1) * 2 + (1 - wg)) * 4 * 128 + tid;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        mine[128 * j] =
+            make_float4(sc[4 * j], sc[4 * j + 1], sc[4 * j + 2], sc[4 * j + 3]);
+      asm volatile("bar.sync 1, 256;" ::: "memory");
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 x = other[128 * j];
+        sc[4 * j] += x.x;
+        sc[4 * j + 1] += x.y;
+        sc[4 * j + 2] += x.z;
+        sc[4 * j + 3] += x.w;
+      }
+
+      // ---- mask, online softmax (base 2), rescale the accumulator
+      const bool need_mask = k0 + kBN > Sk ||
+                             (causal && k0 + kBN - 1 > wrow0) ||
+                             (window > 0 && wrow0 + 15 - k0 >= window);
+      float corr[2];
+      softmax(sc, m, l, corr, need_mask, ra, k0, t, Sk, causal, window,
+              scale_log2);
+      uint32_t p[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) p[j] = pack_bf16(sc[2 * j], sc[2 * j + 1]);
+#pragma unroll
+      for (int e = 0; e < 32 * NB; ++e) acc[e] *= corr[(e >> 1) & 1];
+
+      // ---- o += p v over the warpgroup's columns: 2 k-steps of 16 keys
+      mbar_wait(full_v + 8 * s, ph);
+      pin(acc);
+      pin(p);
+      fence();
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+        mma_pv(acc, p + 4 * kk,
+               desc(ks + G::kTile + box0 * kKBox + kk * 16 * kRowBytes,
+                    kKBox, 1024));
+      commit();
+      wait_all();
+      pin(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * s);   // the stage may be refilled
+    }
+
+    // ---- o = acc / max(l, 1e-30) in bf16, staged in the warpgroup's own
+    // q boxes (its products are done) in the map's swizzled layout, then
+    // stored by TMA, which writes no column past hd and no row past Sq
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float li = l[r];
+      li += __shfl_xor_sync(0xffffffffu, li, 1);
+      li += __shfl_xor_sync(0xffffffffu, li, 2);
+      li = fmaxf(li, 1e-30f);
+      // the correctly rounded quotient, as the hd 256 bodies take it
+      const float rl = __frcp_rn(li);
+      auto quot = [&](float x) {
+        const float q = x * rl;
+        return fmaf(fmaf(-q, li, x), rl, q);
+      };
+      const int rr = ra - q0 + 8 * r;           // the row in the block
+#pragma unroll
+      for (int c = 0; c < 8 * NB; ++c) {
+        const uint32_t at = sq + (box0 + (c >> 3)) * kQBox + rr * kRowBytes +
+                            (((c & 7) ^ (rr & 7)) << 4) + 4 * t;
+        const uint32_t v = pack_bf16(quot(acc[4 * c + 2 * r]),
+                                     quot(acc[4 * c + 2 * r + 1]));
+        asm volatile("st.shared.b32 [%0], %1;" ::"r"(at), "r"(v) : "memory");
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("bar.sync %0, 128;" ::"r"(2 + wg) : "memory");
+    if (tid == 0) {
+      for (int c = 0; c < nb; ++c)
+        tma_store(&mo, sq + (box0 + c) * kQBox, (box0 + c) * kBoxCols, q0,
+                  bh);
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+    }
+  }
+}
+
+// NB for head dim hd (257-512): the boxes a consumer warpgroup owns
+inline int boxes_for(int hd) { return hd <= 3 * 2 * kBoxCols ? 3 : 4; }
+
+template <int NB>
+int launch_nb(const void* q, const void* k, const void* v, void* o, int B,
+              int H, int KV, int Sq, int Sk, int hd, float scale, int causal,
+              int window, cudaStream_t stream) {
+  const long long BH = (long long)B * H;
+  const long long n_q = (Sq + kBM - 1) / kBM;
+  if (n_q * BH > INT_MAX) return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv, mo;
+  auto map = [&](CUtensorMap* m, const void* p, long long rows,
+                 long long heads, int box_rows) {
+    return wg::make_map_3d(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p, hd,
+                           rows, heads, kBoxCols, box_rows);
+  };
+  int rc = map(&mq, q, Sq, BH, kBM);
+  if (rc == 0) rc = map(&mk, k, Sk, (long long)B * KV, kBN);
+  if (rc == 0) rc = map(&mv, v, Sk, (long long)B * KV, kBN);
+  if (rc == 0) rc = map(&mo, o, Sq, BH, kBM);
+  if (rc != 0) return rc;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_attention_kernel_wide_wgmma<NB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Geo<NB>::kSmem);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  flash_attention_kernel_wide_wgmma<NB>
+      <<<(unsigned)(n_q * BH), kThreads, Geo<NB>::kSmem, stream>>>(
+          mq, mk, mv, mo, (int)BH, H, KV, Sq, Sk, hd, (int)n_q,
+          scale * kLog2e, causal, window);
+  return (int)cudaGetLastError();
+}
+
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int H, int KV, int Sq, int Sk, int hd, float scale, int causal,
+           int window, cudaStream_t stream) {
+  return boxes_for(hd) == 3
+             ? launch_nb<3>(q, k, v, o, B, H, KV, Sq, Sk, hd, scale, causal,
+                            window, stream)
+             : launch_nb<4>(q, k, v, o, B, H, KV, Sq, Sk, hd, scale, causal,
+                            window, stream);
+}
+
+}  // namespace wide
+
+// ---------------------------------------------------------------------------
 // Head dims above 256, both types: column slabs on mma.sync.
 //
 // A head dim above 256 (the wrapper zero-pads it to a multiple of 8, D)
@@ -2194,32 +2607,48 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   return (int)cudaGetLastError();
 }
 
+// launches of each body since the library was loaded, which body ran for
+// a test: flash_attention_kernel (hd <= 128), the hd 256 wgmma and tf32
+// bodies, the wide wgmma body, the slab body
+int g_body_launches[5] = {0, 0, 0, 0, 0};
+
+int counted(int body, int rc) {
+  if (rc == 0) ++g_body_launches[body];
+  return rc;
+}
+
 template <typename T>
 int launch_hd(const void* q, const void* k, const void* v, void* o, void* ws,
               int B, int H, int KV, int Sq, int Sk, int hd, float scale,
               int causal, int window, cudaStream_t s) {
   switch (hd) {
     case 32:
-      return launch<T, 32>(q, k, v, o, B, H, KV, Sq, Sk, scale, causal,
-                           window, s);
+      return counted(0, launch<T, 32>(q, k, v, o, B, H, KV, Sq, Sk, scale,
+                                      causal, window, s));
     case 64:
-      return launch<T, 64>(q, k, v, o, B, H, KV, Sq, Sk, scale, causal,
-                           window, s);
+      return counted(0, launch<T, 64>(q, k, v, o, B, H, KV, Sq, Sk, scale,
+                                      causal, window, s));
     case 128:
-      return launch<T, 128>(q, k, v, o, B, H, KV, Sq, Sk, scale, causal,
-                            window, s);
+      return counted(0, launch<T, 128>(q, k, v, o, B, H, KV, Sq, Sk, scale,
+                                       causal, window, s));
     case 256:
       if constexpr (std::is_same<T, float>::value)
-        return tf::launch(q, k, v, o, ws, B, H, KV, Sq, Sk, scale, causal,
-                          window, s);
+        return counted(2, tf::launch(q, k, v, o, ws, B, H, KV, Sq, Sk, scale,
+                                     causal, window, s));
       else
-        return wg::launch(q, k, v, o, B, H, KV, Sq, Sk, scale, causal,
-                          window, s);
+        return counted(1, wg::launch(q, k, v, o, B, H, KV, Sq, Sk, scale,
+                                     causal, window, s));
     default:
-      if (hd > 256 && hd % 8 == 0)
-        return launch_slab<T>(q, k, v, o, B, H, KV, Sq, Sk, hd, scale,
-                              causal, window, s);
-      return (int)cudaErrorInvalidValue;
+      if (hd <= 256 || hd % 8 != 0) return (int)cudaErrorInvalidValue;
+      // bf16 up to hd 512: the wide wgmma body (its shared memory holds
+      // q's 64 rows and two 32-key stages up to there); float32 and wider
+      // head dims: the slab body
+      if constexpr (std::is_same<T, __nv_bfloat16>::value)
+        if (hd <= kWideMaxHd)
+          return counted(3, wide::launch(q, k, v, o, B, H, KV, Sq, Sk, hd,
+                                         scale, causal, window, s));
+      return counted(4, launch_slab<T>(q, k, v, o, B, H, KV, Sq, Sk, hd,
+                                       scale, causal, window, s));
   }
 }
 
@@ -2227,15 +2656,16 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, void* ws,
 
 // q: (B, H, Sq, hd); k, v: (B, KV, Sk, hd); o: (B, H, Sq, hd); contiguous,
 // 16-byte aligned, all of one type: dtype 0 = float32, 1 = bfloat16.
-// H % KV == 0, hd in {32, 64, 128, 256} or a multiple of 8 above 256 (the
-// slab body); window <= 0 means no sliding window.  scale is the softmax
+// H % KV == 0, hd in {32, 64, 128, 256} or a multiple of 8 above 256 (bf16
+// to 512 the wide wgmma body, else the slab body); window <= 0 means no
+// sliding window.  scale is the softmax
 // scale of the true head dim: the wrapper zero-pads q, k and v of any other
 // hd up to the next of these bodies, which changes no score and no kept
 // column.  ws: float32 at
 // hd 256 only, flash_attention_workspace_floats(B * KV, Sk) floats,
 // 16-byte aligned (the split planes of k and v); else unused.  Returns
 // cudaGetLastError() of the launch, or 100000 + the CUresult of a tensor
-// map the driver refused (hd 256).
+// map the driver refused (the wgmma bodies).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, void* ws,
                                       int B, int H, int KV, int Sq, int Sk,
@@ -2376,5 +2806,47 @@ extern "C" int flash_attention_hd256_f32_info(int* out) {
   out[4] = attr.numRegs;
   out[5] = (int)attr.localSizeBytes;
   out[6] = blocks;
+  return 0;
+}
+
+// The bf16 wide body's launch shape and resources at head dim hd (257-512),
+// as flash_attention_hd256_info's: out[0] dynamic shared memory (bytes),
+// [1] threads a block, [2] and [3] the registers a consumer and a producer
+// thread get (setmaxnreg), [4] registers at entry, [5] local memory a
+// thread, [6] blocks an SM, [7] the ring's stages.  Returns a cudaError_t.
+extern "C" int flash_attention_wide_info(int hd, int* out) {
+  if (hd <= 256 || hd > kWideMaxHd) return (int)cudaErrorInvalidValue;
+  const bool three = wide::boxes_for(hd) == 3;
+  const void* fn =
+      three ? (const void*)wide::flash_attention_kernel_wide_wgmma<3>
+            : (const void*)wide::flash_attention_kernel_wide_wgmma<4>;
+  const size_t smem = three ? wide::Geo<3>::kSmem : wide::Geo<4>::kSmem;
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaFuncAttributes attr;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, fn);
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn,
+                                                      wide::kThreads, smem);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  out[0] = (int)smem;
+  out[1] = wide::kThreads;
+  out[2] = wide::kConsumerRegs;
+  out[3] = wide::kProducerRegs;
+  out[4] = attr.numRegs;
+  out[5] = (int)attr.localSizeBytes;
+  out[6] = blocks;
+  out[7] = three ? wide::Geo<3>::kStages : wide::Geo<4>::kStages;
+  return 0;
+}
+
+// Launches of each body since the library was loaded (g_body_launches'
+// order), for a test that reads which body ran.
+extern "C" int flash_attention_body_launches(int* out) {
+  for (int i = 0; i < 5; ++i) out[i] = g_body_launches[i];
   return 0;
 }

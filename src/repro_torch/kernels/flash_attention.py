@@ -11,14 +11,18 @@ edge itself); hd 256 runs Hopper bodies of its own, bf16's and float32's
 refuse: that raises too; float32's first splits k and v into TF32
 planes, in a workspace the wrapper allocates).  ``wgmma_probe`` and
 ``f32_wgmma_probe`` run each body's two products on one tile, for a card
-test.  A head dim above 256 runs the slab body (``csrc``'s
-``flash_attention_slab``: a block owns 128 columns of o and computes the
-scores over the whole hd in chunks of 64, on mma.sync in either type).
+test.  Above 256, bf16 up to ``WIDE_MAX_HD`` runs a wgmma body of its
+own (``flash_attention_kernel_wide_wgmma``: a block owns 64 query rows and
+all of hd, two warpgroups each computing half of the scores and all of
+their half of o, through TMA maps with the true hd's extent); float32 and
+wider bf16 head dims run the slab body (``flash_attention_slab``: a block
+owns 128 columns of o and computes the scores over the whole hd in chunks
+of 64, on mma.sync in either type).  ``kernel_for`` names the body.
 Every other hd runs through the kernel too, as the Pallas kernel runs any
 hd: q, k and v are zero-padded along hd up to the body's
 (``body_head_dim``: the next of ``HEAD_DIMS`` up to 256, the next multiple
-of 8 above), which runs with the true hd's scale, and the output is
-sliced back.  Zero columns add nothing to a score and leave the kept
+of 8 above: TMA's rows and the slab body's copies move 16-byte units), which
+runs with the true hd's scale, and the output is sliced back.  Zero columns add nothing to a score and leave the kept
 columns as they are, so this is the same function; the pad costs a copy
 of q, k and v and the slice one of o.  No head dim is refused.  On a CPU
 or ``meta`` tensor it runs ``flash_attention_plain``,
@@ -36,16 +40,9 @@ import torch
 from repro_torch.kernels import build, ref
 
 HEAD_DIMS = (32, 64, 128, 256)      # the kernel's bodies up to 256
-SLAB_ALIGN = 8          # the slab body's head dims: multiples of 8 above 256
+SLAB_ALIGN = 8          # head dims above 256: multiples of 8 (16-byte rows)
+WIDE_MAX_HD = 512       # bf16's wide wgmma body: head dims 257 to this
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAP_ERROR = 100000     # the C side's code for a refused tensor map, + CUresult
-
-
-def _check_rc(rc: int, what: str) -> None:
-    if rc >= _MAP_ERROR:
-        raise RuntimeError(f"{what}: the driver refused a TMA tensor map "
-                           f"(CUresult {rc - _MAP_ERROR})")
-    build.check(rc, what)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -68,6 +65,49 @@ def body_head_dim(hd: int) -> int:
         if hd <= body:
             return body
     return -(-hd // SLAB_ALIGN) * SLAB_ALIGN
+
+
+def kernel_for(hd: int, dtype: torch.dtype) -> str:
+    """The name of the kernel function ``flash_attention_bhsd`` runs on the
+    card for head dim ``hd`` in ``dtype``."""
+    body = body_head_dim(hd)
+    if body < 256:
+        return "flash_attention_kernel"
+    bf = dtype == torch.bfloat16
+    if body == 256:
+        return "flash_attention_kernel_hd256_" + ("wgmma" if bf else "tf32")
+    if bf and body <= WIDE_MAX_HD:
+        return "flash_attention_kernel_wide_wgmma"
+    return "flash_attention_slab"
+
+
+# the bodies in the order flash_attention_body_launches counts them
+KERNELS = ("flash_attention_kernel", "flash_attention_kernel_hd256_wgmma",
+           "flash_attention_kernel_hd256_tf32",
+           "flash_attention_kernel_wide_wgmma", "flash_attention_slab")
+
+
+def body_launches() -> dict:
+    """Launches of each body (by ``KERNELS`` name) since the card's library
+    was loaded, as its launcher counts them: which body ran."""
+    import ctypes
+    out = (ctypes.c_int * len(KERNELS))()
+    build.library("flash_attention").flash_attention_body_launches(out)
+    return dict(zip(KERNELS, out))
+
+
+def wide_info(hd: int) -> dict:
+    """The bf16 wide body's launch shape and resources at head dim ``hd``
+    (257 to ``WIDE_MAX_HD``), on the card: shared memory, threads, the
+    registers a consumer and a producer thread get, registers at entry,
+    local memory a thread, blocks an SM, the ring's stages."""
+    import ctypes
+    out = (ctypes.c_int * 8)()
+    build.check(build.library("flash_attention").flash_attention_wide_info(
+        body_head_dim(hd), out), "flash_attention_wide_info")
+    return dict(zip(("smem_bytes", "threads", "consumer_registers",
+                     "producer_registers", "registers", "local_bytes",
+                     "blocks_per_sm", "stages"), out))
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -131,7 +171,7 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         Sq, Sk, body, _DTYPE_CODES[q.dtype], int(causal),
         0 if sliding_window is None else int(sliding_window),
         1.0 / math.sqrt(hd), stream)
-    _check_rc(rc, "flash_attention_launch")
+    build.check(rc, "flash_attention_launch")
     build.LAUNCHES["flash_attention_bhsd"] += 1
     return out if body == hd else out[..., :hd].contiguous()
 
@@ -175,7 +215,7 @@ def f32_wgmma_probe(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
     rc = lib.flash_attention_f32_wgmma_probe(
         a.data_ptr(), b.data_ptr(), c.data_ptr(), d.data_ptr(), e.data_ptr(),
         ws.data_ptr(), torch.cuda.current_stream(a.device).cuda_stream)
-    _check_rc(rc, "flash_attention_f32_wgmma_probe")
+    build.check(rc, "flash_attention_f32_wgmma_probe")
     return d, e
 
 
@@ -194,5 +234,5 @@ def wgmma_probe(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
     rc = lib.flash_attention_wgmma_probe(
         a.data_ptr(), b.data_ptr(), c.data_ptr(), d.data_ptr(), e.data_ptr(),
         torch.cuda.current_stream(a.device).cuda_stream)
-    _check_rc(rc, "flash_attention_wgmma_probe")
+    build.check(rc, "flash_attention_wgmma_probe")
     return d, e

@@ -37,7 +37,9 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as TL
 from repro_torch.models.config import BranchSpec as TBranch
 from repro_torch.train import filter_train as TT
-from torch_parity import assert_close, to_numpy_tree
+from torch_parity import assert_close, bf16, to_numpy_tree
+from torch_parity import tc_step as _tc_step
+from torch_parity import tf32 as _tf32
 
 
 def _qkv(B, Sq, Sk, H, KV, hd, seed=0):
@@ -123,13 +125,6 @@ def test_padded_head_dim_is_the_same_function(hd):
         32, 264, 264, 1024, 1024]
 
 
-def _tf32(x):
-    """TF32 rounding of float32 values (round to nearest, ties away from
-    zero, at 10 mantissa bits), as ``cvt.rna.tf32.f32`` does."""
-    u = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
-    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
-
-
 def _matmul_tf32(a, b, passes):
     """a @ b from TF32 operands, products summed exactly, then float32:
     one pass (hi hi) or the 3xTF32 split (hi hi + hi lo + lo hi, with
@@ -167,25 +162,6 @@ def test_tf32_split_holds_fp32_tolerance_where_one_pass_misses():
     assert three <= 1e-4, three
     assert one > 1e-4, one
     assert _tf32(np.float32(1 + 2 ** -11)) == np.float32(1 + 2 ** -10)
-
-
-def _tc_step(d, a, b):
-    """One wgmma k-step, ``d + a b^T`` for a (M, 8), b (N, 8) TF32 values
-    and d (M, N) float32, as a block FMA of the tensor cores: the eight
-    products are exact, they and d are aligned to the largest of them and
-    truncated to its 24 significant bits, summed, and the sum truncated
-    to float32 (round toward zero), the model of Fasi et al., "Numerical
-    behavior of NVIDIA tensor cores" (PeerJ CS, 2021)."""
-    t = np.concatenate([d[:, :, None].astype(np.float64),
-                        a[:, None, :].astype(np.float64) * b[None, :, :]],
-                       axis=2)
-    _, e = np.frexp(np.abs(t).max(axis=2, keepdims=True))
-    ulp = np.ldexp(1.0, e - 24)
-    total = (np.trunc(t / ulp) * ulp).sum(axis=2)
-    out = total.astype(np.float32)
-    over = np.abs(out) > np.abs(total)
-    out[over] = np.nextafter(out[over], np.float32(0))
-    return out
 
 
 def _split_tf32(x):
@@ -372,6 +348,89 @@ def test_flash_slab_f32_order_vs_pallas_interpreter(D, causal):
     got = _emulate_flash_slab_f32(q, k, v, causal)
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+def _emulate_flash_wide_bf16(q, k, v, causal, window=None):
+    """numpy float32 in the order of arithmetic of the bf16 wide body (hd
+    257-512), one head of bf16 values, on the model of the tensor cores'
+    truncating sums (``_tc_step``; bf16 products are exact): 64-row query
+    tiles and 32-key tiles (the TPU kernel's skipping rules at those
+    sizes); for each tile two partial scores, each warpgroup's over its NB
+    64-column boxes of the head dim (NB 3 up to hd 384, else 4) in k-steps
+    of 16, added in float32 (the same two terms in both warpgroups); the
+    base-2 online softmax with the masked-weight rule; p rounded to bf16;
+    acc += p v in k-steps of 16 keys, one chain over the tiles; o = acc /
+    max(l, 1e-30) rounded to bf16."""
+    Sq, D = q.shape
+    Sk = k.shape[0]
+    NB = 3 if D <= 384 else 4
+    halves = [np.arange(0, min(64 * NB, D)), np.arange(64 * NB, D)]
+    scale_log2 = np.float32(1.0 / math.sqrt(D) * 1.4426950408889634)
+    out = np.zeros((Sq, D), np.float32)
+    for q0 in range(0, Sq, 64):
+        rows = np.arange(q0, min(q0 + 64, Sq))
+        n_k = -(-Sk // 32)
+        t_end = min(n_k, rows[-1] // 32 + 1) if causal else n_k
+        t_begin = 0
+        if window is not None and q0 - window - 30 > 0:
+            t_begin = -(-(q0 - window - 30) // 32)
+        m = np.full(len(rows), NEG_INF, np.float32)
+        lsum = np.zeros(len(rows), np.float32)
+        acc = np.zeros((len(rows), D), np.float32)
+        for t in range(t_begin, t_end):
+            keys = np.arange(t * 32, min(t * 32 + 32, Sk))
+            part = []
+            for cols in halves:
+                d = np.zeros((len(rows), len(keys)), np.float32)
+                for c0 in range(0, len(cols), 16):
+                    c = cols[c0:c0 + 16]
+                    d = _tc_step(d, q[np.ix_(rows, c)], k[np.ix_(keys, c)])
+                part.append(d)
+            s = part[0] + part[1]
+            keep = np.ones_like(s, bool)
+            if causal:
+                keep &= rows[:, None] >= keys[None, :]
+            if window is not None:
+                keep &= rows[:, None] - keys[None, :] < window
+            s = np.where(keep, s, NEG_INF)
+            mx = s.max(1)
+            m_new = np.maximum(m, np.where(mx == NEG_INF, NEG_INF,
+                                           mx * scale_log2))
+            corr = np.exp2(m - m_new).astype(np.float32)
+            x = np.where(keep, s * scale_log2 - m_new[:, None],
+                         NEG_INF - m_new[:, None])
+            p = np.exp2(x).astype(np.float32)
+            m = m_new
+            lsum = lsum * corr + p.sum(1, dtype=np.float32)
+            acc = acc * corr[:, None]
+            pb = bf16(p)
+            for j in range(0, len(keys), 16):
+                kc = keys[j:j + 16]
+                acc = _tc_step(acc, pb[:, j:j + 16], v[kc].T)
+        out[rows] = acc / np.maximum(lsum, np.float32(1e-30))[:, None]
+    return bf16(out)
+
+
+@pytest.mark.parametrize("D,causal,window", [(320, True, None),
+                                             (320, False, 16),
+                                             (512, True, None),
+                                             (512, True, 16)])
+def test_flash_wide_bf16_order_vs_pallas_interpreter(D, causal, window):
+    """The bf16 wide body's order of arithmetic (``_emulate_flash_wide_bf16``:
+    two half-hd partial scores added in one order, 64-row and 32-key
+    tiles, their skipping rules) against JAX's ``ops.flash_attention``,
+    which interprets the Pallas kernel at these lengths, in bf16 at the
+    bf16 flash cases' 2e-2 (p and o are rounded to bf16 in both, at other
+    points): one head of 128 rows and keys, q and k scaled by 2."""
+    rng = np.random.default_rng(D + causal + (window or 0))
+    q, k, v = (bf16(rng.normal(0, 1, (128, D)) * s)
+               for s in (2.0, 2.0, 1.0))
+    want = np.asarray(rops.flash_attention(
+        *(jnp.asarray(a, jnp.bfloat16)[None, :, None] for a in (q, k, v)),
+        causal=causal, sliding_window=window)).astype(np.float32)[0, :, 0]
+    got = _emulate_flash_wide_bf16(q, k, v, causal, window)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-2)
 
 
 def _rn32(x):

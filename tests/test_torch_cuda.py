@@ -18,10 +18,14 @@ products) at 1e-4 against the function in float64; decode attention in
 bfloat16 also at four bf16 steps of its largest output where that is
 smaller, since a long cache's outputs are far below 1.  The WKV scan at
 the JAX kernel test's 5e-3 (and one bf16 step of its output, rtol 1e-2).
-Flash attention runs at its four bodies (hd 32, 64, 128, 256) and at
-head dims between them, zero-padded up to the next body; hd 320 raises.
+Flash attention runs at its four bodies (hd 32, 64, 128, 256), at
+head dims between them, zero-padded up to the next body, and above 256
+(bf16 to 512 on the wide wgmma body, float32 and wider on the slab body).
 Bf16 hd 256's wgmma body is swept over the edges of its tiles, and its
 two products on one tile are held against ``torch.matmul`` at 1e-3.
+The CAM head's MMA body (many classes) is swept over its tiles, class
+blocks and type mixes; which body runs is read from the launchers'
+counts of each body.
 Decode attention's hd 256 bodies (bf16 and float32) are swept over the
 edges of their grid, every body ignores NaN in the cache past kv_len,
 and the float32 hd 256 body repeats bit for bit.
@@ -407,6 +411,122 @@ def test_cam_head_kernel_bf16_inputs_match_plain(cuda_device, P, D, C, bf16):
     assert torch.equal(again, counts) and torch.equal(cam2, cam)
 
 
+def _cam_inputs(dev, B, P, D, C, bf16="", seed=0, offset=0):
+    """feat (B, P, D) (``offset`` values off a 16-byte boundary), w and b,
+    drawn on the card, each bf16 where its name is in ``bf16``."""
+    g = torch.Generator(dev).manual_seed(seed + B + P + D + C)
+    flat = torch.randn(B * P * D + offset, generator=g, device=dev)
+    feat = flat[offset:].view(B, P, D)
+    w = torch.randn((D, C), generator=g, device=dev) * 0.1
+    b = torch.randn((C,), generator=g, device=dev) * 0.1
+    cast = {n: torch.bfloat16 if n in bf16.split() else torch.float32
+            for n in ("feat", "w", "b")}
+    if cast["feat"] == torch.bfloat16:
+        feat = flat.to(torch.bfloat16)[offset:].view(B, P, D)
+    return feat, w.to(cast["w"]), b.to(cast["b"])
+
+
+def _cam_holds(feat, w, b, body=None):
+    """One launch (through ``body`` if named), the plain version's values
+    at 1e-4, the same bits on a repeated call."""
+    call = (CH.cam_head_bgd if body is None
+            else lambda *a: CH.launch_body(*a, body))
+    before = build.LAUNCHES["cam_head_bgd"]
+    counts, cam = call(feat, w, b)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["cam_head_bgd"] == before + 1
+    assert counts.dtype == cam.dtype == torch.float32
+    assert cam.shape == (*feat.shape[:2], w.shape[1])
+    pc, pcam = CH.cam_head_plain(feat, w, b)
+    torch.testing.assert_close(cam, pcam, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(counts, pc, rtol=1e-4, atol=1e-4)
+    again, cam2 = call(feat, w, b)
+    assert torch.equal(again, counts) and torch.equal(cam2, cam)
+
+
+# (B, P, C): the MMA body on the edges of its tiles and class blocks (C
+# 5 and 8 in one block of 8, 63 / 64 / 65 around the block of 64, 128 in
+# one of 128, 200 in two), one cell and a ragged last 128-cell tile, one
+# frame and 128, float32 at D 256
+CAM_MMA = [(B, P, C) for C in (5, 8, 63, 64, 65, 128, 200)
+           for P in (1, 3137) for B in (1, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,P,C", CAM_MMA, ids=str)
+def test_cam_head_mma_body_matches_plain(cuda_device, B, P, C):
+    feat, w, b = _cam_inputs(cuda_device, B, P, 256, C)
+    _cam_holds(feat, w, b, "mma")
+
+
+# (D, C, which inputs are bf16): every mix of feature, weight and bias
+# types on the MMA body (a float32 w on bf16 features is three bf16
+# planes, a bf16 w on float32 features one TF32 plane), D 256, 96 (a
+# ragged K-chunk of bf16 features) and 36 (rows of 144 bytes in float32)
+CAM_MMA_TYPES = [(D, C, bf16) for C in (8, 65, 200)
+                 for bf16 in ("", "feat", "w", "b", "feat w", "feat b",
+                              "w b", "feat w b")
+                 for D in (256, 96)] + [(36, 100, ""), (36, 100, "w b")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,C,bf16", CAM_MMA_TYPES, ids=str)
+def test_cam_head_mma_body_type_mixes_match_plain(cuda_device, D, C, bf16):
+    feat, w, b = _cam_inputs(cuda_device, 4, 3137, D, C, bf16)
+    _cam_holds(feat, w, b, "mma")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,C,bf16,offset", [
+    (30, 128, "", 0), (30, 128, "feat w", 0), (256, 128, "", 1),
+    (256, 65, "feat", 4), (36, 100, "feat", 0)])
+def test_cam_head_routes_to_the_streaming_body(cuda_device, D, C, bf16,
+                                               offset):
+    """Features TMA cannot read (rows off a multiple of 16 bytes, a start
+    off a 16-byte boundary) take the streaming body (its scalar path
+    where its vector loads cannot either), which matches plain, and the
+    MMA body refuses them."""
+    feat, w, b = _cam_inputs(cuda_device, 4, 300, D, C, bf16, offset=offset)
+    assert CH.body_for(C, D, feat.dtype, feat.data_ptr()) == "stream"
+    _cam_holds(feat, w, b)
+    with pytest.raises(ValueError, match="16"):
+        CH.launch_body(feat, w, b, "mma")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,D,bf16,offset,want", [
+    (3, 256, "", 0, "stream"), (128, 256, "", 0, "mma"),
+    (128, 256, "feat w b", 0, "mma"), (8, 256, "", 0, "mma"),
+    (128, 30, "", 0, "stream"), (128, 256, "", 1, "stream")])
+def test_cam_head_body_that_runs(cuda_device, C, D, bf16, offset, want):
+    """The body the launcher counts is the one ``body_for`` names: the
+    filter's three classes and features TMA cannot read on the streaming
+    body, more classes on the MMA body."""
+    feat, w, b = _cam_inputs(cuda_device, 2, 3136, D, C, bf16,
+                             offset=offset)
+    assert CH.body_for(C, D, feat.dtype, feat.data_ptr()) == want
+    before = CH.body_launches()
+    CH.cam_head_bgd(feat, w, b)
+    after = CH.body_launches()
+    assert {k: after[k] - before[k] for k in after} == {
+        body: int(body == want) for body in CH.BODIES}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,bf16", [(8, ""), (128, ""), (128, "feat"),
+                                    (128, "feat w"), (64, "w")])
+def test_cam_head_mma_body_report(cuda_device, C, bf16):
+    """The MMA body as built: no local memory (no spill), 384 threads, at
+    least one block an SM (the grid launches one an SM), a ring of at
+    least two stages in at most 227 KB."""
+    info = CH.mma_info(C, torch.bfloat16 if "feat" in bf16 else torch.float32,
+                       torch.bfloat16 if "w" in bf16 else torch.float32)
+    assert info["local_bytes"] == 0, info
+    assert info["threads"] == 384 and info["blocks_per_sm"] >= 1, info
+    assert info["stages"] >= 2 and info["smem_bytes"] <= 232448, info
+    assert info["class_block"] == (8 if C <= 8 else 64 if C <= 64 else 128)
+
+
 @pytest.mark.cuda
 def test_filter_forward_kernel_head_matches_plain_head(cuda_device):
     spec = BranchSpec(layer=2, grid=16, n_classes=3, head_dim=32)
@@ -630,8 +750,8 @@ def test_flash_attention_padded_head_dims_match_plain(cuda_device, case):
 
 
 # (B, Sq, Sk, H, KV, hd, causal, sliding_window, dtype): head dims above
-# 256 on the slab body (hd 300 padded to 304), both types, causal and
-# windowed, GQA, ragged lengths no 64-row or 64-key tile divides
+# 256 (hd 300 padded to 304), both types, causal and windowed, GQA,
+# ragged lengths no 64-row or 64-key tile divides
 FLASH_WIDE = [(B, Sq, Sk, H, KV, hd, causal, sw, dt)
               for hd in (320, 512, 1024)
               for (B, Sq, Sk, H, KV, causal, sw) in [
@@ -646,7 +766,8 @@ FLASH_WIDE = [(B, Sq, Sk, H, KV, hd, causal, sw, dt)
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", FLASH_WIDE, ids=str)
 def test_flash_attention_above_256_matches_plain(cuda_device, case):
-    """The slab body: one launch, the plain version's values (1e-4 in
+    """Above hd 256 (float32 and hd 1024 on the slab body, bf16 to 512 on
+    the wide wgmma body): one launch, the plain version's values (1e-4 in
     float32, 2e-2 in bf16), bit for bit on a repeated call."""
     causal, sw, dt = case[6:]
     q, k, v = _qkv(case, cuda_device, seed=case[5] + case[1])
@@ -662,6 +783,79 @@ def test_flash_attention_above_256_matches_plain(cuda_device, case):
     assert err <= atol, err
     assert torch.equal(FA.flash_attention_bhsd(q, k, v, causal=causal,
                                                sliding_window=sw), out)
+
+
+# (B, Sq, Sk, H, KV, hd, causal, sliding_window, dtype): bf16's wide
+# wgmma body at hd 264 (one box 8 columns wide), 320, 384 and 512 (three
+# and four boxes a warpgroup): GQA 8:1, Sq != Sk both ways, ragged
+# lengths no 64-row or 32-key tile divides, windows, both maskings
+FLASH_WIDE_WGMMA = [(B, Sq, Sk, H, KV, hd, causal, sw, "bfloat16")
+                    for hd in (264, 320, 384, 512)
+                    for (B, Sq, Sk, H, KV, causal, sw) in [
+                        (1, 200, 200, 8, 1, True, None),
+                        (1, 200, 200, 8, 1, False, None),
+                        (1, 77, 333, 2, 1, False, None),
+                        (2, 333, 65, 4, 2, True, None),
+                        (2, 300, 300, 4, 2, True, 64),
+                        (1, 129, 1000, 8, 1, False, 100)]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_WIDE_WGMMA, ids=str)
+def test_flash_attention_wide_wgmma_matches_plain(cuda_device, case):
+    """The wide body: one launch, the plain version's values at 2e-2, bit
+    for bit on a repeated call."""
+    causal, sw, dt = case[6:]
+    q, k, v = _qkv(case, cuda_device, seed=case[5] + case[2])
+    assert FA.kernel_for(case[5], q.dtype) == \
+        "flash_attention_kernel_wide_wgmma"
+    before = build.LAUNCHES["flash_attention_bhsd"]
+    out = FA.flash_attention_bhsd(q, k, v, causal=causal, sliding_window=sw)
+    want = FA.flash_attention_plain(q, k, v, causal=causal,
+                                    sliding_window=sw)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention_bhsd"] == before + 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    err = float((out.float() - want.float()).abs().max())
+    assert err <= 2e-2, err
+    assert torch.equal(FA.flash_attention_bhsd(q, k, v, causal=causal,
+                                               sliding_window=sw), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,dt", [(320, "bfloat16"), (512, "bfloat16"),
+                                   (300, "bfloat16"), (512, "float32"),
+                                   (520, "bfloat16"), (1024, "bfloat16"),
+                                   (256, "bfloat16")])
+def test_flash_attention_body_that_runs(cuda_device, hd, dt):
+    """The body the launcher counts is the one ``kernel_for`` names above
+    hd 256: bf16 to hd 512 the wide wgmma body, float32 and wider head
+    dims the slab body."""
+    case = (1, 128, 128, 2, 1, hd, True, None, dt)
+    q, k, v = _qkv(case, cuda_device)
+    name = FA.kernel_for(hd, q.dtype)
+    assert name == ("flash_attention_kernel_wide_wgmma"
+                    if dt == "bfloat16" and 256 < hd <= 512
+                    else "flash_attention_kernel_hd256_wgmma" if hd == 256
+                    else "flash_attention_slab")
+    before = FA.body_launches()
+    FA.flash_attention_bhsd(q, k, v)
+    after = FA.body_launches()
+    assert {n: after[n] - before[n] for n in after} == {
+        n: int(n == name) for n in FA.KERNELS}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,stages", [(320, 3), (512, 2)])
+def test_flash_attention_wide_body_report(cuda_device, hd, stages):
+    """The wide body as built: no local memory (no spill), one block an
+    SM, 384 threads at setmaxnreg 232 / 40, its ring's stages."""
+    info = FA.wide_info(hd)
+    assert info["local_bytes"] == 0, info
+    assert info["blocks_per_sm"] == 1, info
+    assert info["threads"] == 384 and info["stages"] == stages, info
+    assert (info["consumer_registers"], info["producer_registers"]) == (
+        232, 40), info
 
 
 @pytest.mark.cuda

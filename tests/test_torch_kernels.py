@@ -24,6 +24,7 @@ from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import cam_head as CH
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import spatial_predicate as SP
+from torch_parity import bf16, tc_step, tf32
 
 
 def _occupancy_grid(seed, B=6, g=8, C=3, density=0.1, dead=0.3):
@@ -233,6 +234,133 @@ def test_cam_head_many_classes_vs_jax_entry_point(dt):
                                atol=1e-4)
     np.testing.assert_allclose(tcam.numpy(), np.asarray(rcam), rtol=1e-4,
                                atol=1e-4)
+
+
+def _class_block(C):
+    """The MMA body's class block: C rounded up to 8, 16, 32, 64 or 128."""
+    return next(n for n in (8, 16, 32, 64, 128) if C <= n or n == 128)
+
+
+def _emulate_cam_mma(feat, w, b, feat_bf16, w_bf16):
+    """numpy in the order of arithmetic of csrc/cam_head.cu's MMA body, on
+    the model of the tensor cores' truncating sums (``tc_step``), for
+    float32 arrays holding values of the inputs' types: w^T split into
+    planes (TF32 hi and lo by integer round-to-nearest for float32
+    features, lo zero for a bf16 w; for bf16 features a bf16 w or three
+    bf16 terms of a float32 w) over class blocks of N; float32 features
+    split the same way; each K-chunk (32 float32 or 64 bf16 features) a
+    chain of k-steps from zero (lo w_hi, hi w_lo, hi w_hi; or the planes,
+    small first), added to the sums with float32 adds; per 128-cell tile
+    (zeros past P) the column sums in the body's order (a thread's rows g
+    and g + 8, the xor butterfly over a warp's 8 row groups, the 8 warps
+    in order); the counts kernel's tile-order sum, / P + b, relu."""
+    B, P, D = feat.shape
+    C = w.shape[1]
+    N = _class_block(C)
+    n_cb = -(-C // N)
+    cols, step = (64, 16) if feat_bf16 else (32, 8)
+    Dp = -(-D // cols) * cols
+    n_tiles = -(-P // 128)
+    wt = np.zeros((n_cb * N, Dp), np.float32)
+    wt[:C, :D] = w.T
+    if feat_bf16:
+        w1 = bf16(wt)
+        w2 = bf16(wt - w1)
+        planes = [w1] if w_bf16 else [w1, w2, bf16(wt - w1 - w2)]
+    else:
+        w_hi = tf32(wt)
+        w_lo = tf32(wt - w_hi)
+    cam = np.zeros((B, P, C), np.float32)
+    part = np.zeros((B, n_tiles, C), np.float32)
+    for bi in range(B):
+        f = np.zeros((n_tiles * 128, Dp), np.float32)
+        f[:P, :D] = feat[bi]
+        hi = tf32(f)
+        lo = tf32(f - hi)
+        for cb in range(n_cb):
+            cls = slice(cb * N, cb * N + N)
+            tot = np.zeros((len(f), N), np.float32)
+            for c0 in range(0, Dp, cols):
+                acc = np.zeros_like(tot)
+                for k0 in range(c0, c0 + cols, step):
+                    ks = slice(k0, k0 + step)
+                    if feat_bf16:
+                        for pl in planes[::-1]:
+                            acc = tc_step(acc, f[:, ks], pl[cls, ks])
+                    else:
+                        acc = tc_step(acc, lo[:, ks], w_hi[cls, ks])
+                        if not w_bf16:
+                            acc = tc_step(acc, hi[:, ks], w_lo[cls, ks])
+                        acc = tc_step(acc, hi[:, ks], w_hi[cls, ks])
+                tot = tot + acc
+            u = tot.reshape(n_tiles, 8, 2, 8, N)   # tile, warp, +8, g, class
+            u = u[:, :, 0] + u[:, :, 1]
+            u = u[:, :, 0::2] + u[:, :, 1::2]      # lanes xor 4
+            u = u[:, :, 0::2] + u[:, :, 1::2]      # xor 8
+            u = u[:, :, 0] + u[:, :, 1]            # xor 16
+            col = np.zeros((n_tiles, N), np.float32)
+            for i in range(8):
+                col = col + u[:, i]
+            n = min(N, C - cb * N)
+            cam[bi, :, cb * N:cb * N + n] = tot[:P, :n]
+            part[bi, :, cb * N:cb * N + n] = col[:, :n]
+    s = np.zeros((B, C), np.float32)
+    for t in range(n_tiles):
+        s = s + part[:, t]
+    return np.maximum(s / np.float32(P) + b, np.float32(0)), cam
+
+
+@pytest.mark.parametrize("C", [8, 100])
+@pytest.mark.parametrize("types", ["float32", "bf16 feat w b", "bf16 feat",
+                                   "bf16 w"])
+def test_cam_head_mma_order_vs_pallas_interpreter(C, types):
+    """The MMA body's order of arithmetic (``_emulate_cam_mma``: the TF32
+    split by integer round-to-nearest or the bf16 planes, K-chunks of
+    their own added in float32, the column sums in its tile order and the
+    counts in tile order) against JAX's ``cam_head_bgd(..., interpret=
+    True)``, float32 out, at rtol 1e-4 / atol 1e-4: 200 cells (a ragged
+    second 128-cell tile), 96 features (a ragged K-chunk of 64 on bf16
+    features), C 8 (one class block) and 100 (one of 128, classes past
+    C dropped), for each mix of feature and weight types (a float32 w on
+    bf16 features is three bf16 planes, a bf16 w on float32 features one
+    TF32 plane)."""
+    rng = np.random.default_rng(C + len(types))
+    feat = rng.normal(0, 1, (2, 200, 96)).astype(np.float32)
+    w = (rng.normal(0, 1, (96, C)) * 0.1).astype(np.float32)
+    b = (rng.normal(0, 1, (C,)) * 0.1).astype(np.float32)
+    on = {n: n in types.split() for n in ("feat", "w", "b")}
+    feat, w, b = (bf16(a) if on[n] else a
+                  for n, a in (("feat", feat), ("w", w), ("b", b)))
+    jt = {n: jnp.bfloat16 if on[n] else jnp.float32 for n in on}
+    rc, rcam = ref_cam_head_bgd(jnp.asarray(feat, jt["feat"]),
+                                jnp.asarray(w, jt["w"]),
+                                jnp.asarray(b, jt["b"]), interpret=True)
+    counts, cam = _emulate_cam_mma(feat, w, b, on["feat"], on["w"])
+    np.testing.assert_allclose(cam, np.asarray(rcam), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(counts, np.asarray(rc), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("C,D,dtype,offset,want", [
+    (3, 256, torch.float32, 0, "stream"),        # the filter's OD head
+    (128, 256, torch.float32, 0, "mma"),
+    (128, 256, torch.bfloat16, 0, "mma"),
+    (300, 64, torch.bfloat16, 0, "mma"),
+    (128, 30, torch.float32, 0, "stream"),       # rows of 120 bytes
+    (128, 36, torch.float32, 0, "mma"),          # rows of 144 bytes
+    (128, 36, torch.bfloat16, 0, "stream"),      # rows of 72 bytes
+    (128, 256, torch.float32, 4, "stream"),      # 4 bytes off 16
+    (128, 256, torch.bfloat16, 8, "stream")])
+def test_cam_head_body_for_routing(C, D, dtype, offset, want):
+    """``body_for``: the MMA body from ``CAM_MMA_MIN_CLASSES`` classes on
+    where TMA can read the features (rows a multiple of 16 bytes, a
+    16-byte aligned start), the streaming body for the filter's three
+    classes and everything else; the crossover itself on both sides."""
+    assert CH.body_for(C, D, dtype, 1024 + offset) == want
+    n = CH.CAM_MMA_MIN_CLASSES
+    assert CH.body_for(n - 1, 256, dtype, 1024) == "stream"
+    assert CH.body_for(n, 256, dtype, 1024) == "mma"
+    assert CH.CELL_TILE == {"stream": 64, "mma": 128}
 
 
 def test_eval_spatial_leaves_and_class_slice_identical():

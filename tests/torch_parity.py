@@ -105,3 +105,37 @@ def assert_close(port_t, ref_a, rtol=RTOL, atol=ATOL):
     np.testing.assert_allclose(port_t.detach().cpu().numpy(),
                                np.asarray(ref_a), rtol=rtol, atol=atol)
 
+
+
+def tf32(x):
+    """TF32 rounding of float32 values (round to nearest, ties away from
+    zero, at 10 mantissa bits), as ``cvt.rna.tf32.f32`` and the kernels'
+    integer split (add half an ulp, clear the low 13 bits) do."""
+    u = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def tc_step(d, a, b):
+    """One tensor-core k-step, ``d + a b^T`` for a (M, K), b (N, K) values
+    exact in the operand type (TF32 with K 8, bf16 with K 16) and d (M, N)
+    float32, as a block FMA of the tensor cores: the K products are
+    exact, they and d are aligned to the largest of them and truncated to
+    its 24 significant bits, summed, and the sum truncated to float32
+    (round toward zero), the model of Fasi et al., "Numerical behavior of
+    NVIDIA tensor cores" (PeerJ CS, 2021)."""
+    t = np.concatenate([d[:, :, None].astype(np.float64),
+                        a[:, None, :].astype(np.float64) * b[None, :, :]],
+                       axis=2)
+    _, e = np.frexp(np.abs(t).max(axis=2, keepdims=True))
+    ulp = np.ldexp(1.0, e - 24)
+    total = (np.trunc(t / ulp) * ulp).sum(axis=2)
+    out = total.astype(np.float32)
+    over = np.abs(out) > np.abs(total)
+    out[over] = np.nextafter(out[over], np.float32(0))
+    return out
+
+
+def bf16(x):
+    """float32 values rounded to bf16 (to nearest even), as float32."""
+    return torch.as_tensor(np.asarray(x, np.float32)).to(
+        torch.bfloat16).float().numpy()
